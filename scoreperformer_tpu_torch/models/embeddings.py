@@ -1,0 +1,255 @@
+"""Tuple-token embeddings and the tied LM head.
+
+Counterpart of scoreperformer_tpu/models/embeddings.py. Each stream's full
+table (discrete rows + an MLP over fixed token values) is materialized and
+gathered from; the same tables serve the tied LM head.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs import ModuleConfig
+
+
+@dataclass
+class TupleTokenEmbeddingsConfig(ModuleConfig):
+    _target_: str = "simple"
+    emb_dims: Union[Dict[str, int], int, None] = None
+    mode: str = "cat"
+    emb_norm: bool = False
+    discrete: bool = True
+    continuous: Union[bool, List[str]] = False
+    continuous_dense: bool = False
+    token_values: Optional[Dict[str, list]] = None
+    discrete_ids: Optional[List[int]] = None
+    tie_keys: Optional[Dict[str, str]] = None
+    multiseq_mode: str = "pre-sum"
+    num_sequences: int = 2
+
+
+@dataclass
+class TupleTokenHeadConfig(ModuleConfig):
+    _target_: str = "lm"
+    filter_keys: Optional[List[str]] = None
+    reuse_projection: bool = True
+
+
+@dataclass
+class TupleTokenRegressionHeadConfig(ModuleConfig):
+    regression_keys: List[str] = field(default_factory=list)
+
+
+class StreamEmbedding(nn.Module):
+    """One token stream's table: optional discrete rows (`index_weight`) plus
+    an optional continuous value encoder (`value_layer`) over fixed token
+    values, dense (an MLP with mish) or a single Linear(1, dim)."""
+
+    def __init__(
+        self,
+        num_embeddings: int,
+        embedding_dim: int,
+        discrete: bool = True,
+        continuous: bool = False,
+        dense: bool = False,
+        dense_depth: int = 2,
+        token_values: Optional[np.ndarray] = None,
+        discrete_ids: Optional[tuple] = None,
+        padding_idx: Optional[int] = 0,
+    ):
+        super().__init__()
+        self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.discrete, self.continuous, self.dense = discrete, continuous, dense
+        self.padding_idx = padding_idx
+        self.has_discrete = discrete or discrete_ids is not None
+        if self.has_discrete:
+            self.index_weight = nn.Parameter(torch.randn(num_embeddings, embedding_dim) * 1e-2)
+            keep = torch.ones(num_embeddings, 1)
+            if not discrete:  # only the discrete_ids rows are active
+                keep = torch.zeros(num_embeddings, 1)
+                keep[list(discrete_ids)] = 1.0
+            if padding_idx is not None:
+                keep[padding_idx] = 0.0
+            self.register_buffer("index_keep", keep, persistent=False)
+        if continuous:
+            values = (
+                np.asarray(token_values, dtype=np.float32)
+                if token_values is not None
+                else np.linspace(0.0, 1.0, num_embeddings, dtype=np.float32)
+            ).copy()
+            if padding_idx is not None:
+                values[padding_idx] = 0.0
+            self.register_buffer("values", torch.from_numpy(values.reshape(-1, 1)), persistent=False)
+            if dense:
+                self.value_layer = nn.ModuleList(
+                    nn.Sequential(nn.Linear(1 if i == 0 else embedding_dim, embedding_dim),
+                                  nn.Mish() if i < dense_depth - 1 else nn.Identity())
+                    for i in range(dense_depth)
+                )
+                for seq in self.value_layer:
+                    nn.init.normal_(seq[0].weight, std=1e-2)
+                    nn.init.zeros_(seq[0].bias)
+            else:
+                self.value_layer = nn.Linear(1, embedding_dim, bias=False)
+                nn.init.normal_(self.value_layer.weight, std=1e-2)
+            value_keep = torch.ones(num_embeddings, 1)
+            if discrete_ids is not None:
+                value_keep[list(discrete_ids)] = 0.0
+            self.register_buffer("value_keep", value_keep, persistent=False)
+
+    def table(self) -> torch.Tensor:
+        """The materialized (num_embeddings, dim) table."""
+        table = 0
+        if self.has_discrete:
+            table = self.index_weight * self.index_keep
+        if self.continuous:
+            h = self.values
+            if self.dense:
+                for seq in self.value_layer:
+                    h = seq(h)
+            else:
+                h = self.value_layer(h)
+            table = table + h * self.value_keep
+        return table
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.table())
+
+
+def build_stream_embeddings(
+    num_tokens: Dict[str, int], cfg: TupleTokenEmbeddingsConfig, emb_dims_default: int
+) -> Dict[str, StreamEmbedding]:
+    """Per-stream embeddings, as TupleTokenEmbeddings builds them; also the
+    tables ScorePerformer shares across its submodels (tie_token_emb)."""
+    emb_dims = cfg.emb_dims if cfg.emb_dims is not None else emb_dims_default
+    continuous = cfg.continuous
+    keys = list(num_tokens)
+    continuous_keys = keys if continuous is True else ([] if continuous is False else list(continuous))
+    token_values = cfg.token_values or {}
+    out = {}
+    for key in keys:
+        dim = emb_dims if isinstance(emb_dims, int) else emb_dims[key]
+        if key in continuous_keys:
+            values = token_values.get(key)
+            out[key] = StreamEmbedding(
+                num_tokens[key], dim, discrete=cfg.discrete, continuous=True,
+                dense=cfg.continuous_dense,
+                token_values=np.asarray(values) if values is not None else None,
+                discrete_ids=tuple(cfg.discrete_ids) if cfg.discrete_ids else None,
+            )
+        else:
+            out[key] = StreamEmbedding(num_tokens[key], dim, discrete=True, continuous=False)
+    return out
+
+
+class TupleTokenEmbeddings(nn.Module):
+    """Per-stream embeddings fused by concat+project ("cat") or sum, with the
+    multi-sequence fusion modes for MixedLM (seq, masked_seq) pairs."""
+
+    def __init__(
+        self,
+        num_tokens: Dict[str, int],
+        config: TupleTokenEmbeddingsConfig,
+        project_emb_dim: int = 512,
+        shared_streams: Optional[Dict[str, StreamEmbedding]] = None,
+    ):
+        super().__init__()
+        cfg = self.config = config
+        self.num_tokens = dict(num_tokens)
+        tie_keys = cfg.tie_keys or {}
+        shared_streams = shared_streams or {}
+        own = build_stream_embeddings(
+            {k: v for k, v in num_tokens.items() if k not in tie_keys and k not in shared_streams},
+            cfg, project_emb_dim,
+        )
+        embs, dims, total = {}, {}, 0
+        for key in num_tokens:
+            if key in tie_keys:
+                dims[key] = dims[tie_keys[key]]
+                total += dims[key] if cfg.mode == "cat" else 0
+                continue
+            embs[key] = shared_streams[key] if key in shared_streams else own[key]
+            dim = embs[key].embedding_dim
+            dims[key] = dim
+            total += dim if cfg.mode == "cat" else dim - total
+        self.embs = nn.ModuleDict(embs)
+        self.tie_keys_map = tie_keys
+        self.emb_dims_map = dims
+        self.total_emb_dim = total
+        self.norm = nn.LayerNorm(total, eps=1e-5) if cfg.emb_norm else None
+        self.has_project = total != project_emb_dim
+        # the tied LM head reuses this projection transposed
+        self.project_emb = nn.Linear(total, project_emb_dim) if self.has_project else None
+        if self.multiseq_mode == "post-cat":
+            self.project_multiemb = nn.Linear(cfg.num_sequences * project_emb_dim, project_emb_dim)
+
+    @property
+    def multiseq_mode(self) -> Optional[str]:
+        return self.config.multiseq_mode if self.config._target_ == "multi-seq" else None
+
+    def stream_emb(self, key: str) -> StreamEmbedding:
+        return self.embs[self.tie_keys_map.get(key, key)]
+
+    def tables(self) -> Dict[str, torch.Tensor]:
+        return {key: self.stream_emb(key).table() for key in self.num_tokens}
+
+    def _forward_single(self, x: torch.Tensor) -> torch.Tensor:
+        parts = [self.stream_emb(key)(x[..., i]) for i, key in enumerate(self.num_tokens)]
+        h = torch.cat(parts, dim=-1) if self.config.mode == "cat" else sum(parts)
+        if self.norm is not None:
+            h = self.norm(h)
+        if self.config.mode == "cat" and self.has_project:
+            h = self.project_emb(h)
+        return h
+
+    def forward(self, x: torch.Tensor, x_extra: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """`x`: (b, t, S) token ids; `x_extra`: parallel sequences for the
+        multi-seq fusion (e.g. the masked performance)."""
+        if not x_extra or self.multiseq_mode is None:
+            return self._forward_single(x)
+        seqs = [x] + list(x_extra)
+        mode = self.multiseq_mode
+        if mode == "pre-sum":
+            parts = [
+                sum(self.stream_emb(key)(s[..., i]) for s in seqs)
+                for i, key in enumerate(self.num_tokens)
+            ]
+            h = torch.cat(parts, dim=-1) if self.config.mode == "cat" else sum(parts)
+            if self.norm is not None:
+                h = self.norm(h)
+            if self.config.mode == "cat" and self.has_project:
+                h = self.project_emb(h)
+            return h
+        if mode in ("post-sum", "post-cat"):
+            projected = [self._forward_single(s) for s in seqs]
+            if mode == "post-cat":
+                return self.project_multiemb(torch.cat(projected, dim=-1))
+            return sum(projected)
+        raise ValueError(f"unknown multiseq_mode {mode}")
+
+
+class TupleTokenTiedLMHead(nn.Module):
+    """Tied head: the embedding projection transposed, a LayerNorm, then
+    logits against each stream's embedding table. The embeddings are passed
+    at call time, so their parameters are registered only once."""
+
+    def __init__(self, total_emb_dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(total_emb_dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings) -> Dict[str, torch.Tensor]:
+        if not embeddings.has_project:
+            raise ValueError("the tied head requires an embedding projection")
+        h = self.norm(x @ embeddings.project_emb.weight)
+        tables = embeddings.tables()
+        logits, offset = {}, 0
+        for key in embeddings.num_tokens:
+            dim = embeddings.emb_dims_map[key]
+            logits[key] = h[..., offset : offset + dim] @ tables[key].T
+            offset += dim
+        return logits

@@ -8,16 +8,22 @@ checkout. It
 1. prints the card's name and power limit;
 2. builds every CUDA kernel from `scoreperformer_tpu_torch/csrc/`;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   render's shapes and at the flagship batch shapes, and times the kernel,
-   the plain version and one PyTorch call of the same function (the
-   yardstick; the port never calls it);
-4. builds the flagship ScorePerformer at full width (random weights from a
-   seed, use_flash=True) and renders a 32-bar synthetic score through
-   `render_performance`, greedy and top-k sampled, counting the kernel
-   launches of each render;
-5. profiles one more greedy render (device time by kernel, idle share);
+   render's and the training step's shapes, and times the kernel, the plain
+   version and one PyTorch call of the same function (the yardstick; the port
+   never calls it);
+4. render path: builds the flagship ScorePerformer at full width (random
+   weights from a seed, use_flash=True) and renders a 32-bar synthetic score
+   through `render_performance`, greedy and top-k sampled, counting the
+   kernel launches of each render, and profiles one more greedy render;
+5. training path: writes a synthetic dataset, builds the same flagship
+   through `ExperimentComponents` from a config dict (the flagship recipe's
+   data, collator and optimizer settings, batch 128, sequences of 258) and
+   takes train steps through the `Trainer`, counting the flash forward and
+   backward launches of each step; profiles one step; then one step at
+   batch 4 on the card against the port's CPU path on the same weights;
 6. checks the output: notes with the score's pitches and finite times, and,
-   on a 4-bar score, the same greedy tokens as the port's CPU path.
+   on a 4-bar score, the same greedy tokens as the port's CPU path; finite
+   losses, and loss and gradients of the card's step equal to the CPU's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, ...}, printed only when every phase passed. Any failure exits
 non-zero.
@@ -25,11 +31,36 @@ non-zero.
 import json
 import os
 import subprocess
+import shutil
 import sys
 import time
 
+import numpy as np
+
 SEED = 0
 N_BARS = 32
+TRAIN_BATCH = 128  # bench.py::measure_tpu_train's batch and sequence
+TRAIN_SEQ = 256  # max_seq_len: sequences of 258 with SOS/EOS
+TRAIN_WARMUP, TRAIN_TIMED = 2, 8
+# recipes/scoreperformer/base.yaml's dataset settings with no_classifiers.yaml's
+# choices (no direction labels); written out because the card's machine may
+# have no PyYAML
+DATASET = dict(
+    _name_="LocalScorePerformanceDataset", _splits_={"train": "train", "eval": "eval"},
+    use_alignments=False, auxiliary_data_keys=["bars", "initial_tempos"],
+    performance_directions=None, score_directions_dict=None,
+    max_seq_len=TRAIN_SEQ, max_bar=256, bar_sliding_window=16, sample_bars=True, sample_note_shift=0.5,
+    force_max_seq_len=0.5, fit_to_max_bar=False, fit_to_zero_bar=True, sample_bar_offset=False,
+    add_sos_eos=True, sample=True, seed=23, augment_performance=True, pitch_shift_range=[-3, 3],
+    velocity_shift_range=[-12, 12], tempo_shift_range=[0, 0], noisy_performance=False, noise_strength=0.5,
+    noisy_random_bars=0.5, deadpan_performance=0.25, zero_out_silent_durations=True,
+    delete_silent_notes=True, preload=True, cache=True,
+)
+COLLATOR = dict(_name_="MixedLMScorePerformanceCollator", mask_ignore_token_ids=[0, 1, 2, 3],
+                mask_ignore_token_dims=[0, 1, 2, 4, 6, 7, 8, 9])
+# recipes/default.yaml's optimizer
+OPTIMIZATION = dict(lr=2e-4, optimizer="adamw", optimizer_params={"weight_decay": 1e-6},
+                    lr_scheduler="exponential", lr_scheduler_params={"gamma": 0.995}, grad_clip=2.0)
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 
@@ -107,6 +138,18 @@ def check_write_kv(torch, kv, cap, n, b, dim, index, cache_dtype, timed):
     return rec
 
 
+def sdpa_bias(torch, slopes, mask, causal):
+    """The (b, h, t, t) ALiBi bias with masked keys at -1e30, for the SDPA
+    yardstick, and the (b, 1, t, t) validity."""
+    t = mask.shape[1]
+    pos = torch.arange(t, device=mask.device)
+    i, j = pos[:, None], pos[None]
+    ok = mask[:, None, None, :] & ((j <= i) if causal else True)
+    bias = torch.where(ok, -slopes[None, :, None, None] * (j - i).abs().float(),
+                       torch.full((), -1e30, device=mask.device))
+    return bias.contiguous(), ok
+
+
 def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
     """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4. Returns
     the record of this shape (times only when `timed`)."""
@@ -119,8 +162,10 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
     v = torch.randn(b, 1, t, d, device=dev, generator=g)
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
     lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g) if padded else torch.full((b,), t, device=dev)
+    if padded == "empty":  # batch element 0 has no valid key
+        lengths[0] = 0
     mask = torch.arange(t, device=dev)[None] < lengths[:, None]
-    o, lse = fa.flash_attention_alibi(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     err = max((o - po).abs().max().item(), (lse - plse).abs().max().item())
@@ -131,11 +176,9 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
         rec["ms"] = time_ms(torch, lambda: fa.flash_attention_alibi(q, k, v, slopes, mask=mask, causal=causal))
         rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal))
         # yardstick: SDPA with the bias and masks materialized outside the timing
-        i, j = torch.arange(t, device=dev)[:, None], torch.arange(t, device=dev)[None]
-        bias = -slopes[None, :, None, None] * (j - i).abs().float()
-        ok = mask[:, None, None, :] & ((j <= i) if causal else True)
-        bias = torch.where(ok, bias, torch.full((), -1e30, device=dev)).contiguous()
-        ke, ve = k.expand(b, h, t, d), v.expand(b, h, t, d)
+        bias, ok = sdpa_bias(torch, slopes, mask, causal)
+        # SDPA reads outside expanded (stride-0) keys at odd t: copy them
+        ke, ve = k.expand(b, h, t, d).contiguous(), v.expand(b, h, t, d).contiguous()
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=bias))
         pairs = (ok.expand(b, 1, t, t)).sum().item()  # (query, key) pairs this data needs
         ops = 4 * d * h * pairs  # q.k and p.v, a multiply and an add each
@@ -145,9 +188,176 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
     return rec
 
 
-def profile_render(torch, render, ported=("write_rows", "flash_fwd"), top=10):
-    """Device time by kernel over one render (torch.profiler, CUPTI), the
-    device's busy time, its idle share of the profiled wall time, and the
+def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk):
+    """Inputs of one backward call on the card, with dout zero on rows whose
+    keys are all masked (the attention module zeroes them; see ROADMAP.md)."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(b, h, t, d, device=dev, generator=g)
+    k = torch.randn(b, hk, t, d, device=dev, generator=g)
+    v = torch.randn(b, hk, t, d, device=dev, generator=g)
+    slopes = torch.rand(h, device=dev, generator=g) * 0.5
+    dout = torch.randn(b, h, t, d, device=dev, generator=g)
+    lengths = torch.full((b,), t, device=dev)
+    if padded:
+        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
+        if padded == "empty":
+            lengths[0] = 0
+    mask = torch.arange(t, device=dev)[None] < lengths[:, None]
+    has_key = (mask.cumsum(-1) > 0) if causal else mask.any(-1, keepdim=True).expand(b, t)
+    dout = dout * has_key[:, None, :, None]
+    return q, k, v, slopes, mask, dout
+
+
+def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1):
+    """Both backward kernels vs their plain versions on the kernel forward's
+    lse: dq, dk, dv to 1e-4 and dslopes to 1e-3 of the plain version's largest
+    value (the slope sum runs over b*h*t*t terms in another order). Returns
+    the records of the dK/dV and the dQ/dslope kernel at this shape."""
+    import torch.nn.functional as F
+
+    q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk)
+    out, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal)
+    delta = (dout * out).sum(-1)
+    args = (q, k, v, slopes, mask, dout, lse, delta, causal)
+    got = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
+    want = fa.flash_attention_bwd_dkv_plain(*args) + fa.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    err = {name: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+           for name, x, y in zip(("dk", "dv", "dq", "dslopes"), got, want)}
+    limits = {"dk": 1e-4, "dv": 1e-4, "dq": 1e-4, "dslopes": 1e-3}
+    bad = {n: e for n, e in err.items() if not e <= limits[n]}
+    if bad:
+        raise AssertionError(f"flash backward differs from its plain version at {(b, t, causal, padded, d, hk)}: {bad}")
+    shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded}
+    dkv = {**shape, "max_abs_err": max(err["dk"], err["dv"]), "errors": err}
+    dq = {**shape, "max_abs_err": max(err["dq"], err["dslopes"]), "errors": err}
+    if timed:
+        dkv["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(*args), iters=20)
+        dq["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(*args), iters=20)
+        dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args), iters=10, warmup=2)
+        dq["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(*args), iters=10, warmup=2)
+        # yardstick: the backward alone of SDPA with the bias and masks
+        # materialized; it computes both kernels' outputs in one call
+        bias, ok = sdpa_bias(torch, slopes, mask, causal)
+        leaves = [x.detach().expand(b, h, t, d).contiguous().requires_grad_() for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        library = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True),
+                          iters=10, warmup=2)
+        dkv["library_ms"] = dq["library_ms"] = library
+        pairs = ok.expand(b, 1, t, t).sum().item()  # (query, key) pairs this data needs
+        f32 = 4
+        reads = f32 * (2 * q.numel() + k.numel() + v.numel() + 2 * lse.numel() + h) + mask.numel()
+        for rec, ops, writes in ((dkv, 8 * d * h * pairs, f32 * (k.numel() + v.numel())),
+                                 (dq, 6 * d * h * pairs, f32 * (q.numel() + b * h * -(-t // 32)))):
+            t_ops, t_bytes = ops / FP32_OPS_PER_S, (reads + writes) / BYTES_PER_S
+            rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+            rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    return dkv, dq
+
+
+def train_config(tokenizer, root, out_dir, batch_size, max_steps):
+    """The experiment config of the training phase: the flagship at full width
+    (bench.py::build_flagship's model, use_flash=True) on the dataset at
+    `root`, with the flagship recipe's data and optimizer settings."""
+    return {
+        "data": {"dataset": {**DATASET, "root": root}, "collator": dict(COLLATOR)},
+        "model": {"_name_": "ScorePerformer", **flagship_config(tokenizer, TRAIN_SEQ)},
+        "evaluator": {"_name_": "ScorePerformerEvaluator", "weighted_distance": True,
+                      "ignore_keys": ["Bar", "Position", "Pitch", "Duration", "TimeSig", "PositionShift",
+                                      "NotesInOnset", "PositionInOnset"]},
+        "trainer": {"output_dir": out_dir, "seed": 23, "batch_size": batch_size, "eval_batch_size": batch_size,
+                    "epochs": 1000, "max_steps": max_steps, "log_steps": 5, "eval_strategy": "no",
+                    "save_strategy": "no", "disable_progress": True, "num_workers": 4,
+                    "optimization": dict(OPTIMIZATION)},
+    }
+
+
+def flash_counts(fa):
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+
+
+def reset_counts(fa, kv):
+    kv.write_kv.launches = 0
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
+
+
+def train_steps(torch, fa, kv, trainer, dataset, n_warmup, n_timed):
+    """Train steps through `Trainer.train_step` on the trainer's own batches;
+    every step's losses must be finite and launch 10 flash forwards and 10 of
+    each backward kernel. Returns (step times in ms, launch totals, the last
+    device batch, valid notes per batch)."""
+    n = n_warmup + n_timed
+    batches, epoch = [], 0
+    while len(batches) < n:
+        batches += list(trainer._iter_batches(dataset, trainer.config.batch_size, True, epoch))
+        epoch += 1
+    times, notes = [], []
+    reset_counts(fa, kv)
+    for step, host_batch in enumerate(batches[:n]):
+        batch = trainer._put_batch(host_batch)
+        before = flash_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, step)
+        torch.cuda.synchronize()
+        if step >= n_warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v - before[k] for k, v in flash_counts(fa).items()}
+        if per_step != {k: 10 for k in per_step}:
+            raise AssertionError(f"train step {step} launched {per_step}, expected 10 of each")
+        values = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"train step {step}: non-finite metrics {values}")
+        notes.append(int(host_batch["perf_mask"].sum()))
+        print(f"train step {step}: loss {values['loss']:.5f} grad_norm {values['stats/grad_norm']:.4f} "
+              f"MMD {values['MMD']:.5f} lm {values['loss/lm']:.5f}")
+    return times, flash_counts(fa), batch, notes
+
+
+def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda")):
+    """One train step (forward, loss, backward) of the same weights on the
+    card and on the CPU (the plain versions), on the first `b` sequences and
+    the same MMD samples: (loss error, largest gradient error over each
+    gradient's largest value)."""
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+
+    cfg = {k: v for k, v in model_config.items() if not k.startswith("_")}
+    enc = cfg["perf_encoder"]
+    gen = torch.Generator().manual_seed(SEED)
+    draws = []
+
+    def draw(d, n_latents):
+        z = torch.randn(enc.get("mmd_num_samples", 256), d, generator=gen)
+        m = enc.get("mmd_max_num_latents", 4096)
+        draws.append((z, torch.rand(m, generator=gen) if n_latents > m else None))
+        return draws[-1]
+
+    results = {}
+    for dev in devices:
+        model, _ = build_scoreperformer(cfg, device=dev, seed=SEED)
+        model.train()
+        batch = {k: torch.as_tensor(np.asarray(v)[:b]).to(dev) for k, v in host_batch.items()}
+        replay = iter(list(draws))
+        sampler = draw if not draws else (
+            lambda d, n: tuple(None if x is None else x.to(dev) for x in next(replay)))
+        out = model(**batch, mmd_sampler=sampler)
+        out.loss.backward()
+        results[len(results)] = (out.loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                                   if p.grad is not None})
+    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results[0], results[1]
+    if set(cpu_grads) != set(gpu_grads):
+        raise AssertionError("the card's step and the CPU's reach different parameters")
+    grad_err = max(((gpu_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
+                   for n, g in cpu_grads.items())
+    return abs(gpu_loss - cpu_loss), grad_err, len(cpu_grads)
+
+
+def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
+    """Device time by kernel over one call of `fn` (torch.profiler, CUPTI),
+    the device's busy time, its idle share of the profiled wall time, and the
     totals of the ported kernels (by kernel-name substring)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -155,7 +365,7 @@ def profile_render(torch, render, ported=("write_rows", "flash_fwd"), top=10):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -182,9 +392,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
 
-    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.data import build_synthetic_dataset, synthetic_score
     from scoreperformer_tpu_torch.inference import prepare_render_inputs, render_performance
     from scoreperformer_tpu_torch.models.factory import build_scoreperformer
     from scoreperformer_tpu_torch.models.wrappers import mixedlm_unmask
@@ -192,6 +401,7 @@ def main() -> int:
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
     from scoreperformer_tpu_torch.tokenizers import SPMupleWindow, TokenizerConfig
+    from scoreperformer_tpu_torch.training import ExperimentComponents, load_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -234,11 +444,32 @@ def main() -> int:
     fa_recs = [
         check_flash(torch, fa, 32, 258, causal=c, padded=p, timed=(not c and p))
         for c in (False, True) for p in (False, True)
-    ] + [check_flash(torch, fa, 2, 77, causal=True, padded=True, timed=False, d=32)]
+    ] + [
+        check_flash(torch, fa, 2, 77, causal=True, padded=True, timed=False, d=32),
+        # rows with no valid key: v averaged over the JAX wrapper's padded keys
+        check_flash(torch, fa, 2, 37, causal=False, padded="empty", timed=False),
+        check_flash(torch, fa, 2, 300, causal=True, padded="empty", timed=False),
+        # the training step's shapes: 6 encoder layers, then 4 causal decoder layers
+        check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=True, timed=True),
+        check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True),
+    ]
     for rec in [kv_main] + kv_recs:
         print("write_kv", json.dumps(rec))
     for rec in [fa_main] + fa_recs:
         print("flash_attention_fwd", json.dumps(rec))
+    # the backward kernels at the training step's shapes (timed), padded or
+    # not, causal, d=32, one KV head per query head, and rows with no valid key
+    bwd_main = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=True, timed=True)
+    bwd_recs = [
+        check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=False, timed=False),
+        check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True),
+        check_flash_bwd(torch, fa, 3, 77, causal=True, padded="empty", timed=False, d=32),
+        check_flash_bwd(torch, fa, 4, 130, causal=False, padded=True, timed=False, hk=4),
+        check_flash_bwd(torch, fa, 2, 300, causal=True, padded="empty", timed=False, hk=4),
+    ]
+    for dkv_rec, dq_rec in [bwd_main] + bwd_recs:
+        print("flash_attention_bwd_dkv", json.dumps(dkv_rec))
+        print("flash_attention_bwd_dq", json.dumps(dq_rec))
 
     # ---- the main path: the flagship renders the score on the card ----
     cfg = flagship_config(tokenizer, T)
@@ -249,24 +480,70 @@ def main() -> int:
 
     renders = {}
     for mode, kwargs in (("greedy", {"greedy": True}), ("top-k", {"filter_kwargs": {"thres": 0.9}})):
-        kv.write_kv.launches = 0
-        fa.flash_attention_alibi.launches = 0
+        reset_counts(fa, kv)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         perf = render_performance(model, tokenizer, score, seed=SEED, device="cuda", **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"write_kv": kv.write_kv.launches, "flash_attention_fwd": fa.flash_attention_alibi.launches}
+        launches = {"write_kv": kv.write_kv.launches, **flash_counts(fa)}
         renders[mode] = (perf, launches, wall)
         print(f"render {mode}: {wall:.3f} s wall, {perf.num_notes} notes, launches {launches}")
-        expected = {"write_kv": 2 * 4 * n_steps, "flash_attention_fwd": 2 + 4}
+        expected = {"write_kv": 2 * 4 * n_steps, "flash_attention_fwd": 2 + 4,
+                    "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
         if launches != expected:
             raise AssertionError(f"{mode} render launched {launches}, expected {expected}")
 
     # ---- where a render's time goes: one more greedy render under the profiler ----
-    prof = profile_render(torch, lambda: render_performance(model, tokenizer, score, seed=SEED,
+    prof = profile_device(torch, lambda: render_performance(model, tokenizer, score, seed=SEED,
                                                             device="cuda", greedy=True))
     print("profile greedy render", json.dumps(prof))
+
+    # ---- the training path: the flagship takes train steps on the card ----
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    # 64-bar scores: every window of 16 bars from a sampled start fills 256 notes
+    build_synthetic_dataset(root, n_scores=12, n_perfs_per_score=4, n_bars=64, seed=SEED, splits=True,
+                            with_directions=False)
+    comp = ExperimentComponents(train_config(tokenizer, root, os.path.join(work, "run"), TRAIN_BATCH, 2),
+                                device="cuda").init_components()
+    trainer = comp.trainer
+    trainer._prepare()
+    print(f"training: dataset of {len(comp.train_dataset)} windows written and loaded in "
+          f"{time.perf_counter() - t0:.1f} s; flagship {sum(p.numel() for p in comp.model.parameters())} "
+          f"parameters; batch {TRAIN_BATCH} x {TRAIN_SEQ + 2}")
+    step_ms, train_launches, batch, notes = train_steps(torch, fa, kv, trainer, comp.train_dataset,
+                                                        TRAIN_WARMUP, TRAIN_TIMED)
+    median_ms = float(np.median(step_ms))
+    train = {
+        "step_ms": step_ms, "median_step_ms": median_ms,
+        "tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ + 2) / median_ms * 1e3,
+        "valid_notes_per_s": float(np.mean(notes)) / median_ms * 1e3,
+        "launches": train_launches, "steps": TRAIN_WARMUP + TRAIN_TIMED,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("train steps", json.dumps(train))
+    prof_train = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED),
+                                ported=("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    if isinstance(prof_train["device_busy_ms"], float):
+        prof_train["backward_kernels_share"] = sum(
+            prof_train["ported"][k]["ms"] for k in ("flash_bwd_dkv", "flash_bwd_dq")) / prof_train["device_busy_ms"]
+    print("profile train step", json.dumps(prof_train))
+    # the trainer's own loop: two steps and the final checkpoint
+    state = trainer.train()
+    ckpt = load_checkpoint(os.path.join(work, "run", "checkpoint_last"))
+    if state.global_step != 2 or ckpt["trainer_state"]["global_step"] != 2:
+        raise AssertionError(f"Trainer.train() stopped at step {state.global_step}")
+    losses = [h["train_step/loss"] for h in state.log_history if "train_step/loss" in h]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"Trainer.train() logged losses {losses}")
+    print(f"Trainer.train(): 2 steps, logged losses {losses}, checkpoint {sorted(ckpt)}")
+    host_batch = next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
+    model_config = comp.model_config
+    del comp, trainer, batch
+    torch.cuda.empty_cache()
 
     # ---- the output is right ----
     pitch_ids = inputs["score_ids"][:, tokenizer.types_idx["Pitch"]]
@@ -309,16 +586,35 @@ def main() -> int:
     if not same:
         raise AssertionError("greedy tokens on the GPU differ from the port's CPU path")
 
+    # one train step on the card against the port's CPU path, same weights
+    loss_err, grad_err, n_grads = compare_train_step(torch, model_config, host_batch)
+    print(f"train step at batch 4, card vs CPU: loss error {loss_err:.3g}, largest gradient error over "
+          f"its largest value {grad_err:.3g} ({n_grads} gradients)")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3):
+        raise AssertionError(f"the card's train step differs from the CPU's: loss {loss_err}, gradients {grad_err}")
+
     launches = renders["greedy"][1]
+    bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "write_kv", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/kv_cache.cu",
          "replaces": "scoreperformer_tpu/ops/kv_cache.py:34", "launches": launches["write_kv"],
-         **{k: kv_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         **{k: kv_main[k] for k in bound_keys}},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         **{k: fa_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         "launches_by_path": {"render_greedy": launches["flash_attention_fwd"],
+                              "train_steps": train_launches["flash_attention_fwd"]},
+         **{k: fa_main[k] for k in bound_keys}},
+    ] + [
+        {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": replaces, "launches": train_launches[name],
+         "launches_by_path": {"render_greedy": launches[name], "train_steps": train_launches[name]},
+         **{k: rec[k] for k in bound_keys}}
+        for name, replaces, rec in (
+            ("flash_attention_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
+            ("flash_attention_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
+        )
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

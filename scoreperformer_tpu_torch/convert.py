@@ -251,3 +251,25 @@ def load_state_dict(model: nn.Module, state_dict: Dict[str, object], strict: boo
     if strict and (missing or unexpected):
         raise KeyError(f"missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} ({len(unexpected)})")
     return skipped
+
+
+def optimizer_state_from_jax(model: nn.Module, mu, nu, count: int) -> Dict[str, object]:
+    """An optax adam state's moments (JAX parameter trees `mu`, `nu`) and its
+    step `count` as the state of the port's `training.optimizers.Optimizer`
+    over `model.named_parameters()`, for a resumed or compared step to start
+    from the same moments. Tied parameters are keyed by their first name."""
+    params = dict(model.named_parameters(remove_duplicate=False))
+    first_name = {}
+    for name, p in model.named_parameters():
+        first_name[id(p)] = name
+
+    def keyed(tree):
+        out = {}
+        for name, value in state_dict_from_jax(tree).items():
+            hit = next((n for n in _expand(name) if n in params), None)
+            if hit is None:
+                raise KeyError(f"no parameter for {name}")
+            out[first_name[id(params[hit])]] = torch.from_numpy(np.array(value))
+        return out
+
+    return {"count": int(count), "mu": keyed(mu), "nu": keyed(nu)}

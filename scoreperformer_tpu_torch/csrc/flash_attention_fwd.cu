@@ -25,6 +25,14 @@
 // are -1e30, l is clamped at 1e-30, causal tiles past the diagonal are
 // skipped. Keys past t are excluded in the kernel (no padding by the caller),
 // and with one KV head every query head reads KV head 0.
+//
+// A query row with no valid key gets what the JAX wrapper gives it: that
+// wrapper pads keys to whole blocks of bk = max(128, min(256, t_k)) with
+// mask 0, so such a row averages v (zero past t_k) over every key of the
+// key blocks its query block visits: ceil(t_k / bk) * bk of them, or with
+// `causal` the blocks up to the end of its query block of
+// bq = max(8, min(256, t_q)) rows (`jax_masked_row_keys`). When a block
+// holds such a row, the causal tile loop runs on to that row's last key.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -47,6 +55,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Keys that the JAX wrapper averages over for a query row with no valid key.
+__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk, int causal) {
+  const int bk = max(128, min(256, tk));
+  const int n_kb = (tk + bk - 1) / bk;
+  if (!causal) return n_kb * bk;
+  const int bq = max(8, min(256, tq));
+  const int q_end = (qi / bq + 1) * bq;
+  return min(n_kb, (q_end + bk - 1) / bk) * bk;
 }
 
 template <int D>
@@ -92,8 +110,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   }
 
-  int num_tiles = (tk + kBlockK - 1) / kBlockK;
-  if (causal) num_tiles = min(num_tiles, (q0 + kBlockQ - 1) / kBlockK + 1);
+  const int all_tiles = (tk + kBlockK - 1) / kBlockK;
+  int num_tiles = causal ? min(all_tiles, (q0 + kBlockQ - 1) / kBlockK + 1) : all_tiles;
 
   for (int tile = 0; tile < num_tiles; ++tile) {
     const int k0 = tile * kBlockK;
@@ -149,13 +167,28 @@ __global__ void __launch_bounds__(kWarps * 32)
         for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
       }
     }
+
+    if (causal && tile == num_tiles - 1 && num_tiles < all_tiles) {
+      // A row with no valid key averages over the keys the JAX wrapper's
+      // blocks visit, which reach past the diagonal; rows with a valid key
+      // take p = 0 from the extra tiles. A tile of 32 rows never straddles
+      // two of the wrapper's query blocks, so one count serves the block.
+      bool none_valid = false;
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) none_valid |= (q0 + row0 + r < tq && m[r] == kMaskValue);
+      if (__syncthreads_or(none_valid)) {
+        const int keys = min(tk, jax_masked_row_keys(q0, tq, tk, causal));
+        num_tiles = max(num_tiles, (keys + kBlockK - 1) / kBlockK);
+      }
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
     if (qi >= tq) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
+    const float lc = m[r] == kMaskValue ? (float)jax_masked_row_keys(qi, tq, tk, causal)
+                                        : fmaxf(l[r], 1e-30f);
     float* op = out + ((size_t)bh * tq + qi) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) op[lane + 32 * c] = acc[r][c] / lc;

@@ -1,1 +1,32 @@
-from .synthetic import synthetic_score
+"""Datasets, collators and synthetic data, copied from the JAX package (numpy
+only). The standalone Performer's `performance.py` is not ported yet."""
+from ..configs import Registry
+from .collators import (
+    LMScorePerformanceCollator,
+    MixedLMScorePerformanceCollator,
+    ScorePerformanceCollator,
+    ScorePerformanceInputs,
+    SeqInputs,
+    SeqSegments,
+    scoreperformer_model_inputs,
+)
+from .datasets import (
+    LocalScorePerformanceDataset,
+    NoteSegments,
+    ScorePerformanceDataset,
+    ScorePerformanceSample,
+    ScorePerformanceSampleMeta,
+)
+from .directions import DirectionBarEmbeddingDataset, DirectionEmbeddingCollator
+from .synthetic import build_synthetic_dataset, synthetic_performance, synthetic_score
+
+DATASETS = Registry("datasets")
+DATASETS.add("ScorePerformanceDataset", ScorePerformanceDataset)
+DATASETS.add("LocalScorePerformanceDataset", LocalScorePerformanceDataset)
+DATASETS.add("DirectionBarEmbeddingDataset", DirectionBarEmbeddingDataset)
+
+COLLATORS = Registry("collators")
+COLLATORS.add("ScorePerformanceCollator", ScorePerformanceCollator)
+COLLATORS.add("LMScorePerformanceCollator", LMScorePerformanceCollator)
+COLLATORS.add("MixedLMScorePerformanceCollator", MixedLMScorePerformanceCollator)
+COLLATORS.add("DirectionEmbeddingCollator", DirectionEmbeddingCollator)

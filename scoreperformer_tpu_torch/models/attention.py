@@ -4,7 +4,8 @@ Counterpart of scoreperformer_tpu/models/attention.py. Caches are dicts of
 time-major (cap, b, kv) tensors that the decode loop owns and that this module
 updates IN PLACE through `write_kv`. Positions (`cache_index`) are one-element
 int64 tensors on the device, so a decode step never waits for the host.
-Softmax runs in fp32.
+Softmax runs in fp32. Attention-probability dropout applies in
+`module.train()` mode only (see `dropout.py`).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention_alibi
 from ..ops.kv_cache import write_kv
+from .dropout import Dropout
 from .layers import ALiBiPositionalBias
 
 MASK_VALUE = -1e9
@@ -50,6 +52,7 @@ class Attention(nn.Module):
         dim_head: int = 64,
         heads: int = 8,
         causal: bool = False,
+        dropout: float = 0.0,
         one_kv_head: bool = False,
         max_attend: Optional[int] = None,
         alibi_pos_bias: bool = False,
@@ -62,6 +65,8 @@ class Attention(nn.Module):
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
         self.one_kv_head, self.max_attend = one_kv_head, max_attend
         self.alibi_symmetric, self.use_flash = alibi_symmetric, use_flash
+        self.dropout = dropout
+        self.attn_dropout = Dropout(dropout)
         q_dim = dim_head * heads
         kv_dim = dim_head if one_kv_head else q_dim
         self.to_q = nn.Linear(dim, q_dim, bias=False)
@@ -163,14 +168,16 @@ class Attention(nn.Module):
         v = self.to_v(kv_input)
 
         # flash path: full self-attention, no cache/window/attn_mask, symmetric
-        # ALiBi. On CUDA tensors this is the hand-written kernel; on CPU
-        # tensors the same call runs its plain version.
+        # ALiBi, no attention dropout while training (the kernels have none).
+        # On CUDA tensors this is the hand-written kernels, forward and
+        # backward; on CPU tensors the same call runs their plain versions.
         if (
             self.use_flash
             and cache is None
             and context is None
             and attn_mask is None
             and self.max_attend is None
+            and (not self.training or self.dropout == 0.0)
             and (self.rel_pos is None or self.alibi_symmetric or self.causal)
         ):
             slopes = self.rel_pos.padded_slopes() if self.rel_pos is not None else torch.zeros(h, device=dev)
@@ -232,6 +239,7 @@ class Attention(nn.Module):
             dots = _masked(dots, key_valid[None, None, None, :])
 
         attn = torch.softmax(dots.float(), dim=-1).to(dots.dtype)
+        attn = self.attn_dropout(attn)
         out = (attn @ v_h).transpose(1, 2).reshape(b, n, h * d)
         out = self.to_out(out)
         if mask is not None and not has_cache:

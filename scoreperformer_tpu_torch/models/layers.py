@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import Dropout
+
 
 class AdaptiveLayerNorm(nn.Module):
     """LayerNorm without affine + Linear(cond -> 2*dim) giving per-position
@@ -50,11 +52,11 @@ class _GLUProjIn(nn.Module):
 
 class FeedForward(nn.Module):
     """GELU/SiLU MLP with an optional GLU gate. `ff` keeps the reference's
-    layout: [proj_in, post-activation norm, dropout, proj_out]. Dropout is a
-    training feature and is not ported yet."""
+    layout: [proj_in, post-activation norm, dropout, proj_out]; the dropout
+    applies in `module.train()` mode only."""
 
     def __init__(self, dim: int, mult: int = 4, glu: bool = False, swish: bool = False,
-                 post_act_ln: bool = False, no_bias: bool = True):
+                 post_act_ln: bool = False, dropout: float = 0.0, no_bias: bool = True):
         super().__init__()
         inner = int(dim * mult)
         # jax.nn.gelu defaults to the tanh approximation
@@ -66,7 +68,7 @@ class FeedForward(nn.Module):
         self.ff = nn.Sequential(
             proj_in,
             nn.LayerNorm(inner, eps=1e-5) if post_act_ln else nn.Identity(),
-            nn.Identity(),
+            Dropout(dropout),
             nn.Linear(inner, dim, bias=not no_bias),
         )
 

@@ -1,9 +1,12 @@
-"""ScorePerformer composite model, inference path.
+"""ScorePerformer composite model.
 
 Counterpart of scoreperformer_tpu/models/scoreperformer.py: the score encoder
-and the MMD style encoder produce context and style embeddings; the
-performance decoder consumes them one position at a time over static KV
-caches. The training forward and its losses are not ported yet.
+and the MMD style encoder produce context and style embeddings. In training,
+`forward` runs the decoder over the shifted sequence and returns the MixedLM
+cross-entropy plus the MMD losses; in rendering, the decoder consumes the
+embeddings one position at a time over static KV caches (`decode_step`).
+Direction classifiers are not ported: a model configured with them raises in
+`forward` rather than train without their loss.
 """
 from __future__ import annotations
 
@@ -15,9 +18,69 @@ from torch import nn
 
 from ..configs import ModuleConfig
 from ..device import resolve_device
+from .dropout import dropout_generator
 from .embeddings import TupleTokenHeadConfig, build_stream_embeddings
-from .mmd import MMDTupleTransformer, MMDTupleTransformerConfig
-from .tuple_transformer import TupleTransformerConfig, TupleTransformerModule
+from .mmd import (
+    MMDSampler,
+    MMDTupleTransformer,
+    MMDTupleTransformerConfig,
+    MMDTupleTransformerOutput,
+    mmd_sampler as mmd_sampler_for,
+)
+from .tuple_transformer import EmbeddingModes, TupleTransformerConfig, TupleTransformerModule
+
+IGNORE_INDEX = -100
+
+
+class LMModes:
+    MLM = "mlm"
+    CLM = "clm"
+    MixedLM = "mixlm"
+
+
+def lm_losses(logits: Dict[str, torch.Tensor], labels: torch.Tensor, ignore_index: int = IGNORE_INDEX):
+    """Per-stream cross-entropy averaged over the streams that carry labels
+    (wrappers.py:55-64). Streams without any valid label count neither in the
+    numerator nor in the denominator."""
+    losses = {}
+    total = denom = 0.0
+    for i, (key, lg) in enumerate(logits.items()):
+        lab = labels[..., i]
+        valid = lab != ignore_index
+        nvalid = valid.sum()
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -logp.gather(-1, lab.clamp(0, lg.shape[-1] - 1)[..., None].long())[..., 0]
+        stream_loss = (nll * valid).sum() / nvalid.clamp_min(1)
+        has = (nvalid > 0).to(stream_loss.dtype)
+        losses[key] = stream_loss
+        total = total + stream_loss * has
+        denom = denom + has
+    return total / torch.clamp_min(torch.as_tensor(denom), 1.0), losses
+
+
+def shift_for_lm(mode, perf, labels, masked_perf, context, style, mask, context_is_cat: bool):
+    """CLM/MixedLM shift by one (wrappers.py:290-307, 409-431): the input drops
+    the last position; labels, masked sequence, context and style drop the first."""
+    if mode not in (LMModes.CLM, LMModes.MixedLM):
+        return perf, labels, masked_perf, context, style, mask
+    seq = perf[:, :-1]
+    labels = labels[:, 1:] if labels is not None else None
+    masked = masked_perf[:, 1:] if masked_perf is not None else None
+    if context is not None and context_is_cat:
+        context = context[:, 1:]
+    if style is not None:
+        style = style[:, 1:]
+    if mask is not None and mask.shape[1] == seq.shape[1] + 1:
+        mask = mask[:, :-1]
+    return seq, labels, masked, context, style, mask
+
+
+@dataclass
+class ScorePerformerOutput:
+    logits: Dict[str, torch.Tensor]
+    loss: Optional[torch.Tensor] = None
+    losses: Dict[str, torch.Tensor] = field(default_factory=dict)
+    perf_encoder: Optional[MMDTupleTransformerOutput] = None
 
 
 @dataclass
@@ -85,14 +148,68 @@ class ScorePerformerModel(nn.Module):
         return self.perf_decoder.model
 
     def forward_encoders(self, perf=None, perf_mask=None, score=None, score_mask=None,
-                         bars=None, beats=None, onsets=None):
+                         bars=None, beats=None, onsets=None, deadpan_mask=None,
+                         compute_loss: bool = False, latent_generator=None,
+                         mmd_sampler: Optional[MMDSampler] = None):
         score_emb = perf_emb = perf_enc_out = None
         if self.score_encoder is not None:
             score_emb = self.score_encoder(score, mask=score_mask)
         if self.perf_encoder is not None:
-            perf_enc_out = self.perf_encoder(perf, mask=perf_mask, bars=bars, beats=beats, onsets=onsets)
+            perf_enc_out = self.perf_encoder(
+                perf, mask=perf_mask, bars=bars, beats=beats, onsets=onsets, deadpan_mask=deadpan_mask,
+                compute_loss=compute_loss, latent_generator=latent_generator, sampler=mmd_sampler,
+            )
             perf_emb = perf_enc_out.embeddings
         return score_emb, perf_emb, perf_enc_out
+
+    def forward(self, perf, perf_mask=None, score=None, score_mask=None, noisy_perf=None,
+                noisy_perf_mask=None, masked_perf=None, labels=None, bars=None, beats=None,
+                onsets=None, directions=None, deadpan_mask=None, compute_loss: bool = True,
+                generators: Optional[Dict[str, torch.Generator]] = None,
+                mmd_sampler: Optional[MMDSampler] = None) -> ScorePerformerOutput:
+        """The training forward (model.py:259-351): encoders, the shifted
+        decoder, the LM and MMD losses. Inputs carry the names of
+        `data.collators.scoreperformer_model_inputs`. In `module.train()`
+        mode dropout draws from generators["dropout"] and latent dropout from
+        generators["latent_dropout"]; the MMD samples come from `mmd_sampler`
+        or generators["mmd"]."""
+        cfg = self.config
+        if cfg.classifiers and cfg.classifiers.get("num_classes"):
+            raise NotImplementedError("direction classifiers are not ported yet; their loss would be missing")
+        generators = generators or {}
+        if compute_loss and mmd_sampler is None and self.perf_encoder is not None:
+            enc = self.perf_encoder.config
+            mmd_sampler = mmd_sampler_for(generators.get("mmd"), enc.mmd_num_samples, enc.mmd_max_num_latents,
+                                          perf.device)
+        context_is_cat = self.decoder.config.context_emb_mode == EmbeddingModes.CONCAT
+        with dropout_generator(generators.get("dropout")):
+            score_emb, perf_emb, perf_enc_out = self.forward_encoders(
+                perf=noisy_perf if noisy_perf is not None else perf,
+                perf_mask=noisy_perf_mask if noisy_perf_mask is not None else perf_mask,
+                score=score, score_mask=score_mask, bars=bars, beats=beats, onsets=onsets,
+                deadpan_mask=deadpan_mask, compute_loss=compute_loss,
+                latent_generator=generators.get("latent_dropout"), mmd_sampler=mmd_sampler,
+            )
+            seq, shifted_labels, shifted_masked, context, style, dec_mask = shift_for_lm(
+                cfg.mode, perf, labels, masked_perf, score_emb, perf_emb, perf_mask, context_is_cat,
+            )
+            hidden = self.decoder(
+                seq, mask=dec_mask,
+                x_extra=[shifted_masked] if shifted_masked is not None else None,
+                style_embeddings=style, context=context,
+                context_mask=None if context_is_cat else score_mask,
+            )
+        logits = self.decoder.apply_lm_head(hidden)
+
+        loss, losses = None, {}
+        if compute_loss and shifted_labels is not None:
+            loss, stream_losses = lm_losses(logits, shifted_labels)
+            losses.update({f"loss/{k}": v for k, v in stream_losses.items()})
+            losses["loss/lm"] = loss
+        if perf_enc_out is not None and perf_enc_out.loss is not None:
+            loss = perf_enc_out.loss if loss is None else loss + perf_enc_out.loss
+            losses.update(perf_enc_out.losses)
+        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out)
 
     def encode_embeddings(self, perf, perf_mask=None, score=None, score_mask=None,
                           bars=None, beats=None, onsets=None):

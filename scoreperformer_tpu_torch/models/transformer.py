@@ -99,6 +99,7 @@ class TransformerStack(nn.Module):
                     dim=cfg.dim,
                     heads=cfg.heads,
                     causal=cfg.causal if layer_type == "a" else False,
+                    dropout=att.dropout,
                     dim_head=att.dim_head,
                     one_kv_head=att.one_kv_head,
                     max_attend=att.max_attend_past if layer_type == "a" else None,
@@ -112,7 +113,7 @@ class TransformerStack(nn.Module):
                 ff = cfg.feed_forward
                 block = FeedForward(
                     dim=cfg.dim, mult=ff.mult, glu=ff.glu, swish=ff.swish,
-                    post_act_ln=ff.post_act_ln, no_bias=ff.no_bias,
+                    post_act_ln=ff.post_act_ln, dropout=ff.dropout, no_bias=ff.no_bias,
                 )
             layers.append(nn.ModuleList([nn.ModuleList([make_norm()]), block]))
         self.layers = nn.ModuleList(layers)

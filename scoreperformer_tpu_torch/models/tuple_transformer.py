@@ -20,6 +20,7 @@ from .embeddings import (
     TupleTokenRegressionHeadConfig,
     TupleTokenTiedLMHead,
 )
+from .dropout import Dropout
 from .layers import AbsolutePositionalEmbedding
 from .transformer import TransformerConfig, TransformerStack
 
@@ -84,6 +85,7 @@ class TupleTransformerModule(nn.Module):
         )
         self.pos_emb = AbsolutePositionalEmbedding(dim, cfg.max_seq_len) if cfg.use_abs_pos_emb else None
         self.emb_norm = nn.LayerNorm(dim, eps=1e-5) if cfg.emb_norm else None
+        self.emb_dropout = Dropout(cfg.emb_dropout)
         total_emb_dim = (
             dim
             + int(cfg.context_emb_mode == EmbeddingModes.CONCAT) * self.context_dim
@@ -142,6 +144,7 @@ class TupleTransformerModule(nn.Module):
             if cfg.style_emb_mode == EmbeddingModes.CONCAT:
                 h = torch.cat([h, style_embeddings], dim=-1)
                 style_embeddings = None
+        h = self.emb_dropout(h)
         if self.project_emb is not None:
             h = self.project_emb(h)
 

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -27,17 +27,21 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# C signature of each library's entry point: (name, argtypes)
+_FLASH_BWD_ARGS = [_P] * 10 + [_I] * 7 + [_F, _P]
+# C signatures of each library's entry points: {library: {symbol: argtypes}}
 ENTRY_POINTS = {
-    "kv_cache": ("sp_write_kv", [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
-    "flash_attention_fwd": (
-        "sp_flash_attention_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    ),
+    "kv_cache": {"sp_write_kv": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]},
+    "flash_attention_fwd": {
+        "sp_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attention_bwd": {
+        "sp_flash_attention_bwd_dkv": _FLASH_BWD_ARGS,
+        "sp_flash_attention_bwd_dq": _FLASH_BWD_ARGS,
+    },
 }
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes._CFuncPtr] = {}
+_loaded: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -78,15 +82,14 @@ def build_all() -> Dict[str, Path]:
     return {name: library_path(name) for name in ENTRY_POINTS}
 
 
-def kernel(name: str):
-    """The C entry point of kernel library `name`, built on first use."""
+def kernel(library: str, symbol: str):
+    """The C entry point `symbol` of kernel library `library`, built on first use."""
     with _lock:
-        fn = _loaded.get(name)
+        fn = _loaded.get((library, symbol))
         if fn is None:
-            path = build_all()[name]
-            symbol, argtypes = ENTRY_POINTS[name]
+            path = build_all()[library]
             fn = getattr(ctypes.CDLL(str(path)), symbol)
-            fn.argtypes = argtypes
+            fn.argtypes = ENTRY_POINTS[library][symbol]
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
+            _loaded[(library, symbol)] = fn
         return fn

@@ -55,7 +55,7 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
     if not (cache.is_contiguous() and new.is_contiguous()):
         raise ValueError("write_kv: cache and new must be contiguous")
     cap, b, kv = cache.shape
-    err = kernel("kv_cache")(
+    err = kernel("kv_cache", "sp_write_kv")(
         cache.data_ptr(), new.data_ptr(), index.data_ptr(), cap, new.shape[0], b * kv,
         _DTYPE_CODES[cache.dtype], _DTYPE_CODES[new.dtype],
         torch.cuda.current_stream(cache.device).cuda_stream,

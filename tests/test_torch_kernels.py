@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from scoreperformer_tpu.ops import flash_attention as jflash
 from scoreperformer_tpu.ops import kv_cache as jkv
 from scoreperformer_tpu.ops import sampling as jsampling
 from scoreperformer_tpu.ops.flash_attention import _flash_forward
@@ -54,37 +56,98 @@ def test_write_kv_rejects_rows_that_do_not_fit():
 # ---- flash attention forward: atol 1e-5 against the Pallas kernel ----
 
 FLASH_CASES = [
-    # b, h, t, d, hk, causal, padded
+    # b, h, t, d, hk, causal, padded ("empty": batch element 0 has no valid key)
     (2, 4, 37, 16, 1, False, True),
     (2, 4, 37, 16, 1, True, True),
     (1, 2, 130, 8, 2, False, False),
     (2, 2, 130, 8, 2, True, True),
     (3, 3, 9, 32, 1, True, False),
+    (2, 2, 37, 16, 1, False, "empty"),
+    (2, 2, 300, 8, 1, True, "empty"),
 ]
 
 
-@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES)
-def test_flash_plain_matches_pallas_kernel(b, h, t, d, hk, causal, padded):
-    """The Pallas kernel in interpret mode at "highest" (fp32) precision;
-    output and logsumexp, with ragged t, MQA and MHA, key padding."""
+def flash_inputs(b, h, t, d, hk, padded):
     q, k, v = rand(2, b, h, t, d), rand(3, b, hk, t, d), rand(4, b, hk, t, d)
     slopes = np.abs(rand(5, h)) * 0.5
     mask = np.ones((b, t), bool)
     if padded:
         lengths = np.random.RandomState(6).randint(1, t + 1, b)
+        if padded == "empty":
+            lengths[0] = 0
         mask = np.arange(t)[None] < lengths[:, None]
+    return q, k, v, slopes, mask
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES)
+def test_flash_plain_matches_pallas_kernel(b, h, t, d, hk, causal, padded):
+    """The Pallas kernel in interpret mode at "highest" (fp32) precision;
+    output and logsumexp, with ragged t, MQA and MHA, key padding, and rows
+    whose keys are all masked (v averaged over the wrapper's padded keys)."""
+    q, k, v, slopes, mask = flash_inputs(b, h, t, d, hk, padded)
     scale = d**-0.5
     want_o, want_lse = _flash_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(slopes),
         jnp.asarray(mask, jnp.float32), causal, scale, 256, 256, True, "highest", return_lse=True,
     )
-    got_o, got_lse = tflash.flash_attention_alibi(
+    got_o, got_lse = tflash.flash_attention_fwd(
         *(torch.from_numpy(a) for a in (q, k, v, slopes)), mask=torch.from_numpy(mask),
-        causal=causal, scale=scale, return_lse=True,
+        causal=causal, scale=scale,
     )
-    # rows whose keys are all masked (causal row 0 cannot be) hold no information
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-5)
+
+
+# ---- flash attention backward: atol/rtol 1e-5 against the Pallas kernels ----
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES)
+def test_flash_backward_matches_pallas_kernels(b, h, t, d, hk, causal, padded):
+    """dq, dk, dv and dslopes of the port's autograd Function (plain forward
+    and backward on CPU tensors) against `jax.vjp` of the Pallas kernels in
+    interpret mode. dout is zero on rows whose keys are all masked, as the
+    attention module makes it (it multiplies those rows by 0): with a nonzero
+    dout there, JAX's gradient depends on its wrapper's key padding."""
+    q, k, v, slopes, mask = flash_inputs(b, h, t, d, hk, padded)
+    dout = rand(7, b, h, t, d)
+    none_valid = ~mask.any(-1)
+    if causal:
+        none_valid = ~(np.cumsum(mask, -1) > 0)  # (b, t): no valid key at or before i
+        dout[np.broadcast_to(none_valid[:, None], (b, h, t))] = 0
+    else:
+        dout[none_valid] = 0
+    _, vjp = jax.vjp(
+        lambda *a: jflash.flash_attention_alibi(*a, mask=jnp.asarray(mask), causal=causal,
+                                                interpret=True, precision="highest"),
+        *map(jnp.asarray, (q, k, v, slopes)),
+    )
+    want = vjp(jnp.asarray(dout))
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, slopes)]
+    out = tflash.flash_attention_alibi(*args, mask=torch.from_numpy(mask), causal=causal)
+    out.backward(torch.from_numpy(dout))
+    for name, w, g in zip(("dq", "dk", "dv"), want, args):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5, err_msg=name)
+    # dslopes sums b*t*t terms dS*|i-j|, each up to t times a dS entry, in
+    # another order than the Pallas kernel: fp32 rounding grows with t
+    np.testing.assert_allclose(args[3].grad.numpy(), np.asarray(want[3]), atol=1e-5 * t, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES[:5])
+def test_flash_backward_plain_matches_autograd(b, h, t, d, hk, causal, padded):
+    """The plain backward against torch.autograd through the plain forward
+    (dslopes to 1e-5 * t, as above)."""
+    q, k, v, slopes, mask = flash_inputs(b, h, t, d, hk, padded)
+    dout = torch.from_numpy(rand(7, b, h, t, d))
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, slopes)]
+    tmask = torch.from_numpy(mask)
+    out, lse = tflash.flash_attention_plain(*args, mask=tmask, causal=causal, return_lse=True)
+    out.backward(dout)
+    with torch.no_grad():
+        delta = (dout * out).sum(-1)
+        got = tflash.flash_attention_bwd_plain(*args, tmask, dout, lse, delta, causal)
+    for name, g, a in zip(("dq", "dk", "dv", "dslopes"), got, args):
+        atol = 1e-5 * t if name == "dslopes" else 1e-5
+        np.testing.assert_allclose(g.numpy(), a.grad.numpy(), atol=atol, rtol=1e-5, err_msg=name)
 
 
 def test_flash_rejects_mismatched_shapes():

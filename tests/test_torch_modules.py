@@ -420,3 +420,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     port, _ = build_scoreperformer(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         render_performance(port, None, None)
+    # training: the components and `python -m scoreperformer_tpu_torch.train`
+    from scoreperformer_tpu_torch import train
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExperimentComponents(config={})
+    recipes = Path(__file__).resolve().parents[1] / "recipes"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["-r", str(recipes), "-n", "scoreperformer/no_classifiers.yaml"])

@@ -8,7 +8,9 @@ checkout. It
 1. prints the card's name and power limit;
 2. builds every CUDA kernel from `scoreperformer_tpu_torch/csrc/`;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   render's and the training step's shapes, and times the kernel, the plain
+   render's, the training step's and the served batch's shapes (the served
+   scores' valid lengths, batch-padding rows at valid length 1), and at
+   edge cases, and times the kernel, the plain
    version and one PyTorch call of the same function (the yardstick; the port
    never calls it);
 4. render path: builds the flagship ScorePerformer at full width (random
@@ -21,18 +23,33 @@ checkout. It
    takes train steps through the `Trainer`, counting the flash forward and
    backward launches of each step; profiles one step; then one step at
    batch 4 on the card against the port's CPU path on the same weights;
-6. checks the output: notes with the score's pitches and finite times, and,
-   on a 4-bar score, the same greedy tokens as the port's CPU path; finite
-   losses, and loss and gradients of the card's step equal to the CPU's.
+6. serving path: saves the flagship (random weights, `max_seq_len` covering
+   the 384-note bucket) as a port checkpoint directory, starts a
+   `RenderServer` on it, and serves 128 synthetic scores of 8-32 bars as one
+   greedy batch through `handle_batch` and as 128 sampled requests from
+   concurrent clients through the TCP coalescer; renders 16 of them with
+   bf16 and int8 caches; profiles one batched render;
+7. checks the output: notes with the score's pitches and finite times (a
+   served sampled rendition, or one from a bf16 or int8 cache, may leave a
+   few notes out as "not performed"), and, on 4-bar scores, the same greedy
+   tokens as the port's CPU path (one render, and a batch of four through
+   the server); finite losses, and loss and gradients of the card's step
+   equal to the CPU's; every served response `ok`.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, ...}, printed only when every phase passed. Any failure exits
 non-zero.
 """
+import base64
+import collections
+import itertools
 import json
+import math
 import os
+import socket
 import subprocess
 import shutil
 import sys
+import threading
 import time
 
 import numpy as np
@@ -63,6 +80,26 @@ OPTIMIZATION = dict(lr=2e-4, optimizer="adamw", optimizer_params={"weight_decay"
                     lr_scheduler="exponential", lr_scheduler_params={"gamma": 0.995}, grad_clip=2.0)
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
+L2_BYTES = 50e6  # H100 L2: timed inputs cycle through copies that exceed it
+CHUNK = 16  # the chunked decode's chunk, as the render and the server use it
+DECODER_LAYERS = 4
+# the served cell: 128 scores of 8, 16, 24 and 32 bars in turn (seeds 0-127);
+# the longest has 364 notes, so every batch pads to the 384 bucket
+SERVE_REQUESTS = 128
+SERVE_BARS = (8, 16, 24, 32)
+SERVE_BUCKET = 384
+SERVE_ALONE = 4  # requests of the greedy batch rendered again one by one
+SERVE_DTYPE_REQUESTS = 16  # requests rendered with bf16 and int8 caches
+# the TCP coalescer's window: it closes at 128 requests, so it only has to
+# outlast 128 client threads connecting on a busy host (2 s did not, once)
+SERVE_WINDOW_MS = 60000.0
+# the share of a score's notes that a served sampled rendition, or one from a
+# bf16 or int8 cache, may leave out as "not performed"; greedy fp32 ones and
+# the render phase's leave none
+MAX_LEFT_OUT = 0.1
+# kernel names (substrings) in a render's profile; prefix_attend runs two
+# kernels a launch, its split pass and its merge
+PORTED_DECODE = ("prefix_attend_split", "prefix_attend_merge", "write_rows", "flash_fwd")
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -150,9 +187,11 @@ def sdpa_bias(torch, slopes, mask, causal):
     return bias.contiguous(), ok
 
 
-def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
-    """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4. Returns
-    the record of this shape (times only when `timed`)."""
+def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None):
+    """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4, with
+    random valid lengths when `padded` (batch element 0 has none when it is
+    "empty"), or the given `lengths`. Returns the record of this shape
+    (times only when `timed`)."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -161,9 +200,14 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
     k = torch.randn(b, 1, t, d, device=dev, generator=g)
     v = torch.randn(b, 1, t, d, device=dev, generator=g)
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
-    lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g) if padded else torch.full((b,), t, device=dev)
-    if padded == "empty":  # batch element 0 has no valid key
-        lengths[0] = 0
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=dev)
+    elif padded:
+        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
+        if padded == "empty":
+            lengths[0] = 0
+    else:
+        lengths = torch.full((b,), t, device=dev)
     mask = torch.arange(t, device=dev)[None] < lengths[:, None]
     o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
@@ -189,8 +233,9 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64):
 
 
 def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk):
-    """Inputs of one backward call on the card, with dout zero on rows whose
-    keys are all masked (the attention module zeroes them; see ROADMAP.md)."""
+    """Inputs of one backward call on the card. dout is nonzero on every
+    row, rows with no valid key too, where JAX's gradient reaches the keys
+    that its wrapper pads."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     q = torch.randn(b, h, t, d, device=dev, generator=g)
@@ -204,8 +249,6 @@ def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk):
         if padded == "empty":
             lengths[0] = 0
     mask = torch.arange(t, device=dev)[None] < lengths[:, None]
-    has_key = (mask.cumsum(-1) > 0) if causal else mask.any(-1, keepdim=True).expand(b, t)
-    dout = dout * has_key[:, None, :, None]
     return q, k, v, slopes, mask, dout
 
 
@@ -256,6 +299,98 @@ def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1):
     return dkv, dq
 
 
+def graph_ms(torch, fn, arg_sets, iters):
+    """Device time of one call: `iters` calls, cycling through `arg_sets`
+    (copies of the inputs that together exceed the L2 cache, as the decode
+    finds a layer's prefix after the other layers' work), captured in one
+    CUDA graph and replayed under CUDA events, so the host's cost of a
+    launch, larger than a decode attend's device time, is left out."""
+    cycle = itertools.cycle(arg_sets)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(*next(cycle))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(*next(cycle))
+    ms = time_ms(torch, graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
+def n_copies(nbytes):
+    return max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
+
+
+def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64, kvh=1):
+    """Kernel vs plain over the first `base` slots of a (cap, b, kvh*d)
+    cache, with an ALiBi bias up to `base` and -1e9 from there: max abs
+    error of o and lse <= 1e-4. Returns the record of this case (times only
+    when `timed`)."""
+    import torch.nn.functional as F
+    from scoreperformer_tpu_torch.models.attention import quantize_kv_rows
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(b, h, d, device=dev, generator=g) * d**-0.5
+    k = torch.randn(cap, b, kvh * d, device=dev, generator=g)
+    v = torch.randn(cap, b, kvh * d, device=dev, generator=g)
+    slopes = torch.rand(h, device=dev, generator=g) * 0.5
+    pos = torch.arange(cap, device=dev)
+    bias = torch.where(pos[None] < base, -slopes[:, None] * (base - pos[None]).float(),
+                       torch.full((), -1e9, device=dev)).contiguous()
+    scales = (None, None)
+    if dtype == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif dtype == "int8":
+        (k, k_s), (v, v_s) = quantize_kv_rows(k), quantize_kv_rows(v)
+        scales = (k_s.contiguous(), v_s.contiguous())
+    o, lse = pa.prefix_attend(q, k, v, bias, *scales, n_valid=base)
+    po, plse = pa.prefix_attend_plain(q, k, v, bias, *scales, n_valid=base)
+    torch.cuda.synchronize()
+    err = max((o - po).abs().max().item(), (lse - plse).abs().max().item())
+    if not err <= 1e-4:
+        raise AssertionError(f"prefix_attend differs from its plain version by {err} at "
+                             f"{(b, cap, base, dtype, h, d, kvh)}")
+    rec = {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "kv_heads": kvh, "max_abs_err": err}
+    if timed:
+        # the bytes this call needs: the first `base` rows of k and v (and
+        # their scales), q, the bias columns it reads, o and lse
+        read = 2 * base * b * kvh * d * k.element_size() + (2 * base * b * 4 if dtype == "int8" else 0)
+        nbytes = read + 4 * (2 * q.numel() + h * base + b * h)
+        ops = 4 * d * h * b * base  # q.k and p.v, a multiply and an add each
+        copies = [(k.clone(), v.clone()) for _ in range(n_copies(read))]
+        rec["ms"] = graph_ms(torch, lambda kc, vc: pa.prefix_attend(q, kc, vc, bias, *scales, n_valid=base),
+                             copies, iters=200)
+        rec["plain_ms"] = graph_ms(
+            torch, lambda kc, vc: pa.prefix_attend_plain(q, kc, vc, bias, *scales, n_valid=base), copies, iters=50)
+        # the same calls back to back without a graph: what a caller pays,
+        # host included
+        rec["eager_ms"] = time_ms(torch, lambda: pa.prefix_attend(q, k, v, bias, *scales, n_valid=base), iters=200)
+        del copies
+        if dtype == "fp32":
+            # yardstick: SDPA over the same slots, contiguous (b, h, base, d)
+            # keys and values and the bias laid out outside the timing
+            def heads(x):
+                x = x[:base].reshape(base, b, kvh, d).permute(1, 2, 0, 3)
+                return x.expand(b, h, base, d).contiguous()
+
+            q4 = q[:, :, None]
+            mask4 = bias[None, :, None, :base].expand(b, h, 1, base).contiguous()
+            sdpa = [(heads(k), heads(v)) for _ in range(n_copies(read * h // kvh))]
+            rec["library_ms"] = graph_ms(
+                torch, lambda kc, vc: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask4, scale=1.0),
+                sdpa, iters=200)
+        else:
+            rec["library_ms"] = None
+        rec["bound_by"] = "operations" if ops / FP32_OPS_PER_S > nbytes / BYTES_PER_S else "bytes"
+        rec["bound_ms"] = max(ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
+    return rec
+
+
 def train_config(tokenizer, root, out_dir, batch_size, max_steps):
     """The experiment config of the training phase: the flagship at full width
     (bench.py::build_flagship's model, use_flash=True) on the dataset at
@@ -279,12 +414,30 @@ def flash_counts(fa):
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
 
 
-def reset_counts(fa, kv):
-    kv.write_kv.launches = 0
+def reset_counts(fa, kv, pa):
+    kv.write_kv.launches = pa.prefix_attend.launches = 0
     fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
 
 
-def train_steps(torch, fa, kv, trainer, dataset, n_warmup, n_timed):
+def all_counts(fa, kv, pa):
+    return {"write_kv": kv.write_kv.launches, "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa)}
+
+
+def decode_launches(n_steps):
+    """The launches of one render of the flagship, any batch: one flash
+    forward per encoder layer (2 score, 4 MMD), then a chunked decode of
+    `n_steps` steps with 2 `write_kv` and 1 `prefix_attend` per decoder
+    layer and step; no backward."""
+    return {"write_kv": 2 * DECODER_LAYERS * n_steps, "prefix_attend": DECODER_LAYERS * n_steps,
+            "flash_attention_fwd": 2 + 4, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+
+
+def check_launches(what, got, expected):
+    if got != expected:
+        raise AssertionError(f"{what} launched {got}, expected {expected}")
+
+
+def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
     """Train steps through `Trainer.train_step` on the trainer's own batches;
     every step's losses must be finite and launch 10 flash forwards and 10 of
     each backward kernel. Returns (step times in ms, launch totals, the last
@@ -295,7 +448,7 @@ def train_steps(torch, fa, kv, trainer, dataset, n_warmup, n_timed):
         batches += list(trainer._iter_batches(dataset, trainer.config.batch_size, True, epoch))
         epoch += 1
     times, notes = [], []
-    reset_counts(fa, kv)
+    reset_counts(fa, kv, pa)
     for step, host_batch in enumerate(batches[:n]):
         batch = trainer._put_batch(host_batch)
         before = flash_counts(fa)
@@ -314,7 +467,7 @@ def train_steps(torch, fa, kv, trainer, dataset, n_warmup, n_timed):
         notes.append(int(host_batch["perf_mask"].sum()))
         print(f"train step {step}: loss {values['loss']:.5f} grad_norm {values['stats/grad_norm']:.4f} "
               f"MMD {values['MMD']:.5f} lm {values['loss/lm']:.5f}")
-    return times, flash_counts(fa), batch, notes
+    return times, all_counts(fa, kv, pa), batch, notes
 
 
 def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda")):
@@ -385,6 +538,191 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
     }
 
 
+def check_performance(tokenizer, score_ids, perf, what, all_performed=True):
+    """A rendered performance has the score's pitches and finite, ordered
+    note times. With `all_performed` every score note is played; without,
+    the notes whose Velocity came out as the tokenizer's "not performed"
+    token are left out, so the pitches need only be the score's, and at most
+    MAX_LEFT_OUT of the score's notes may be left out. Returns the number of
+    score notes left out."""
+    pitch_ids = np.asarray(score_ids)[:, tokenizer.types_idx["Pitch"]]
+    src = collections.Counter((pitch_ids - tokenizer.zero_token + tokenizer.config.pitch_range[0]).tolist())
+    notes = perf.all_notes()
+    got = collections.Counter(notes.pitch.tolist())
+    if (got != src) if all_performed else (got - src):
+        raise AssertionError(f"{what}: {perf.num_notes} notes, pitches differ from the score's")
+    if not (np.isfinite(notes.start).all() and np.isfinite(notes.end).all() and (notes.end >= notes.start).all()):
+        raise AssertionError(f"{what}: note times are not finite and ordered")
+    left_out = sum(src.values()) - perf.num_notes
+    if left_out > MAX_LEFT_OUT * sum(src.values()):
+        raise AssertionError(f"{what}: {left_out} of the score's {sum(src.values())} notes left out")
+    return left_out
+
+
+def served_inputs(tokenizer, n=SERVE_REQUESTS, bars=SERVE_BARS):
+    """The served cell's scores (seeds 0..n-1, `bars` in turn) and their
+    render inputs, as the server prepares them."""
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import prepare_render_inputs
+
+    scores = [synthetic_score(np.random.RandomState(s), n_bars=bars[s % len(bars)]) for s in range(n)]
+    return scores, [prepare_render_inputs(tokenizer, sc) for sc in scores]
+
+
+def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET):
+    """The serving path on the card: a port checkpoint directory of `cfg`'s
+    model, a `RenderServer` on it, the `scores` (with their render `inputs`)
+    served greedy through `handle_batch` and sampled through the TCP
+    coalescer from one client thread each; then agreement checks and a
+    profile. Returns the phase's record."""
+    from scoreperformer_tpu_torch import serve as serve_cli
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import RenderServer
+    from scoreperformer_tpu_torch.midi import read_midi, write_midi
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import save_checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
+    ckpt = save_checkpoint(os.path.join(work, "checkpoint"), model, model_config={"_name_": "ScorePerformer", **cfg})
+    tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
+    del model
+    n = len(scores)
+    rec = {"requests": n, "bars": list(SERVE_BARS)}
+
+    t0 = time.perf_counter()
+    server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cuda")
+    server.warmup([bucket], greedy_variants=(True, False), batch_sizes=(n,))
+    rec["load_and_warmup_s"] = time.perf_counter() - t0
+    score_ids = [x["score_ids"] for x in inputs]
+    wire = [base64.b64encode(write_midi(sc, None)).decode("ascii") for sc in scores]
+    n_steps = -(-(bucket - 1) // CHUNK) * CHUNK
+    expected = decode_launches(n_steps)
+
+    def check_responses(resps, what, all_performed):
+        bad = [r for r in resps if not r.get("ok")]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} responses not ok, first {bad[0]}")
+        left_out = sum(check_performance(tokenizer, score_ids[i], read_midi(base64.b64decode(r["midi_b64"])),
+                                         f"{what} {i}", all_performed) for i, r in enumerate(resps))
+        return sum(r["notes"] for r in resps), left_out
+
+    # 1. one greedy batch of n through the wire layer
+    greedy_reqs = [{"id": i, "score_b64": w, "greedy": True} for i, w in enumerate(wire)]
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = server.handle_batch(greedy_reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_counts(fa, kv, pa)
+    check_launches("the served greedy batch", launches, expected)
+    notes, left_out = check_responses(greedy, "served greedy request", all_performed=True)
+    rec["greedy"] = {"wall_s": wall, "notes": notes, "notes_per_s": notes / wall, "notes_not_performed": left_out,
+                     "launches": launches,
+                     "batched": sorted({r["batched"] for r in greedy}),
+                     "padded_to": sorted({r["padded_to"] for r in greedy}),
+                     # the last response's timings run from the batch's start
+                     # through every request's detokenization; the rest of the
+                     # wall is MIDI parsing before and MIDI writing after
+                     "render_batch_ms": greedy[-1]["wall_ms"], "timings_ms": greedy[-1]["timings"]}
+    print("serve greedy batch", json.dumps(rec["greedy"]))
+
+    # 2. the same scores sampled (top-k 0.9), from n concurrent TCP clients
+    srv, coalescer = serve_cli.make_tcp_server(server, "127.0.0.1", 0, max_batch=n, window_ms=SERVE_WINDOW_MS)
+    loop = threading.Thread(target=srv.serve_forever, daemon=True)
+    loop.start()
+    port = srv.server_address[1]
+    sampled, latency_ms = [None] * n, [None] * n
+
+    def client(i):
+        req = {"id": i, "score_b64": wire[i], "greedy": False, "seed": i,
+               "temperature": 0.8 + 0.4 * i / max(1, n - 1)}
+        with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+            t = time.perf_counter()
+            sock.sendall((json.dumps(req) + "\n").encode())
+            sampled[i] = json.loads(sock.makefile().readline())
+            latency_ms[i] = (time.perf_counter() - t) * 1e3
+
+    reset_counts(fa, kv, pa)
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for th in clients:
+        th.start()
+    for th in clients:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    srv.shutdown()
+    srv.server_close()
+    coalescer.stop()
+    loop.join(timeout=60)
+    if any(r is None for r in sampled):
+        raise AssertionError(f"{sum(r is None for r in sampled)} TCP clients got no response")
+    launches = all_counts(fa, kv, pa)
+    notes, left_out = check_responses(sampled, "served sampled request", all_performed=False)
+    batched = sorted({r["batched"] for r in sampled})
+    if batched != [n]:
+        raise AssertionError(f"the coalescer formed batches of {batched}, expected one of {n}")
+    check_launches("the served sampled batch", launches, expected)
+    rec["sampled_tcp"] = {"wall_s": wall, "notes": notes, "notes_per_s": notes / wall,
+                          "notes_not_performed": left_out, "launches": launches,
+                          "batched": batched, "latency_ms_p50": float(np.percentile(latency_ms, 50)),
+                          "latency_ms_p99": float(np.percentile(latency_ms, 99))}
+    print("serve sampled batch through TCP", json.dumps(rec["sampled_tcp"]))
+
+    # 3. per-request agreement of the batch with renders one at a time (not
+    # gated: fp32 products may sum in another order at another batch size)
+    alone = [server.handle_request(greedy_reqs[i]) for i in range(SERVE_ALONE)]
+    rec["greedy_alone_identical"] = [a["midi_b64"] == g["midi_b64"] for a, g in zip(alone, greedy)]
+    print(f"served greedy batch vs the same requests alone: identical MIDI {rec['greedy_alone_identical']}")
+
+    # 4. bf16 and int8 caches against fp32 on the first requests: the share
+    # of filled tokens that agree (not gated: JAX's int8 is not bit-stable)
+    subset = [dict(score_midi=sc, greedy=True) for sc in scores[:SERVE_DTYPE_REQUESTS]]
+    ref = server.render_batch(subset)
+    dims = list(server.sample_dims)
+    rec["cache_dtypes"] = {}
+    for dtype in ("bf16", "int8"):
+        other = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, cache_dtype=dtype, device="cuda")
+        reset_counts(fa, kv, pa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = other.render_batch(subset)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_launches(f"the served {dtype} batch", all_counts(fa, kv, pa), expected)
+        for i, r in enumerate(out):
+            check_performance(tokenizer, score_ids[i], r["perf"], f"served {dtype} request {i}", all_performed=False)
+        same = sum(int((r["tokens"][1:, dims] == w["tokens"][1:, dims]).sum()) for r, w in zip(out, ref))
+        total = sum(w["tokens"][1:, dims].size for w in ref)
+        rec["cache_dtypes"][dtype] = {"wall_s": wall, "greedy_agreement_with_fp32": same / total,
+                                      "identical_requests": sum(np.array_equal(r["tokens"], w["tokens"])
+                                                                for r, w in zip(out, ref))}
+        del other
+    print("served bf16 and int8 caches", json.dumps(rec["cache_dtypes"]))
+
+    # 5. gate: four 4-bar requests through the card's server and the CPU's
+    small = [dict(score_midi=synthetic_score(np.random.RandomState(1000 + i), n_bars=4), greedy=True)
+             for i in range(4)]
+    on_card = server.render_batch(small)
+    on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(small)
+    same = all(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(on_card, on_cpu))
+    print(f"served batch of four 4-bar requests, card vs CPU server: identical tokens={same}")
+    if not same:
+        raise AssertionError("the card's server gives other greedy tokens than the CPU's")
+
+    # 6. where a served batch's time goes
+    requests = [dict(score_midi=sc, greedy=True) for sc in scores]
+    rec["profile"] = profile_device(torch, lambda: server.render_batch(requests),
+                                    ported=PORTED_DECODE)
+    print("profile served greedy batch", json.dumps(rec["profile"]))
+    rec["launches"] = expected
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -400,6 +738,7 @@ def main() -> int:
     from scoreperformer_tpu_torch.ops import _build
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
     from scoreperformer_tpu_torch.tokenizers import SPMupleWindow, TokenizerConfig
     from scoreperformer_tpu_torch.training import ExperimentComponents, load_checkpoint
 
@@ -425,15 +764,24 @@ def main() -> int:
     score = synthetic_score(np.random.RandomState(SEED), n_bars=N_BARS)
     inputs = prepare_render_inputs(tokenizer, score)
     T = len(inputs["deadpan_ids"])
-    chunk = 16
-    n_steps = -(-(T - 1) // chunk) * chunk
+    n_steps = -(-(T - 1) // CHUNK) * CHUNK
     print(f"score: {N_BARS} bars, T={T} notes, {n_steps} decode steps")
+    # the served cell's scores; a batch of them pads to the length bucket
+    serve_scores, serve_inputs = served_inputs(tokenizer)
+    serve_lens = [len(x["deadpan_ids"]) for x in serve_inputs]
+    if -(-max(serve_lens) // 128) * 128 != SERVE_BUCKET:
+        raise AssertionError(f"the served scores' longest has {max(serve_lens)} notes, not in the {SERVE_BUCKET} bucket")
 
     # ---- kernels against their plain versions ----
-    kv_main = check_write_kv(torch, kv, chunk, 1, 1, 64, 5, torch.float32, timed=True)
+    kv_main = check_write_kv(torch, kv, CHUNK, 1, 1, 64, 5, torch.float32, timed=True)
     kv_recs = [
-        check_write_kv(torch, kv, chunk, 1, 1, 64, idx, dt, timed=False)
-        for idx in (0, chunk - 1, chunk + 3, -1) for dt in (torch.float32, torch.bfloat16)
+        check_write_kv(torch, kv, CHUNK, 1, 1, 64, idx, dt, timed=False)
+        for idx in (0, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)
+    ] + [
+        # the served batch's fresh buffers: fp32 rows into fp32 (fp32 and
+        # int8 caches) or bf16 ones, at slots inside the chunk and clamped
+        check_write_kv(torch, kv, CHUNK, 1, SERVE_REQUESTS, 64, idx, dt, timed=(idx == 5 and dt == torch.float32))
+        for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)
     ] + [
         check_write_kv(torch, kv, 272, 16, 512, 64, 100, torch.float32, timed=True),
         check_write_kv(torch, kv, 272, 16, 512, 64, 300, torch.float32, timed=False),
@@ -452,6 +800,14 @@ def main() -> int:
         # the training step's shapes: 6 encoder layers, then 4 causal decoder layers
         check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=True, timed=True),
         check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True),
+        # the served encoders: the served batch's valid lengths; a batch of
+        # 112 padded to 128 with rows at valid_len 1; the warmup's batch
+        check_flash(torch, fa, SERVE_REQUESTS, SERVE_BUCKET, causal=False, padded="served", timed=True,
+                    lengths=serve_lens),
+        check_flash(torch, fa, SERVE_REQUESTS, SERVE_BUCKET, causal=False, padded="served+pad", timed=False,
+                    lengths=serve_lens[:SERVE_REQUESTS - 16] + [1] * 16),
+        check_flash(torch, fa, SERVE_REQUESTS, SERVE_BUCKET, causal=False, padded="warmup", timed=False,
+                    lengths=[1] * SERVE_REQUESTS),
     ]
     for rec in [kv_main] + kv_recs:
         print("write_kv", json.dumps(rec))
@@ -470,6 +826,31 @@ def main() -> int:
     for dkv_rec, dq_rec in [bwd_main] + bwd_recs:
         print("flash_attention_bwd_dkv", json.dumps(dkv_rec))
         print("flash_attention_bwd_dq", json.dumps(dq_rec))
+    # the prefix attend of the chunked decode: the served batch (timed in
+    # fp32, bf16 and int8, halfway through its decode), the TPU script's
+    # shape, the render's (b=1, the 32-bar score's cache), and the edges:
+    # the first chunk (base 0, no slot read), the last, d=32, one KV head
+    # per query head
+    cap_render = max(n_steps, T)
+    pa_main = check_prefix_attend(torch, pa, SERVE_REQUESTS, SERVE_BUCKET, SERVE_BUCKET // 2, timed=True)
+    pa_recs = [
+        check_prefix_attend(torch, pa, SERVE_REQUESTS, SERVE_BUCKET, SERVE_BUCKET // 2, timed=True, dtype=dt)
+        for dt in ("bf16", "int8")
+    ] + [
+        check_prefix_attend(torch, pa, 512, 256, 256 - CHUNK, timed=True),
+        check_prefix_attend(torch, pa, 1, cap_render, cap_render // 2, timed=True),
+    ] + [
+        check_prefix_attend(torch, pa, b, cap, base, timed=False, dtype=dt)
+        for b, cap in ((512, 256), (1, cap_render), (SERVE_REQUESTS, SERVE_BUCKET))
+        for base in (0, CHUNK, 128, cap - CHUNK) for dt in ("fp32", "bf16", "int8")
+    ] + [
+        check_prefix_attend(torch, pa, 3, 100, 77, timed=False, dtype=dt, d=32) for dt in ("fp32", "int8")
+    ] + [
+        check_prefix_attend(torch, pa, 5, 100, base, timed=False, dtype=dt, kvh=4)
+        for base in (0, 60) for dt in ("fp32", "bf16", "int8")
+    ]
+    for rec in [pa_main] + pa_recs:
+        print("prefix_attend", json.dumps(rec))
 
     # ---- the main path: the flagship renders the score on the card ----
     cfg = flagship_config(tokenizer, T)
@@ -480,23 +861,20 @@ def main() -> int:
 
     renders = {}
     for mode, kwargs in (("greedy", {"greedy": True}), ("top-k", {"filter_kwargs": {"thres": 0.9}})):
-        reset_counts(fa, kv)
+        reset_counts(fa, kv, pa)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         perf = render_performance(model, tokenizer, score, seed=SEED, device="cuda", **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"write_kv": kv.write_kv.launches, **flash_counts(fa)}
+        launches = all_counts(fa, kv, pa)
         renders[mode] = (perf, launches, wall)
         print(f"render {mode}: {wall:.3f} s wall, {perf.num_notes} notes, launches {launches}")
-        expected = {"write_kv": 2 * 4 * n_steps, "flash_attention_fwd": 2 + 4,
-                    "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
-        if launches != expected:
-            raise AssertionError(f"{mode} render launched {launches}, expected {expected}")
+        check_launches(f"the {mode} render", launches, decode_launches(n_steps))
 
     # ---- where a render's time goes: one more greedy render under the profiler ----
     prof = profile_device(torch, lambda: render_performance(model, tokenizer, score, seed=SEED,
-                                                            device="cuda", greedy=True))
+                                                            device="cuda", greedy=True), ported=PORTED_DECODE)
     print("profile greedy render", json.dumps(prof))
 
     # ---- the training path: the flagship takes train steps on the card ----
@@ -514,7 +892,7 @@ def main() -> int:
     print(f"training: dataset of {len(comp.train_dataset)} windows written and loaded in "
           f"{time.perf_counter() - t0:.1f} s; flagship {sum(p.numel() for p in comp.model.parameters())} "
           f"parameters; batch {TRAIN_BATCH} x {TRAIN_SEQ + 2}")
-    step_ms, train_launches, batch, notes = train_steps(torch, fa, kv, trainer, comp.train_dataset,
+    step_ms, train_launches, batch, notes = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
                                                         TRAIN_WARMUP, TRAIN_TIMED)
     median_ms = float(np.median(step_ms))
     train = {
@@ -545,15 +923,12 @@ def main() -> int:
     del comp, trainer, batch
     torch.cuda.empty_cache()
 
+    if train_launches["prefix_attend"] or train_launches["write_kv"]:
+        raise AssertionError(f"the train steps launched decode kernels: {train_launches}")
+
     # ---- the output is right ----
-    pitch_ids = inputs["score_ids"][:, tokenizer.types_idx["Pitch"]]
-    src_pitches = sorted((pitch_ids - tokenizer.zero_token + tokenizer.config.pitch_range[0]).tolist())
     for mode, (perf, _, _) in renders.items():
-        notes = perf.all_notes()
-        if sorted(notes.pitch.tolist()) != src_pitches:
-            raise AssertionError(f"{mode} render: {perf.num_notes} notes, pitches differ from the score's")
-        if not (np.isfinite(notes.start).all() and np.isfinite(notes.end).all() and (notes.end >= notes.start).all()):
-            raise AssertionError(f"{mode} render: note times are not finite and ordered")
+        check_performance(tokenizer, inputs["score_ids"], perf, f"{mode} render")
 
     # the kernel path against the port's CPU path (plain versions) on the same weights
     cpu_model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
@@ -592,6 +967,16 @@ def main() -> int:
           f"its largest value {grad_err:.3g} ({n_grads} gradients)")
     if not (loss_err <= 1e-4 and grad_err <= 1e-3):
         raise AssertionError(f"the card's train step differs from the CPU's: loss {loss_err}, gradients {grad_err}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- the serving path: a RenderServer on a port checkpoint serves 128 requests ----
+    t0 = time.perf_counter()
+    served = serve_phase(torch, tokenizer, flagship_config(tokenizer, SERVE_BUCKET),
+                         os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_serve"),
+                         serve_scores, serve_inputs)
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    served_launches = served["greedy"]["launches"]
 
     launches = renders["greedy"][1]
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -603,19 +988,22 @@ def main() -> int:
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         "launches_by_path": {"render_greedy": launches["flash_attention_fwd"],
-                              "train_steps": train_launches["flash_attention_fwd"]},
          **{k: fa_main[k] for k in bound_keys}},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": replaces, "launches": train_launches[name],
-         "launches_by_path": {"render_greedy": launches[name], "train_steps": train_launches[name]},
-         **{k: rec[k] for k in bound_keys}}
+         "replaces": replaces, "launches": train_launches[name], **{k: rec[k] for k in bound_keys}}
         for name, replaces, rec in (
             ("flash_attention_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
             ("flash_attention_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
         )
+    ] + [
+        {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",
+         "replaces": "scripts/exp_pallas_decode_attend.py:51", "launches": launches["prefix_attend"],
+         **{k: pa_main[k] for k in bound_keys}},
     ]
+    for rec in kernels:
+        rec["launches_by_path"] = {"render_greedy": launches[rec["name"]], "train_steps": train_launches[rec["name"]],
+                                   "served_batch": served_launches[rec["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

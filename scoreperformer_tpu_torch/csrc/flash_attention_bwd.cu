@@ -40,6 +40,18 @@
 // rows per warp, in the forward kernel's order of operations, so P matches
 // the forward's. Keys past t and query rows past t take no part (no padding
 // by the caller); masked keys are -1e30 as in the forward.
+//
+// Rows with no valid key. Their lse is -1e30, so P = exp(-1e30 - lse) = 1 on
+// every key a kernel visits for them, and the JAX kernels visit the key
+// blocks up to the end of the row's query block (`jax_masked_row_keys`),
+// past the diagonal with `causal`. A causal row has no valid key only when
+// its batch element's key 0 is masked; for such an element alone the causal
+// tile bounds run on to those keys (the dQ kernel's key tiles, the dK/dV
+// kernel's query tiles before the diagonal). Those bounds end on a multiple
+// of the JAX key block or at t, so P is 1 on exactly the keys JAX visits;
+// rows with a valid key get P = 0 past their diagonal from the mask. The
+// keys that the JAX wrapper pads past t add only to the slope gradient; the
+// caller adds that part (ops/flash_attention.py::padded_key_dslopes).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,6 +64,16 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per tile
 constexpr int kBlockK = 32;                      // keys per tile, one per lane
 constexpr float kMaskValue = -1e30f;
+
+// Keys (up to t) that the causal JAX kernels visit for a query row with no
+// valid key; the same for every row of a tile of 32.
+__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
+  const int bk = max(128, min(256, tk));
+  const int n_kb = (tk + bk - 1) / bk;
+  const int bq = max(8, min(256, tq));
+  const int q_end = (qi / bq + 1) * bq;
+  return min(tk, min(n_kb, (q_end + bk - 1) / bk) * bk);
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -166,17 +188,20 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kCols; ++c) acc_dk[j][c] = acc_dv[j][c] = 0.f;
 
   const int n_q_tiles = (tq + kBlockQ - 1) / kBlockQ;
-  // causal: a query tile that ends before k0 sees none of these keys
-  const int first_q_tile = causal ? k0 / kBlockQ : 0;
   const int head_begin = hk == 1 ? 0 : kv_head;
   const int head_end = hk == 1 ? h : kv_head + 1;
   const uint8_t* mp = mask + (size_t)b * tk;
+  // causal: a query tile that ends before k0 sees none of these keys, unless
+  // its rows have no valid key (key 0 masked) and the JAX kernels visit them
+  const int first_q_tile = causal ? k0 / kBlockQ : 0;
+  const int q_tile_begin = mp[0] == 0 ? 0 : first_q_tile;
 
   for (int head = head_begin; head < head_end; ++head) {
     const size_t bh = (size_t)b * h + head;
     const float slope = slopes[head];
-    for (int qt = first_q_tile; qt < n_q_tiles; ++qt) {
+    for (int qt = q_tile_begin; qt < n_q_tiles; ++qt) {
       const int q0 = qt * kBlockQ;
+      if (qt < first_q_tile && jax_masked_row_keys(q0, tq, tk) <= k0) continue;
       __syncthreads();  // the previous tile's reads are done
       load_query_tile<D>(sm, q + bh * tq * D, dout + bh * tq * D, lse + bh * tq,
                          delta + bh * tq, q0, tq, scale);
@@ -253,7 +278,11 @@ __global__ void __launch_bounds__(kThreads)
   float dslope = 0.f;
 
   int n_k_tiles = (tk + kBlockK - 1) / kBlockK;
-  if (causal) n_k_tiles = min(n_k_tiles, (q0 + kBlockQ - 1) / kBlockK + 1);
+  if (causal) {
+    int last_key = min(tk, q0 + kBlockQ);  // the diagonal
+    if (mp[0] == 0) last_key = max(last_key, jax_masked_row_keys(q0, tq, tk));
+    n_k_tiles = (last_key + kBlockK - 1) / kBlockK;
+  }
 
   for (int kt = 0; kt < n_k_tiles; ++kt) {
     const int k0 = kt * kBlockK;

@@ -1,1 +1,2 @@
 from .render import load_model_from_checkpoint, prepare_render_inputs, render_performance
+from .server import RenderServer

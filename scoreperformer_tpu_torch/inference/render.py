@@ -20,19 +20,26 @@ from ..models.factory import build_scoreperformer
 from ..models.wrappers import mixedlm_unmask
 from ..ops.sampling import top_k
 from ..tokenizers import MASK, TokSequence
+from ..training.checkpoint import load_checkpoint
 
 
 def load_model_from_checkpoint(path: str, device="cuda"):
-    """Rebuild the model from a reference single-file checkpoint (`.pt`,
-    {"model": {"config", "state_dict"}}) whose embedded config is the
-    post-injection recipe node. Returns (model, config). Classifier heads,
-    which rendering does not use, are not ported and their weights are
-    skipped."""
+    """Rebuild the model from a checkpoint: the port trainer's directory
+    (`params.pt` with the weights, `meta.json` with "model_config"), or a
+    reference single-file checkpoint (`.pt`, {"model": {"config",
+    "state_dict"}}) whose embedded config is the post-injection recipe node.
+    Returns (model, config). Classifier heads, which rendering does not use,
+    are not ported and their weights are skipped."""
     device = resolve_device(device)
-    if not os.path.isfile(path):
-        raise FileNotFoundError(f"{path}: the port loads single-file reference checkpoints")
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    model_node = ckpt.get("model") or {}
+    if os.path.isdir(path):
+        ckpt = load_checkpoint(path)
+        if "params" not in ckpt or not ckpt.get("model_config"):
+            raise ValueError(f"{path}: a checkpoint directory needs params.pt and meta.json's model_config")
+        model_node = {"config": ckpt["model_config"], "state_dict": ckpt["params"]}
+    elif os.path.isfile(path):
+        model_node = torch.load(path, map_location="cpu", weights_only=False).get("model") or {}
+    else:
+        raise FileNotFoundError(f"{path}: no checkpoint directory or file")
     model_cfg = model_node.get("config")
     if model_cfg is None:
         raise ValueError(f"{path} carries no embedded model config")

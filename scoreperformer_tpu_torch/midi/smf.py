@@ -1,4 +1,5 @@
-# Verbatim copy of scoreperformer_tpu/midi/smf.py; the port imports nothing of the JAX package.
+# Copy of scoreperformer_tpu/midi/smf.py; the port imports nothing of the JAX package.
+# One change: `write_midi` clamps a tempo to what the 24-bit tempo event holds.
 """Standard MIDI File (SMF) reader/writer.
 
 This environment ships no MIDI library, so the framework carries its own
@@ -290,7 +291,9 @@ def write_midi(score: MidiScore, path=None) -> bytes:
             (int(score.time_sigs.time[i]), 0, bytes([0xFF, 0x58, 0x04, num, den_pow, 24, 8]))
         )
     for i in range(len(score.tempos)):
-        us_per_quarter = int(round(60_000_000.0 / float(score.tempos.tempo[i])))
+        # the event holds 1..2**24-1 us a quarter: tempos below ~3.58 BPM
+        # (which a sampled rendition can reach) are written at that limit
+        us_per_quarter = min(max(int(round(60_000_000.0 / float(score.tempos.tempo[i]))), 1), 0xFFFFFF)
         meta_events.append(
             (
                 int(score.tempos.time[i]),

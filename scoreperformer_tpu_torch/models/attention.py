@@ -16,6 +16,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention_alibi
 from ..ops.kv_cache import write_kv
+from ..ops.prefix_attend import combine_lse, prefix_attend
 from .dropout import Dropout
 from .layers import ALiBiPositionalBias
 
@@ -23,13 +24,32 @@ MASK_VALUE = -1e9
 
 
 def init_kv_cache(batch: int, max_len: int, kv_dim: int, dtype=torch.float32, device="cpu") -> Dict[str, torch.Tensor]:
-    """Fixed-size TIME-MAJOR cache (max_len, batch, kv_dim) for one layer."""
-    if dtype != torch.float32:
-        raise NotImplementedError("only fp32 KV caches are ported; bf16/int8 caches are queued")
+    """Fixed-size TIME-MAJOR cache (max_len, batch, kv_dim) for one layer, in
+    fp32, bf16, or int8 with one fp32 scale per (position, batch) row
+    ("k_s", "v_s"; see `quantize_kv_rows`). Only the chunked decode reads an
+    int8 cache: its rows are quantized once per chunk at the merge."""
+    if dtype == torch.int8:
+        return {
+            "k": torch.zeros(max_len, batch, kv_dim, dtype=torch.int8, device=device),
+            "k_s": torch.zeros(max_len, batch, dtype=torch.float32, device=device),
+            "v": torch.zeros(max_len, batch, kv_dim, dtype=torch.int8, device=device),
+            "v_s": torch.zeros(max_len, batch, dtype=torch.float32, device=device),
+        }
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"init_kv_cache: dtype {dtype} is not float32, bfloat16 or int8")
     return {
         "k": torch.zeros(max_len, batch, kv_dim, dtype=dtype, device=device),
         "v": torch.zeros(max_len, batch, kv_dim, dtype=dtype, device=device),
     }
+
+
+def quantize_kv_rows(x: torch.Tensor, eps: float = 1e-8):
+    """Symmetric per-row int8 quantization of (..., kv_dim) rows: (q, scale)
+    with scale = max(|row|, eps) / 127 and q = round(x / scale), half to
+    even as jnp.round, clipped to [-127, 127]."""
+    scale = torch.clamp(x.abs().amax(dim=-1), min=eps) / 127.0
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _attn_mask_4d(attn_mask: torch.Tensor) -> torch.Tensor:
@@ -93,51 +113,77 @@ class Attention(nn.Module):
         j, b = t.shape[:2]
         return t.reshape(j, b, self.kv_heads, self.dim_head).permute(1, 2, 0, 3)
 
+    def _decode_bias(self, mask, attn_mask, pos_q, key_pos, cap, base):
+        """(h, cap + C) additive bias of the chunked decode's keys, the
+        prefix slots then the fresh ones: ALiBi, and -1e9 on stale prefix
+        slots (at or past `base`) and on keys that `mask`, `attn_mask`,
+        `max_attend` or causality exclude. A mask that differs between batch
+        rows cannot fold into one bias: it raises."""
+        dev = pos_q.device
+        if self.rel_pos is not None:
+            bias = self.rel_pos(pos_q, key_pos)[:, 0]
+        else:
+            bias = torch.zeros(self.heads, key_pos.shape[0], device=dev)
+        ok = (torch.arange(key_pos.shape[0], device=dev) >= cap) | (key_pos < base)
+        if mask is not None:
+            if mask.shape[0] != 1:
+                raise NotImplementedError("chunked decode: a per-row key mask cannot fold into the bias")
+            ok = ok & mask[0].bool()
+        if attn_mask is not None:
+            am = _attn_mask_4d(attn_mask)
+            if am.shape[0] != 1:
+                raise NotImplementedError("chunked decode: a per-row attn_mask cannot fold into the bias")
+            ok = ok & am[0, :, 0].bool()
+        dist = pos_q[:, None] - key_pos[None, :]
+        if self.max_attend is not None:
+            ok = ok & (-self.max_attend < dist) & (dist <= self.max_attend)
+        if self.causal:
+            ok = ok & (dist >= 0)
+        return torch.where(ok, bias, MASK_VALUE)
+
     def _chunked_cache_attend(self, x, mask, attn_mask, cache, cache_index):
-        """Decode attention over a frozen prefix cache {"k","v"} (cap, b, kv)
-        plus the chunk's fresh buffers {"fk","fv"} (C, b, kv); "base" (an int)
-        is the global position of fresh slot 0. The step's rows are written
-        into the fresh buffers in place; softmax runs over [prefix | fresh]
-        with prefix slots at or past `base` masked as stale."""
+        """Decode attention of one query row over a frozen prefix cache
+        {"k","v"} (cap, b, kv), int8 ones with row scales {"k_s","v_s"}, plus
+        the chunk's fresh buffers {"fk","fv"} (C, b, kv); "base" (an int) is
+        the global position of fresh slot 0 and the number of prefix slots
+        written. The step's rows are written into the fresh buffers in place.
+        The prefix half runs through `prefix_attend` (the split-K kernel on
+        the GPU), the fresh half here, and `combine_lse` joins them: the JAX
+        module's single softmax over [prefix | fresh], reassociated."""
         b, n = x.shape[:2]
+        if n != 1:
+            raise NotImplementedError("the chunked decode attends one query row per step")
         h, d = self.heads, self.dim_head
+        scale = d**-0.5
         idx = cache_index
         base = cache["base"]
 
-        q = self.to_q(x).reshape(b, n, h, d).transpose(1, 2)
+        q = self.to_q(x).reshape(b, h, d)
         fk = write_kv(cache["fk"], self.to_k(x).transpose(0, 1).contiguous(), idx - base)
         fv = write_kv(cache["fv"], self.to_v(x).transpose(0, 1).contiguous(), idx - base)
-        pk, pv = cache["k"], cache["v"]
-        cap, chunk = pk.shape[0], fk.shape[0]
+        cap, chunk = cache["k"].shape[0], fk.shape[0]
         dev = x.device
 
         pos_q = idx + torch.arange(n, device=dev)
         key_pos = torch.cat([torch.arange(cap, device=dev), base + torch.arange(chunk, device=dev)])
-        key_valid = torch.cat(
-            [torch.arange(cap, device=dev) < base, torch.ones(chunk, dtype=torch.bool, device=dev)]
+
+        bias = self._decode_bias(mask, attn_mask, pos_q, key_pos, cap, base)
+        o_p, lse_p = prefix_attend(
+            (q * scale).contiguous(), cache["k"], cache["v"], bias[:, :cap].contiguous(),
+            cache.get("k_s"), cache.get("v_s"), n_valid=base,
         )
 
-        dots_p = q @ self._split_kv(pk).transpose(-1, -2)
-        dots_f = q @ self._split_kv(fk).transpose(-1, -2)
-        dots = torch.cat([dots_p, dots_f], dim=-1) * d**-0.5
+        # the fresh half: the chunk's C slots
+        dots = (q[:, :, None] @ self._split_kv(fk).to(q.dtype).transpose(-1, -2))[:, :, 0] * scale
+        dots = (dots + bias[None, :, cap:]).float()
+        m_f = dots.amax(dim=-1, keepdim=True)
+        p_f = torch.exp(dots - m_f)
+        l_f = p_f.sum(dim=-1, keepdim=True)
+        o_f = ((p_f / l_f)[:, :, None] @ self._split_kv(fv).to(q.dtype))[:, :, 0]
+        lse_f = (m_f + torch.log(l_f))[..., 0]
 
-        if self.rel_pos is not None:
-            dots = dots + self.rel_pos(pos_q, key_pos)[None]
-        if mask is not None:
-            dots = _masked(dots, mask[:, None, None, :])
-        if attn_mask is not None:
-            dots = _masked(dots, _attn_mask_4d(attn_mask))
-        if self.max_attend is not None:
-            dist = pos_q[:, None] - key_pos[None, :]
-            dots = _masked(dots, ((-self.max_attend < dist) & (dist <= self.max_attend))[None, None])
-        if self.causal:
-            dots = _masked(dots, (key_pos[None, :] <= pos_q[:, None])[None, None])
-        dots = _masked(dots, key_valid[None, None, None, :])
-
-        attn = torch.softmax(dots.float(), dim=-1).to(dots.dtype)
-        out = attn[..., :cap] @ self._split_kv(pv) + attn[..., cap:] @ self._split_kv(fv)
-        out = out.transpose(1, 2).reshape(b, n, h * d)
-        return self.to_out(out)
+        out, _ = combine_lse(o_p, lse_p, o_f, lse_f)
+        return self.to_out(out.reshape(b, n, h * d))
 
     def forward(
         self,
@@ -211,7 +257,7 @@ class Attention(nn.Module):
             p_last = idx + n - 1
             key_pos = p_last - torch.remainder(p_last - torch.arange(j, device=dev), cap)
             key_valid = key_pos >= 0
-            k_h, v_h = self._split_kv(k_t), self._split_kv(v_t)
+            k_h, v_h = self._split_kv(k_t).to(q.dtype), self._split_kv(v_t).to(q.dtype)
         else:
             j = k.shape[1]
             pos_q = (j - n) + torch.arange(n, device=dev) if context is None else torch.arange(n, device=dev)

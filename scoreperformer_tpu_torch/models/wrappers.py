@@ -12,7 +12,12 @@ Two layouts give the same tokens, as in the JAX package:
   fresh buffers, the big prefix cache stays frozen, and the fresh rows merge
   into it once per chunk. The step count is padded to a multiple of C; the
   padded tail steps read and rewrite position T-1 (XLA's dynamic_slice and
-  dynamic_update_slice clamp their start) and change nothing.
+  dynamic_update_slice clamp their start) and change nothing. Each step's
+  attention over the frozen prefix runs through `ops.prefix_attend`.
+
+The caches may be fp32, bf16 or int8 (`cache_dtype`). An int8 prefix holds
+rows quantized once per chunk at the merge (`attention.quantize_kv_rows`),
+with fp32 fresh buffers; it needs the chunked layout.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.sampling import apply_temperature, categorical, top_k
+from .attention import quantize_kv_rows
 
 NEG_INF = -1e9
 
@@ -83,7 +89,7 @@ def mixedlm_unmask(
     style_embeddings: Optional[torch.Tensor] = None,
     context: Optional[torch.Tensor] = None,
     valid_len: Optional[torch.Tensor] = None,
-    temperature: float = 1.0,
+    temperature=1.0,
     filter_fn: Callable = top_k,
     filter_kwargs: Optional[Dict] = None,
     greedy: bool = False,
@@ -106,7 +112,12 @@ def mixedlm_unmask(
     `sample_dims` restricts filtering and sampling to the streams the caller
     masked (ignored when greedy, as in the JAX package); other streams pass
     their target token through. Sampling draws from `generator`, which must
-    live on the tokens' device.
+    live on the tokens' device. `temperature` is a number or a (b,) tensor on
+    that device, one value per row.
+
+    `cache_dtype` is torch.float32, torch.bfloat16 or torch.int8; the fresh
+    buffers of the chunked layout take `fresh_dtype`, by default the cache's
+    type, fp32 under an int8 cache (the JAX package's `_fresh_dtype`).
 
     Without `sample_dims`, greedy and top-k decoding pick from all streams at
     once: the logits are stacked into one zero-padded (b, S, Vmax) tensor and
@@ -115,10 +126,11 @@ def mixedlm_unmask(
     launch, so this replaces S filter-and-draw chains by one; greedy tokens
     are the same either way."""
     _not_ported(
-        cache_dtype=(cache_dtype, torch.float32), fresh_dtype=(fresh_dtype, None),
         static_prefix=(static_prefix, False), chunk_tokens=(chunk_tokens, False),
         unrolled_chunks=(unrolled_chunks, False), capacity_stages=(capacity_stages, 1),
     )
+    if cache_dtype == torch.int8 and chunk_size is None:
+        raise ValueError("mixedlm_unmask: int8 caches need the chunked decode (quantization lives in the chunk merge)")
     if not greedy and generator is None:
         raise ValueError("mixedlm_unmask: sampling needs a torch.Generator")
     b, T, S = tokens.shape
@@ -190,9 +202,11 @@ def mixedlm_unmask(
             step(caches, j)
         return tokens
 
+    if fresh_dtype is None:
+        fresh_dtype = torch.float32 if cache_dtype == torch.int8 else cache_dtype
     fresh = [
-        {"fk": torch.zeros((C,) + layer["k"].shape[1:], dtype=layer["k"].dtype, device=dev),
-         "fv": torch.zeros((C,) + layer["v"].shape[1:], dtype=layer["v"].dtype, device=dev)}
+        {"fk": torch.zeros((C,) + layer["k"].shape[1:], dtype=fresh_dtype, device=dev),
+         "fv": torch.zeros((C,) + layer["v"].shape[1:], dtype=fresh_dtype, device=dev)}
         if layer is not None else None
         for layer in caches
     ]
@@ -208,7 +222,11 @@ def mixedlm_unmask(
         for j in range(base, base + C):
             step(merged, j)
         for layer, f in zip(caches, fresh):  # merge the chunk into the prefix, in place
-            if layer is not None:
-                layer["k"][base : base + C].copy_(f["fk"])
-                layer["v"][base : base + C].copy_(f["fv"])
+            if layer is None:
+                continue
+            for key in ("k", "v"):
+                rows = f["f" + key]
+                if "k_s" in layer:  # int8: quantize the chunk's rows once, with their scales
+                    rows, layer[key + "_s"][base : base + C] = quantize_kv_rows(rows.float())
+                layer[key][base : base + C].copy_(rows)
     return tokens

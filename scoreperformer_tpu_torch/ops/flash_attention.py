@@ -101,8 +101,33 @@ def flash_attention_plain(q, k, v, slopes, mask=None, causal=True, scale=None, r
 def _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
     s, dist = _scores(q, k, slopes, mask, causal, scale)
     p = torch.exp(s - lse[..., None])
+    if causal:
+        # a row with no valid key has lse = -1e30, so P = 1 on every key the
+        # JAX kernels visit for it: the key blocks up to its query block's end
+        tq, tk = s.shape[-2:]
+        keys = jax_masked_row_keys(tq, tk, True, q.device)
+        p = torch.where(torch.arange(tk, device=q.device)[None, :] < keys[:, None], p, 0.0)
     ds = p * (dout.float() @ v.float().transpose(-1, -2) - delta[..., None])
     return p, ds, dist
+
+
+def padded_key_dslopes(lse, delta, tq: int, tk: int, causal: bool) -> Optional[torch.Tensor]:
+    """(h,) part of the slope gradient that the JAX wrapper's padded keys add,
+    or None when it pads no key. On a row with no valid key P = exp(-1e30 -
+    lse) = 1 on every key its blocks visit, the padded ones past t_k too;
+    there v = 0, so dS = -P * delta, and dS * (-|i-j|) sums to
+    P * delta * sum_j |i-j| over the row's padded keys. On every other row P
+    is 0 there. (scoreperformer_tpu/ops/flash_attention.py:362-372, :117-132.)"""
+    bk = max(128, min(256, tk))
+    n_pad = -(-tk // bk) * bk - tk
+    if n_pad == 0:
+        return None
+    dev = lse.device
+    keys = jax_masked_row_keys(tq, tk, causal, dev)[:, None]
+    j = tk + torch.arange(n_pad, device=dev)[None, :]
+    dist = torch.where(j < keys, (j - torch.arange(tq, device=dev)[:, None]).abs(), 0).sum(-1).float()
+    p = torch.exp(NEG_INF - lse.float())
+    return (p * delta.float() * dist).sum(dim=(0, 2))
 
 
 def _sum_kv_heads(x, hk):
@@ -127,6 +152,9 @@ def flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal
     _, ds, dist = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     dq = (ds @ k.float()) * scale
     dslopes = (ds * -dist).sum(dim=(0, 2, 3))
+    padded = padded_key_dslopes(lse, delta, q.shape[2], k.shape[2], causal)
+    if padded is not None:
+        dslopes = dslopes + padded
     return dq.to(q.dtype), dslopes.to(slopes.dtype)
 
 
@@ -226,7 +254,11 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
     flash_attention_bwd_dq.launches += 1
-    return dq, parts.sum(dim=(0, 2)).to(slopes.dtype)
+    dslopes = parts.sum(dim=(0, 2))
+    padded = padded_key_dslopes(lse, delta, tq, k.shape[2], causal)
+    if padded is not None:
+        dslopes = dslopes + padded
+    return dq, dslopes.to(slopes.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

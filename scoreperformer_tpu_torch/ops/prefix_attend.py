@@ -1,0 +1,145 @@
+"""Decode attention over the frozen prefix cache, and the logsumexp combine.
+
+Counterpart of scripts/exp_pallas_decode_attend.py: `pallas_prefix_attend`
+(the Pallas `_prefix_attend_kernel`) and the combine of `hybrid_attend`, the
+split that `models/attention.py::Attention._chunked_cache_attend` runs every
+chunked decode step: the prefix half here, the fresh chunk's half in torch,
+joined by `combine_lse`. On CUDA tensors `prefix_attend` launches the
+hand-written split-K kernel of `csrc/prefix_attend.cu`; on CPU tensors it
+runs `prefix_attend_plain`, the same function in plain PyTorch.
+
+Unlike the TPU kernel, which wanted the cache relaid as (cap, d, b), both
+take the cache in its own time-major layout, (cap, b, kv_heads * d), in
+fp32, bf16 or int8 with (cap, b) row scales, folded as the JAX attention
+folds them: the key scale multiplies the dots, the value scale the
+probabilities before the value product.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import kernel
+
+MASK_VALUE = -1e9  # the Pallas kernel's running max starts here
+KERNEL_HEAD_DIMS = (32, 64)
+MAX_HEADS = 8
+MIN_SLOTS_PER_SPLIT = 16
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _check(q, pk, pv, bias, k_s, v_s, n_valid):
+    if q.ndim != 3 or pk.ndim != 3 or pk.shape != pv.shape:
+        raise ValueError(f"prefix_attend: q {tuple(q.shape)}, pk {tuple(pk.shape)}, pv {tuple(pv.shape)}")
+    b, h, d = q.shape
+    cap = pk.shape[0]
+    kvh = pk.shape[2] // d
+    if pk.shape[1] != b or kvh * d != pk.shape[2] or kvh not in (1, h):
+        raise ValueError(f"prefix_attend: cache {tuple(pk.shape)} does not fit q {tuple(q.shape)}")
+    if bias.shape != (h, cap):
+        raise ValueError(f"prefix_attend: bias {tuple(bias.shape)}, expected ({h}, {cap})")
+    if (k_s is None) != (v_s is None) or (k_s is not None) != (pk.dtype == torch.int8):
+        raise ValueError("prefix_attend: an int8 cache needs both row scales, other caches none")
+    for s in (k_s, v_s):
+        if s is not None and s.shape != (cap, b):
+            raise ValueError(f"prefix_attend: row scales {tuple(s.shape)}, expected ({cap}, {b})")
+    if n_valid is not None and not 0 <= int(n_valid) <= cap:
+        raise ValueError(f"prefix_attend: n_valid={n_valid} outside [0, {cap}]")
+    return b, h, d, cap, kvh
+
+
+def prefix_attend_plain(q, pk, pv, bias, k_s=None, v_s=None, n_valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (o (b, h, d), lse (b, h)) over the first `n_valid`
+    slots (all by default), with the running max floored at -1e9 and an
+    empty sum giving o = 0, as in the Pallas kernel."""
+    b, h, d, cap, kvh = _check(q, pk, pv, bias, k_s, v_s, n_valid)
+    n = cap if n_valid is None else int(n_valid)
+    k = pk[:n].float().reshape(n, b, kvh, d)
+    v = pv[:n].float().reshape(n, b, kvh, d)
+    qh = q.float().reshape(b, kvh, h // kvh, d)
+    s = torch.einsum("bgrd,nbgd->bgrn", qh, k).reshape(b, h, n)
+    if k_s is not None:
+        s = s * k_s[:n].T[:, None, :]
+    s = s + bias[:, :n].float()[None]
+    m = torch.full((b, h), MASK_VALUE, device=q.device)
+    if n:
+        m = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    if v_s is not None:
+        p = p * v_s[:n].T[:, None, :]
+    acc = torch.einsum("bgrn,nbgd->bgrd", p.reshape(b, kvh, h // kvh, n), v).reshape(b, h, d)
+    safe_l = torch.where(l == 0, 1.0, l)
+    return acc / safe_l[..., None], m + torch.log(safe_l)
+
+
+def combine_lse(o_p, lse_p, o_f, lse_f) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Join two softmax halves over disjoint keys (`hybrid_attend`'s combine):
+    o (..., d) and lse (...) of each half -> (o, lse) of the whole."""
+    lse = torch.logaddexp(lse_p, lse_f)
+    o = o_p * torch.exp(lse_p - lse)[..., None] + o_f * torch.exp(lse_f - lse)[..., None]
+    return o, lse
+
+
+def split_count(b: int, n_slots: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, slots per split) of the kernel's grid: enough blocks for two
+    per SM at small b, and at least MIN_SLOTS_PER_SPLIT slots a block."""
+    want = max(1, min(-(-2 * sm_count // b), -(-n_slots // MIN_SLOTS_PER_SPLIT)))
+    per = max(1, -(-n_slots // want))
+    return max(1, -(-n_slots // per)), per
+
+
+def prefix_attend(
+    q: torch.Tensor,  # (b, h, d), scale folded in
+    pk: torch.Tensor,  # (cap, b, kv_heads * d): fp32, bf16 or int8
+    pv: torch.Tensor,
+    bias: torch.Tensor,  # (h, cap) additive: ALiBi, -1e9 on stale slots
+    k_s: Optional[torch.Tensor] = None,  # (cap, b) row scales of an int8 cache
+    v_s: Optional[torch.Tensor] = None,
+    n_valid: Optional[int] = None,  # slots at or past it have weight 0 and are not read
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of one query row per (batch, head) over the prefix cache: the
+    split-K kernel on CUDA tensors, its plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return prefix_attend_plain(q, pk, pv, bias, k_s, v_s, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"prefix_attend: unsupported device {q.device}")
+    b, h, d, cap, kvh = _check(q, pk, pv, bias, k_s, v_s, n_valid)
+    if d not in KERNEL_HEAD_DIMS or h > MAX_HEADS:
+        raise ValueError(f"prefix_attend: the kernel takes head dims {KERNEL_HEAD_DIMS} and at most "
+                         f"{MAX_HEADS} heads, got d={d}, h={h}")
+    if pk.dtype not in _DTYPE_CODES or pv.dtype != pk.dtype:
+        raise TypeError(f"prefix_attend: cache dtypes {pk.dtype}/{pv.dtype} not in {list(_DTYPE_CODES)}")
+    scales = [s for s in (k_s, v_s) if s is not None]
+    for t in [q, bias] + scales:
+        if t.dtype != torch.float32:
+            raise TypeError(f"prefix_attend: q, bias and row scales must be float32, got {t.dtype}")
+    for t in [q, pk, pv, bias] + scales:
+        if t.device != q.device:
+            raise ValueError(f"prefix_attend: tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError("prefix_attend: inputs must be contiguous")
+    if pk.data_ptr() % 16 or pv.data_ptr() % 16:
+        raise ValueError("prefix_attend: the cache must be 16-byte aligned")
+    n = cap if n_valid is None else int(n_valid)
+    splits, per = split_count(b, n, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    o = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
+    lse = torch.empty(b, h, dtype=torch.float32, device=q.device)
+    part_m = torch.empty(b, splits, h, dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(b, splits, h, d, dtype=torch.float32, device=q.device)
+    err = kernel("prefix_attend", "sp_prefix_attend")(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), bias.data_ptr(),
+        k_s.data_ptr() if k_s is not None else None, v_s.data_ptr() if v_s is not None else None,
+        o.data_ptr(), lse.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+        b, h, kvh, d, cap, n, splits, per, _DTYPE_CODES[pk.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"prefix_attend: kernel launch failed with CUDA error {err}")
+    prefix_attend.launches += 1
+    return o, lse
+
+
+prefix_attend.launches = 0

@@ -382,6 +382,85 @@ def test_attention_ring_cache(one_kv_head):
         close(jcache["v"], tcache["v"])
 
 
+CHUNK, CAP = 16, 48
+
+
+def _chunked_caches(kv, cache_dtype, base, seed=14):
+    """A written prefix and fresh buffers for one chunked decode step, as
+    the JAX decode holds them: fp32, bf16, or int8 rows with their scales
+    (JAX's `quantize_kv_rows`); fresh buffers in the cache's type, fp32
+    under int8. Returns (JAX cache, port cache)."""
+    rng = np.random.RandomState(seed)
+    pk, pv = rng.randn(2, CAP, 2, kv).astype(np.float32)
+    fk, fv = rng.randn(2, CHUNK, 2, kv).astype(np.float32)
+    if cache_dtype == "int8":
+        (qk, sk), (qv, sv) = jattention.quantize_kv_rows(jnp.asarray(pk)), jattention.quantize_kv_rows(jnp.asarray(pv))
+        jcache = {"k": qk, "k_s": sk, "v": qv, "v_s": sv}
+        fresh = jnp.float32
+    else:
+        fresh = jnp.dtype(cache_dtype)
+        jcache = {"k": jnp.asarray(pk, fresh), "v": jnp.asarray(pv, fresh)}
+    jcache.update(fk=jnp.asarray(fk, fresh), fv=jnp.asarray(fv, fresh), base=base)
+    tcache = {k: (v if k == "base" else torch.from_numpy(np.array(v.astype(jnp.float32)))
+                  .to(getattr(torch, str(v.dtype)))) for k, v in jcache.items()}
+    return jcache, tcache
+
+
+@pytest.mark.parametrize("one_kv_head", [True, False], ids=["mqa", "mha"])
+@pytest.mark.parametrize("base", [0, CHUNK, 2 * CHUNK], ids=["base0", "base_chunk", "base_mid"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_attention_chunked_cache(cache_dtype, base, one_kv_head):
+    """One chunked decode step: the port's prefix_attend + fresh half +
+    logsumexp combine against the JAX module's single softmax over
+    [prefix | fresh], with fp32, bf16 and int8 prefix caches; the step's
+    rows land in the fresh buffers in place."""
+    kw = dict(one_kv_head=one_kv_head, causal=True, alibi_pos_bias=True, alibi_learned=True)
+    x = rand(15, 2, 1, 16)
+    jmod, params, tmod = _attention_pair(kw, x)
+    jcache, tcache = _chunked_caches(8 if one_kv_head else 24, cache_dtype, base)
+    idx = base + 5
+    want, new = jmod.apply({"params": params}, x, cache=jcache, cache_index=idx)
+    with torch.no_grad():
+        got = tmod(t(x), cache=tcache, cache_index=torch.tensor([idx]))
+    close(want, got)
+    for key in ("fk", "fv"):  # written in place
+        close(new[key].astype(jnp.float32), tcache[key].float())
+
+
+def test_attention_chunked_cache_folds_max_attend_and_rejects_row_masks():
+    """`max_attend` folds into the prefix bias; a key mask that differs
+    between batch rows cannot, and raises."""
+    kw = dict(one_kv_head=True, causal=True, alibi_pos_bias=True, max_attend=20)
+    x = rand(16, 2, 1, 16)
+    jmod, params, tmod = _attention_pair(kw, x)
+    jcache, tcache = _chunked_caches(8, "float32", 2 * CHUNK)
+    want, _ = jmod.apply({"params": params}, x, cache=jcache, cache_index=2 * CHUNK + 3)
+    with torch.no_grad():
+        close(want, tmod(t(x), cache=tcache, cache_index=torch.tensor([2 * CHUNK + 3])))
+        with pytest.raises(NotImplementedError):
+            tmod(t(x), mask=torch.ones(2, CAP + CHUNK, dtype=torch.bool), cache=tcache,
+                 cache_index=torch.tensor([2 * CHUNK + 3]))
+
+
+@pytest.mark.parametrize("kind", ["mask", "attn_mask"])
+def test_attention_chunked_cache_folds_shared_masks(kind):
+    """A key mask or attn_mask shared by the batch rows folds into the one
+    bias over [prefix | fresh]: keys it drops from both halves, the query's
+    own slot kept."""
+    kw = dict(one_kv_head=True, causal=True, alibi_pos_bias=True, alibi_learned=True)
+    x = rand(17, 2, 1, 16)
+    jmod, params, tmod = _attention_pair(kw, x)
+    jcache, tcache = _chunked_caches(8, "float32", 2 * CHUNK)
+    idx = 2 * CHUNK + 5
+    # (batch 1, keys) as a key mask, (query row, keys) as an attn_mask
+    keep = np.random.RandomState(18).rand(1, CAP + CHUNK) > 0.3
+    keep[0, CAP + 5] = True
+    want, _ = jmod.apply({"params": params}, x, cache=jcache, cache_index=idx, **{kind: jnp.asarray(keep)})
+    with torch.no_grad():
+        got = tmod(t(x), cache=tcache, cache_index=torch.tensor([idx]), **{kind: torch.from_numpy(keep)})
+    close(want, got)
+
+
 # ---- guards ----
 
 
@@ -398,6 +477,9 @@ def test_port_imports_no_jax():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "scoreperformer_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(p.relative_to(root)) for p in files}
+    for serving in ("inference/server.py", "serve.py", "render.py", "ops/prefix_attend.py"):
+        assert f"scoreperformer_tpu_torch/{serving}" in names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

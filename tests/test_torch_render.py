@@ -96,6 +96,45 @@ def test_greedy_mixedlm_unmask_matches_jax(pair, chunk_size, filter_fn):
     assert (got[1, T - 4:, tm.PERF_DIMS[0]] == 1).all()
 
 
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+def test_greedy_mixedlm_unmask_cache_dtypes_match_jax(pair, cache_dtype):
+    """Chunked greedy decoding over fp32, bf16 and int8 (quantized once per
+    chunk at the merge) caches: the same tokens as JAX's with that cache."""
+    model, variables, port = pair
+    x = decode_inputs(seed=22)
+    want = jax_unmask(
+        model, variables, jnp.asarray(x["tokens"]), jnp.asarray(x["masked"]), jax.random.PRNGKey(0),
+        style_embeddings=jnp.asarray(x["style"]), context=jnp.asarray(x["context"]),
+        valid_len=jnp.asarray(x["valid_len"]), greedy=True, cache_dtype=jnp.dtype(cache_dtype),
+        forbid_ids={s: jnp.asarray(v) for s, v in FORBID.items()}, sample_dims=tm.PERF_DIMS,
+    )
+    got = port_unmask(port, x, greedy=True, cache_dtype=getattr(torch, cache_dtype), sample_dims=tm.PERF_DIMS)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_int8_cache_needs_the_chunked_decode(pair):
+    _, _, port = pair
+    with pytest.raises(ValueError, match="chunked"):
+        port_unmask(port, decode_inputs(), greedy=True, cache_dtype=torch.int8, chunk_size=None)
+
+
+def test_per_row_temperature(pair):
+    """A (b,) temperature tensor applies row by row: a near-zero row decodes
+    greedily while the other samples; equal values match the scalar."""
+    _, _, port = pair
+    x = decode_inputs()
+    greedy = port_unmask(port, x, greedy=True)
+
+    def sampled(temperature, seed=3):
+        return port_unmask(port, x, generator=torch.Generator().manual_seed(seed), temperature=temperature,
+                           sample_dims=tm.PERF_DIMS)
+
+    mixed = sampled(torch.tensor([1e-7, 5.0]))
+    np.testing.assert_array_equal(mixed[0], greedy[0])
+    assert (mixed[1] != greedy[1]).any()
+    np.testing.assert_array_equal(sampled(torch.tensor([0.7, 0.7])), sampled(0.7))
+
+
 def test_sampling_fills_only_masked_slots_and_respects_forbids(pair):
     _, _, port = pair
     x = decode_inputs()

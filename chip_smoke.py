@@ -10,13 +10,17 @@ checkout. It
 3. holds each kernel against its plain PyTorch version on the card, at the
    render's, the training step's and the served batch's shapes (the served
    scores' valid lengths, batch-padding rows at valid length 1), and at
-   edge cases, and times the kernel, the plain
-   version and one PyTorch call of the same function (the yardstick; the port
-   never calls it);
+   edge cases, and times the kernel, the plain version and one PyTorch call
+   of the same function (the yardstick; the port never calls it) by CUDA-graph
+   replay, with the eager time beside; checks that the flash forward's
+   library holds TF32 tensor-core instructions (`cuobjdump -sass`) and that
+   two `prefix_attend` calls give the same bits; sweeps `prefix_attend`'s
+   split count at the served shape;
 4. render path: builds the flagship ScorePerformer at full width (random
    weights from a seed, use_flash=True) and renders a 32-bar synthetic score
    through `render_performance`, greedy and top-k sampled, counting the
-   kernel launches of each render, and profiles one more greedy render;
+   kernel launches of each render, and profiles one more greedy render
+   (one `prefix_attend` kernel a launch, no merge kernel);
 5. training path: writes a synthetic dataset, builds the same flagship
    through `ExperimentComponents` from a config dict (the flagship recipe's
    data, collator and optimizer settings, batch 128, sequences of 258) and
@@ -80,6 +84,7 @@ OPTIMIZATION = dict(lr=2e-4, optimizer="adamw", optimizer_params={"weight_decay"
                     lr_scheduler="exponential", lr_scheduler_params={"gamma": 0.995}, grad_clip=2.0)
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 L2_BYTES = 50e6  # H100 L2: timed inputs cycle through copies that exceed it
 CHUNK = 16  # the chunked decode's chunk, as the render and the server use it
 DECODER_LAYERS = 4
@@ -97,9 +102,9 @@ SERVE_WINDOW_MS = 60000.0
 # bf16 or int8 cache, may leave out as "not performed"; greedy fp32 ones and
 # the render phase's leave none
 MAX_LEFT_OUT = 0.1
-# kernel names (substrings) in a render's profile; prefix_attend runs two
-# kernels a launch, its split pass and its merge
-PORTED_DECODE = ("prefix_attend_split", "prefix_attend_merge", "write_rows", "flash_fwd")
+# kernel names (substrings) in a render's profile; prefix_attend is one
+# kernel a launch (its clusters merge the splits), with no merge kernel
+PORTED_DECODE = ("prefix_attend", "write_rows", "flash_fwd")
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -166,10 +171,15 @@ def check_write_kv(torch, kv, cap, n, b, dim, index, cache_dtype, timed):
     rec = {"shape": [n, b, dim], "cap": cap, "index": index, "dtype": str(cache_dtype), "max_abs_err": 0.0}
     if timed:
         start = max(0, min(index, cap - n))
-        rec["ms"] = time_ms(torch, lambda: kv.write_kv(cache, new, idx), iters=200)
-        rec["plain_ms"] = time_ms(torch, lambda: kv.write_kv_plain(cache, new, idx), iters=200)
-        rec["library_ms"] = time_ms(torch, lambda: cache[start : start + n].copy_(new), iters=200)
         nbytes = 2 * new.numel() * cache.element_size() + idx.element_size()
+        copies = [(cache.clone(), new.clone()) for _ in range(n_copies(cache.numel() * cache.element_size()))]
+        rec["ms"] = graph_ms(torch, lambda c, x: kv.write_kv(c, x, idx), copies, iters=200)
+        # the plain version reads a device index with a host sync, which a
+        # graph cannot hold: it is given the same start as a host int
+        rec["plain_ms"] = graph_ms(torch, lambda c, x: kv.write_kv_plain(c, x, index), copies, iters=200)
+        rec["library_ms"] = graph_ms(torch, lambda c, x: c[start : start + n].copy_(x), copies, iters=200)
+        rec["eager_ms"] = time_ms(torch, lambda: kv.write_kv(cache, new, idx), iters=200)
+        del copies
         rec["bound_ms"] = nbytes / BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
     return rec
@@ -187,48 +197,66 @@ def sdpa_bias(torch, slopes, mask, causal):
     return bias.contiguous(), ok
 
 
-def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None):
+def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None, hk=1):
     """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4, with
     random valid lengths when `padded` (batch element 0 has none when it is
-    "empty"), or the given `lengths`. Returns the record of this shape
-    (times only when `timed`)."""
+    "empty"), or the given `lengths` (or (first, end) key ranges), and `hk`
+    KV heads. Returns the record of this shape (times only when `timed`)."""
     import torch.nn.functional as F
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     q = torch.randn(b, h, t, d, device=dev, generator=g)
-    k = torch.randn(b, 1, t, d, device=dev, generator=g)
-    v = torch.randn(b, 1, t, d, device=dev, generator=g)
+    k = torch.randn(b, hk, t, d, device=dev, generator=g)
+    v = torch.randn(b, hk, t, d, device=dev, generator=g)
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
+    pos = torch.arange(t, device=dev)[None]
+    first = torch.zeros(b, 1, dtype=torch.int64, device=dev)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev)
+        if lengths.ndim == 2:
+            first, lengths = lengths[:, :1], lengths[:, 1]
     elif padded:
         lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
         if padded == "empty":
             lengths[0] = 0
     else:
         lengths = torch.full((b,), t, device=dev)
-    mask = torch.arange(t, device=dev)[None] < lengths[:, None]
+    mask = (pos >= first) & (pos < lengths[:, None])
     o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     err = max((o - po).abs().max().item(), (lse - plse).abs().max().item())
     if not err <= 1e-4:
         raise AssertionError(f"flash attention differs from its plain version by {err} at {(b, t, causal, padded)}")
-    rec = {"shape": [b, h, t, d], "kv_heads": 1, "causal": causal, "padded": padded, "max_abs_err": err}
+    rec = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "max_abs_err": err}
     if timed:
-        rec["ms"] = time_ms(torch, lambda: fa.flash_attention_alibi(q, k, v, slopes, mask=mask, causal=causal))
+        # device time by graph replay over copies of q, k, v larger than L2
+        nbytes_qkv = 4 * (q.numel() + k.numel() + v.numel())
+        copies = [(q.clone(), k.clone(), v.clone()) for _ in range(n_copies(nbytes_qkv))]
+        rec["ms"] = graph_ms(torch, lambda qc, kc, vc: fa.flash_attention_fwd(qc, kc, vc, slopes, mask, causal),
+                             copies, iters=50)
+        del copies
+        rec["eager_ms"] = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal))
+        # the plain version syncs with the host (rows with no valid key), so a
+        # graph cannot hold it: eager CUDA-event time
         rec["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal))
+        rec["plain_timing"] = "eager"
         # yardstick: SDPA with the bias and masks materialized outside the timing
         bias, ok = sdpa_bias(torch, slopes, mask, causal)
         # SDPA reads outside expanded (stride-0) keys at odd t: copy them
-        ke, ve = k.expand(b, h, t, d).contiguous(), v.expand(b, h, t, d).contiguous()
-        rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=bias))
+        sdpa = [(q.clone(), k.expand(b, h, t, d).contiguous(), v.expand(b, h, t, d).contiguous())
+                for _ in range(n_copies(3 * 4 * q.numel()))]
+        rec["library_ms"] = graph_ms(
+            torch, lambda qc, kc, vc: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=bias), sdpa, iters=50)
+        del sdpa
         pairs = (ok.expand(b, 1, t, t)).sum().item()  # (query, key) pairs this data needs
         ops = 4 * d * h * pairs  # q.k and p.v, a multiply and an add each
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + h) + mask.numel()
         rec["bound_by"] = "operations" if ops / FP32_OPS_PER_S > nbytes / BYTES_PER_S else "bytes"
         rec["bound_ms"] = max(ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
+        # the same fp32-accurate work as three TF32 tensor-core products
+        rec["bound_tc_ms"] = max(3 * ops / TF32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
     return rec
 
 
@@ -349,13 +377,18 @@ def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64,
         (k, k_s), (v, v_s) = quantize_kv_rows(k), quantize_kv_rows(v)
         scales = (k_s.contiguous(), v_s.contiguous())
     o, lse = pa.prefix_attend(q, k, v, bias, *scales, n_valid=base)
+    o2, lse2 = pa.prefix_attend(q, k, v, bias, *scales, n_valid=base)
     po, plse = pa.prefix_attend_plain(q, k, v, bias, *scales, n_valid=base)
     torch.cuda.synchronize()
     err = max((o - po).abs().max().item(), (lse - plse).abs().max().item())
     if not err <= 1e-4:
         raise AssertionError(f"prefix_attend differs from its plain version by {err} at "
                              f"{(b, cap, base, dtype, h, d, kvh)}")
-    rec = {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "kv_heads": kvh, "max_abs_err": err}
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"two prefix_attend calls give other bits at {(b, cap, base, dtype, h, d, kvh)}")
+    splits, _ = pa.split_plan(b, base, torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "kv_heads": kvh, "splits": splits,
+           "max_abs_err": err, "same_bits": True}
     if timed:
         # the bytes this call needs: the first `base` rows of k and v (and
         # their scales), q, the bias columns it reads, o and lse
@@ -389,6 +422,39 @@ def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64,
         rec["bound_by"] = "operations" if ops / FP32_OPS_PER_S > nbytes / BYTES_PER_S else "bytes"
         rec["bound_ms"] = max(ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
     return rec
+
+
+def prefix_split_sweep(torch, pa, b=SERVE_REQUESTS, cap=SERVE_BUCKET, base=SERVE_BUCKET // 2, d=64, h=4):
+    """Device ms of the prefix_attend kernel (fp32, one KV head) at the served
+    shape against its split count, called at its C entry, with the cache
+    cycling through copies larger than L2 ("cold") or one copy that stays in
+    L2 ("warm"): what the split plan and the per-row cost rest on."""
+    from scoreperformer_tpu_torch.ops import _build
+
+    fn = _build.kernel("prefix_attend", "sp_prefix_attend")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(b, h, d, device="cuda", generator=g) * d**-0.5
+    k = torch.randn(cap, b, d, device="cuda", generator=g)
+    v = torch.randn(cap, b, d, device="cuda", generator=g)
+    bias = torch.zeros(h, cap, device="cuda")
+    o, lse = torch.empty(b, h, d, device="cuda"), torch.empty(b, h, device="cuda")
+    cold = [(k.clone(), v.clone()) for _ in range(n_copies(2 * base * b * d * 4))]
+
+    def ms(splits, copies):
+        per = -(-base // splits)
+
+        def call(kc, vc):
+            err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bias.data_ptr(), None, None, o.data_ptr(),
+                     lse.data_ptr(), b, h, 1, d, cap, base, splits, per, 0, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"prefix_attend: CUDA error {err}")
+
+        return graph_ms(torch, call, copies, iters=200)
+
+    return {"shape": [b, h, d], "cap": cap, "base": base,
+            "plan": pa.split_plan(b, base, torch.cuda.get_device_properties(0).multi_processor_count)[0],
+            "cold_ms": {n: ms(n, cold) for n in (1, 2, 4, 8, 16)},
+            "warm_ms": {n: ms(n, [(k, v)]) for n in (1, 4)}}
 
 
 def train_config(tokenizer, root, out_dir, batch_size, max_steps):
@@ -531,11 +597,32 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
         "device_ops": sum(e.count for e in device),
         "top": [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in by_time],
         "ported": {
-            name: {"ms": sum(e.self_device_time_total for e in hits) / 1e3, "count": sum(e.count for e in hits)}
+            name: {"ms": sum(e.self_device_time_total for e in hits) / 1e3, "count": sum(e.count for e in hits),
+                   "kernels": sorted({e.key[:100] for e in hits})}
             for name in ported
             for hits in [[e for e in device if name in e.key]]
         },
     }
+
+
+def check_prefix_attend_profile(prof, what, expected):
+    """The profile holds `expected` prefix_attend kernels, one a launch, and
+    no merge kernel."""
+    got = prof["ported"]["prefix_attend"]
+    if got["count"] != expected or any("merge" in name for name in got["kernels"]):
+        raise AssertionError(f"{what}: prefix_attend kernels {got['kernels']} ran {got['count']} times, "
+                             f"expected one kernel {expected} times")
+
+
+def check_tensor_cores(path):
+    """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of the
+    library at `path`: their count and the first one; fails with none."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    hmma = [line.strip() for line in sass.splitlines() if "HMMA" in line and "TF32" in line]
+    if not hmma:
+        raise AssertionError(f"no TF32 HMMA instruction in the SASS of {path}")
+    return len(hmma), hmma[0]
 
 
 def check_performance(tokenizer, score_ids, perf, what, all_performed=True):
@@ -756,8 +843,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {sorted(str(p) for p in libs.values())}")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
+    n_hmma, first_hmma = check_tensor_cores(libs["flash_attention_fwd"])
+    print(f"flash_attention_fwd SASS: {n_hmma} TF32 tensor-core instructions, e.g. {first_hmma}")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -808,6 +897,24 @@ def main() -> int:
                     lengths=serve_lens[:SERVE_REQUESTS - 16] + [1] * 16),
         check_flash(torch, fa, SERVE_REQUESTS, SERVE_BUCKET, causal=False, padded="warmup", timed=False,
                     lengths=[1] * SERVE_REQUESTS),
+        # one KV head per query head (blocks of one head): padded; causal with
+        # an element that has no valid key
+        check_flash(torch, fa, 4, 130, causal=False, padded=True, timed=False, hk=4),
+        check_flash(torch, fa, 2, 300, causal=True, padded="empty", timed=False, hk=4),
+        check_flash(torch, fa, 2, 77, causal=False, padded=True, timed=False, d=32),
+    ] + [
+        # t around the 16-row warp tiles and the 64-key tiles
+        check_flash(torch, fa, 2, t, causal=c, padded=False, timed=False)
+        for t in (1, 15, 17, 63, 65, 129) for c in (False, True)
+    ] + [
+        # key tiles skipped in long padded tails beside an element with no
+        # valid key (the JAX average) in one batch; then keys that start late,
+        # so early causal rows have none
+        check_flash(torch, fa, 4, SERVE_BUCKET, causal=c, padded="tails", timed=False, lengths=[0, 3, 64, 130])
+        for c in (False, True)
+    ] + [
+        check_flash(torch, fa, 3, 200, causal=True, padded="late", timed=False,
+                    lengths=[(70, 200), (5, 90), (130, 131)]),
     ]
     for rec in [kv_main] + kv_recs:
         print("write_kv", json.dumps(rec))
@@ -851,6 +958,7 @@ def main() -> int:
     ]
     for rec in [pa_main] + pa_recs:
         print("prefix_attend", json.dumps(rec))
+    print("prefix_attend split sweep", json.dumps(prefix_split_sweep(torch, pa)))
 
     # ---- the main path: the flagship renders the score on the card ----
     cfg = flagship_config(tokenizer, T)
@@ -876,6 +984,7 @@ def main() -> int:
     prof = profile_device(torch, lambda: render_performance(model, tokenizer, score, seed=SEED,
                                                             device="cuda", greedy=True), ported=PORTED_DECODE)
     print("profile greedy render", json.dumps(prof))
+    check_prefix_attend_profile(prof, "the render's profile", expected=decode_launches(n_steps)["prefix_attend"])
 
     # ---- the training path: the flagship takes train steps on the card ----
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
@@ -977,18 +1086,19 @@ def main() -> int:
                          serve_scores, serve_inputs)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
     served_launches = served["greedy"]["launches"]
+    check_prefix_attend_profile(served["profile"], "the served batch's profile", expected=served_launches["prefix_attend"])
 
     launches = renders["greedy"][1]
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "write_kv", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/kv_cache.cu",
          "replaces": "scoreperformer_tpu/ops/kv_cache.py:34", "launches": launches["write_kv"],
-         **{k: kv_main[k] for k in bound_keys}},
+         **{k: kv_main[k] for k in bound_keys + ("eager_ms",)}},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         **{k: fa_main[k] for k in bound_keys}},
+         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": n_hmma},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[name], **{k: rec[k] for k in bound_keys}}
@@ -999,7 +1109,7 @@ def main() -> int:
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",
          "replaces": "scripts/exp_pallas_decode_attend.py:51", "launches": launches["prefix_attend"],
-         **{k: pa_main[k] for k in bound_keys}},
+         **{k: pa_main[k] for k in bound_keys + ("eager_ms",)}},
     ]
     for rec in kernels:
         rec["launches_by_path"] = {"render_greedy": launches[rec["name"]], "train_steps": train_launches[rec["name"]],

@@ -37,9 +37,10 @@
 //   of the slope gradient to a (b, h, query tiles) scratch tensor that the
 //   caller sums, as the JAX code sums over the batch outside the kernel.
 // In both, the (query row, key) scores are computed one key per lane, eight
-// rows per warp, in the forward kernel's order of operations, so P matches
-// the forward's. Keys past t and query rows past t take no part (no padding
-// by the caller); masked keys are -1e30 as in the forward.
+// rows per warp, with fp32 FMAs. The forward takes its products in split
+// TF32 on the tensor cores, in another order, so P's row sums from the saved
+// lse may differ from 1 by about 1e-6. Keys past t and query rows past t take
+// no part (no padding by the caller); masked keys are -1e30 as in the forward.
 //
 // Rows with no valid key. Their lse is -1e30, so P = exp(-1e30 - lse) = 1 on
 // every key a kernel visits for them, and the JAX kernels visit the key

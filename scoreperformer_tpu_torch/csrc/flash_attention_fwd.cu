@@ -1,61 +1,146 @@
-// Flash-attention forward with ALiBi generated in the kernel (fp32).
+// Flash-attention forward with ALiBi generated in the kernel, fp32 in and
+// out, its products on the tensor cores in split TF32.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_kernel, the
 // Pallas forward that `_flash_forward` launches for `flash_attention_alibi`.
 //
-// Bound on the H100: at the render's encoder shapes (h=4, d=64, one KV head,
-// t = notes) the work is 4*h*t*t*d fp32 operations over a few MB of q/k/v,
-// so it sits on the fp32 (non-tensor-core) side of the roofline; at batch 1
-// it is too small to fill 132 SMs, and the launch and the tile loop's
-// latency dominate. The kernel computes in full fp32, as the JAX package's
-// "highest" precision does; bf16 tensor-core math is later work.
+// Bounds on the H100. The work is 4*d fp32 operations per (query row, key)
+// pair and head (q.k and p.v, a multiply and an add each) over a few MB of
+// q/k/v, far above the bytes: on the CUDA cores it is bound by fp32's 67
+// TFLOP/s (b=128, t=384 at the served lengths: 0.166 ms). TF32 tensor cores
+// run 495 TFLOP/s, but one TF32 product keeps 11 bits, and the port's checks
+// need fp32 accuracy (o and lse to 1e-4, greedy tokens equal to the CPU's,
+// gradients to 1e-3), as the JAX kernel's "highest" precision gives on the
+// CPU. So each product is split: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest (cvt.rna), and
+// a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b, summed in fp32; the dropped
+// lo.lo term and lo's rounding leave an error near 2^-21 relative. The
+// tensor cores truncate the fp32 sums they accumulate, which biases a long
+// chain of products in one accumulator toward zero: enough to move
+// gradients that are sums of cancelling terms (with such chains a batch-4
+// train step's ALiBi-slope gradients are 8.4e-3 off the CPU's, against a
+// 1e-3 gate). So each k-step's three products start from zero and join the
+// running sums by rounded fp32 adds (2.8e-4 there). Three tensor-core
+// products where fp32 needs one: the floor is 3 * operations / 495 TFLOP/s
+// (`bound_tc_ms` in chip_smoke.py), 0.067 ms at the shape above.
 //
-// Head dims 32 and 64 are built; 128 would need more than the 48 KB of static
-// shared memory this layout takes.
-//
-// Design: one block of 4 warps per (batch*head, tile of 32 query rows); each
-// warp owns 8 rows and keeps their running max, sum and 64-wide (d/32 per
-// lane) accumulators in registers. Keys and values stream through shared
-// memory in tiles of 32, one key per lane: a lane dots its key against the 8
-// query rows (queries are broadcast from shared memory), the warp reduces the
-// row max and sum with shuffles, and the probabilities go through shared
-// memory to the P.V product, where each lane owns d/32 output columns. The
-// (h, t, t) bias and score tensors never reach device memory. As in the TPU
-// kernel: q is scaled before the dot, the bias is -slope*|i-j|, masked scores
-// are -1e30, l is clamped at 1e-30, causal tiles past the diagonal are
-// skipped. Keys past t are excluded in the kernel (no padding by the caller),
-// and with one KV head every query head reads KV head 0.
+// Design.
+// - One block of 4 warps owns 64 query rows, 16 per warp: one m16 row tile
+//   of `mma.sync.m16n8k8.tf32`. With one KV head (MQA) the 64 rows are the
+//   h heads x 64/h positions of one batch element, so each K/V tile is read
+//   once for all heads; otherwise 64 positions of one head. The slope and
+//   the causal test are per row. 64/h divides 256, so a block never
+//   straddles the JAX wrapper's query blocks (bq = 256 when t_q >= 256).
+// - q is scaled and split into hi/lo TF32 A fragments once; each lane keeps
+//   its own in shared memory (16 bytes a load), which holds the kernel to
+//   143 registers at d=64 (with them in registers beside the rounded joins
+//   it ran out of registers and spilled), so three blocks fit an SM. Keys and values stream through shared memory in tiles
+//   of 32 rows, copied with `cp.async` 16 bytes a lane and double-buffered:
+//   the next tile is in flight while this one is computed. Rows are padded
+//   to d+4 floats, so the B-fragment loads of K (key = lane/4, dim = lane%4)
+//   and of V (key = 2*(lane%4), dim = lane/4) hit 32 distinct banks.
+// - S = Q.K^T lands in the m16n8 accumulator layout (row lane/4 or +8,
+//   keys 2*(lane%4) and +1). The online softmax runs there in fp32
+//   registers: the bias -slope*|i-j|, the mask, the row max over the 4
+//   lanes of a row (two shuffles), exp. P feeds the P.V product without a
+//   trip through shared memory: the contraction over a tile's 8 keys may
+//   take them in any order, so A-fragment column c holds key 2c (c < 4) or
+//   2(c-4)+1, and V's B fragment reads its rows in the same order.
+// - Key tiles whose keys are all masked are skipped, unless the block holds
+//   a query row with no valid key. The skip is exact: for a row with a valid
+//   key, a masked key's weight exp(-1e30 - m) is 0, or is wiped by the
+//   rescale exp(-1e30 - m_new) = 0 once the valid key arrives. The block
+//   reads the key mask once into shared memory as bits (one ballot per
+//   32-key tile), which also give the first valid key, and with it whether a
+//   row lacks one: every row when the element has none, rows before it with
+//   `causal`.
+// As in the TPU kernel: q is scaled before the dot, the bias is
+// -slope*|i-j|, masked scores are -1e30, l is clamped at 1e-30, causal
+// tiles past the block's last row are skipped. Keys past t take no part (no
+// padding by the caller), and with one KV head every query head reads KV
+// head 0. Head dims 32 and 64.
 //
 // A query row with no valid key gets what the JAX wrapper gives it: that
 // wrapper pads keys to whole blocks of bk = max(128, min(256, t_k)) with
 // mask 0, so such a row averages v (zero past t_k) over every key of the
 // key blocks its query block visits: ceil(t_k / bk) * bk of them, or with
 // `causal` the blocks up to the end of its query block of
-// bq = max(8, min(256, t_q)) rows (`jax_masked_row_keys`). When a block
-// holds such a row, the causal tile loop runs on to that row's last key.
+// bq = max(8, min(256, t_q)) rows (`jax_masked_row_keys`). A block that
+// holds such a row visits every key tile, and with `causal` runs on to that
+// row's last key.
+//
+// Left for later work: `wgmma` (it takes TF32 operands K-major only, so V
+// would have to be transposed in shared memory), TMA copies and warp
+// specialisation, bf16 operands (with `bf16_compute`), head dim 128.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 8;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;
-constexpr int kBlockK = 32;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 16;                    // one m16 tile
+constexpr int kBlockRows = kWarps * kRowsPerWarp;  // (head, position) rows a block
+constexpr int kBlockK = 32;                        // keys a tile
 constexpr float kMaskValue = -1e30f;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+template <int D>
+struct Layout {
+  static constexpr int kStride = D + 4;  // floats a staged K or V row
+  static constexpr int kTileFloats = kBlockK * kStride;
+  static constexpr int kQFrags = kWarps * (D / 8) * 2 * 32;  // uint4 q fragments, hi and lo
+  // K and V, two buffers each; q's fragments; the key-validity bits follow
+  static constexpr int kTileBytes = 4 * kTileFloats * (int)sizeof(float) + kQFrags * 16;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// x ~ hi + lo, both TF32, lo the rounded remainder
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
+
+// c += a.b on one m16n8k8 tile
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in split TF32. The tensor cores truncate their fp32 sums, so a
+// chain of many products into one accumulator drifts toward zero; here the
+// three products of one k-step start from zero, the small ones first, and
+// join c by rounded fp32 adds.
+__device__ __forceinline__ void mma_split_tf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                               const uint32_t* b_hi, const uint32_t* b_lo) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, a_lo, b_hi);
+  mma_tf32(t, a_hi, b_lo);
+  mma_tf32(t, a_hi, b_hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
+// 16 bytes from global to shared memory; zeros when !in
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool in) {
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// all but the newest group have landed
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // Keys that the JAX wrapper averages over for a query row with no valid key.
 __device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk, int causal) {
@@ -67,142 +152,267 @@ __device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk, int c
   return min(n_kb, (q_end + bk - 1) / bk) * bk;
 }
 
+// Grid: (query tiles of 64 / heads_per_block positions, b) when
+// heads_per_block == h (one KV head), else (query tiles of 64, b * h).
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
     flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ slopes,
               const uint8_t* __restrict__ mask, float* __restrict__ out,
-              float* __restrict__ lse, int h, int hk, int tq, int tk, int causal,
-              float scale) {
-  constexpr int kCols = D / 32;  // output columns per lane
-  __shared__ float qs[kBlockQ][D];
-  __shared__ float ks[kBlockK][D + 1];  // +1: lanes read distinct rows at one column
-  __shared__ float vs[kBlockK][D];
-  __shared__ float ps[kWarps][kRowsPerWarp][kBlockK];
-
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int head = bh % h;
-  const size_t kv_off = ((size_t)b * hk + (hk == 1 ? 0 : head)) * tk * D;
-  const float* qp = q + (size_t)bh * tq * D;
-  const float* kp = k + kv_off;
-  const float* vp = v + kv_off;
-  const uint8_t* mp = mask + (size_t)b * tk;
-  const float slope = slopes[head];
+              float* __restrict__ lse, int h, int hk, int tq, int tk, int causal, float scale,
+              int heads_per_block) {
+  using L = Layout<D>;
+  constexpr int kStride = L::kStride;
+  constexpr int kSteps = D / 8;          // k-steps of Q.K^T, n-tiles of P.V
+  constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of Q.K^T, k-steps of P.V
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                          // [2][kBlockK][kStride]
+  float* vs = smem + 2 * L::kTileFloats;     // [2][kBlockK][kStride]
+  uint4* q_frag = reinterpret_cast<uint4*>(smem + 4 * L::kTileFloats);  // [warp][kk][hi, lo][lane]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(q_frag + L::kQFrags);  // [tiles]
+  __shared__ int first_valid;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int row0 = warp * kRowsPerWarp;
+  const int g = lane / 4;   // fragment row (and +8)
+  const int t4 = lane % 4;  // fragment column
+  const int positions = kBlockRows / heads_per_block;
+  const int b = heads_per_block == 1 ? blockIdx.y / h : blockIdx.y;
+  const int head0 = heads_per_block == 1 ? blockIdx.y % h : 0;
+  const int q0 = blockIdx.x * positions;
+  const size_t kv_off = ((size_t)b * hk + (hk == 1 ? 0 : head0)) * tk * D;
+  const float* kp = k + kv_off;
+  const float* vp = v + kv_off;
+  const uint8_t* mp = mask + (size_t)b * tk;
 
-  for (int i = tid; i < kBlockQ * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    qs[r][c] = (q0 + r < tq) ? qp[(size_t)(q0 + r) * D + c] * scale : 0.f;
+  // this thread's two rows: g and g + 8 of the warp's 16
+  int row_head[2], row_pos[2];
+  float row_slope[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * kRowsPerWarp + g + 8 * i;
+    row_head[i] = head0 + r / positions;
+    row_pos[i] = q0 + r % positions;
+    row_slope[i] = slopes[row_head[i]];
   }
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kMaskValue;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
+  // key validity as bits, and the first valid key
   const int all_tiles = (tk + kBlockK - 1) / kBlockK;
-  int num_tiles = causal ? min(all_tiles, (q0 + kBlockQ - 1) / kBlockK + 1) : all_tiles;
-
-  for (int tile = 0; tile < num_tiles; ++tile) {
+  if (tid == 0) first_valid = INT_MAX;
+  __syncthreads();
+  int first = INT_MAX;
+  for (int w = warp; w < all_tiles; w += kWarps) {
+    const int j = w * 32 + lane;
+    const uint32_t word = __ballot_sync(0xffffffffu, j < tk && mp[j] != 0);
+    if (lane == 0) bits[w] = word;
+    if (word != 0 && first == INT_MAX) first = w * 32 + __ffs(word) - 1;
+  }
+  if (lane == 0 && first != INT_MAX) atomicMin(&first_valid, first);
+  __syncthreads();
+  // a row of this block has no valid key: its first row's, if any
+  const bool has_empty_row = first_valid >= tk || (causal && first_valid > q0);
+  const int last_pos = min(tq, q0 + positions) - 1;
+  int end = causal ? min(all_tiles, last_pos / kBlockK + 1) : all_tiles;
+  if (causal && has_empty_row) {
+    const int keys = min(tk, jax_masked_row_keys(q0, tq, tk, causal));
+    end = max(end, (keys + kBlockK - 1) / kBlockK);
+  }
+  auto next_tile = [&](int tile) {
+    while (tile < end && !has_empty_row && bits[tile] == 0) ++tile;
+    return tile;
+  };
+  auto load_tile = [&](int tile, int buf) {
     const int k0 = tile * kBlockK;
-    __syncthreads();  // the previous tile's reads (and the q load) are done
-    for (int i = tid; i < kBlockK * D; i += blockDim.x) {
-      const int r = i / D, c = i % D;
+    float* kd = ks + buf * L::kTileFloats;
+    float* vd = vs + buf * L::kTileFloats;
+    constexpr int kChunks = kBlockK * D / 4;  // 16-byte pieces of a tile
+#pragma unroll
+    for (int c = tid; c < kChunks; c += kThreads) {
+      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
       const bool in = k0 + r < tk;
-      ks[r][c] = in ? kp[(size_t)(k0 + r) * D + c] : 0.f;
-      vs[r][c] = in ? vp[(size_t)(k0 + r) * D + c] : 0.f;
+      const size_t src = (size_t)(in ? k0 + r : 0) * D + col;
+      cp_async16(kd + r * kStride + col, kp + src, in);
+      cp_async16(vd + r * kStride + col, vp + src, in);
     }
+  };
+
+  int tile = next_tile(0);
+  if (tile < end) load_tile(tile, 0);
+  cp_async_commit();
+
+  // q, scaled, as split A fragments (row g or g+8, column t4 or t4+4), kept
+  // in shared memory where only this lane reads them
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1;
+      const int col = kk * 8 + t4 + 4 * (e >> 1);
+      const float x = row_pos[i] < tq
+                          ? q[(((size_t)b * h + row_head[i]) * tq + row_pos[i]) * D + col] * scale
+                          : 0.f;
+      split_tf32(x, hi[e], lo[e]);
+    }
+    q_frag[((warp * kSteps + kk) * 2 + 0) * 32 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    q_frag[((warp * kSteps + kk) * 2 + 1) * 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+
+  float acc[kSteps][4];
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue};
+  float l[2] = {0.f, 0.f};  // this lane's part of the row sums
+
+  int buf = 0;
+  while (tile < end) {
+    const int nxt = next_tile(tile + 1);
+    if (nxt < end) load_tile(nxt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
     __syncthreads();
+    const float* kt = ks + buf * L::kTileFloats;
+    const float* vt = vs + buf * L::kTileFloats;
+    const int k0 = tile * kBlockK;
 
-    const int kj = k0 + lane;
-    const bool in_range = kj < tk;
-    const bool key_ok = in_range && mp[kj] != 0;
-
-    float s[kRowsPerWarp];
+    // S = Q.K^T: B fragment (dim t4 or t4+4, key g) of each 8-key n-tile
+    float s[kKeyTiles][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float kc = ks[lane][c];
+    for (int n = 0; n < kKeyTiles; ++n)
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(qs[row0 + r][c], kc, s[r]);
-    }
-
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qi = q0 + row0 + r;
-      float sr = s[r] - slope * fabsf((float)(kj - qi));
-      sr = (key_ok && (!causal || kj <= qi)) ? sr : kMaskValue;
-      sr = in_range ? sr : -INFINITY;  // keys past t take no part at all
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float p = expf(sr - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p);
-      m[r] = m_new;
-      ps[warp][r][lane] = p;
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint4 qh = q_frag[((warp * kSteps + kk) * 2 + 0) * 32 + lane];
+      const uint4 ql = q_frag[((warp * kSteps + kk) * 2 + 1) * 32 + lane];
+      const uint32_t q_hi[4] = {qh.x, qh.y, qh.z, qh.w};
+      const uint32_t q_lo[4] = {ql.x, ql.y, ql.z, ql.w};
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-    }
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float vv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = vs[j][lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = ps[warp][r][j];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      for (int n = 0; n < kKeyTiles; ++n) {
+        const float* kr = kt + (n * 8 + g) * kStride + kk * 8 + t4;
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(kr[0], b_hi[0], b_lo[0]);
+        split_tf32(kr[4], b_hi[1], b_lo[1]);
+        mma_split_tf32(s[n], q_hi, q_lo, b_hi, b_lo);
       }
     }
 
-    if (causal && tile == num_tiles - 1 && num_tiles < all_tiles) {
-      // A row with no valid key averages over the keys the JAX wrapper's
-      // blocks visit, which reach past the diagonal; rows with a valid key
-      // take p = 0 from the extra tiles. A tile of 32 rows never straddles
-      // two of the wrapper's query blocks, so one count serves the block.
-      bool none_valid = false;
+    // online softmax on the accumulator: s[n][e] is row g + 8*(e>>1), key
+    // k0 + 8n + 2*t4 + (e&1)
+    const uint32_t w0 = bits[tile];
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) none_valid |= (q0 + row0 + r < tq && m[r] == kMaskValue);
-      if (__syncthreads_or(none_valid)) {
-        const int keys = min(tk, jax_masked_row_keys(q0, tq, tk, causal));
-        num_tiles = max(num_tiles, (keys + kBlockK - 1) / kBlockK);
+    for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int jj = n * 8 + 2 * t4 + (e & 1);
+        const int j = k0 + jj;
+        const bool valid = ((w0 >> jj) & 1u) != 0;
+        float x = s[n][e] - row_slope[i] * fabsf((float)(j - row_pos[i]));
+        x = (valid && (!causal || j <= row_pos[i])) ? x : kMaskValue;
+        x = j < tk ? x : -INFINITY;  // keys past t take no part at all
+        s[n][e] = x;
+        mx[i] = fmaxf(mx[i], x);
       }
     }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kKeyTiles; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+
+    // O += P.V: the k-step over keys 8kk.. takes them in the order
+    // 0, 2, 4, 6, 1, 3, 5, 7, so A comes straight from the accumulator
+#pragma unroll
+    for (int kk = 0; kk < kKeyTiles; ++kk) {
+      uint32_t p_hi[4], p_lo[4];
+      split_tf32(s[kk][0], p_hi[0], p_lo[0]);  // (g, key 2*t4)
+      split_tf32(s[kk][2], p_hi[1], p_lo[1]);  // (g + 8, key 2*t4)
+      split_tf32(s[kk][1], p_hi[2], p_lo[2]);  // (g, key 2*t4 + 1)
+      split_tf32(s[kk][3], p_hi[3], p_lo[3]);  // (g + 8, key 2*t4 + 1)
+      const float* vr = vt + (kk * 8 + 2 * t4) * kStride + g;
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n) {
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(vr[n * 8], b_hi[0], b_lo[0]);
+        split_tf32(vr[kStride + n * 8], b_hi[1], b_lo[1]);
+        mma_split_tf32(acc[n], p_hi, p_lo, b_hi, b_lo);
+      }
+    }
+    __syncthreads();  // this buffer is refilled next iteration
+    tile = nxt;
+    buf ^= 1;
   }
 
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + row0 + r;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row_pos[i];
     if (qi >= tq) continue;
-    const float lc = m[r] == kMaskValue ? (float)jax_masked_row_keys(qi, tq, tk, causal)
-                                        : fmaxf(l[r], 1e-30f);
-    float* op = out + ((size_t)bh * tq + qi) * D;
+    const float lc = m[i] == kMaskValue ? (float)jax_masked_row_keys(qi, tq, tk, causal)
+                                        : fmaxf(l[i], 1e-30f);
+    const size_t row = ((size_t)b * h + row_head[i]) * tq + qi;
+    float* op = out + row * D + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) op[lane + 32 * c] = acc[r][c] / lc;
-    if (lse != nullptr && lane == 0) lse[(size_t)bh * tq + qi] = m[r] + logf(lc);
+    for (int n = 0; n < kSteps; ++n)
+      *reinterpret_cast<float2*>(op + n * 8) = make_float2(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
+    if (lse != nullptr && t4 == 0) lse[row] = m[i] + logf(lc);
   }
+}
+
+template <int D>
+int max_dynamic_smem() {
+  // the device's opt-in limit less the static part, granted to the kernel once
+  static const int bytes = [] {
+    int dev = 0, limit = 0;
+    cudaFuncAttributes attr = {};
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaFuncGetAttributes(&attr, flash_fwd<D>);
+    const int dynamic = limit - (int)attr.sharedSizeBytes;
+    cudaFuncSetAttribute(flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+    return dynamic;
+  }();
+  return bytes;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* slopes,
            const uint8_t* mask, float* out, float* lse, int b, int h, int hk, int tq, int tk,
            int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, b * h);
-  flash_fwd<D><<<grid, kWarps * 32, 0, stream>>>(q, k, v, slopes, mask, out, lse, h, hk, tq,
-                                                 tk, causal, scale);
+  const int all_tiles = (tk + kBlockK - 1) / kBlockK;
+  const size_t smem = Layout<D>::kTileBytes + sizeof(uint32_t) * all_tiles;
+  if (smem > (size_t)max_dynamic_smem<D>()) return (int)cudaErrorInvalidValue;
+  const bool mqa = hk == 1 && h > 1 && kBlockRows % h == 0;
+  const int heads_per_block = mqa ? h : 1;
+  const int positions = kBlockRows / heads_per_block;
+  const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
+  flash_fwd<D><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, out, lse, h, hk, tq, tk,
+                                                 causal, scale, heads_per_block);
   return (int)cudaGetLastError();
 }
 
@@ -210,12 +420,14 @@ int launch(const float* q, const float* k, const float* v, const float* slopes,
 
 // q: (b, h, tq, d); k, v: (b, hk, tk, d) with hk in {1, h}; slopes: (h,);
 // mask: (b, tk) bytes, nonzero = valid key; out: (b, h, tq, d); lse: (b, h, tq)
-// or null. All fp32 and contiguous. Returns the CUDA error code of the launch.
+// or null. All fp32, contiguous and 16-byte aligned. Returns the CUDA error
+// code of the launch.
 extern "C" int sp_flash_attention_fwd(const float* q, const float* k, const float* v,
                                       const float* slopes, const uint8_t* mask, float* out,
                                       float* lse, int b, int h, int hk, int tq, int tk, int d,
                                       int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:
       return launch<32>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);

@@ -1,7 +1,8 @@
-// Decode attention over the frozen prefix cache, split across blocks (flash
-// decoding): one query row per (batch, head) against the prefix rows written
-// so far, with an additive bias, giving o and the logsumexp for an outside
-// combine with the fresh chunk's attention.
+// Decode attention over the frozen prefix cache, split across the blocks of
+// one thread-block cluster (flash decoding in one launch): one query row per
+// (batch, head) against the prefix rows written so far, with an additive
+// bias, giving o and the logsumexp for an outside combine with the fresh
+// chunk's attention.
 //
 // Replaces: scripts/exp_pallas_decode_attend.py::_prefix_attend_kernel (via
 // `pallas_prefix_attend`), the prefix half of
@@ -27,27 +28,43 @@
 // (slot j, batch b, KV head g) is d contiguous elements, loaded by a group of
 // d/4 lanes, 4 elements (16 B in fp32) a lane, so one warp reads 2 (d = 64)
 // or 4 (d = 32) rows at a time, converting bf16 or int8 to fp32 in
-// registers. All h query heads of the batch row live in the same block: each
-// lane keeps q, the running max, sum and its 4 columns of the output for
-// every head, so with one KV head each row is read once for all heads. The
-// slots are split across blocks (grid: splits x b) so that the grid fills
-// the 132 SMs even at b = 1; each block merges its lane groups' states in
-// shared memory and writes one (m, l, acc) per head, and a second small
-// kernel merges the splits into o and lse. No atomics: repeated runs give
-// the same bits.
+// registers. Each lane group keeps two rows in flight: the next row's loads
+// (k, v, scales, bias) are requested before this row's dot, shuffles and
+// exponentials. All H query heads of the batch row live in the same block,
+// H a template parameter (1, 2, 4 or 8): each lane keeps q, the running max,
+// sum and its 4 columns of the output for every head, so with one KV head
+// each row is read once for all heads. The slots are split across the
+// blocks of one cluster (grid: splits x b, cluster: splits x 1), so that the
+// grid fills the 132 SMs even at b = 1, in one wave of blocks: a block has a
+// fixed cost of several us, more with larger clusters, so a second wave
+// costs more than its shorter loops save (ops/prefix_attend.py::split_plan;
+// the split sweep in chip_smoke.py).
+// Each block merges its lane groups' states in its shared memory; after a
+// cluster barrier, block 0 reads every split's (m, l, acc) from distributed
+// shared memory, merges them in split order and writes o and lse; a second
+// barrier keeps the other blocks' shared memory alive until it has. No
+// atomics and no scratch in device memory: repeated runs give the same bits.
+//
+// What holds it back: each row costs a lane group about a microsecond,
+// whether the cache lies in L2 or in device memory (chip_smoke.py's split
+// sweep), and neither four rows in flight nor two rows a step was faster;
+// the cause is not found yet (open question in PERF.md).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeads = 8;
 constexpr int kVec = 4;  // elements a lane loads from a row
 constexpr float kMaskValue = -1e9f;
-constexpr int kMergeThreads = 256;
+constexpr int kMaxPortableCluster = 8;
+constexpr int kMaxCluster = 16;
 
 __device__ __forceinline__ void load4(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -67,168 +84,216 @@ __device__ __forceinline__ void load4(const int8_t* p, float* out) {
   out[0] = (float)x.x, out[1] = (float)x.y, out[2] = (float)x.z, out[3] = (float)x.w;
 }
 
-// One split of the slots of one batch row: (m, l, acc) per head.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    prefix_attend_split(const float* __restrict__ q, const T* __restrict__ pk,
-                        const T* __restrict__ pv, const float* __restrict__ bias,
-                        const float* __restrict__ k_s, const float* __restrict__ v_s,
-                        float* __restrict__ part_m, float* __restrict__ part_l,
-                        float* __restrict__ part_acc, int batch, int h, int kvh, int cap,
-                        int n_valid, int slots_per_split) {
-  constexpr int kLanesPerRow = D / kVec;            // 16 at d = 64, 8 at d = 32
-  constexpr int kGroups = kThreads / kLanesPerRow;  // rows in flight per block
-  __shared__ float sm_m[kGroups][kMaxHeads];
-  __shared__ float sm_l[kGroups][kMaxHeads];
-  __shared__ float sm_acc[kGroups][kMaxHeads][D];
+// What a lane needs of one (slot, KV head) row.
+template <int H>
+struct Row {
+  float k[kVec], v[kVec], bias[H], k_s, v_s;
+};
 
-  const int split = blockIdx.x, n_splits = gridDim.x;
+// One split of the slots of one batch row per block; the splits of a batch
+// row form one cluster, whose block 0 merges them into o and lse.
+template <typename T, int D, int H>
+__global__ void __launch_bounds__(kThreads)
+    prefix_attend_cluster(const float* __restrict__ q, const T* __restrict__ pk,
+                          const T* __restrict__ pv, const float* __restrict__ bias,
+                          const float* __restrict__ k_s, const float* __restrict__ v_s,
+                          float* __restrict__ o, float* __restrict__ lse, int batch, int kvh,
+                          int cap, int n_valid, int slots_per_split) {
+  constexpr int kLanesPerRow = D / kVec;            // 16 at d = 64, 8 at d = 32
+  constexpr int kGroups = kThreads / kLanesPerRow;  // lane groups a block
+  __shared__ float group_m[kGroups][H];
+  __shared__ float group_l[kGroups][H];
+  __shared__ float group_acc[kGroups][H][D];
+  __shared__ float split_m[H];  // this split's state, read by block 0
+  __shared__ float split_l[H];
+  __shared__ float split_acc[H * D];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, n_splits = gridDim.x;  // the cluster spans grid x
   const int bi = blockIdx.y;
   const int group = threadIdx.x / kLanesPerRow;
   const int c0 = (threadIdx.x % kLanesPerRow) * kVec;
-  const int heads_per_kv = h / kvh;
+  const int heads_per_kv = H / kvh;
   const int row_len = kvh * D;
 
-  float qr[kMaxHeads][kVec], acc[kMaxHeads][kVec], m[kMaxHeads], l[kMaxHeads];
+  float qr[H][kVec], acc[H][kVec], m[H], l[H];
 #pragma unroll
-  for (int hh = 0; hh < kMaxHeads; ++hh) {
+  for (int hh = 0; hh < H; ++hh) {
     m[hh] = kMaskValue;
     l[hh] = 0.f;
 #pragma unroll
     for (int c = 0; c < kVec; ++c) {
       acc[hh][c] = 0.f;
-      qr[hh][c] = hh < h ? q[((size_t)bi * h + hh) * D + c0 + c] : 0.f;
+      qr[hh][c] = q[((size_t)bi * H + hh) * D + c0 + c];
     }
   }
 
   const int j0 = split * slots_per_split;
   const int j1 = min(n_valid, j0 + slots_per_split);
   const int n_units = max(0, j1 - j0) * kvh;  // (slot, KV head) rows
-  // every group of a warp runs the same number of iterations, so the
-  // shuffles below always see all 32 lanes
-  for (int u0 = 0; u0 < n_units; u0 += kGroups) {
-    const int u = u0 + group;
+  auto fetch = [&](int u, Row<H>& r) {
     const bool live = u < n_units;
     const int j = j0 + (live ? u / kvh : 0);
     const int g = live ? u % kvh : 0;
     const size_t row = (size_t)j * batch + bi;
-    float kr[kVec], vr[kVec];
     if (live) {
-      load4(pk + row * row_len + g * D + c0, kr);
-      load4(pv + row * row_len + g * D + c0, vr);
+      load4(pk + row * row_len + g * D + c0, r.k);
+      load4(pv + row * row_len + g * D + c0, r.v);
     } else {
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) kr[c] = vr[c] = 0.f;
+      for (int c = 0; c < kVec; ++c) r.k[c] = r.v[c] = 0.f;
     }
-    const float ks = (live && k_s != nullptr) ? k_s[row] : 1.f;
-    const float vs = (live && v_s != nullptr) ? v_s[row] : 1.f;
+    r.k_s = (live && k_s != nullptr) ? k_s[row] : 1.f;
+    r.v_s = (live && v_s != nullptr) ? v_s[row] : 1.f;
 #pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh) {
-      if (hh >= h) break;  // uniform across the block
+    for (int hh = 0; hh < H; ++hh)
+      r.bias[hh] = (live && hh / heads_per_kv == g) ? bias[(size_t)hh * cap + j] : 0.f;
+  };
+
+  // every group of a warp runs the same number of iterations, so the
+  // shuffles below always see all 32 lanes
+  Row<H> cur, nxt;
+  fetch(group, cur);
+  for (int u0 = 0; u0 < n_units; u0 += kGroups) {
+    const int u = u0 + group;
+    fetch(u + kGroups, nxt);  // in flight during this row's math
+    const bool live = u < n_units;
+    const int g = live ? u % kvh : 0;
+#pragma unroll
+    for (int hh = 0; hh < H; ++hh) {
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) dot = fmaf(qr[hh][c], kr[c], dot);
+      for (int c = 0; c < kVec; ++c) dot = fmaf(qr[hh][c], cur.k[c], dot);
 #pragma unroll
-      for (int o = kLanesPerRow / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      for (int off = kLanesPerRow / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       if (!live || hh / heads_per_kv != g) continue;
-      const float s = dot * ks + bias[(size_t)hh * cap + j];
+      const float s = dot * cur.k_s + cur.bias[hh];
       const float m_new = fmaxf(m[hh], s);
       const float alpha = expf(m[hh] - m_new);
       const float p = expf(s - m_new);
       l[hh] = l[hh] * alpha + p;
-      const float pw = p * vs;
+      const float pw = p * cur.v_s;
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) acc[hh][c] = fmaf(pw, vr[c], acc[hh][c] * alpha);
+      for (int c = 0; c < kVec; ++c) acc[hh][c] = fmaf(pw, cur.v[c], acc[hh][c] * alpha);
       m[hh] = m_new;
     }
+    cur = nxt;
   }
 
-  // merge the lane groups of this block
+  // merge the lane groups of this block into its split's state
 #pragma unroll
-  for (int hh = 0; hh < kMaxHeads; ++hh) {
-    if (hh >= h) break;
+  for (int hh = 0; hh < H; ++hh) {
     if (c0 == 0) {
-      sm_m[group][hh] = m[hh];
-      sm_l[group][hh] = l[hh];
+      group_m[group][hh] = m[hh];
+      group_l[group][hh] = l[hh];
     }
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) sm_acc[group][hh][c0 + c] = acc[hh][c];
+    for (int c = 0; c < kVec; ++c) group_acc[group][hh][c0 + c] = acc[hh][c];
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < h * D; t += kThreads) {
+  for (int t = threadIdx.x; t < H * D; t += kThreads) {
     const int hh = t / D, c = t % D;
     float mx = kMaskValue;
-    for (int gi = 0; gi < kGroups; ++gi) mx = fmaxf(mx, sm_m[gi][hh]);
+    for (int gi = 0; gi < kGroups; ++gi) mx = fmaxf(mx, group_m[gi][hh]);
     float lsum = 0.f, a = 0.f;
     for (int gi = 0; gi < kGroups; ++gi) {
-      const float w = expf(sm_m[gi][hh] - mx);
-      lsum = fmaf(sm_l[gi][hh], w, lsum);
-      a = fmaf(sm_acc[gi][hh][c], w, a);
+      const float w = expf(group_m[gi][hh] - mx);
+      lsum = fmaf(group_l[gi][hh], w, lsum);
+      a = fmaf(group_acc[gi][hh][c], w, a);
     }
-    const size_t part = ((size_t)bi * n_splits + split) * h + hh;
-    part_acc[part * D + c] = a;
+    split_acc[t] = a;
     if (c == 0) {
-      part_m[part] = mx;
-      part_l[part] = lsum;
+      split_m[hh] = mx;
+      split_l[hh] = lsum;
     }
   }
+
+  // block 0 merges the splits, in split order, from distributed shared memory
+  cluster.sync();
+  if (split == 0) {
+    for (int t = threadIdx.x; t < H * D; t += kThreads) {
+      const int hh = t / D, c = t % D;
+      float mx = kMaskValue;
+      for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, cluster.map_shared_rank(split_m, s)[hh]);
+      float lsum = 0.f, a = 0.f;
+      for (int s = 0; s < n_splits; ++s) {
+        const float w = expf(cluster.map_shared_rank(split_m, s)[hh] - mx);
+        lsum = fmaf(cluster.map_shared_rank(split_l, s)[hh], w, lsum);
+        a = fmaf(cluster.map_shared_rank(split_acc, s)[t], w, a);
+      }
+      const float safe_l = lsum == 0.f ? 1.f : lsum;
+      o[((size_t)bi * H + hh) * D + c] = a / safe_l;
+      if (c == 0) lse[(size_t)bi * H + hh] = mx + logf(safe_l);
+    }
+  }
+  cluster.sync();  // no block leaves while block 0 reads its shared memory
 }
 
-// Merge the splits of each (batch, head) into o and lse.
-__global__ void __launch_bounds__(kMergeThreads)
-    prefix_attend_merge(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                        const float* __restrict__ part_acc, float* __restrict__ o,
-                        float* __restrict__ lse, int h, int d, int n_splits) {
-  const int bi = blockIdx.x;
-  for (int t = threadIdx.x; t < h * d; t += kMergeThreads) {
-    const int hh = t / d, c = t % d;
-    float mx = kMaskValue;
-    for (int s = 0; s < n_splits; ++s)
-      mx = fmaxf(mx, part_m[((size_t)bi * n_splits + s) * h + hh]);
-    float lsum = 0.f, a = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      const size_t part = ((size_t)bi * n_splits + s) * h + hh;
-      const float w = expf(part_m[part] - mx);
-      lsum = fmaf(part_l[part], w, lsum);
-      a = fmaf(part_acc[part * d + c], w, a);
-    }
-    const float safe_l = lsum == 0.f ? 1.f : lsum;
-    o[((size_t)bi * h + hh) * d + c] = a / safe_l;
-    if (c == 0) lse[(size_t)bi * h + hh] = mx + logf(safe_l);
+template <typename T, int D, int H>
+int launch(const float* q, const void* pk, const void* pv, const float* bias, const float* k_s,
+           const float* v_s, float* o, float* lse, int b, int kvh, int cap, int n_valid,
+           int n_splits, int slots_per_split, cudaStream_t stream) {
+  auto* kernel = prefix_attend_cluster<T, D, H>;
+  if (n_splits > kMaxPortableCluster) {
+    static const cudaError_t allowed =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (allowed != cudaSuccess) return (int)allowed;
   }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(n_splits, b, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  cudaLaunchAttribute cluster = {};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = n_splits;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&config, kernel, q, static_cast<const T*>(pk),
+                                 static_cast<const T*>(pv), bias, k_s, v_s, o, lse, b, kvh, cap,
+                                 n_valid, slots_per_split);
 }
 
 template <typename T, int D>
-int launch(const float* q, const void* pk, const void* pv, const float* bias, const float* k_s,
-           const float* v_s, float* o, float* lse, float* part_m, float* part_l,
-           float* part_acc, int b, int h, int kvh, int cap, int n_valid, int n_splits,
-           int slots_per_split, cudaStream_t stream) {
-  prefix_attend_split<T, D><<<dim3(n_splits, b), kThreads, 0, stream>>>(
-      q, static_cast<const T*>(pk), static_cast<const T*>(pv), bias, k_s, v_s, part_m, part_l,
-      part_acc, b, h, kvh, cap, n_valid, slots_per_split);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  prefix_attend_merge<<<b, kMergeThreads, 0, stream>>>(part_m, part_l, part_acc, o, lse, h, D,
-                                                       n_splits);
-  return (int)cudaGetLastError();
+int launch_heads(int h, const float* q, const void* pk, const void* pv, const float* bias,
+                 const float* k_s, const float* v_s, float* o, float* lse, int b, int kvh,
+                 int cap, int n_valid, int n_splits, int slots_per_split, cudaStream_t stream) {
+  switch (h) {
+    case 1:
+      return launch<T, D, 1>(q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid, n_splits,
+                             slots_per_split, stream);
+    case 2:
+      return launch<T, D, 2>(q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid, n_splits,
+                             slots_per_split, stream);
+    case 4:
+      return launch<T, D, 4>(q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid, n_splits,
+                             slots_per_split, stream);
+    case 8:
+      return launch<T, D, 8>(q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid, n_splits,
+                             slots_per_split, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
-int launch_dtype(int dtype, const float* q, const void* pk, const void* pv, const float* bias,
-                 const float* k_s, const float* v_s, float* o, float* lse, float* part_m,
-                 float* part_l, float* part_acc, int b, int h, int kvh, int cap, int n_valid,
-                 int n_splits, int slots_per_split, cudaStream_t stream) {
+int launch_dtype(int dtype, int h, const float* q, const void* pk, const void* pv,
+                 const float* bias, const float* k_s, const float* v_s, float* o, float* lse,
+                 int b, int kvh, int cap, int n_valid, int n_splits, int slots_per_split,
+                 cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return launch<float, D>(q, pk, pv, bias, k_s, v_s, o, lse, part_m, part_l, part_acc, b,
-                              h, kvh, cap, n_valid, n_splits, slots_per_split, stream);
+      return launch_heads<float, D>(h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                                    n_splits, slots_per_split, stream);
     case 1:
-      return launch<__nv_bfloat16, D>(q, pk, pv, bias, k_s, v_s, o, lse, part_m, part_l,
-                                      part_acc, b, h, kvh, cap, n_valid, n_splits,
-                                      slots_per_split, stream);
+      return launch_heads<__nv_bfloat16, D>(h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap,
+                                            n_valid, n_splits, slots_per_split, stream);
     case 2:
-      return launch<int8_t, D>(q, pk, pv, bias, k_s, v_s, o, lse, part_m, part_l, part_acc, b,
-                               h, kvh, cap, n_valid, n_splits, slots_per_split, stream);
+      return launch_heads<int8_t, D>(h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                                     n_splits, slots_per_split, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -236,26 +301,26 @@ int launch_dtype(int dtype, const float* q, const void* pk, const void* pv, cons
 
 }  // namespace
 
-// q: (b, h, d) fp32, scale folded in; pk, pv: (cap, b, kvh * d) of `dtype`
-// (0 fp32, 1 bf16, 2 int8), kvh in {1, h}, h <= 8; bias: (h, cap) fp32;
-// k_s, v_s: (cap, b) fp32 row scales or null; o: (b, h, d), lse: (b, h);
-// part_m, part_l: (b, n_splits, h) and part_acc: (b, n_splits, h, d) scratch.
-// Slot j < n_valid goes to split j / slots_per_split. All contiguous, rows
-// 16-byte aligned. Returns the CUDA error code of the launches.
+// q: (b, h, d) fp32, scale folded in, h in {1, 2, 4, 8}; pk, pv:
+// (cap, b, kvh * d) of `dtype` (0 fp32, 1 bf16, 2 int8), kvh in {1, h};
+// bias: (h, cap) fp32; k_s, v_s: (cap, b) fp32 row scales or null; o:
+// (b, h, d), lse: (b, h). Slot j < n_valid goes to split j / slots_per_split;
+// n_splits <= 16 blocks form one cluster per batch row. All contiguous, rows
+// 16-byte aligned. Returns the CUDA error code of the launch.
 extern "C" int sp_prefix_attend(const float* q, const void* pk, const void* pv,
                                 const float* bias, const float* k_s, const float* v_s, float* o,
-                                float* lse, float* part_m, float* part_l, float* part_acc, int b,
-                                int h, int kvh, int d, int cap, int n_valid, int n_splits,
-                                int slots_per_split, int dtype, void* stream) {
-  if (h > kMaxHeads || h % kvh != 0 || n_splits < 1) return (int)cudaErrorInvalidValue;
+                                float* lse, int b, int h, int kvh, int d, int cap, int n_valid,
+                                int n_splits, int slots_per_split, int dtype, void* stream) {
+  if ((kvh != 1 && kvh != h) || n_splits < 1 || n_splits > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 32:
-      return launch_dtype<32>(dtype, q, pk, pv, bias, k_s, v_s, o, lse, part_m, part_l,
-                              part_acc, b, h, kvh, cap, n_valid, n_splits, slots_per_split, s);
+      return launch_dtype<32>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                              n_splits, slots_per_split, s);
     case 64:
-      return launch_dtype<64>(dtype, q, pk, pv, bias, k_s, v_s, o, lse, part_m, part_l,
-                              part_acc, b, h, kvh, cap, n_valid, n_splits, slots_per_split, s);
+      return launch_dtype<64>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                              n_splits, slots_per_split, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

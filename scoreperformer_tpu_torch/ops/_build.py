@@ -38,7 +38,7 @@ ENTRY_POINTS = {
         "sp_flash_attention_bwd_dkv": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq": _FLASH_BWD_ARGS,
     },
-    "prefix_attend": {"sp_prefix_attend": [_P] * 11 + [_I] * 9 + [_P]},
+    "prefix_attend": {"sp_prefix_attend": [_P] * 8 + [_I] * 9 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,9 @@ Counterpart of scripts/exp_pallas_decode_attend.py: `pallas_prefix_attend`
 split that `models/attention.py::Attention._chunked_cache_attend` runs every
 chunked decode step: the prefix half here, the fresh chunk's half in torch,
 joined by `combine_lse`. On CUDA tensors `prefix_attend` launches the
-hand-written split-K kernel of `csrc/prefix_attend.cu`; on CPU tensors it
-runs `prefix_attend_plain`, the same function in plain PyTorch.
+hand-written kernel of `csrc/prefix_attend.cu`, one launch whose blocks split
+the slots and whose clusters merge them; on CPU tensors it runs
+`prefix_attend_plain`, the same function in plain PyTorch.
 
 Unlike the TPU kernel, which wanted the cache relaid as (cap, d, b), both
 take the cache in its own time-major layout, (cap, b, kv_heads * d), in
@@ -24,7 +25,9 @@ from ._build import kernel
 
 MASK_VALUE = -1e9  # the Pallas kernel's running max starts here
 KERNEL_HEAD_DIMS = (32, 64)
-MAX_HEADS = 8
+KERNEL_HEADS = (1, 2, 4, 8)  # the kernel's head-count template parameter
+MAX_CLUSTER = 16  # blocks a cluster: the kernel's splits of one batch row
+BLOCKS_PER_SM = 4  # blocks of 128 threads the split choice fills an SM with, at most
 MIN_SLOTS_PER_SPLIT = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -82,11 +85,14 @@ def combine_lse(o_p, lse_p, o_f, lse_f) -> Tuple[torch.Tensor, torch.Tensor]:
     return o, lse
 
 
-def split_count(b: int, n_slots: int, sm_count: int) -> Tuple[int, int]:
-    """(splits, slots per split) of the kernel's grid: enough blocks for two
-    per SM at small b, and at least MIN_SLOTS_PER_SPLIT slots a block."""
-    want = max(1, min(-(-2 * sm_count // b), -(-n_slots // MIN_SLOTS_PER_SPLIT)))
-    per = max(1, -(-n_slots // want))
+def split_plan(b: int, n_slots: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, slots per split) of the kernel's grid: the splits of one batch
+    row form one cluster of at most MAX_CLUSTER blocks; the grid fills the
+    SMs with up to BLOCKS_PER_SM blocks each, in one wave (a second wave of
+    blocks costs more than its shorter loops save), each block with at least
+    MIN_SLOTS_PER_SPLIT slots; no split is empty unless there is no slot."""
+    want = min(MAX_CLUSTER, BLOCKS_PER_SM * sm_count // b, -(-n_slots // MIN_SLOTS_PER_SPLIT))
+    per = max(1, -(-n_slots // max(1, want)))
     return max(1, -(-n_slots // per)), per
 
 
@@ -100,15 +106,16 @@ def prefix_attend(
     n_valid: Optional[int] = None,  # slots at or past it have weight 0 and are not read
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of one query row per (batch, head) over the prefix cache: the
-    split-K kernel on CUDA tensors, its plain version on CPU tensors."""
+    clustered split-K kernel on CUDA tensors, its plain version on CPU
+    tensors."""
     if q.device.type == "cpu":
         return prefix_attend_plain(q, pk, pv, bias, k_s, v_s, n_valid)
     if q.device.type != "cuda":
         raise ValueError(f"prefix_attend: unsupported device {q.device}")
     b, h, d, cap, kvh = _check(q, pk, pv, bias, k_s, v_s, n_valid)
-    if d not in KERNEL_HEAD_DIMS or h > MAX_HEADS:
-        raise ValueError(f"prefix_attend: the kernel takes head dims {KERNEL_HEAD_DIMS} and at most "
-                         f"{MAX_HEADS} heads, got d={d}, h={h}")
+    if d not in KERNEL_HEAD_DIMS or h not in KERNEL_HEADS:
+        raise ValueError(f"prefix_attend: the kernel takes head dims {KERNEL_HEAD_DIMS} and head counts "
+                         f"{KERNEL_HEADS}, got d={d}, h={h}")
     if pk.dtype not in _DTYPE_CODES or pv.dtype != pk.dtype:
         raise TypeError(f"prefix_attend: cache dtypes {pk.dtype}/{pv.dtype} not in {list(_DTYPE_CODES)}")
     scales = [s for s in (k_s, v_s) if s is not None]
@@ -123,17 +130,13 @@ def prefix_attend(
     if pk.data_ptr() % 16 or pv.data_ptr() % 16:
         raise ValueError("prefix_attend: the cache must be 16-byte aligned")
     n = cap if n_valid is None else int(n_valid)
-    splits, per = split_count(b, n, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    splits, per = split_plan(b, n, torch.cuda.get_device_properties(q.device).multi_processor_count)
     o = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
     lse = torch.empty(b, h, dtype=torch.float32, device=q.device)
-    part_m = torch.empty(b, splits, h, dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b, splits, h, d, dtype=torch.float32, device=q.device)
     err = kernel("prefix_attend", "sp_prefix_attend")(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), bias.data_ptr(),
         k_s.data_ptr() if k_s is not None else None, v_s.data_ptr() if v_s is not None else None,
-        o.data_ptr(), lse.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        b, h, kvh, d, cap, n, splits, per, _DTYPE_CODES[pk.dtype],
+        o.data_ptr(), lse.data_ptr(), b, h, kvh, d, cap, n, splits, per, _DTYPE_CODES[pk.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -22,6 +22,7 @@ from scoreperformer_tpu.ops import sampling as jsampling
 from scoreperformer_tpu.ops.flash_attention import _flash_forward
 
 from scoreperformer_tpu_torch.models import attention as tattention
+from scoreperformer_tpu_torch.models.layers import alibi_slopes
 from scoreperformer_tpu_torch.ops import flash_attention as tflash
 from scoreperformer_tpu_torch.ops import kv_cache as tkv
 from scoreperformer_tpu_torch.ops import prefix_attend as tprefix
@@ -160,6 +161,70 @@ def test_flash_backward_plain_matches_autograd(b, h, t, d, hk, causal, padded):
         np.testing.assert_allclose(g.numpy(), a.grad.numpy(), atol=atol, rtol=1e-5, err_msg=name)
 
 
+# ---- the forward kernel's split-TF32 arithmetic, emulated on the CPU ----
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10-bit mantissa, to nearest with ties away from
+    zero, as `cvt.rna.tf32.f32` rounds: half of the 13 dropped bits' unit is
+    added to the magnitude, then those bits are cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's tensor cores compute it: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi), three TF32 products summed in fp32."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def flash_forward_with(matmul, q, k, v, slopes, mask, causal):
+    """flash_attention_plain's forward with both of its products taken by
+    `matmul`: (o, lse)."""
+    b, _, tq, d = q.shape
+    tk = k.shape[2]
+    s = matmul(q * d**-0.5, k.transpose(-1, -2))
+    valid, dist = tflash._valid(b, tq, tk, mask, causal, q.device)
+    s = torch.where(valid, s - slopes[None, :, None, None] * dist, tflash.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    none_valid = m == tflash.NEG_INF
+    keys = tflash.jax_masked_row_keys(tq, tk, causal)[:, None]
+    p = torch.where(none_valid, (torch.arange(tk)[None, :] < keys).float(), p)
+    l = torch.where(none_valid, keys.float(), l)
+    return matmul(p, v) / l, (m + torch.log(l))[..., 0]
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 3 * 2**-11, 3.0, 0.0], dtype=torch.float32)
+    np.testing.assert_array_equal(tf32_rna(x).numpy(),
+                                  np.float32([1 + 2**-10, -(1 + 2**-10), 1.0, 1 + 2 * 2**-10, 3.0, 0.0]))
+    y = tf32_rna(torch.from_numpy(rand(0, 1000)))
+    assert (y.view(torch.int32) & 0x1FFF == 0).all()
+
+
+@pytest.mark.parametrize("causal,padded", [(False, True), (True, True), (False, "empty"), (True, "empty")],
+                         ids=["padded", "causal", "empty", "causal_empty"])
+def test_flash_split_tf32_arithmetic_matches_plain(causal, padded):
+    """Both products of the forward in split TF32 (three TF32 products per
+    fp32 one) stay within 1e-5 of the fp32 plain version on o and lse at the
+    encoders' width; one TF32 product a product does not. The slopes are a
+    4-head model's ALiBi slopes (1/4 to 1/256): with slopes near 1 the bias
+    reaches -400, where fp32's own spacing (3e-5) exceeds the tolerance
+    whatever order the sums take."""
+    q, k, v, _, mask = map(torch.from_numpy, flash_inputs(2, 4, 384, 64, 1, padded))
+    slopes = alibi_slopes(4)
+    want_o, want_lse = tflash.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
+    got_o, got_lse = flash_forward_with(split_tf32_matmul, q, k, v, slopes, mask, causal)
+    np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=0)
+    one_o, one_lse = flash_forward_with(lambda a, b: tf32_rna(a) @ tf32_rna(b), q, k, v, slopes, mask, causal)
+    assert max((one_o - want_o).abs().max().item(), (one_lse - want_lse).abs().max().item()) > 1e-5
+
+
 def test_flash_rejects_mismatched_shapes():
     q = torch.zeros(1, 2, 5, 8)
     with pytest.raises(ValueError):
@@ -246,6 +311,23 @@ def test_combine_lse_matches_one_softmax():
     o, lse = tprefix.combine_lse(*half(slice(0, 25)), *half(slice(25, 40)))
     np.testing.assert_allclose(o.numpy(), (torch.softmax(s, -1) @ v).numpy(), atol=1e-6)
     np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 176, 192, 240])
+@pytest.mark.parametrize("b", [1, 4, 128, 512])
+def test_prefix_attend_split_plan(b, n):
+    """The kernel's split of `n` slots on 132 SMs: slot j goes to split
+    j // per, each slot to exactly one split, no split is empty unless there
+    is no slot, one cluster per batch row holds every split, and the grid has
+    two blocks a SM where b and n allow."""
+    sms = 132
+    splits, per = tprefix.split_plan(b, n, sms)
+    assert 1 <= splits <= tprefix.MAX_CLUSTER and per >= 1
+    ranges = [range(s * per, min(n, (s + 1) * per)) for s in range(splits)]
+    assert sorted(j for r in ranges for j in r) == list(range(n))
+    if n:
+        assert all(len(r) > 0 for r in ranges)
+    assert splits * b >= min(2 * sms, b * tprefix.MAX_CLUSTER, b * (n // tprefix.MIN_SLOTS_PER_SPLIT))
 
 
 def test_prefix_attend_rejects_bad_inputs():

@@ -12,10 +12,12 @@ checkout. It
    scores' valid lengths, batch-padding rows at valid length 1), and at
    edge cases, and times the kernel, the plain version and one PyTorch call
    of the same function (the yardstick; the port never calls it) by CUDA-graph
-   replay, with the eager time beside; checks that the flash forward's
-   library holds TF32 tensor-core instructions (`cuobjdump -sass`) and that
-   two `prefix_attend` calls give the same bits; sweeps `prefix_attend`'s
-   split count at the served shape;
+   replay, with the eager time beside (the two backward kernels also as a
+   pair against one SDPA backward); checks that every flash kernel, forward
+   and backward, holds TF32 tensor-core instructions in its SASS
+   (`cuobjdump -sass`) and that two calls of `prefix_attend` and of the
+   backward give the same bits; sweeps `prefix_attend`'s split count at the
+   served shape;
 4. render path: builds the flagship ScorePerformer at full width (random
    weights from a seed, use_flash=True) and renders a 32-bar synthetic score
    through `render_performance`, greedy and top-k sampled, counting the
@@ -197,6 +199,26 @@ def sdpa_bias(torch, slopes, mask, causal):
     return bias.contiguous(), ok
 
 
+def key_mask(torch, b, t, padded, lengths, g):
+    """(b, t) key validity: the given `lengths` (or (first, end) key ranges),
+    else random valid lengths from `g` when `padded` (batch element 0 has
+    none when it is "empty"), else all keys."""
+    dev = "cuda"
+    pos = torch.arange(t, device=dev)[None]
+    first = torch.zeros(b, 1, dtype=torch.int64, device=dev)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=dev)
+        if lengths.ndim == 2:
+            first, lengths = lengths[:, :1], lengths[:, 1]
+    elif padded:
+        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
+        if padded == "empty":
+            lengths[0] = 0
+    else:
+        lengths = torch.full((b,), t, device=dev)
+    return (pos >= first) & (pos < lengths[:, None])
+
+
 def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None, hk=1):
     """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4, with
     random valid lengths when `padded` (batch element 0 has none when it is
@@ -210,19 +232,7 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None,
     k = torch.randn(b, hk, t, d, device=dev, generator=g)
     v = torch.randn(b, hk, t, d, device=dev, generator=g)
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
-    pos = torch.arange(t, device=dev)[None]
-    first = torch.zeros(b, 1, dtype=torch.int64, device=dev)
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths, device=dev)
-        if lengths.ndim == 2:
-            first, lengths = lengths[:, :1], lengths[:, 1]
-    elif padded:
-        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
-        if padded == "empty":
-            lengths[0] = 0
-    else:
-        lengths = torch.full((b,), t, device=dev)
-    mask = (pos >= first) & (pos < lengths[:, None])
+    mask = key_mask(torch, b, t, padded, lengths, g)
     o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
     torch.cuda.synchronize()
@@ -260,10 +270,12 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None,
     return rec
 
 
-def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk):
-    """Inputs of one backward call on the card. dout is nonzero on every
-    row, rows with no valid key too, where JAX's gradient reaches the keys
-    that its wrapper pads."""
+def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths=None):
+    """Inputs of one backward call on the card, with random valid lengths
+    when `padded` (batch element 0 has none when it is "empty"), or the given
+    `lengths` (or (first, end) key ranges). dout is nonzero on every row, rows
+    with no valid key too, where JAX's gradient reaches the keys that its
+    wrapper pads."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
     q = torch.randn(b, h, t, d, device=dev, generator=g)
@@ -271,60 +283,112 @@ def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk):
     v = torch.randn(b, hk, t, d, device=dev, generator=g)
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
     dout = torch.randn(b, h, t, d, device=dev, generator=g)
-    lengths = torch.full((b,), t, device=dev)
-    if padded:
-        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
-        if padded == "empty":
-            lengths[0] = 0
-    mask = torch.arange(t, device=dev)[None] < lengths[:, None]
-    return q, k, v, slopes, mask, dout
+    return q, k, v, slopes, key_mask(torch, b, t, padded, lengths, g), dout
 
 
-def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1):
+def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, lengths=None):
     """Both backward kernels vs their plain versions on the kernel forward's
     lse: dq, dk, dv to 1e-4 and dslopes to 1e-3 of the plain version's largest
-    value (the slope sum runs over b*h*t*t terms in another order). Returns
-    the records of the dK/dV and the dQ/dslope kernel at this shape."""
-    import torch.nn.functional as F
-
-    q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk)
+    value (the slope sum runs over b*h*t*t terms in another order), and two
+    calls give the same bits. Returns the records of the dK/dV and the
+    dQ/dslope kernel and of the pair at this shape; the kernels are timed by
+    CUDA-graph replay when `timed`, beside one SDPA backward."""
+    q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
     out, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal)
     delta = (dout * out).sum(-1)
+    if t == 1:
+        # with one key dS = dO.v - rowsum(dO * o) is 0 in exact arithmetic, so
+        # dk, dq and dslopes would be rounding noise on both sides: the check
+        # gives the kernels a delta of its own
+        delta = torch.randn(delta.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
     args = (q, k, v, slopes, mask, dout, lse, delta, causal)
     got = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
+    again = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
     want = fa.flash_attention_bwd_dkv_plain(*args) + fa.flash_attention_bwd_dq_plain(*args)
     torch.cuda.synchronize()
     err = {name: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
            for name, x, y in zip(("dk", "dv", "dq", "dslopes"), got, want)}
     limits = {"dk": 1e-4, "dv": 1e-4, "dq": 1e-4, "dslopes": 1e-3}
     bad = {n: e for n, e in err.items() if not e <= limits[n]}
+    where = (b, t, causal, padded, d, hk)
     if bad:
-        raise AssertionError(f"flash backward differs from its plain version at {(b, t, causal, padded, d, hk)}: {bad}")
-    shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded}
+        raise AssertionError(f"flash backward differs from its plain version at {where}: {bad}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"two flash backward calls give other bits at {where}")
+    shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "same_bits": True}
     dkv = {**shape, "max_abs_err": max(err["dk"], err["dv"]), "errors": err}
     dq = {**shape, "max_abs_err": max(err["dq"], err["dslopes"]), "errors": err}
-    if timed:
-        dkv["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(*args), iters=20)
-        dq["ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(*args), iters=20)
-        dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args), iters=10, warmup=2)
-        dq["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(*args), iters=10, warmup=2)
-        # yardstick: the backward alone of SDPA with the bias and masks
-        # materialized; it computes both kernels' outputs in one call
-        bias, ok = sdpa_bias(torch, slopes, mask, causal)
+    if not timed:
+        return dkv, dq, None
+    # device time by graph replay over copies of q, k, v and dout larger than L2
+    copies = [(q.clone(), k.clone(), v.clone(), dout.clone())
+              for _ in range(n_copies(4 * (q.numel() + k.numel() + v.numel() + dout.numel())))]
+    rest = (slopes, mask)
+    dkv["ms"] = graph_ms(torch, lambda qc, kc, vc, oc: fa.flash_attention_bwd_dkv(qc, kc, vc, *rest, oc, lse, delta, causal),
+                         copies, iters=20)
+    dq["ms"] = graph_ms(torch, lambda qc, kc, vc, oc: fa.flash_attention_bwd_dq(qc, kc, vc, *rest, oc, lse, delta, causal),
+                        copies, iters=20)
+    del copies
+    dkv["eager_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(*args), iters=20)
+    dq["eager_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(*args), iters=20)
+    dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args), iters=10, warmup=2)
+    dq["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(*args), iters=10, warmup=2)
+    dkv["plain_timing"] = dq["plain_timing"] = "eager"
+    # yardstick: the backward alone of SDPA with the bias and masks
+    # materialized; it computes both kernels' outputs in one call
+    library, library_timing = sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal)
+    dkv["library_ms"] = dq["library_ms"] = library
+    _, ok = sdpa_bias(torch, slopes, mask, causal)
+    pairs = ok.expand(b, 1, t, t).sum().item()  # (query, key) pairs this data needs
+    f32 = 4
+    reads = f32 * (2 * q.numel() + k.numel() + v.numel() + 2 * lse.numel() + h) + mask.numel()
+    parts = math.prod(fa.dq_slope_parts(b, h, hk, t))
+    for rec, ops, writes in ((dkv, 8 * d * h * pairs, f32 * (k.numel() + v.numel())),
+                             (dq, 6 * d * h * pairs, f32 * (q.numel() + parts))):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, (reads + writes) / BYTES_PER_S
+        rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        # the same fp32-accurate work as three TF32 tensor-core products
+        rec["bound_tc_ms"] = max(3 * ops / TF32_OPS_PER_S, t_bytes) * 1e3
+    pair = {"name": "flash_attention_bwd_pair", **shape, "dkv_ms": dkv["ms"], "dq_ms": dq["ms"],
+            "pair_ms": dkv["ms"] + dq["ms"], "library_ms": library, "library_timing": library_timing,
+            "pair_over_library": (dkv["ms"] + dq["ms"]) / library,
+            "bound_ms": dkv["bound_ms"] + dq["bound_ms"], "bound_tc_ms": dkv["bound_tc_ms"] + dq["bound_tc_ms"]}
+    return dkv, dq, pair
+
+
+def sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal, iters=10):
+    """Device time of one backward of SDPA (bias and masks materialized, keys
+    and values contiguous per head) and how it was taken: "graph" when
+    `torch.autograd.grad` can be captured in a CUDA graph (the forward runs
+    on the capturing stream, so its backward is launched there), else
+    "eager"."""
+    import torch.nn.functional as F
+
+    b, h, t, d = q.shape
+    bias, _ = sdpa_bias(torch, slopes, mask, causal)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
         leaves = [x.detach().expand(b, h, t, d).contiguous().requires_grad_() for x in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
-        library = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True),
-                          iters=10, warmup=2)
-        dkv["library_ms"] = dq["library_ms"] = library
-        pairs = ok.expand(b, 1, t, t).sum().item()  # (query, key) pairs this data needs
-        f32 = 4
-        reads = f32 * (2 * q.numel() + k.numel() + v.numel() + 2 * lse.numel() + h) + mask.numel()
-        for rec, ops, writes in ((dkv, 8 * d * h * pairs, f32 * (k.numel() + v.numel())),
-                                 (dq, 6 * d * h * pairs, f32 * (q.numel() + b * h * -(-t // 32)))):
-            t_ops, t_bytes = ops / FP32_OPS_PER_S, (reads + writes) / BYTES_PER_S
-            rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
-            rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
-    return dkv, dq
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        for _ in range(3):
+            torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        ms = time_ms(torch, graph.replay, iters=5, warmup=1) / iters
+        del graph
+        return ms, "graph"
+    except RuntimeError as exc:
+        print(f"SDPA backward cannot be captured in a CUDA graph ({str(exc).splitlines()[0]}): timed eagerly")
+        torch.cuda.synchronize()
+        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+                       iters=iters, warmup=2), "eager"
 
 
 def graph_ms(torch, fn, arg_sets, iters):
@@ -404,20 +468,22 @@ def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64,
         # host included
         rec["eager_ms"] = time_ms(torch, lambda: pa.prefix_attend(q, k, v, bias, *scales, n_valid=base), iters=200)
         del copies
-        if dtype == "fp32":
-            # yardstick: SDPA over the same slots, contiguous (b, h, base, d)
-            # keys and values and the bias laid out outside the timing
+        if dtype in ("fp32", "bf16"):
+            # yardstick: SDPA over the same slots in the cache's type,
+            # contiguous (b, h, base, d) keys and values and the bias laid
+            # out outside the timing
             def heads(x):
                 x = x[:base].reshape(base, b, kvh, d).permute(1, 2, 0, 3)
                 return x.expand(b, h, base, d).contiguous()
 
-            q4 = q[:, :, None]
-            mask4 = bias[None, :, None, :base].expand(b, h, 1, base).contiguous()
+            q4 = q[:, :, None].to(k.dtype)
+            mask4 = bias[None, :, None, :base].expand(b, h, 1, base).to(k.dtype).contiguous()
             sdpa = [(heads(k), heads(v)) for _ in range(n_copies(read * h // kvh))]
             rec["library_ms"] = graph_ms(
                 torch, lambda kc, vc: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask4, scale=1.0),
                 sdpa, iters=200)
         else:
+            # no PyTorch call takes int8 keys and values with row scales
             rec["library_ms"] = None
         rec["bound_by"] = "operations" if ops / FP32_OPS_PER_S > nbytes / BYTES_PER_S else "bytes"
         rec["bound_ms"] = max(ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
@@ -614,15 +680,26 @@ def check_prefix_attend_profile(prof, what, expected):
                              f"expected one kernel {expected} times")
 
 
-def check_tensor_cores(path):
+def tensor_core_counts(path, kernels):
     """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of the
-    library at `path`: their count and the first one; fails with none."""
+    library at `path`, by kernel (a substring of its functions' names); fails
+    when a function of one of them has none."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
-    hmma = [line.strip() for line in sass.splitlines() if "HMMA" in line and "TF32" in line]
-    if not hmma:
-        raise AssertionError(f"no TF32 HMMA instruction in the SASS of {path}")
-    return len(hmma), hmma[0]
+    by_function, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            by_function[name] = 0
+        elif name is not None and "HMMA" in line and "TF32" in line:
+            by_function[name] += 1
+    counts = {}
+    for kernel in kernels:
+        functions = {f: n for f, n in by_function.items() if kernel in f}
+        if not functions or not all(functions.values()):
+            raise AssertionError(f"{kernel} in {path}: TF32 HMMA instructions by function {functions}")
+        counts[kernel] = sum(functions.values())
+    return counts
 
 
 def check_performance(tokenizer, score_ids, perf, what, all_performed=True):
@@ -845,8 +922,9 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
-    n_hmma, first_hmma = check_tensor_cores(libs["flash_attention_fwd"])
-    print(f"flash_attention_fwd SASS: {n_hmma} TF32 tensor-core instructions, e.g. {first_hmma}")
+    hmma = {**tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",)),
+            **tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"))}
+    print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -923,16 +1001,33 @@ def main() -> int:
     # the backward kernels at the training step's shapes (timed), padded or
     # not, causal, d=32, one KV head per query head, and rows with no valid key
     bwd_main = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=True, timed=True)
+    bwd_causal = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True)
     bwd_recs = [
         check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=False, timed=False),
-        check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True),
         check_flash_bwd(torch, fa, 3, 77, causal=True, padded="empty", timed=False, d=32),
+        check_flash_bwd(torch, fa, 2, 77, causal=False, padded=True, timed=False, d=32),
         check_flash_bwd(torch, fa, 4, 130, causal=False, padded=True, timed=False, hk=4),
         check_flash_bwd(torch, fa, 2, 300, causal=True, padded="empty", timed=False, hk=4),
+    ] + [
+        # t around the 16-row warp tiles, the 32-row streamed tiles and the
+        # 64-row blocks
+        check_flash_bwd(torch, fa, 2, t, causal=c, padded=False, timed=False)
+        for t in (1, 15, 17, 63, 65, 129) for c in (False, True)
+    ] + [
+        # all-masked key blocks and tiles in long padded tails beside an
+        # element with no valid key; then keys that start late, so early
+        # causal rows have none and put P = 1 on masked key blocks
+        check_flash_bwd(torch, fa, 4, SERVE_BUCKET, causal=c, padded="tails", timed=False, lengths=[0, 3, 64, 130])
+        for c in (False, True)
+    ] + [
+        check_flash_bwd(torch, fa, 3, 200, causal=True, padded="late", timed=False,
+                        lengths=[(70, 200), (5, 90), (130, 131)]),
     ]
-    for dkv_rec, dq_rec in [bwd_main] + bwd_recs:
+    for dkv_rec, dq_rec, _ in [bwd_main, bwd_causal] + bwd_recs:
         print("flash_attention_bwd_dkv", json.dumps(dkv_rec))
         print("flash_attention_bwd_dq", json.dumps(dq_rec))
+    for _, _, pair in (bwd_main, bwd_causal):
+        print("flash_attention_bwd_pair", json.dumps(pair))
     # the prefix attend of the chunked decode: the served batch (timed in
     # fp32, bf16 and int8, halfway through its decode), the TPU script's
     # shape, the render's (b=1, the 32-bar score's cache), and the edges:
@@ -1098,13 +1193,14 @@ def main() -> int:
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": n_hmma},
+         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma["flash_fwd"]},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
-         "replaces": replaces, "launches": train_launches[name], **{k: rec[k] for k in bound_keys}}
-        for name, replaces, rec in (
-            ("flash_attention_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
-            ("flash_attention_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
+         "replaces": replaces, "launches": train_launches[name],
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma[kernel]}
+        for name, kernel, replaces, rec in (
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
+            ("flash_attention_bwd_dq", "flash_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
         )
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",

@@ -12,7 +12,8 @@
 // need fp32 accuracy (o and lse to 1e-4, greedy tokens equal to the CPU's,
 // gradients to 1e-3), as the JAX kernel's "highest" precision gives on the
 // CPU. So each product is split: x = hi + lo with hi = tf32(x) and
-// lo = tf32(x - hi), both rounded to nearest (cvt.rna), and
+// lo = tf32(x - hi), both rounded to nearest (`tf32::rna`; the split and
+// MMA helpers are in tf32_mma.cuh, shared with the backward), and
 // a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b, summed in fp32; the dropped
 // lo.lo term and lo's rounding leave an error near 2^-21 relative. The
 // tensor cores truncate the fp32 sums they accumulate, which biases a long
@@ -77,6 +78,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -95,52 +98,11 @@ struct Layout {
   static constexpr int kTileBytes = 4 * kTileFloats * (int)sizeof(float) + kQFrags * 16;
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x ~ hi + lo, both TF32, lo the rounded remainder
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// c += a.b on one m16n8k8 tile
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a.b in split TF32. The tensor cores truncate their fp32 sums, so a
-// chain of many products into one accumulator drifts toward zero; here the
-// three products of one k-step start from zero, the small ones first, and
-// join c by rounded fp32 adds.
-__device__ __forceinline__ void mma_split_tf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                               const uint32_t* b_hi, const uint32_t* b_lo) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a_lo, b_hi);
-  mma_tf32(t, a_hi, b_lo);
-  mma_tf32(t, a_hi, b_hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += t[e];
-}
-
-// 16 bytes from global to shared memory; zeros when !in
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool in) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// all but the newest group have landed
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+using tf32::cp_async16;
+using tf32::cp_async_commit;
+using tf32::cp_async_wait_prev;
+using tf32::mma_split;
+using tf32::split;
 
 // Keys that the JAX wrapper averages over for a query row with no valid key.
 __device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk, int causal) {
@@ -253,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
       const float x = row_pos[i] < tq
                           ? q[(((size_t)b * h + row_head[i]) * tq + row_pos[i]) * D + col] * scale
                           : 0.f;
-      split_tf32(x, hi[e], lo[e]);
+      split(x, hi[e], lo[e]);
     }
     q_frag[((warp * kSteps + kk) * 2 + 0) * 32 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
     q_frag[((warp * kSteps + kk) * 2 + 1) * 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -294,9 +256,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int n = 0; n < kKeyTiles; ++n) {
         const float* kr = kt + (n * 8 + g) * kStride + kk * 8 + t4;
         uint32_t b_hi[2], b_lo[2];
-        split_tf32(kr[0], b_hi[0], b_lo[0]);
-        split_tf32(kr[4], b_hi[1], b_lo[1]);
-        mma_split_tf32(s[n], q_hi, q_lo, b_hi, b_lo);
+        split(kr[0], b_hi[0], b_lo[0]);
+        split(kr[4], b_hi[1], b_lo[1]);
+        mma_split(s[n], q_hi, q_lo, b_hi, b_lo);
       }
     }
 
@@ -346,17 +308,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kKeyTiles; ++kk) {
       uint32_t p_hi[4], p_lo[4];
-      split_tf32(s[kk][0], p_hi[0], p_lo[0]);  // (g, key 2*t4)
-      split_tf32(s[kk][2], p_hi[1], p_lo[1]);  // (g + 8, key 2*t4)
-      split_tf32(s[kk][1], p_hi[2], p_lo[2]);  // (g, key 2*t4 + 1)
-      split_tf32(s[kk][3], p_hi[3], p_lo[3]);  // (g + 8, key 2*t4 + 1)
+      split(s[kk][0], p_hi[0], p_lo[0]);  // (g, key 2*t4)
+      split(s[kk][2], p_hi[1], p_lo[1]);  // (g + 8, key 2*t4)
+      split(s[kk][1], p_hi[2], p_lo[2]);  // (g, key 2*t4 + 1)
+      split(s[kk][3], p_hi[3], p_lo[3]);  // (g + 8, key 2*t4 + 1)
       const float* vr = vt + (kk * 8 + 2 * t4) * kStride + g;
 #pragma unroll
       for (int n = 0; n < kSteps; ++n) {
         uint32_t b_hi[2], b_lo[2];
-        split_tf32(vr[n * 8], b_hi[0], b_lo[0]);
-        split_tf32(vr[kStride + n * 8], b_hi[1], b_lo[1]);
-        mma_split_tf32(acc[n], p_hi, p_lo, b_hi, b_lo);
+        split(vr[n * 8], b_hi[0], b_lo[0]);
+        split(vr[kStride + n * 8], b_hi[1], b_lo[1]);
+        mma_split(acc[n], p_hi, p_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // this buffer is refilled next iteration

@@ -4,7 +4,8 @@ Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc` into a
 shared library of its own, loaded with `ctypes`; no source includes PyTorch's
 headers, so a build takes seconds. All sources compile in parallel, one `nvcc`
 each, at first use. Outputs go to `build/torch_kernels/` at the repository
-root, keyed by a hash of the source and flags, so an edit rebuilds. `nvcc`'s
+root, keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edit rebuilds. `nvcc`'s
 `-Xptxas=-v` report (registers, shared memory, spills) is kept beside each
 library as `<name>_<hash>.log`.
 """
@@ -53,7 +54,7 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
+    source = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}_{tag}.so"
 

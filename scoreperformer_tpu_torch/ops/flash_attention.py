@@ -9,8 +9,8 @@ the same Function runs `flash_attention_plain` and `flash_attention_bwd_plain`,
 the same functions in plain PyTorch. All keep the TPU kernels' numerics: q is
 scaled before the dot, the bias is -slope*|i-j|, masked scores are -1e30, the
 softmax sum is clamped at 1e-30, P is recomputed from the saved logsumexp, all
-in fp32 (the forward kernel takes its two products on the tensor cores in
-split TF32, three TF32 products each, within about 2^-21 of fp32).
+in fp32 (the kernels take every product on the tensor cores in split TF32,
+three TF32 products each, within about 2^-21 of fp32).
 
 A query row whose keys are all masked gets the JAX wrapper's answer: that
 wrapper pads keys to whole blocks with mask 0, so the row averages v over
@@ -26,7 +26,16 @@ from ._build import kernel
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
-BLOCK_Q = 32  # query rows per block of the dQ kernel (one dslope part each)
+BLOCK_ROWS = 64  # (head, position) rows per block of the dQ kernel
+
+
+def dq_slope_parts(b: int, h: int, hk: int, tq: int):
+    """Shape (b, h, blocks) of the dQ kernel's slope-gradient parts: one per
+    head a block holds. With one KV head and h dividing 64 a block holds all
+    h heads at 64/h positions, else 64 positions of one head
+    (csrc/flash_attention_bwd.cu::launch_dq)."""
+    positions = BLOCK_ROWS // h if hk == 1 and h > 1 and BLOCK_ROWS % h == 0 else BLOCK_ROWS
+    return (b, h, -(-tq // positions))
 
 
 def _check(q, k, v, slopes, mask):
@@ -224,6 +233,8 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     if dout.shape != q.shape or lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
         raise ValueError(f"{name}: dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "
                          f"delta {tuple(delta.shape)} do not fit q {tuple(q.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
     scale = scale if scale is not None else d**-0.5
     _raise_on(name, kernel("flash_attention_bwd", symbol)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
@@ -253,7 +264,7 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
         return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     b, h, tq, _ = q.shape
     dq = torch.empty_like(q)
-    parts = torch.empty(b, h, -(-tq // BLOCK_Q), dtype=torch.float32, device=q.device)
+    parts = torch.empty(dq_slope_parts(b, h, k.shape[1], tq), dtype=torch.float32, device=q.device)
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
     flash_attention_bwd_dq.launches += 1

@@ -225,6 +225,64 @@ def test_flash_split_tf32_arithmetic_matches_plain(causal, padded):
     assert max((one_o - want_o).abs().max().item(), (one_lse - want_lse).abs().max().item()) > 1e-5
 
 
+def flash_backward_with(matmul, q, k, v, slopes, mask, dout, lse, delta, causal):
+    """flash_attention_bwd_plain with each of its five products (S, dP, dV,
+    dK, dQ) taken by `matmul`, one KV head: (dq, dk, dv, dslopes)."""
+    b, _, tq, d = q.shape
+    tk = k.shape[2]
+    qs = q * d**-0.5
+    valid, dist = tflash._valid(b, tq, tk, mask, causal, q.device)
+    s = torch.where(valid, matmul(qs, k.transpose(-1, -2)) - slopes[None, :, None, None] * dist, tflash.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if causal:  # rows with no valid key: P = 1 up to the keys JAX visits
+        p = torch.where(torch.arange(tk)[None, :] < tflash.jax_masked_row_keys(tq, tk, True)[:, None], p, 0.0)
+    ds = p * (matmul(dout, v.transpose(-1, -2)) - delta[..., None])
+    dv = matmul(p.transpose(-1, -2), dout).sum(1, keepdim=True)
+    dk = matmul(ds.transpose(-1, -2), qs).sum(1, keepdim=True)
+    dslopes = (ds * -dist).sum(dim=(0, 2, 3)) + tflash.padded_key_dslopes(lse, delta, tq, tk, causal)
+    return matmul(ds, k) * d**-0.5, dk, dv, dslopes
+
+
+@pytest.mark.parametrize("causal,padded", [(False, True), (True, True), (False, "empty"), (True, "empty")],
+                         ids=["padded", "causal", "empty", "causal_empty"])
+def test_flash_backward_split_tf32_arithmetic_matches_plain(causal, padded):
+    """Every product of the backward in split TF32, as the dK/dV and
+    dQ/dslope kernels take them, stays within 1e-5 of the fp32 plain version
+    on dq, dk, dv and dslopes, each relative to its largest value (split
+    TF32 comes within 3e-6 here); one TF32 product a product is 2e-4 to 5e-3
+    off. Encoders' width with one KV head; a 4-head model's ALiBi slopes, as
+    in the forward's test. t = 384 pads 128 keys past t, so the slope
+    gradient takes the JAX wrapper's padded keys too."""
+    q, k, v, _, mask = map(torch.from_numpy, flash_inputs(2, 4, 384, 64, 1, padded))
+    slopes = alibi_slopes(4)
+    dout = torch.from_numpy(rand(7, 2, 4, 384, 64))
+    out, lse = tflash.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
+    delta = (dout * out).sum(-1)
+    args = (q, k, v, slopes, mask, dout, lse, delta, causal)
+    want = tflash.flash_attention_bwd_plain(*args)
+
+    def errors(matmul):
+        got = flash_backward_with(matmul, *args)
+        return {name: ((g - w).abs().max() / w.abs().max()).item()
+                for name, g, w in zip(("dq", "dk", "dv", "dslopes"), got, want)}
+
+    split = errors(split_tf32_matmul)
+    assert max(split.values()) <= 1e-5, split
+    one = errors(lambda a, b: tf32_rna(a) @ tf32_rna(b))
+    assert min(one.values()) > 1e-5, one
+
+
+@pytest.mark.parametrize("b,h,hk,tq,blocks", [
+    (128, 4, 1, 258, 17), (128, 4, 1, 257, 17), (2, 4, 4, 130, 3), (3, 1, 1, 65, 2),
+    (2, 8, 1, 9, 2), (2, 3, 1, 64, 1), (5, 2, 1, 1, 1), (2, 64, 1, 3, 3),
+])
+def test_flash_dq_slope_parts_match_the_kernel_grid(b, h, hk, tq, blocks):
+    """One slope-gradient part per head a dQ block holds: with one KV head
+    and h dividing 64 a block holds the h heads at 64/h positions (the
+    forward's blocks), else 64 positions of one head."""
+    assert tflash.dq_slope_parts(b, h, hk, tq) == (b, h, blocks)
+
+
 def test_flash_rejects_mismatched_shapes():
     q = torch.zeros(1, 2, 5, 8)
     with pytest.raises(ValueError):

@@ -10,14 +10,17 @@ checkout. It
 3. holds each kernel against its plain PyTorch version on the card, at the
    render's, the training step's and the served batch's shapes (the served
    scores' valid lengths, batch-padding rows at valid length 1), and at
-   edge cases, and times the kernel, the plain version and one PyTorch call
-   of the same function (the yardstick; the port never calls it) by CUDA-graph
+   edge cases (`prefix_attend` at head dims 16, 32, 64 and 128, and at the
+   shapes of every path below; `write_kv` and `write_kv_pair` in every
+   case), and times the kernel, the plain version and one PyTorch call of
+   the same function (the yardstick; the port never calls it) by CUDA-graph
    replay, with the eager time beside (the two backward kernels also as a
-   pair against one SDPA backward); checks that every flash kernel, forward
+   pair against one SDPA backward; the row writes also beside `copy_` and
+   `index_copy_`); checks that every flash kernel, forward
    and backward, holds TF32 tensor-core instructions in its SASS
    (`cuobjdump -sass`) and that two calls of `prefix_attend` and of the
    backward give the same bits; sweeps `prefix_attend`'s split count at the
-   served shape;
+   served shape and at scale_1024's;
 4. render path: builds the flagship ScorePerformer at full width (random
    weights from a seed, use_flash=True) and renders a 32-bar synthetic score
    through `render_performance`, greedy and top-k sampled, counting the
@@ -35,12 +38,19 @@ checkout. It
    greedy batch through `handle_batch` and as 128 sampled requests from
    concurrent clients through the TCP coalescer; renders 16 of them with
    bf16 and int8 caches; profiles one batched render;
-7. checks the output: notes with the score's pitches and finite times (a
+7. the recipes' other decoder head dims: a recipes/smoke.yaml-shaped model
+   (2 heads of 16) renders an 8-bar score and serves 16 requests, and
+   recipes/scoreperformer/scale_1024.yaml's model at full width (8 heads of
+   128, 285M parameters) serves 32 requests with its `auto` (int8) caches,
+   profiled once, each from a port checkpoint and against the CPU path;
+8. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
-   the server); finite losses, and loss and gradients of the card's step
-   equal to the CPU's; every served response `ok`.
+   the server; the smoke-shaped render and served batch; scale_1024's four
+   4-bar requests with softmax_bf16 off); finite losses, and loss and
+   gradients of the card's step equal to the CPU's; every served response
+   `ok`.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, ...}, printed only when every phase passed. Any failure exits
 non-zero.
@@ -97,6 +107,10 @@ SERVE_BARS = (8, 16, 24, 32)
 SERVE_BUCKET = 384
 SERVE_ALONE = 4  # requests of the greedy batch rendered again one by one
 SERVE_DTYPE_REQUESTS = 16  # requests rendered with bf16 and int8 caches
+# the smoke-shaped (d = 16) and scale_1024 (d = 128) served batches: the
+# first requests of the served cell
+SMOKE_REQUESTS = 16
+SCALE_REQUESTS = 32
 # the TCP coalescer's window: it closes at 128 requests, so it only has to
 # outlast 128 client threads connecting on a busy host (2 s did not, once)
 SERVE_WINDOW_MS = 60000.0
@@ -143,6 +157,62 @@ def flagship_config(tokenizer, n_notes, use_flash=True):
     }
 
 
+def base_recipe_config(tokenizer, dim, emb_dims, depths, heads, latent_dim, enc_attn, dec_attn, max_seq_len,
+                       max_segments):
+    """recipes/scoreperformer/base.yaml's resolved `model:` node with the
+    widths a recipe sets on it, written out (the card's machine may have no
+    PyYAML) and without the direction classifiers, which serving does not
+    build; vocab sizes and token values come from the tokenizer, as training
+    injects them. tests/test_torch_recipes.py holds it to the recipes."""
+    token_values = {k: v.tolist() for k, v in tokenizer.token_values(normalize=True).items()}
+    emb = {"_target_": "simple", "emb_dims": emb_dims, "mode": "cat", "emb_norm": True, "discrete": False,
+           "continuous": True, "continuous_dense": True, "discrete_ids": [0, 1, 2, 3], "token_values": token_values}
+    ff = {"mult": 4, "glu": True, "swish": True, "dropout": 0.1}
+
+    def stack(target, depth, attn):
+        return {"_target_": target, "depth": depth, "heads": heads, "attention": dict(attn), "feed_forward": dict(ff)}
+
+    common = {"emb_norm": True, "emb_dropout": 0, "use_abs_pos_emb": False, "max_seq_len": max_seq_len}
+    return {
+        "num_tokens": tokenizer.performance_sizes, "num_score_tokens": tokenizer.score_sizes,
+        "dim": dim, "tie_token_emb": True, "mode": "mixlm",
+        "score_encoder": {"token_embeddings": dict(emb), **common, "transformer": stack("encoder", depths[0], enc_attn)},
+        "perf_encoder": {"token_embeddings": dict(emb), **common, "max_segments": max_segments,
+                         "latent_dim": list(latent_dim),
+                         "aggregate_mode": ["mean", "bar_mean", "beat_mean", "onset_mean"],
+                         "latent_dropout": [0.0, 0.1, 0.2, 0.4], "hierarchical": True,
+                         "inclusive_latent_dropout": True, "deadpan_zero_latent": True, "loss_weight": 1.0,
+                         "transformer": stack("encoder", depths[1], enc_attn)},
+        "perf_decoder": {"token_embeddings": {**emb, "_target_": "multi-seq", "multiseq_mode": "post-cat"}, **common,
+                         "context_emb_mode": "cat", "style_emb_dim": list(latent_dim), "style_emb_mode": "adanorm",
+                         "transformer": stack("decoder", depths[2], dec_attn), "lm_head": {"_target_": "lm-tied"}},
+    }
+
+
+def smoke_config(tokenizer, n_notes):
+    """recipes/smoke.yaml's model (dim 64, one layer a stack, 2 heads of 16,
+    one KV head), with positions and segments for `n_notes` notes (the
+    recipe's 50 fit its 48-note training windows, not a served bucket)."""
+    attn = {"dim_head": 16, "one_kv_head": True, "dropout": 0.1, "alibi_pos_bias": True, "alibi_learned": True}
+    return base_recipe_config(tokenizer, dim=64, emb_dims=32, depths=(1, 1, 1), heads=2, latent_dim=(8, 6, 4, 2),
+                              enc_attn=attn, dec_attn=attn, max_seq_len=n_notes + 2, max_segments=n_notes + 4)
+
+
+def scale_1024_config(tokenizer):
+    """recipes/scoreperformer/scale_1024.yaml's model at full width: dim
+    1024, encoders 4 and 6 deep with 8 heads of 64 (its attention node
+    replaces the base's, so no ALiBi and no shared KV head), a decoder of 8
+    layers with 8 heads of 128 and one KV head, every attention layer with
+    fused_mask_select and softmax_bf16; 285M parameters with the
+    SPMupleWindow vocabularies."""
+    levers = {"fused_mask_select": True, "softmax_bf16": True}
+    dec_attn = {"dim_head": 128, "one_kv_head": True, "dropout": 0.1, "alibi_pos_bias": True, "alibi_learned": True,
+                **levers}
+    return base_recipe_config(tokenizer, dim=1024, emb_dims=256, depths=(4, 6, 8), heads=8,
+                              latent_dim=(64, 40, 16, 8), enc_attn=levers, dec_attn=dec_attn, max_seq_len=1026,
+                              max_segments=1028)
+
+
 def time_ms(torch, fn, iters=50, warmup=5):
     """Mean device time of one call, by CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -157,30 +227,55 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def check_write_kv(torch, kv, cap, n, b, dim, index, cache_dtype, timed):
-    """Kernel vs plain on two copies of one cache; bit-exact. Returns the
-    record of this shape (times only when `timed`)."""
+def check_write_kv(torch, kv, cap, n, b, dim, index, cache_dtype, timed, pair=False):
+    """`write_kv` (or, with `pair`, `write_kv_pair` into a K and a V cache)
+    vs its plain version on copies of the same caches; bit-exact. Returns the
+    record of this case (times only when `timed`: the kernel, the plain
+    version, and the same rows written by `copy_` at a host start and by
+    `index_copy_` with a device index tensor, once a cache, all by CUDA-graph
+    replay)."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cache = torch.randn(cap, b, dim, device=dev, generator=g).to(cache_dtype)
-    new = torch.randn(n, b, dim, device=dev, generator=g)
+    n_caches = 2 if pair else 1
+    caches = [torch.randn(cap, b, dim, device=dev, generator=g).to(cache_dtype) for _ in range(n_caches)]
+    news = [torch.randn(n, b, dim, device=dev, generator=g) for _ in range(n_caches)]
     idx = torch.tensor([index], dtype=torch.int64, device=dev)
-    got = kv.write_kv(cache.clone(), new, idx)
-    want = kv.write_kv_plain(cache.clone(), new, idx)
+
+    def kernel(cs, xs, i=idx):
+        return kv.write_kv_pair(*cs, *xs, i) if pair else (kv.write_kv(cs[0], xs[0], i),)
+
+    def plain(cs, xs, i):
+        return tuple(kv.write_kv_plain(c, x, i) for c, x in zip(cs, xs))
+
+    got = kernel([c.clone() for c in caches], news)
+    want = plain([c.clone() for c in caches], news, idx)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"write_kv differs from its plain version at {(cap, n, b, dim, index, cache_dtype)}")
-    rec = {"shape": [n, b, dim], "cap": cap, "index": index, "dtype": str(cache_dtype), "max_abs_err": 0.0}
+    name = "write_kv_pair" if pair else "write_kv"
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"{name} differs from its plain version at {(cap, n, b, dim, index, cache_dtype)}")
+    rec = {"name": name, "shape": [n, b, dim], "cap": cap, "index": index, "dtype": str(cache_dtype),
+           "max_abs_err": 0.0}
     if timed:
-        start = max(0, min(index, cap - n))
-        nbytes = 2 * new.numel() * cache.element_size() + idx.element_size()
-        copies = [(cache.clone(), new.clone()) for _ in range(n_copies(cache.numel() * cache.element_size()))]
-        rec["ms"] = graph_ms(torch, lambda c, x: kv.write_kv(c, x, idx), copies, iters=200)
+        start = min(max(index + cap if index < 0 else index, 0), cap - n)
+        rows = torch.arange(start, start + n, device=dev)  # index_copy_'s device index
+        # each new row read once, written once into its cache, and the start
+        nbytes = n_caches * news[0].numel() * (news[0].element_size() + caches[0].element_size()) + idx.element_size()
+        copies = [([c.clone() for c in caches], [x.clone() for x in news])
+                  for _ in range(n_copies(n_caches * caches[0].numel() * caches[0].element_size()))]
+        rec["ms"] = graph_ms(torch, kernel, copies, iters=200)
         # the plain version reads a device index with a host sync, which a
         # graph cannot hold: it is given the same start as a host int
-        rec["plain_ms"] = graph_ms(torch, lambda c, x: kv.write_kv_plain(c, x, index), copies, iters=200)
-        rec["library_ms"] = graph_ms(torch, lambda c, x: c[start : start + n].copy_(x), copies, iters=200)
-        rec["eager_ms"] = time_ms(torch, lambda: kv.write_kv(cache, new, idx), iters=200)
+        rec["plain_ms"] = graph_ms(torch, lambda cs, xs: plain(cs, xs, index), copies, iters=200)
+        rec["copy_ms"] = graph_ms(torch, lambda cs, xs: [c[start : start + n].copy_(x) for c, x in zip(cs, xs)],
+                                  copies, iters=200)
+        rec["index_copy_ms"] = graph_ms(torch, lambda cs, xs: [c.index_copy_(0, rows, x.to(c.dtype))
+                                                               for c, x in zip(cs, xs)], copies, iters=200)
+        # one PyTorch call of the same function: copy_ of one cache's rows,
+        # or one _foreach_copy_ of both caches' rows
+        rec["library_ms"] = graph_ms(
+            torch, lambda cs, xs: torch._foreach_copy_([c[start : start + n] for c in cs], xs), copies,
+            iters=200) if pair else rec["copy_ms"]
+        rec["eager_ms"] = time_ms(torch, lambda: kernel(caches, news), iters=200)
         del copies
         rec["bound_ms"] = nbytes / BYTES_PER_S * 1e3
         rec["bound_by"] = "bytes"
@@ -547,21 +642,23 @@ def flash_counts(fa):
 
 
 def reset_counts(fa, kv, pa):
-    kv.write_kv.launches = pa.prefix_attend.launches = 0
+    kv.write_kv.launches = kv.write_kv_pair.launches = pa.prefix_attend.launches = 0
     fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
 
 
 def all_counts(fa, kv, pa):
-    return {"write_kv": kv.write_kv.launches, "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa)}
+    return {"write_kv": kv.write_kv.launches, "write_kv_pair": kv.write_kv_pair.launches,
+            "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa)}
 
 
-def decode_launches(n_steps):
-    """The launches of one render of the flagship, any batch: one flash
-    forward per encoder layer (2 score, 4 MMD), then a chunked decode of
-    `n_steps` steps with 2 `write_kv` and 1 `prefix_attend` per decoder
-    layer and step; no backward."""
-    return {"write_kv": 2 * DECODER_LAYERS * n_steps, "prefix_attend": DECODER_LAYERS * n_steps,
-            "flash_attention_fwd": 2 + 4, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+def decode_launches(n_steps, layers=DECODER_LAYERS, flash=2 + 4):
+    """The launches of one render, any batch: `flash` flash forwards (the
+    flagship's: one per encoder layer, 2 score and 4 MMD; none without
+    use_flash), then a chunked decode of `n_steps` steps with one
+    `write_kv_pair` (the layer's K and V rows) and one `prefix_attend` per
+    decoder layer and step; no single `write_kv` and no backward."""
+    return {"write_kv": 0, "write_kv_pair": layers * n_steps, "prefix_attend": layers * n_steps,
+            "flash_attention_fwd": flash, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 
 def check_launches(what, got, expected):
@@ -643,7 +740,13 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
 def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI),
     the device's busy time, its idle share of the profiled wall time, and the
-    totals of the ported kernels (by kernel-name substring)."""
+    totals of the ported kernels (by kernel-name substring). The device
+    events (kernels, copies, sets) are summed by name from the profiler's raw
+    events: `key_averages()` would first build a Python object for every
+    event, host operations included, which cost minutes of host time a run
+    over the decode profiles' hundreds of thousands of kernels. `post_s`:
+    the host seconds from the end of `fn` to the record (the profiler's stop
+    and this sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -652,32 +755,44 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    by_time = sorted(device, key=lambda e: -e.self_device_time_total)[:top]
+        t1 = time.perf_counter()
+    by_name = collections.defaultdict(lambda: [0, 0])  # kernel name -> [ns, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+            acc = by_name[e.name()]
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    device = sorted(((name, ns / 1e6, n) for name, (ns, n) in by_name.items()), key=lambda x: -x[1])
+    wall_ms = (t1 - t0) * 1e3
+    busy_ms = sum(ms for _, ms, _ in device)
     return {
         "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms if device else "not measured",
         "device_idle_share": 1 - busy_ms / wall_ms if device else "not measured",
-        "device_ops": sum(e.count for e in device),
-        "top": [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in by_time],
+        "device_ops": sum(n for _, _, n in device),
+        "top": [{"name": name[:70], "ms": ms, "count": n} for name, ms, n in device[:top]],
         "ported": {
-            name: {"ms": sum(e.self_device_time_total for e in hits) / 1e3, "count": sum(e.count for e in hits),
-                   "kernels": sorted({e.key[:100] for e in hits})}
+            name: {"ms": sum(ms for _, ms, _ in hits), "count": sum(n for _, _, n in hits),
+                   "kernels": sorted({k[:100] for k, _, _ in hits})}
             for name in ported
-            for hits in [[e for e in device if name in e.key]]
+            for hits in [[e for e in device if name in e[0]]]
         },
+        "post_s": time.perf_counter() - t1,
     }
 
 
-def check_prefix_attend_profile(prof, what, expected):
-    """The profile holds `expected` prefix_attend kernels, one a launch, and
-    no merge kernel."""
+def check_decode_profile(prof, what, expected):
+    """The profile holds `expected["prefix_attend"]` prefix_attend kernels,
+    one a launch, and no merge kernel, and one row-write kernel a
+    `write_kv_pair` launch."""
     got = prof["ported"]["prefix_attend"]
-    if got["count"] != expected or any("merge" in name for name in got["kernels"]):
+    if got["count"] != expected["prefix_attend"] or any("merge" in name for name in got["kernels"]):
         raise AssertionError(f"{what}: prefix_attend kernels {got['kernels']} ran {got['count']} times, "
-                             f"expected one kernel {expected} times")
+                             f"expected one kernel {expected['prefix_attend']} times")
+    rows = prof["ported"]["write_rows"]
+    if rows["count"] != expected["write_kv_pair"]:
+        raise AssertionError(f"{what}: row-write kernels ran {rows['count']} times, expected one a "
+                             f"write_kv_pair launch, {expected['write_kv_pair']}")
 
 
 def tensor_core_counts(path, kernels):
@@ -733,6 +848,222 @@ def served_inputs(tokenizer, n=SERVE_REQUESTS, bars=SERVE_BARS):
     return scores, [prepare_render_inputs(tokenizer, sc) for sc in scores]
 
 
+def save_port_checkpoint(tokenizer, cfg, work):
+    """A port checkpoint directory under `work` (emptied first) of `cfg`'s
+    model with random weights from SEED, the tokenizer beside it."""
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.training import save_checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
+    ckpt = save_checkpoint(os.path.join(work, "checkpoint"), model, model_config={"_name_": "ScorePerformer", **cfg})
+    tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
+    return ckpt
+
+
+def greedy_tokens(torch, model, inputs, dev):
+    """The greedy chunked decode's tokens for one score's render inputs on
+    `dev`, through `mixedlm_unmask` as `render_performance` calls it."""
+    from scoreperformer_tpu_torch.models.wrappers import mixedlm_unmask
+
+    with torch.inference_mode():
+        x = {k: torch.as_tensor(np.asarray(inputs[k])[None], dtype=torch.int64, device=dev)
+             for k in ("deadpan_ids", "score_ids", "bars", "beats", "onsets", "tokens_in", "masked_all")}
+        mask = torch.ones_like(x["bars"], dtype=torch.bool)
+        score_emb, style_emb, _ = model.encode_embeddings(x["deadpan_ids"], mask, x["score_ids"], mask,
+                                                          x["bars"], x["beats"], x["onsets"])
+        return mixedlm_unmask(model, x["tokens_in"], x["masked_all"], style_embeddings=style_emb,
+                              context=score_emb, greedy=True).cpu()
+
+
+def token_agreement(out, ref, dims):
+    """The share of the filled streams' tokens of `out` equal to `ref`'s,
+    over render_batch results of the same requests."""
+    same = sum(int((o["tokens"][1:, dims] == r["tokens"][1:, dims]).sum()) for o, r in zip(out, ref))
+    return same / sum(r["tokens"][1:, dims].size for r in ref)
+
+
+def smoke_render_score(tokenizer):
+    """The smoke-shaped render's 8-bar score, its render inputs, and the
+    capacity of its decode's caches (the render phase's `max(steps, T)`)."""
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import prepare_render_inputs
+
+    score = synthetic_score(np.random.RandomState(SEED + 2), n_bars=8)
+    inputs = prepare_render_inputs(tokenizer, score)
+    T = len(inputs["deadpan_ids"])
+    return score, inputs, max(-(-(T - 1) // CHUNK) * CHUNK, T)
+
+
+def smoke_phase(torch, tokenizer, work, scores, inputs):
+    """recipes/smoke.yaml's model shape on the card, its decoder 2 heads of
+    16 with one KV head (random weights, use_flash off as in the recipe):
+    one greedy render of an 8-bar score, and a greedy served batch of the
+    first SMOKE_REQUESTS `scores` (with their render `inputs`) through a
+    `RenderServer` on a port checkpoint; each gives the port's CPU path's tokens and launches
+    `prefix_attend` and `write_kv_pair` once per decoder layer and step.
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.inference import RenderServer, load_model_from_checkpoint, render_performance
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+
+    cfg = smoke_config(tokenizer, SERVE_BUCKET)
+    layers = cfg["perf_decoder"]["transformer"]["depth"]
+    ckpt = save_port_checkpoint(tokenizer, cfg, work)
+    rec = {"decoder": {"layers": layers, "heads": 2, "dim_head": 16, "kv_heads": 1}}
+
+    score, score_inputs, _ = smoke_render_score(tokenizer)
+    n_steps = -(-(len(score_inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
+    models = {dev: load_model_from_checkpoint(ckpt, device=dev)[0] for dev in ("cuda", "cpu")}
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perf = render_performance(models["cuda"], tokenizer, score, seed=SEED, device="cuda", greedy=True)
+    torch.cuda.synchronize()
+    rec["render"] = {"bars": 8, "notes": perf.num_notes, "wall_s": time.perf_counter() - t0,
+                     "launches": all_counts(fa, kv, pa),
+                     "notes_not_performed": check_performance(tokenizer, score_inputs["score_ids"], perf,
+                                                              "smoke-shaped render", all_performed=False)}
+    check_launches("the smoke-shaped render", rec["render"]["launches"], decode_launches(n_steps, layers, 0))
+    same = torch.equal(*(greedy_tokens(torch, m, score_inputs, dev) for dev, m in models.items()))
+    print(f"smoke-shaped render of 8 bars, card vs CPU: identical tokens={same}")
+    if not same:
+        raise AssertionError("the smoke-shaped model's greedy tokens on the card differ from the CPU path's")
+    del models
+
+    requests = [dict(score_midi=sc, greedy=True) for sc in scores[:SMOKE_REQUESTS]]
+    server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cuda")
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.render_batch(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_counts(fa, kv, pa)
+    check_launches("the smoke-shaped served batch", launches, decode_launches(-(-(SERVE_BUCKET - 1) // CHUNK) * CHUNK,
+                                                                             layers, 0))
+    left_out = sum(check_performance(tokenizer, inputs[i]["score_ids"], r["perf"], f"smoke-shaped served request {i}",
+                                     all_performed=False) for i, r in enumerate(out))
+    on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(requests)
+    same = all(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(out, on_cpu))
+    rec["served"] = {"requests": len(requests), "wall_s": wall, "notes": sum(r["notes"] for r in out),
+                     "notes_not_performed": left_out, "launches": launches, "identical_to_cpu": same}
+    print("smoke-shaped served batch", json.dumps(rec["served"]))
+    if not same:
+        raise AssertionError("the smoke-shaped served batch's greedy tokens on the card differ from the CPU server's")
+    return rec
+
+
+def set_softmax_bf16(model, flag):
+    """Turn every attention layer's softmax_bf16 on or off (the weights stay)."""
+    from scoreperformer_tpu_torch.models.attention import Attention
+
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.softmax_bf16 = flag
+
+
+def scale_1024_phase(torch, tokenizer, work, scores, inputs):
+    """recipes/scoreperformer/scale_1024.yaml's model at full width on the
+    card (random weights from SEED) through a `RenderServer` on a port
+    checkpoint: the first SCALE_REQUESTS `scores` served greedy through
+    `handle_batch` with the `auto` caches (int8 at dim 1024), every response
+    ok; the share of tokens on which int8 agrees with fp32 caches (not
+    gated); a profiled int8 batch; then four 4-bar requests through the
+    card's server and the CPU's with fp32 caches, with softmax_bf16 off
+    (gated: identical tokens) and on (the share of equal tokens: bf16
+    rounds differently on the two devices). Returns the phase's record."""
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import RenderServer
+    from scoreperformer_tpu_torch.midi import read_midi, write_midi
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):  # host seconds of each step of the phase
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    cfg = scale_1024_config(tokenizer)
+    layers = cfg["perf_decoder"]["transformer"]["depth"]
+    ckpt = save_port_checkpoint(tokenizer, cfg, work)
+    lap("build_and_save_checkpoint")
+    server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, cache_dtype="auto", device="cuda")
+    lap("load_on_card")
+    n_params = sum(p.numel() for p in server.model.parameters())
+    rec = {"parameters": n_params, "cache_dtype": server.cache_dtype, "requests": SCALE_REQUESTS,
+           "decoder": {"layers": layers, "heads": 8, "dim_head": 128, "kv_heads": 1}, "phase_s": phase_s}
+    if server.cache_dtype != "int8":
+        raise AssertionError(f"the server's auto caches at dim 1024 are {server.cache_dtype}, not int8")
+    subset = scores[:SCALE_REQUESTS]
+    reqs = [{"id": i, "score_b64": base64.b64encode(write_midi(sc, None)).decode("ascii"), "greedy": True}
+            for i, sc in enumerate(subset)]
+    expected = decode_launches(-(-(SERVE_BUCKET - 1) // CHUNK) * CHUNK, layers, 0)
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resps = server.handle_batch(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_counts(fa, kv, pa)
+    lap("int8_batch")
+    bad = [r for r in resps if not r.get("ok")]
+    if bad:
+        raise AssertionError(f"scale_1024 served batch: {len(bad)} responses not ok, first {bad[0]}")
+    check_launches("the scale_1024 served batch", launches, expected)
+    left_out = sum(check_performance(tokenizer, inputs[i]["score_ids"], read_midi(base64.b64decode(r["midi_b64"])),
+                                     f"scale_1024 served request {i}", all_performed=False)
+                   for i, r in enumerate(resps))
+    notes = sum(r["notes"] for r in resps)
+    rec["int8"] = {"wall_s": wall, "notes": notes, "notes_per_s": notes / wall, "notes_not_performed": left_out,
+                   "launches": launches, "batched": sorted({r["batched"] for r in resps}),
+                   "padded_to": sorted({r["padded_to"] for r in resps}), "timings_ms": resps[-1]["timings"]}
+    print("scale_1024 served int8 batch", json.dumps(rec["int8"]))
+
+    requests = [dict(score_midi=sc, greedy=True) for sc in subset]
+    box = {}
+    rec["profile"] = profile_device(torch, lambda: box.update(int8=server.render_batch(requests)),
+                                    ported=PORTED_DECODE)
+    print("profile scale_1024 served int8 batch", json.dumps(rec["profile"]))
+    check_decode_profile(rec["profile"], "the scale_1024 served batch's profile", expected)
+    lap("profiled_int8_batch")
+    # fp32 caches; a length bucket of 64, so that the 4-bar scores below pad
+    # to 64 (the CPU's decode of this model is slow), the served batch still
+    # to 384
+    card = RenderServer(ckpt, bucket=64, chunk_size=CHUNK, cache_dtype="fp32", device="cuda")
+    rec["int8_agreement_with_fp32"] = token_agreement(box["int8"], card.render_batch(requests),
+                                                      list(server.sample_dims))
+    lap("fp32_batch")
+    print(f"scale_1024 served batch: int8 caches agree with fp32 on {rec['int8_agreement_with_fp32']:.4f} "
+          f"of the filled tokens")
+    del server, box
+
+    small = [dict(score_midi=synthetic_score(np.random.RandomState(1000 + i), n_bars=4), greedy=True)
+             for i in range(4)]
+    cpu = RenderServer(ckpt, bucket=64, chunk_size=CHUNK, cache_dtype="fp32", device="cpu")
+    lap("load_on_cpu")
+    rec["card_vs_cpu"] = {}
+    for flag in (False, True):
+        for srv in (card, cpu):
+            set_softmax_bf16(srv.model, flag)
+        t0 = time.perf_counter()
+        on_card, on_cpu = card.render_batch(small), cpu.render_batch(small)
+        rec["card_vs_cpu"][f"softmax_bf16={flag}"] = {
+            "identical_requests": sum(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(on_card, on_cpu)),
+            "token_agreement": token_agreement(on_card, on_cpu, list(card.sample_dims)),
+            "padded_to": on_cpu[0]["padded_to"], "wall_s": time.perf_counter() - t0}
+    lap("card_vs_cpu")
+    print("scale_1024, four 4-bar requests, card vs CPU server (fp32 caches)", json.dumps(rec["card_vs_cpu"]))
+    if rec["card_vs_cpu"]["softmax_bf16=False"]["identical_requests"] != len(small):
+        raise AssertionError("the scale_1024 model's greedy tokens on the card differ from the CPU server's")
+    rec["launches"] = expected
+    return rec
+
+
 def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET):
     """The serving path on the card: a port checkpoint directory of `cfg`'s
     model, a `RenderServer` on it, the `scores` (with their render `inputs`)
@@ -743,17 +1074,11 @@ def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET
     from scoreperformer_tpu_torch.data import synthetic_score
     from scoreperformer_tpu_torch.inference import RenderServer
     from scoreperformer_tpu_torch.midi import read_midi, write_midi
-    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
     from scoreperformer_tpu_torch.ops import prefix_attend as pa
-    from scoreperformer_tpu_torch.training import save_checkpoint
 
-    shutil.rmtree(work, ignore_errors=True)
-    model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
-    ckpt = save_checkpoint(os.path.join(work, "checkpoint"), model, model_config={"_name_": "ScorePerformer", **cfg})
-    tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
-    del model
+    ckpt = save_port_checkpoint(tokenizer, cfg, work)
     n = len(scores)
     rec = {"requests": n, "bars": list(SERVE_BARS)}
 
@@ -860,9 +1185,7 @@ def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET
         check_launches(f"the served {dtype} batch", all_counts(fa, kv, pa), expected)
         for i, r in enumerate(out):
             check_performance(tokenizer, score_ids[i], r["perf"], f"served {dtype} request {i}", all_performed=False)
-        same = sum(int((r["tokens"][1:, dims] == w["tokens"][1:, dims]).sum()) for r, w in zip(out, ref))
-        total = sum(w["tokens"][1:, dims].size for w in ref)
-        rec["cache_dtypes"][dtype] = {"wall_s": wall, "greedy_agreement_with_fp32": same / total,
+        rec["cache_dtypes"][dtype] = {"wall_s": wall, "greedy_agreement_with_fp32": token_agreement(out, ref, dims),
                                       "identical_requests": sum(np.array_equal(r["tokens"], w["tokens"])
                                                                 for r, w in zip(out, ref))}
         del other
@@ -898,7 +1221,6 @@ def main() -> int:
     from scoreperformer_tpu_torch.data import build_synthetic_dataset, synthetic_score
     from scoreperformer_tpu_torch.inference import prepare_render_inputs, render_performance
     from scoreperformer_tpu_torch.models.factory import build_scoreperformer
-    from scoreperformer_tpu_torch.models.wrappers import mixedlm_unmask
     from scoreperformer_tpu_torch.ops import _build
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
@@ -940,21 +1262,25 @@ def main() -> int:
         raise AssertionError(f"the served scores' longest has {max(serve_lens)} notes, not in the {SERVE_BUCKET} bucket")
 
     # ---- kernels against their plain versions ----
-    kv_main = check_write_kv(torch, kv, CHUNK, 1, 1, 64, 5, torch.float32, timed=True)
-    kv_recs = [
-        check_write_kv(torch, kv, CHUNK, 1, 1, 64, idx, dt, timed=False)
-        for idx in (0, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)
-    ] + [
-        # the served batch's fresh buffers: fp32 rows into fp32 (fp32 and
-        # int8 caches) or bf16 ones, at slots inside the chunk and clamped
-        check_write_kv(torch, kv, CHUNK, 1, SERVE_REQUESTS, 64, idx, dt, timed=(idx == 5 and dt == torch.float32))
-        for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)
-    ] + [
-        check_write_kv(torch, kv, 272, 16, 512, 64, 100, torch.float32, timed=True),
-        check_write_kv(torch, kv, 272, 16, 512, 64, 300, torch.float32, timed=False),
-        check_write_kv(torch, kv, 272, 16, 512, 64, 40, torch.bfloat16, timed=False),
-        check_write_kv(torch, kv, T, 1, 1, 64, T + 7, torch.float32, timed=False),
+    # write_kv and write_kv_pair (every case both ways, timed at the
+    # render's step, the served batch's step and a 2 MB write): the render's
+    # fresh buffers; the served batch's, fp32 rows into fp32 (fp32 and int8
+    # caches) or bf16 ones, at slots inside the chunk and clamped; the
+    # scale_1024 served batch's (32 rows of 128); a cast into bf16; rows of a
+    # length that is no multiple of 16 bytes (one element a unit)
+    kv_cases = [(CHUNK, 1, 1, 64, idx, dt, idx == 5 and dt == torch.float32)
+                for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)] + [
+        (CHUNK, 1, SERVE_REQUESTS, 64, idx, dt, idx == 5 and dt == torch.float32)
+        for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)] + [
+        (CHUNK, 1, SCALE_REQUESTS, 128, 7, torch.float32, False), (CHUNK, 1, SCALE_REQUESTS, 128, -1, torch.bfloat16, False),
+        (272, 16, 512, 64, 100, torch.float32, True), (272, 16, 512, 64, 300, torch.float32, False),
+        (272, 16, 512, 64, 40, torch.bfloat16, False), (T, 1, 1, 64, T + 7, torch.float32, False),
+        (10, 2, 3, 5, -3, torch.float32, False), (10, 2, 3, 5, 4, torch.bfloat16, False),
     ]
+    kv_recs = [check_write_kv(torch, kv, cap, n, b, dim, idx, dt, timed, pair)
+               for pair in (False, True) for cap, n, b, dim, idx, dt, timed in kv_cases]
+    kv_main, pair_main = (next(r for r in kv_recs if r["name"] == name and "ms" in r)
+                          for name in ("write_kv", "write_kv_pair"))
     fa_main = check_flash(torch, fa, 1, T, causal=False, padded=False, timed=True)
     fa_recs = [
         check_flash(torch, fa, 32, 258, causal=c, padded=p, timed=(not c and p))
@@ -994,8 +1320,8 @@ def main() -> int:
         check_flash(torch, fa, 3, 200, causal=True, padded="late", timed=False,
                     lengths=[(70, 200), (5, 90), (130, 131)]),
     ]
-    for rec in [kv_main] + kv_recs:
-        print("write_kv", json.dumps(rec))
+    for rec in kv_recs:
+        print(rec["name"], json.dumps(rec))
     for rec in [fa_main] + fa_recs:
         print("flash_attention_fwd", json.dumps(rec))
     # the backward kernels at the training step's shapes (timed), padded or
@@ -1051,9 +1377,35 @@ def main() -> int:
         check_prefix_attend(torch, pa, 5, 100, base, timed=False, dtype=dt, kvh=4)
         for base in (0, 60) for dt in ("fp32", "bf16", "int8")
     ]
-    for rec in [pa_main] + pa_recs:
+    # the recipes' other decoder head dims, one KV head: recipes/smoke.yaml's
+    # 2 heads of 16 at the served shape; scale_1024's 8 heads of 128 over a
+    # cache of 1024, timed in fp32 and in int8 (its served caches); bases
+    # from the first chunk to the last
+    pa_dims = [
+        check_prefix_attend(torch, pa, SERVE_REQUESTS, SERVE_BUCKET, SERVE_BUCKET // 2, timed=True, h=2, d=16),
+        check_prefix_attend(torch, pa, 64, 1024, 512, timed=True, h=8, d=128),
+        check_prefix_attend(torch, pa, 64, 1024, 512, timed=True, dtype="int8", h=8, d=128),
+    ] + [
+        check_prefix_attend(torch, pa, b, cap, base, timed=False, dtype=dt, h=h, d=d)
+        for b, cap, h, d in ((SERVE_REQUESTS, SERVE_BUCKET, 2, 16), (64, 1024, 8, 128))
+        for base in (0, CHUNK, cap // 2, cap - CHUNK) for dt in ("fp32", "bf16", "int8")
+    ]
+    # and at the shapes the new paths give it, bases from the first chunk to
+    # the last: the smoke-shaped render (b = 1) and served batch (b = 16);
+    # scale_1024's served batch (b = 32, int8, and fp32 for the agreement
+    # batch) and its card-vs-CPU gate (b = 4, a 64 bucket, fp32)
+    cap_smoke = smoke_render_score(tokenizer)[2]
+    pa_dims += [
+        check_prefix_attend(torch, pa, b, cap, base, timed=False, dtype=dt, h=h, d=d)
+        for b, cap, h, d, dtypes in ((1, cap_smoke, 2, 16, ("fp32",)), (SMOKE_REQUESTS, SERVE_BUCKET, 2, 16, ("fp32",)),
+                                     (SCALE_REQUESTS, SERVE_BUCKET, 8, 128, ("fp32", "int8")), (4, 64, 8, 128, ("fp32",)))
+        for base in (0, CHUNK, cap // 2, cap - CHUNK) for dt in dtypes
+    ]
+    for rec in [pa_main] + pa_recs + pa_dims:
         print("prefix_attend", json.dumps(rec))
     print("prefix_attend split sweep", json.dumps(prefix_split_sweep(torch, pa)))
+    print("prefix_attend split sweep, scale_1024's shape",
+          json.dumps(prefix_split_sweep(torch, pa, b=64, cap=1024, base=512, d=128, h=8)))
 
     # ---- the main path: the flagship renders the score on the card ----
     cfg = flagship_config(tokenizer, T)
@@ -1079,7 +1431,7 @@ def main() -> int:
     prof = profile_device(torch, lambda: render_performance(model, tokenizer, score, seed=SEED,
                                                             device="cuda", greedy=True), ported=PORTED_DECODE)
     print("profile greedy render", json.dumps(prof))
-    check_prefix_attend_profile(prof, "the render's profile", expected=decode_launches(n_steps)["prefix_attend"])
+    check_decode_profile(prof, "the render's profile", decode_launches(n_steps))
 
     # ---- the training path: the flagship takes train steps on the card ----
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_train")
@@ -1148,19 +1500,9 @@ def main() -> int:
     print(f"encoders, GPU kernels vs CPU plain: max abs err {emb_err:.3g}")
     if not emb_err <= 1e-3:
         raise AssertionError(f"encoder embeddings differ between GPU and CPU by {emb_err}")
-    small = synthetic_score(np.random.RandomState(SEED + 1), n_bars=4)
-    small_inputs = prepare_render_inputs(tokenizer, small)
-
-    def small_tokens(m, dev):
-        with torch.inference_mode():
-            x = {k: torch.as_tensor(np.asarray(small_inputs[k])[None], dtype=torch.int64, device=dev)
-                 for k in ("deadpan_ids", "score_ids", "bars", "beats", "onsets", "tokens_in", "masked_all")}
-            mask = torch.ones_like(x["bars"], dtype=torch.bool)
-            score_emb, style_emb, _ = m.encode_embeddings(x["deadpan_ids"], mask, x["score_ids"], mask,
-                                                          x["bars"], x["beats"], x["onsets"])
-            return mixedlm_unmask(m, x["tokens_in"], x["masked_all"], style_embeddings=style_emb,
-                                  context=score_emb, greedy=True).cpu()
-    same = torch.equal(small_tokens(model, "cuda"), small_tokens(cpu_model, "cpu"))
+    small_inputs = prepare_render_inputs(tokenizer, synthetic_score(np.random.RandomState(SEED + 1), n_bars=4))
+    same = torch.equal(greedy_tokens(torch, model, small_inputs, "cuda"),
+                       greedy_tokens(torch, cpu_model, small_inputs, "cpu"))
     print(f"4-bar greedy render tokens, GPU kernels vs CPU plain: identical={same}")
     if not same:
         raise AssertionError("greedy tokens on the GPU differ from the port's CPU path")
@@ -1181,14 +1523,36 @@ def main() -> int:
                          serve_scores, serve_inputs)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
     served_launches = served["greedy"]["launches"]
-    check_prefix_attend_profile(served["profile"], "the served batch's profile", expected=served_launches["prefix_attend"])
+    check_decode_profile(served["profile"], "the served batch's profile", served_launches)
+
+    # ---- the recipes' other decoder head dims: smoke.yaml's d = 16, scale_1024's d = 128 ----
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    t0 = time.perf_counter()
+    smoke = smoke_phase(torch, tokenizer, os.path.join(build, "chip_smoke_smoke"), serve_scores, serve_inputs)
+    print(f"smoke-shaped phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scale = scale_1024_phase(torch, tokenizer, os.path.join(build, "chip_smoke_scale_1024"), serve_scores,
+                             serve_inputs)
+    shutil.rmtree(os.path.join(build, "chip_smoke_scale_1024"), ignore_errors=True)  # a 1.1 GB checkpoint
+    print(f"scale_1024 phase: {time.perf_counter() - t0:.1f} s")
+    print("scale_1024 served", json.dumps({k: v for k, v in scale.items() if k != "profile"}))
 
     launches = renders["greedy"][1]
+    paths = {"render_greedy": launches, "train_steps": train_launches, "served_batch": served_launches,
+             "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
+             "scale_1024_served": scale["int8"]["launches"]}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
-        {"name": "write_kv", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/kv_cache.cu",
-         "replaces": "scoreperformer_tpu/ops/kv_cache.py:34", "launches": launches["write_kv"],
-         **{k: kv_main[k] for k in bound_keys + ("eager_ms",)}},
+        # the row-write kernel as the decode launches it: write_kv_pair (a
+        # layer's K and V rows) at the render's step, against one
+        # _foreach_copy_ (library), two copy_ and two index_copy_; a single
+        # write_kv (one cache), which no path calls, beside it
+        {"name": "write_kv_pair", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/kv_cache.cu",
+         "replaces": "scoreperformer_tpu/ops/kv_cache.py:34", "launches": launches["write_kv_pair"],
+         **{k: pair_main[k] for k in bound_keys + ("eager_ms", "copy_ms", "index_copy_ms")},
+         "shape": pair_main["shape"], "cap": pair_main["cap"],
+         "single_write_kv": {k: kv_main[k] for k in timed + ("copy_ms", "index_copy_ms", "shape", "cap")}},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
@@ -1205,11 +1569,12 @@ def main() -> int:
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",
          "replaces": "scripts/exp_pallas_decode_attend.py:51", "launches": launches["prefix_attend"],
-         **{k: pa_main[k] for k in bound_keys + ("eager_ms",)}},
+         **{k: pa_main[k] for k in bound_keys + ("eager_ms",)},
+         "head_dims": [{"shape": r["shape"], "cap": r["cap"], "base": r["base"], "dtype": r["dtype"],
+                        **{k: r[k] for k in timed}} for r in pa_dims if "ms" in r]},
     ]
     for rec in kernels:
-        rec["launches_by_path"] = {"render_greedy": launches[rec["name"]], "train_steps": train_launches[rec["name"]],
-                                   "served_batch": served_launches[rec["name"]]}
+        rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -20,17 +20,19 @@
 //
 // Bound on the H100: each prefix row is read once and used for a few
 // multiply-adds per head (h = 4 query heads share one KV head on the
-// flagship), so the kernel is bound by the bytes of the cache it reads:
-// 256 B a row in fp32 at d = 64, 128 B in bf16, 64 B in int8.
+// flagship, 8 on the scale_1024 recipe's decoder), so the kernel is bound by
+// the bytes of the cache it reads: 4 * d B a row in fp32, 2 * d in bf16, d in
+// int8, for d = 16, 32, 64 or 128 (the recipes' decoder head dims).
 //
 // Design. The TPU kernel put the batch on the 128 lanes and needed the cache
 // relaid as (cap, d, b); here the time-major cache is read as it lies. A row
 // (slot j, batch b, KV head g) is d contiguous elements, loaded by a group of
-// d/4 lanes, 4 elements (16 B in fp32) a lane, so one warp reads 2 (d = 64)
-// or 4 (d = 32) rows at a time, converting bf16 or int8 to fp32 in
-// registers. Each lane group keeps two rows in flight: the next row's loads
-// (k, v, scales, bias) are requested before this row's dot, shuffles and
-// exponentials. All H query heads of the batch row live in the same block,
+// d/4 lanes, 4 elements (16 B in fp32, 8 in bf16, 4 in int8) a lane, so one
+// warp reads 8 (d = 16), 4 (d = 32), 2 (d = 64) or 1 (d = 128) rows at a
+// time, converting bf16 or int8 to fp32 in registers; a row's dot product
+// is summed by log2(d/4) shuffles within its lane group. Each lane group
+// keeps two rows in flight: the next row's loads (k, v, scales, bias) are
+// requested before this row's dot, shuffles and exponentials. All H query heads of the batch row live in the same block,
 // H a template parameter (1, 2, 4 or 8): each lane keeps q, the running max,
 // sum and its 4 columns of the output for every head, so with one KV head
 // each row is read once for all heads. The slots are split across the
@@ -47,8 +49,10 @@
 //
 // What holds it back: each row costs a lane group about a microsecond,
 // whether the cache lies in L2 or in device memory (chip_smoke.py's split
-// sweep), and neither four rows in flight nor two rows a step was faster;
-// the cause is not found yet (open question in PERF.md).
+// sweep), and neither four rows in flight nor two rows a step was faster.
+// At d = 128 with 8 heads it is 9x its byte bound and twice its plain
+// version: a warp takes each row alone and every lane repeats the 8 heads'
+// exponentials. The cause is not found yet (open question in PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +63,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kVec = 4;  // elements a lane loads from a row
 constexpr float kMaskValue = -1e9f;
 constexpr int kMaxPortableCluster = 8;
 constexpr int kMaxCluster = 16;
+
+// Threads a block at head dim D: four warps, so that a block keeps 32 (d =
+// 16) to 8 (d = 64) lane groups, each with two rows in flight; eight at d =
+// 128, where a row takes a whole warp (chip_probe_decode.py: 256 threads are
+// 15% faster at d = 128 and 40-60% slower at d = 16 and 64).
+__host__ __device__ constexpr int threads_for(int D) { return D == 128 ? 256 : 128; }
 
 __device__ __forceinline__ void load4(const float* p, float* out) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -93,13 +101,14 @@ struct Row {
 // One split of the slots of one batch row per block; the splits of a batch
 // row form one cluster, whose block 0 merges them into o and lse.
 template <typename T, int D, int H>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_for(D))
     prefix_attend_cluster(const float* __restrict__ q, const T* __restrict__ pk,
                           const T* __restrict__ pv, const float* __restrict__ bias,
                           const float* __restrict__ k_s, const float* __restrict__ v_s,
                           float* __restrict__ o, float* __restrict__ lse, int batch, int kvh,
                           int cap, int n_valid, int slots_per_split) {
-  constexpr int kLanesPerRow = D / kVec;            // 16 at d = 64, 8 at d = 32
+  constexpr int kThreads = threads_for(D);
+  constexpr int kLanesPerRow = D / kVec;            // 4 at d = 16 ... 32 at d = 128
   constexpr int kGroups = kThreads / kLanesPerRow;  // lane groups a block
   __shared__ float group_m[kGroups][H];
   __shared__ float group_l[kGroups][H];
@@ -242,7 +251,7 @@ int launch(const float* q, const void* pk, const void* pv, const float* bias, co
   }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(n_splits, b, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
+  config.blockDim = dim3(threads_for(D), 1, 1);
   config.dynamicSmemBytes = 0;
   config.stream = stream;
   cudaLaunchAttribute cluster = {};
@@ -301,7 +310,8 @@ int launch_dtype(int dtype, int h, const float* q, const void* pk, const void* p
 
 }  // namespace
 
-// q: (b, h, d) fp32, scale folded in, h in {1, 2, 4, 8}; pk, pv:
+// q: (b, h, d) fp32, scale folded in, d in {16, 32, 64, 128}, h in {1, 2, 4,
+// 8}; pk, pv:
 // (cap, b, kvh * d) of `dtype` (0 fp32, 1 bf16, 2 int8), kvh in {1, h};
 // bias: (h, cap) fp32; k_s, v_s: (cap, b) fp32 row scales or null; o:
 // (b, h, d), lse: (b, h). Slot j < n_valid goes to split j / slots_per_split;
@@ -315,12 +325,18 @@ extern "C" int sp_prefix_attend(const float* q, const void* pk, const void* pv,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return launch_dtype<16>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                              n_splits, slots_per_split, s);
     case 32:
       return launch_dtype<32>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
                               n_splits, slots_per_split, s);
     case 64:
       return launch_dtype<64>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
                               n_splits, slots_per_split, s);
+    case 128:
+      return launch_dtype<128>(dtype, h, q, pk, pv, bias, k_s, v_s, o, lse, b, kvh, cap, n_valid,
+                               n_splits, slots_per_split, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,10 +2,12 @@
 
 Counterpart of scoreperformer_tpu/models/attention.py. Caches are dicts of
 time-major (cap, b, kv) tensors that the decode loop owns and that this module
-updates IN PLACE through `write_kv`. Positions (`cache_index`) are one-element
-int64 tensors on the device, so a decode step never waits for the host.
-Softmax runs in fp32. Attention-probability dropout applies in
-`module.train()` mode only (see `dropout.py`).
+updates IN PLACE through `write_kv_pair` (a layer's K and V rows in one
+kernel launch). Positions (`cache_index`) are one-element int64 tensors on
+the device, so a decode step never waits for the host. Softmax runs in fp32,
+or in bf16 with `softmax_bf16` outside the chunked decode, as in the JAX
+module. Attention-probability dropout applies in `module.train()` mode only
+(see `dropout.py`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention_alibi
-from ..ops.kv_cache import write_kv
+from ..ops.kv_cache import write_kv_pair
 from ..ops.prefix_attend import combine_lse, prefix_attend
 from .dropout import Dropout
 from .layers import ALiBiPositionalBias
@@ -61,10 +63,6 @@ def _attn_mask_4d(attn_mask: torch.Tensor) -> torch.Tensor:
     return attn_mask
 
 
-def _masked(dots: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    return torch.where(ok, dots, MASK_VALUE)
-
-
 class Attention(nn.Module):
     def __init__(
         self,
@@ -80,11 +78,19 @@ class Attention(nn.Module):
         alibi_symmetric: bool = True,
         alibi_learned: bool = False,
         use_flash: bool = False,
+        softmax_bf16: bool = False,
     ):
+        """`softmax_bf16`: cast the scores to bf16 after ALiBi, mask and
+        softmax them in bf16, and take the value product in fp32, as the JAX
+        module does (not bit-stable against fp32); the flash and the chunked
+        decode paths ignore it. The boolean masks are always ANDed and
+        applied in one select, which gives the bits of one select a mask:
+        both forms of the JAX module's `fused_mask_select`."""
         super().__init__()
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
         self.one_kv_head, self.max_attend = one_kv_head, max_attend
         self.alibi_symmetric, self.use_flash = alibi_symmetric, use_flash
+        self.softmax_bf16 = softmax_bf16
         self.dropout = dropout
         self.attn_dropout = Dropout(dropout)
         q_dim = dim_head * heads
@@ -159,8 +165,8 @@ class Attention(nn.Module):
         base = cache["base"]
 
         q = self.to_q(x).reshape(b, h, d)
-        fk = write_kv(cache["fk"], self.to_k(x).transpose(0, 1).contiguous(), idx - base)
-        fv = write_kv(cache["fv"], self.to_v(x).transpose(0, 1).contiguous(), idx - base)
+        fk, fv = write_kv_pair(cache["fk"], cache["fv"], self.to_k(x).transpose(0, 1).contiguous(),
+                               self.to_v(x).transpose(0, 1).contiguous(), idx - base)
         cap, chunk = cache["k"].shape[0], fk.shape[0]
         dev = x.device
 
@@ -248,8 +254,8 @@ class Attention(nn.Module):
             # ring buffer: single-position steps past the capacity wrap and the
             # cache then holds the last `cap` positions
             slot = idx % cap
-            k_t = write_kv(cache["k"], k.transpose(0, 1).contiguous(), slot)
-            v_t = write_kv(cache["v"], v.transpose(0, 1).contiguous(), slot)
+            k_t, v_t = write_kv_pair(cache["k"], cache["v"], k.transpose(0, 1).contiguous(),
+                                     v.transpose(0, 1).contiguous(), slot)
             j = cap
             pos_q = idx + torch.arange(n, device=dev)
             # absolute position held by each slot: the latest write at or
@@ -269,23 +275,37 @@ class Attention(nn.Module):
 
         if self.rel_pos is not None:
             dots = dots + self.rel_pos(pos_q, key_pos)[None]
+        if self.softmax_bf16:
+            dots = dots.to(torch.bfloat16)
 
-        # masks, composed in the JAX package's order
+        # boolean masks, each broadcastable to dots (b, h, n, j), ANDed and
+        # applied in one select (the bits of one select a mask)
+        oks = []
         input_mask = context_mask if (context is not None and context_mask is not None) else mask
         if input_mask is not None:
-            dots = _masked(dots, input_mask[:, None, None, :])
+            oks.append(input_mask[:, None, None, :])
         if attn_mask is not None:
-            dots = _masked(dots, _attn_mask_4d(attn_mask))
+            oks.append(_attn_mask_4d(attn_mask))
         if self.max_attend is not None:
             dist = pos_q[:, None] - key_pos[None, :]
-            dots = _masked(dots, ((-self.max_attend < dist) & (dist <= self.max_attend))[None, None])
+            oks.append(((-self.max_attend < dist) & (dist <= self.max_attend))[None, None])
         if self.causal:
-            dots = _masked(dots, (key_pos[None, :] <= pos_q[:, None])[None, None])
+            oks.append((key_pos[None, :] <= pos_q[:, None])[None, None])
         if key_valid is not None:
-            dots = _masked(dots, key_valid[None, None, None, :])
+            oks.append(key_valid[None, None, None, :])
+        if oks:
+            ok = oks[0]
+            for m in oks[1:]:
+                ok = ok & m
+            dots = torch.where(ok, dots, MASK_VALUE)
 
-        attn = torch.softmax(dots.float(), dim=-1).to(dots.dtype)
-        attn = self.attn_dropout(attn)
+        if self.softmax_bf16:
+            # jax.nn.softmax's steps, each rounded to bf16; JAX promotes the
+            # bf16 probabilities to fp32 for the product with fp32 values
+            u = torch.exp(dots - dots.amax(dim=-1, keepdim=True))
+            attn = self.attn_dropout(u / u.sum(dim=-1, keepdim=True)).to(v_h.dtype)
+        else:
+            attn = self.attn_dropout(torch.softmax(dots.float(), dim=-1).to(dots.dtype))
         out = (attn @ v_h).transpose(1, 2).reshape(b, n, h * d)
         out = self.to_out(out)
         if mask is not None and not has_cache:

@@ -28,6 +28,8 @@ class AttentionConfig(ModuleConfig):
     alibi_symmetric: bool = True
     alibi_learned: bool = False
     use_flash: bool = False
+    # read from the recipes and not passed on: Attention always ANDs the
+    # boolean masks into one select, the bits of either JAX form
     fused_mask_select: bool = False
     softmax_bf16: bool = False
 
@@ -81,8 +83,6 @@ class TransformerStack(nn.Module):
         att = cfg.attention
         if cfg.feed_forward.num_experts > 1:
             raise NotImplementedError("MoE feed-forward layers are not ported yet")
-        if att.fused_mask_select or att.softmax_bf16:
-            raise NotImplementedError("fused_mask_select / softmax_bf16 are not ported yet")
         if cfg.use_adanorm and cfg.style_emb_dim is None:
             raise ValueError("style_emb_dim required for adanorm")
         self.layer_types = cfg.layer_types()
@@ -108,6 +108,7 @@ class TransformerStack(nn.Module):
                     alibi_symmetric=att.alibi_symmetric,
                     alibi_learned=att.alibi_learned,
                     use_flash=att.use_flash if layer_type == "a" else False,
+                    softmax_bf16=att.softmax_bf16,
                 )
             else:
                 ff = cfg.feed_forward

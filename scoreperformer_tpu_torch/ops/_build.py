@@ -31,7 +31,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _FLASH_BWD_ARGS = [_P] * 10 + [_I] * 7 + [_F, _P]
 # C signatures of each library's entry points: {library: {symbol: argtypes}}
 ENTRY_POINTS = {
-    "kv_cache": {"sp_write_kv": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]},
+    "kv_cache": {"sp_write_kv": [_P, _P, _P, _P, _I, _P, _I64, _I64, _I64, _I, _I, _P]},
     "flash_attention_fwd": {
         "sp_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },

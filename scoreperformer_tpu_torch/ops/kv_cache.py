@@ -2,11 +2,14 @@
 
 Counterpart of scoreperformer_tpu/ops/kv_cache.py. Caches are TIME-MAJOR,
 (cap, batch, kv_dim), so the rows written by one decode step are contiguous.
-On a CUDA tensor `write_kv` launches the hand-written kernel of
-`csrc/kv_cache.cu`; on a CPU tensor it runs `write_kv_plain`, the same
-function in plain PyTorch.
+On CUDA tensors `write_kv` (one cache) and `write_kv_pair` (a layer's K and
+V caches at one start, which the decode steps call) launch the hand-written
+kernel of `csrc/kv_cache.cu`, once a call; on CPU tensors they run
+`write_kv_plain`, the same function in plain PyTorch.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -34,36 +37,67 @@ def write_kv_plain(cache: torch.Tensor, new: torch.Tensor, index) -> torch.Tenso
     return cache
 
 
+def _launch(what: str, pairs, index) -> None:
+    """One launch of the kernel over the (cache, new) `pairs`, which share
+    shapes and dtypes."""
+    cache, new = pairs[0]
+    if not isinstance(index, torch.Tensor) or index.numel() != 1 or index.dtype != torch.int64:
+        raise TypeError(f"{what}: on CUDA, index must be a one-element int64 tensor")
+    if index.device != cache.device:
+        raise ValueError(f"{what}: index is on {index.device}, cache on {cache.device}")
+    for c, x in pairs:
+        _check(c, x)
+        if (c.shape, x.shape, c.dtype, x.dtype) != (cache.shape, new.shape, cache.dtype, new.dtype):
+            raise ValueError(f"{what}: the K and V writes differ in shape or dtype")
+        if c.device != cache.device or x.device != cache.device:
+            raise ValueError(f"{what}: tensors on {c.device}/{x.device} and {cache.device}")
+        if not (c.is_contiguous() and x.is_contiguous()):
+            raise ValueError(f"{what}: caches and new rows must be contiguous")
+    if cache.dtype not in _DTYPE_CODES or new.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: dtypes {cache.dtype}/{new.dtype} not in {list(_DTYPE_CODES)}")
+    (c0, x0), (c1, x1) = pairs[0], pairs[-1]
+    cap, b, kv = cache.shape
+    err = kernel("kv_cache", "sp_write_kv")(
+        c0.data_ptr(), x0.data_ptr(), c1.data_ptr(), x1.data_ptr(), len(pairs), index.data_ptr(),
+        cap, new.shape[0], b * kv, _DTYPE_CODES[cache.dtype], _DTYPE_CODES[new.dtype],
+        torch.cuda.current_stream(cache.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
+
+
+def _on_cuda(what: str, cache: torch.Tensor) -> bool:
+    if cache.device.type == "cpu":
+        return False
+    if cache.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {cache.device}")
+    return True
+
+
 def write_kv(cache: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
     """Write `new` (n, batch, kv_dim) into `cache` (cap, batch, kv_dim) at rows
     [index, index+n), IN PLACE, and return `cache`.
 
     On CUDA, `index` is a one-element int64 tensor on the cache's device; the
     kernel reads it there, so the call never waits for the host."""
-    if cache.device.type == "cpu":
+    if not _on_cuda("write_kv", cache):
         return write_kv_plain(cache, new, index)
-    if cache.device.type != "cuda":
-        raise ValueError(f"write_kv: unsupported device {cache.device}")
-    _check(cache, new)
-    if not isinstance(index, torch.Tensor) or index.numel() != 1 or index.dtype != torch.int64:
-        raise TypeError("write_kv: on CUDA, index must be a one-element int64 tensor")
-    for name, t in (("new", new), ("index", index)):
-        if t.device != cache.device:
-            raise ValueError(f"write_kv: {name} is on {t.device}, cache on {cache.device}")
-    if cache.dtype not in _DTYPE_CODES or new.dtype not in _DTYPE_CODES:
-        raise TypeError(f"write_kv: dtypes {cache.dtype}/{new.dtype} not in {list(_DTYPE_CODES)}")
-    if not (cache.is_contiguous() and new.is_contiguous()):
-        raise ValueError("write_kv: cache and new must be contiguous")
-    cap, b, kv = cache.shape
-    err = kernel("kv_cache", "sp_write_kv")(
-        cache.data_ptr(), new.data_ptr(), index.data_ptr(), cap, new.shape[0], b * kv,
-        _DTYPE_CODES[cache.dtype], _DTYPE_CODES[new.dtype],
-        torch.cuda.current_stream(cache.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"write_kv: kernel launch failed with CUDA error {err}")
+    _launch("write_kv", [(cache, new)], index)
     write_kv.launches += 1
     return cache
 
 
+def write_kv_pair(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                  index) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`write_kv` of a layer's K rows and V rows at the same start, IN PLACE,
+    in one kernel launch on CUDA; returns (k_cache, v_cache). The two caches
+    share their shape and dtype, and so do the two row blocks."""
+    if not _on_cuda("write_kv_pair", k_cache):
+        return write_kv_plain(k_cache, k_new, index), write_kv_plain(v_cache, v_new, index)
+    _launch("write_kv_pair", [(k_cache, k_new), (v_cache, v_new)], index)
+    write_kv_pair.launches += 1
+    return k_cache, v_cache
+
+
 write_kv.launches = 0
+write_kv_pair.launches = 0

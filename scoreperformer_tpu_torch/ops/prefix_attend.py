@@ -24,10 +24,10 @@ import torch
 from ._build import kernel
 
 MASK_VALUE = -1e9  # the Pallas kernel's running max starts here
-KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # every decoder head dim of the recipes
 KERNEL_HEADS = (1, 2, 4, 8)  # the kernel's head-count template parameter
 MAX_CLUSTER = 16  # blocks a cluster: the kernel's splits of one batch row
-BLOCKS_PER_SM = 4  # blocks of 128 threads the split choice fills an SM with, at most
+BLOCKS_PER_SM = 4  # blocks (128 threads; 256 at d = 128) the split choice fills an SM with, at most
 MIN_SLOTS_PER_SPLIT = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 

@@ -7,8 +7,9 @@ on optax. `Optimizer` applies the same chain to a model's parameters in place:
   not torch.optim.AdamW's 1e-2; adam's eps is added outside the square root);
 - global-norm clipping as optax does it: g * max / norm when norm >= max
   (torch's clip_grad_norm_ divides by norm + 1e-6);
-- a step whose (accumulated) gradients are not finite is skipped and leaves
-  every count where it was, so the schedule does not advance;
+- a step whose (accumulated) gradients hold a non-finite entry is skipped and
+  leaves every count where it was, so the schedule does not advance; finite
+  entries whose squares overflow the global norm do not skip it;
 - accumulation over k steps keeps optax's running mean and updates on the k-th.
 The learning-rate schedules (constant, per-epoch exponential staircase,
 cosine) are optax's. lamb, lion, adafactor, the plateau controller and
@@ -143,9 +144,10 @@ class Optimizer:
             grads, self.acc = self.acc, [torch.zeros_like(p) for p in self.params]
             grad_norm = None
         norm = global_norm(grads) if grad_norm is None else grad_norm
-        # optax.apply_if_finite checks every entry; a sum of squares is
-        # non-finite exactly when one is (short of overflowing fp32)
-        if not bool(torch.isfinite(norm)):
+        # optax.apply_if_finite checks every entry. A finite norm means every
+        # entry is finite, so only a non-finite one (rare) pays a second check:
+        # its squares may have overflowed from finite entries
+        if not bool(torch.isfinite(norm)) and not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
             self.skipped += 1
             return
         clip = self.config.grad_clip

@@ -54,6 +54,20 @@ def test_write_kv_matches_jax_dynamic_update_slice(index, cache_dtype):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("index", [0, 3, 6, 7, 100, -2, -9, -30], ids=lambda i: f"index{i}")
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_write_kv_pair_matches_two_jax_writes(index, cache_dtype):
+    """A layer's K and V rows at one start: two JAX `write_kv` calls at the
+    indices above, both caches written in place."""
+    caches, rows = [rand(s, 10, 3, 8) for s in (0, 2)], [rand(s, 3, 3, 8) for s in (1, 3)]
+    want = [jkv.write_kv(jnp.asarray(c, dtype=cache_dtype), jnp.asarray(r), index) for c, r in zip(caches, rows)]
+    tcaches = [torch.from_numpy(c.copy()).to(getattr(torch, cache_dtype)) for c in caches]
+    got = tkv.write_kv_pair(*tcaches, *map(torch.from_numpy, rows), torch.tensor([index]))
+    for g, tc, w in zip(got, tcaches, want):
+        assert g is tc  # in place
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w.astype(jnp.float32)))
+
+
 def test_write_kv_rejects_rows_that_do_not_fit():
     with pytest.raises(ValueError):
         tkv.write_kv(torch.zeros(2, 1, 4), torch.zeros(3, 1, 4), 0)
@@ -313,8 +327,9 @@ def pallas_decode_attend():
 
 
 def prefix_inputs(b, cap, base, h=4, d=64, seed=11):
-    """Scale-folded q, time-major pk/pv and an (h, cap) bias: ALiBi up to
-    `base`, -1e9 from there on (every slot stale when base is 0)."""
+    """Scale-folded q, time-major pk/pv (one KV head) and an (h, cap) bias:
+    ALiBi up to `base`, -1e9 from there on (every slot stale when base is
+    0)."""
     rng = np.random.RandomState(seed)
     q = (rng.randn(b, h, d) * d**-0.5).astype(np.float32)
     pk, pv = rng.randn(2, cap, b, d).astype(np.float32)
@@ -324,15 +339,19 @@ def prefix_inputs(b, cap, base, h=4, d=64, seed=11):
     return q, pk, pv, bias
 
 
-@pytest.mark.parametrize("b,cap,base", [(128, 64, 40), (128, 64, 0), (512, 256, 200), (512, 256, 0)],
-                         ids=["b128_cap64", "b128_cap64_all_stale", "b512_cap256", "b512_cap256_all_stale"])
-def test_prefix_attend_plain_matches_pallas_kernel(pallas_decode_attend, monkeypatch, b, cap, base):
-    """The Pallas kernel in interpret mode (module globals B and CAP set to
-    the shape, inputs relaid to its (cap, d, b) layout) against the plain
-    version on the cache's own layout: o and lse."""
-    monkeypatch.setattr(pallas_decode_attend, "B", b)
-    monkeypatch.setattr(pallas_decode_attend, "CAP", cap)
-    q, pk, pv, bias = prefix_inputs(b, cap, base)
+@pytest.mark.parametrize("b,cap,base,h,d", [
+    (128, 64, 40, 4, 64), (128, 64, 0, 4, 64), (512, 256, 200, 4, 64), (512, 256, 0, 4, 64),
+    # the decoders of recipes/smoke.yaml and recipes/scoreperformer/scale_1024.yaml
+    (128, 64, 40, 2, 16), (128, 128, 100, 8, 128),
+], ids=["b128_cap64", "b128_cap64_all_stale", "b512_cap256", "b512_cap256_all_stale", "b128_cap64_h2_d16",
+        "b128_cap128_h8_d128"])
+def test_prefix_attend_plain_matches_pallas_kernel(pallas_decode_attend, monkeypatch, b, cap, base, h, d):
+    """The Pallas kernel in interpret mode (module globals B, CAP, H and D
+    set to the shape, inputs relaid to its (cap, d, b) layout) against the
+    plain version on the cache's own layout: o and lse."""
+    for name, value in (("B", b), ("CAP", cap), ("H", h), ("D", d)):
+        monkeypatch.setattr(pallas_decode_attend, name, value)
+    q, pk, pv, bias = prefix_inputs(b, cap, base, h, d)
     want_o, want_lse = pallas_decode_attend.pallas_prefix_attend(
         jnp.asarray(q.transpose(1, 2, 0)), jnp.asarray(pk.transpose(0, 2, 1)),
         jnp.asarray(pv.transpose(0, 2, 1)), jnp.asarray(bias.T),

@@ -269,6 +269,41 @@ def test_decode_steps_over_the_ring_cache(pair):
                 close(jc["v"], tc["v"])
 
 
+@torch.no_grad()
+def test_softmax_bf16_stack_and_encoders_match_jax():
+    """A tiny model whose attention layers all set softmax_bf16 and
+    fused_mask_select (as recipes/scoreperformer/scale_1024.yaml does): the
+    score encoder's stack and both encoders' embeddings against JAX's.
+    Measured: 9.5e-7 on the stack and 7.2e-7 on the embeddings (both
+    frameworks round the same bf16 steps), held to MODEL_TOL; the same
+    weights with the fp32 softmax are 2.5e-3 to 1.1e-2 off, so the test
+    tells the two apart."""
+    inputs = make_inputs()
+    cfg = tiny_config()
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        cfg[key]["transformer"]["attention"] = {**cfg[key]["transformer"]["attention"],
+                                                "softmax_bf16": True, "fused_mask_select": True}
+    model, variables, port = build_pair(cfg, inputs)
+    h = rand(4, 2, 12, 32)
+    want, _, _ = apply(model, variables, lambda m, h, k: m.score_encoder.transformer(h, mask=k), h, inputs["mask"])
+    args = [inputs[k] for k in ("perf", "mask", "score", "mask", "bars", "beats", "onsets")]
+    want_emb = model.apply(variables, *map(jnp.asarray, args), method="encode_embeddings")[:2]
+    targs = [t(a, torch.int64) if a.dtype != bool else t(a) for a in args]
+    errors = {}
+    for flag in (True, False):
+        for m in port.modules():
+            if isinstance(m, tattention.Attention):
+                m.softmax_bf16 = flag
+        got = port.score_encoder.transformer(t(h), mask=t(inputs["mask"]))
+        got_emb = port.encode_embeddings(*targs)[:2]
+        errors[flag] = max(np.abs(np.asarray(w) - g.numpy()).max() for w, g in zip([want, *want_emb], [got, *got_emb]))
+        if flag:
+            close(want, got, MODEL_TOL)
+            for w, g in zip(want_emb, got_emb):
+                close(w, g, MODEL_TOL)
+    assert errors[True] <= 1e-5 and errors[False] > 1e-3, errors
+
+
 # ---- single modules with their own weights ----
 
 
@@ -328,10 +363,12 @@ ATTENTION_CASES = {
 }
 
 
-def _attention_pair(kw, x, **call):
-    jmod = jattention.Attention(dim=16, dim_head=8, heads=3, **kw)
+def _attention_pair(kw, x, heads=3, dim_head=8, **call):
+    jmod = jattention.Attention(dim=16, dim_head=dim_head, heads=heads, **kw)
     params = jmod.init(jax.random.PRNGKey(2), x, **call)["params"]
-    tmod = tattention.Attention(16, dim_head=8, heads=3, **{k: v for k, v in kw.items()})
+    # the port always takes the fused mask select
+    tmod = tattention.Attention(16, dim_head=dim_head, heads=heads,
+                                **{k: v for k, v in kw.items() if k != "fused_mask_select"})
     for name in ("to_q", "to_k", "to_v", "to_out"):
         _linear(getattr(tmod, name), params[name])
     if "rel_pos" in params:
@@ -340,8 +377,8 @@ def _attention_pair(kw, x, **call):
     return jmod, params, tmod
 
 
-@pytest.mark.parametrize("case", list(ATTENTION_CASES))
-def test_attention_full_path(case):
+def _full_path_inputs(case):
+    """x and the call's keyword arguments for JAX and for the port."""
     x = rand(9, 2, 7, 16)
     mask = np.ones((2, 7), bool)
     mask[1, 5:] = False
@@ -357,10 +394,48 @@ def test_attention_full_path(case):
         cmask[0, 7:] = False
         call.update(context=ctx, context_mask=cmask)
         tcall.update(context=t(ctx), context_mask=t(cmask))
+    return x, call, tcall
+
+
+@pytest.mark.parametrize("case", list(ATTENTION_CASES))
+def test_attention_full_path(case):
+    x, call, tcall = _full_path_inputs(case)
     jmod, params, tmod = _attention_pair(ATTENTION_CASES[case], x, **call)
     want, _ = jmod.apply({"params": params}, x, **call)
     with torch.no_grad():
         close(want, tmod(t(x), **tcall))
+
+
+@pytest.mark.parametrize("case", [c for c in ATTENTION_CASES if not c.startswith("flash")])
+def test_attention_fused_mask_select(case):
+    """The port's one select of the ANDed masks (key mask, attn_mask, window,
+    causality) against JAX's two forms of the flag: those two give the same
+    bits, and the port is within 1e-5 of them."""
+    x, call, tcall = _full_path_inputs(case)
+    jmod, params, tmod = _attention_pair({**ATTENTION_CASES[case], "fused_mask_select": True}, x, **call)
+    fused, _ = jmod.apply({"params": params}, x, **call)
+    per_mask, _ = jmod.clone(fused_mask_select=False).apply({"params": params}, x, **call)
+    np.testing.assert_array_equal(np.asarray(fused), np.asarray(per_mask))
+    with torch.no_grad():
+        close(fused, tmod(t(x), **tcall))
+
+
+@pytest.mark.parametrize("one_kv_head", [True, False], ids=["mqa", "mha"])
+def test_attention_ring_cache_fused_mask_select(one_kv_head):
+    """The ring cache's masks (key validity, causality, the key mask) in one
+    select, against JAX's fused path over single steps that wrap a 6-slot
+    ring."""
+    kw = dict(one_kv_head=one_kv_head, causal=True, alibi_pos_bias=True, fused_mask_select=True)
+    x = rand(12, 2, 9, 16)
+    jmod, params, tmod = _attention_pair(kw, x[:, :4])
+    kv = 8 if one_kv_head else 24
+    jcache, tcache = jattention.init_kv_cache(2, 6, kv), tattention.init_kv_cache(2, 6, kv)
+    mask = np.ones((2, 6), bool)
+    for i in range(8):
+        want, jcache = jmod.apply({"params": params}, x[:, i : i + 1], mask=mask, cache=jcache, cache_index=i)
+        with torch.no_grad():
+            got = tmod(t(x[:, i : i + 1]), mask=t(mask), cache=tcache, cache_index=torch.tensor([i]))
+        close(want, got)
 
 
 @pytest.mark.parametrize("one_kv_head", [True, False])
@@ -427,6 +502,26 @@ def test_attention_chunked_cache(cache_dtype, base, one_kv_head):
         close(new[key].astype(jnp.float32), tcache[key].float())
 
 
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("base", [0, 2 * CHUNK], ids=["base0", "base_mid"])
+@pytest.mark.parametrize("heads,dim_head", [(2, 16), (8, 128)], ids=["h2_d16", "h8_d128"])
+def test_attention_chunked_cache_at_the_recipes_head_dims(heads, dim_head, base, cache_dtype):
+    """test_attention_chunked_cache at the head counts and dims of the
+    decoders of recipes/smoke.yaml (2 of 16) and
+    recipes/scoreperformer/scale_1024.yaml (8 of 128), one KV head."""
+    kw = dict(one_kv_head=True, causal=True, alibi_pos_bias=True, alibi_learned=True)
+    x = rand(15, 2, 1, 16)
+    jmod, params, tmod = _attention_pair(kw, x, heads=heads, dim_head=dim_head)
+    jcache, tcache = _chunked_caches(dim_head, cache_dtype, base)
+    idx = base + 5
+    want, new = jmod.apply({"params": params}, x, cache=jcache, cache_index=idx)
+    with torch.no_grad():
+        got = tmod(t(x), cache=tcache, cache_index=torch.tensor([idx]))
+    close(want, got)
+    for key in ("fk", "fv"):  # written in place
+        close(new[key].astype(jnp.float32), tcache[key].float())
+
+
 def test_attention_chunked_cache_folds_max_attend_and_rejects_row_masks():
     """`max_attend` folds into the prefix bias; a key mask that differs
     between batch rows cannot, and raises."""
@@ -475,8 +570,8 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax():
     root = Path(__file__).resolve().parents[1]
-    files = sorted((root / "scoreperformer_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py",
-                                                                         root / "chip_probe_flash_bwd.py"]
+    files = sorted((root / "scoreperformer_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py", root / "chip_probe_flash_bwd.py", root / "chip_probe_decode.py"]
     assert len(files) > 20
     names = {str(p.relative_to(root)) for p in files}
     for serving in ("inference/server.py", "serve.py", "render.py", "ops/prefix_attend.py"):

@@ -1,0 +1,110 @@
+"""The repository's recipes in the port, on the CPU.
+
+Every decoder that a recipe configures fits the head dims and head counts of
+the `prefix_attend` kernel, to which the chunked decode sends every step's
+prefix on the card; recipes/scoreperformer/scale_1024.yaml builds (on the
+meta device, so its parameters are not allocated); and the configs that
+chip_smoke.py writes out (the card's machine may have no PyYAML) are the
+recipes' own.
+"""
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from scoreperformer_tpu_torch.configs.yaml_loader import load_experiment_config
+from scoreperformer_tpu_torch.models.attention import Attention
+from scoreperformer_tpu_torch.models.factory import build_scoreperformer_config
+from scoreperformer_tpu_torch.models.scoreperformer import ScorePerformerModel
+from scoreperformer_tpu_torch.ops.prefix_attend import KERNEL_HEAD_DIMS, KERNEL_HEADS
+from scoreperformer_tpu_torch.tokenizers import SPMupleWindow, TokenizerConfig
+from scoreperformer_tpu_torch.training.components import inject_data_config
+
+ROOT = Path(__file__).resolve().parents[1]
+RECIPES = sorted(str(p.relative_to(ROOT / "recipes")) for p in (ROOT / "recipes").rglob("*.yaml"))
+
+
+@pytest.fixture(scope="module")
+def tokenizer():
+    return SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def injected_model(name, tokenizer):
+    """A recipe's `model:` node with the tokenizer's vocab and token values
+    injected as training injects them (no direction labels)."""
+    model = load_experiment_config(ROOT / "recipes", name)["model"]
+    return inject_data_config(model, SimpleNamespace(tokenizer=tokenizer))
+
+
+def test_the_recipes_are_found():
+    assert {"smoke.yaml", "scoreperformer/base.yaml", "scoreperformer/scale_1024.yaml"} <= set(RECIPES)
+
+
+@pytest.mark.parametrize("name", RECIPES)
+def test_every_recipe_decoder_fits_prefix_attend(name):
+    """The decoder's self-attention (the ScorePerformer's perf_decoder, the
+    Performer's transformer): head dim in KERNEL_HEAD_DIMS, head count in
+    KERNEL_HEADS, one KV head or one per query head."""
+    model = load_experiment_config(ROOT / "recipes", name).get("model", {})
+    if model.get("_name_") == "ScorePerformer":
+        stack = build_scoreperformer_config(model).perf_decoder.transformer
+        heads, att = stack.heads, stack.attention
+        dim_head, kv_heads = att.dim_head, 1 if att.one_kv_head else stack.heads
+    elif "transformer" in model:  # the Performer: model.transformer.transformer
+        stack = model["transformer"]["transformer"]
+        att = stack["attention"]
+        heads, dim_head = stack["heads"], att["dim_head"]
+        kv_heads = 1 if att.get("one_kv_head") else heads
+    else:  # recipes/default.yaml: the shared trainer settings, no model
+        assert not model.get("transformer") and model.get("_name_") in (None, "???"), name
+        return
+    assert dim_head in KERNEL_HEAD_DIMS and heads in KERNEL_HEADS and kv_heads in (1, heads), (
+        f"{name}: decoder heads {heads} of {dim_head}, {kv_heads} KV heads")
+
+
+def test_scale_1024_builds_and_its_decoder_fits_prefix_attend(tokenizer):
+    """Built on the meta device (285,416,448 parameters with this tokenizer's
+    vocabularies), every stack's config with fused_mask_select (the port
+    always fuses), every attention layer with softmax_bf16, decoder self-attention 8 heads of 128 with one KV head,
+    inside the kernel's head dims and counts."""
+    cfg = build_scoreperformer_config(injected_model("scoreperformer/scale_1024.yaml", tokenizer))
+    stacks = [cfg.score_encoder.transformer, cfg.perf_encoder.transformer, cfg.perf_decoder.transformer]
+    assert all(s.attention.fused_mask_select for s in stacks)
+    with torch.device("meta"):
+        model = ScorePerformerModel(cfg, device="meta")
+    assert all(p.device.type == "meta" for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == 285_416_448, n_params
+    attention = [m for m in model.modules() if isinstance(m, Attention)]
+    assert attention and all(m.softmax_bf16 for m in attention)
+    decoder = [m for m in model.decoder.modules() if isinstance(m, Attention) and m.causal]
+    assert len(decoder) == 8
+    for m in decoder:
+        assert (m.heads, m.dim_head, m.kv_heads) == (8, 128, 1)
+        assert m.dim_head in KERNEL_HEAD_DIMS and m.heads in KERNEL_HEADS
+
+
+def test_chip_smoke_configs_are_the_recipes(tokenizer, chip_smoke):
+    """chip_smoke.py's scale_1024 model is the recipe's `model:` node less
+    the direction classifiers; its smoke-shaped model is recipes/smoke.yaml's
+    with the positions and segments a served bucket of 384 needs."""
+    def strip(model):
+        return {k: v for k, v in model.items() if k not in ("_name_", "_version_", "classifiers")}
+
+    assert chip_smoke.scale_1024_config(tokenizer) == strip(injected_model("scoreperformer/scale_1024.yaml",
+                                                                           tokenizer))
+    smoke = strip(injected_model("smoke.yaml", tokenizer))
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        smoke[key]["max_seq_len"] = 386
+    smoke["perf_encoder"]["max_segments"] = 388
+    assert chip_smoke.smoke_config(tokenizer, 384) == smoke

@@ -46,6 +46,11 @@ OPT_CASES = {
                               grad_clip=1.5, grad_accum_steps=2, lr_scheduler="cosine",
                               lr_scheduler_params={"decay_steps": 3}),
     "sgd_momentum": dict(optimizer="sgd", lr=0.1, optimizer_params={"momentum": 0.9}),
+    # one finite entry of 2e19 whose square overflows fp32 (the global norm
+    # is inf): optax applies the step, clipped to 0 by 2/inf, or raw
+    "adamw_clip_overflowing_square": dict(optimizer="adamw", lr=0.1, optimizer_params={"weight_decay": 1e-2},
+                                          grad_clip=2.0),
+    "adamw_overflowing_square": dict(optimizer="adamw", lr=0.1, optimizer_params={"weight_decay": 1e-2}),
 }
 
 
@@ -53,7 +58,18 @@ def grads_for(step, case):
     g = {k: np.random.RandomState(10 + step).randn(*s).astype(np.float32) * 3 for k, s in SHAPES.items()}
     if case == "adamw_defaults_nan_skipped" and step == 1:
         g["b"][2] = np.nan
+    if case.endswith("overflowing_square") and step == 1:
+        g["w"][1, 2] = 2e19
     return g
+
+
+def adam_count(state):
+    """The count of the ScaleByAdamState inside an optax state."""
+    if hasattr(state, "mu") and hasattr(state, "count"):
+        return int(state.count)
+    children = state if isinstance(state, (tuple, list)) else [getattr(state, f) for f in getattr(state, "_fields", ())]
+    counts = [c for c in (adam_count(x) for x in children) if c is not None]
+    return counts[0] if counts else None
 
 
 @pytest.mark.parametrize("case", list(OPT_CASES))
@@ -79,6 +95,8 @@ def test_optimizer_matches_optax(case):
                                        err_msg=f"{k} after step {step}")
     if case == "adamw_defaults_nan_skipped":
         assert opt.skipped == 1 and opt.count == n_steps - 1
+    if case.endswith("overflowing_square"):
+        assert opt.skipped == 0 and opt.count == adam_count(state) == n_steps
 
 
 def test_optimizer_refuses_what_is_not_ported():

@@ -32,25 +32,33 @@ checkout. It
    takes train steps through the `Trainer`, counting the flash forward and
    backward launches of each step; profiles one step; then one step at
    batch 4 on the card against the port's CPU path on the same weights;
-6. serving path: saves the flagship (random weights, `max_seq_len` covering
+6. the paper's recipe: writes a raw corpus of MIDI pairs, each piece with a
+   MusicXML score carrying directions, prepares it with `python -m
+   scoreperformer_tpu_torch.prepare_dataset --workers 4`, and trains the
+   same flagship with recipes/scoreperformer/base.yaml's direction
+   classifiers through `ExperimentComponents` and the `Trainer` (10 flash
+   launches of each kind a step), profiles a step, reports an eval pass's
+   per-group accuracy, checks `Trainer.train()`'s TensorBoard event file,
+   and holds a batch-4 step on the card to the CPU path;
+7. serving path: saves the flagship (random weights, `max_seq_len` covering
    the 384-note bucket) as a port checkpoint directory, starts a
    `RenderServer` on it, and serves 128 synthetic scores of 8-32 bars as one
    greedy batch through `handle_batch` and as 128 sampled requests from
    concurrent clients through the TCP coalescer; renders 16 of them with
    bf16 and int8 caches; profiles one batched render;
-7. the recipes' other decoder head dims: a recipes/smoke.yaml-shaped model
+8. the recipes' other decoder head dims: a recipes/smoke.yaml-shaped model
    (2 heads of 16) renders an 8-bar score and serves 16 requests, and
    recipes/scoreperformer/scale_1024.yaml's model at full width (8 heads of
    128, 285M parameters) serves 32 requests with its `auto` (int8) caches,
    profiled once, each from a port checkpoint and against the CPU path;
-8. checks the output: notes with the score's pitches and finite times (a
+9. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
    the server; the smoke-shaped render and served batch; scale_1024's four
-   4-bar requests with softmax_bf16 off); finite losses, and loss and
-   gradients of the card's step equal to the CPU's; every served response
-   `ok`.
+   4-bar requests with softmax_bf16 off); finite losses (the classifiers'
+   too), and loss and gradients of the card's steps, with and without the
+   classifiers, equal to the CPU's; every served response `ok`.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, ...}, printed only when every phase passed. Any failure exits
 non-zero.
@@ -121,6 +129,16 @@ MAX_LEFT_OUT = 0.1
 # kernel names (substrings) in a render's profile; prefix_attend is one
 # kernel a launch (its clusters merge the splits), with no merge kernel
 PORTED_DECODE = ("prefix_attend", "write_rows", "flash_fwd")
+PORTED_TRAIN = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+# the paper-recipe phase: a raw corpus of MIDI pairs (12 pieces, 4
+# performances each, 64 bars, as the train phase's dataset), each piece with
+# a score.musicxml; the direction groups its classifiers learn, named by the
+# MusicXML keyword tables; recipes/scoreperformer/base.yaml's classifiers
+PAPER_PIECES, PAPER_PERFS, PAPER_BARS = 12, 4, 64
+PAPER_GROUPS = {"dynamics": ["dynamic/p", "dynamic/f"], "hairpins": ["dynamic/crescendo"],
+                "tempo": ["tempo/allegro", "tempo/andante"], "articulations": ["articulation/staccato"]}
+PAPER_CLASSIFIERS = {"classifier": {"hidden_dims": [], "dropout": 0.2}, "loss_weight": 1.0,
+                     "weighted_classes": True, "detach_inputs": True}
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -670,7 +688,7 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
     """Train steps through `Trainer.train_step` on the trainer's own batches;
     every step's losses must be finite and launch 10 flash forwards and 10 of
     each backward kernel. Returns (step times in ms, launch totals, the last
-    device batch, valid notes per batch)."""
+    device batch, valid notes per batch, the last step's metrics)."""
     n = n_warmup + n_timed
     batches, epoch = [], 0
     while len(batches) < n:
@@ -694,9 +712,10 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
         if not all(np.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {step}: non-finite metrics {values}")
         notes.append(int(host_batch["perf_mask"].sum()))
+        clf = "".join(f" {k} {v:.5f}" for k, v in values.items() if k.startswith("clf"))
         print(f"train step {step}: loss {values['loss']:.5f} grad_norm {values['stats/grad_norm']:.4f} "
-              f"MMD {values['MMD']:.5f} lm {values['loss/lm']:.5f}")
-    return times, all_counts(fa, kv, pa), batch, notes
+              f"MMD {values['MMD']:.5f} lm {values['loss/lm']:.5f}{clf}")
+    return times, all_counts(fa, kv, pa), batch, notes, values
 
 
 def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda")):
@@ -735,6 +754,190 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
     grad_err = max(((gpu_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
                    for n, g in cpu_grads.items())
     return abs(gpu_loss - cpu_loss), grad_err, len(cpu_grads)
+
+
+def score_musicxml(n_bars, divisions=480):
+    """A one-part 4/4 MusicXML score of `n_bars` measures of eight eighth
+    notes, with directions every 8 and 16 measures (tests/test_musicxml.py's
+    document widened to a piece): p or f in turn from measure 5 on, every
+    8 measures, a crescendo wedge over two measures every 8, "Allegro." or
+    "Andante" in turn from measure 5 on, every 8, and staccato on every note
+    of every 4th measure; the first 4 measures carry no dynamic and no
+    tempo word. At 480 divisions a quarter, its positions are the score
+    MIDI's ticks."""
+    eighth = divisions // 2
+    measures = []
+    for m in range(n_bars):
+        parts = [f'<measure number="{m + 1}">']
+        if m == 0:
+            parts.append(f"<attributes><divisions>{divisions}</divisions>"
+                         "<time><beats>4</beats><beat-type>4</beat-type></time></attributes>")
+        if m % 8 == 4:
+            mark = "p" if m // 8 % 2 == 0 else "f"
+            parts.append(f'<direction placement="below"><direction-type><dynamics><{mark}/></dynamics>'
+                         "</direction-type><staff>1</staff></direction>")
+        if m % 16 in (4, 12):
+            word = "Allegro." if m % 16 == 4 else "Andante"
+            parts.append(f"<direction><direction-type><words>{word}</words></direction-type></direction>")
+        if m % 8 in (1, 3):
+            wedge = "crescendo" if m % 8 == 1 else "stop"
+            parts.append(f'<direction><direction-type><wedge type="{wedge}" number="1"/></direction-type></direction>')
+        art = "<notations><articulations><staccato/></articulations></notations>" if m % 4 == 2 else ""
+        for i in range(8):
+            step = "CDEFGAB"[(m + i) % 7]
+            parts.append(f"<note><pitch><step>{step}</step><octave>5</octave></pitch>"
+                         f"<duration>{eighth}</duration>{art}</note>")
+        parts.append("</measure>")
+        measures.append("".join(parts))
+    return ('<?xml version="1.0"?>\n<score-partwise version="3.1"><part id="P1">'
+            + "\n".join(measures) + "</part></score-partwise>\n")
+
+
+def write_raw_corpus(raw):
+    """A raw corpus as a user brings one to `prepare_dataset`: a directory a
+    piece with score.mid, perf<i>.mid and score.musicxml; the scores and
+    performances are `build_synthetic_dataset`'s (the same generators,
+    pitches and tempos)."""
+    from scoreperformer_tpu_torch.data import synthetic_performance, synthetic_score
+    from scoreperformer_tpu_torch.midi import write_midi
+
+    rng = np.random.RandomState(SEED)
+    for si in range(PAPER_PIECES):
+        piece = os.path.join(raw, f"piece{si:02d}")
+        os.makedirs(piece)
+        score = synthetic_score(rng, n_bars=PAPER_BARS, base_pitch=44 + 4 * si)
+        write_midi(score, os.path.join(piece, "score.mid"))
+        for pi in range(PAPER_PERFS):
+            perf = synthetic_performance(score, rng, tempo_base=float(rng.randint(90, 140)))
+            write_midi(perf, os.path.join(piece, f"perf{pi}.mid"))
+        with open(os.path.join(piece, "score.musicxml"), "w") as f:
+            f.write(score_musicxml(PAPER_BARS))
+
+
+def paper_config(tokenizer, root, out_dir, batch_size, max_steps):
+    """The paper's recipe on the train phase's model: the flagship at full
+    width with base.yaml's direction classifiers, on the prepared dataset at
+    `root` with its direction labels."""
+    cfg = train_config(tokenizer, root, out_dir, batch_size, max_steps)
+    cfg["data"]["dataset"].update(performance_directions=os.path.join(root, "direction_classes.json"),
+                                  score_directions_dict=os.path.join(root, "score_directions.json"))
+    cfg["model"]["classifiers"] = json.loads(json.dumps(PAPER_CLASSIFIERS))
+    return cfg
+
+
+def paper_phase(torch, tokenizer, work):
+    """The paper's recipe on the card: a raw corpus of MIDI pairs with
+    MusicXML directions, prepared by `python -m
+    scoreperformer_tpu_torch.prepare_dataset --workers 4`; the flagship with
+    base.yaml's classifiers trained on it through `ExperimentComponents` and
+    the `Trainer` (10 flash forwards and 10 of each backward kernel a step,
+    finite classifier losses), one step profiled, an eval pass's per-group
+    accuracy, `Trainer.train()` writing a TensorBoard event file, and a
+    batch-4 step on the card against the port's CPU path, the classifier
+    heads included. Returns the phase's record."""
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import EVALUATORS, ExperimentComponents, read_events
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):  # host seconds of each step of the phase
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    shutil.rmtree(work, ignore_errors=True)
+    raw, root, run = (os.path.join(work, d) for d in ("raw", "data", "run"))
+    write_raw_corpus(raw)
+    lap("write_raw_corpus")
+    cmd = [sys.executable, "-m", "scoreperformer_tpu_torch.prepare_dataset", "--input", raw, "--output", root,
+           "--workers", "4", "--splits", "train=0.9,eval=0.1"]
+    done = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    print(done.stdout.strip())
+    if done.returncode != 0:
+        raise AssertionError(f"prepare_dataset failed ({done.returncode}): {done.stderr[-2000:]}")
+    lap("prepare_dataset")
+    if not os.path.exists(os.path.join(root, "score_directions.json")):
+        raise AssertionError("prepare_dataset wrote no score_directions.json")
+    with open(os.path.join(root, "direction_classes.json"), "w") as f:
+        json.dump(PAPER_GROUPS, f)
+    comp = ExperimentComponents(paper_config(tokenizer, root, run, TRAIN_BATCH, 2), device="cuda").init_components()
+    trainer, model = comp.trainer, comp.model
+    trainer._prepare()
+    lap("load_dataset_and_build")
+    heads = {g: m.layers[-1].out_features for g, m in model.classifiers.heads.items()}
+    rec = {"pieces": PAPER_PIECES, "performances": PAPER_PIECES * PAPER_PERFS, "bars": PAPER_BARS,
+           "train_windows": len(comp.train_dataset), "eval_windows": len(comp.eval_dataset),
+           "parameters": sum(p.numel() for p in model.parameters()), "heads": heads,
+           "class_samples": comp.model_config["classifiers"]["class_samples"], "phase_s": phase_s}
+    if list(heads) != list(PAPER_GROUPS):
+        raise AssertionError(f"the model's heads {list(heads)} are not the direction groups {list(PAPER_GROUPS)}")
+    labels = {}
+    for name, dataset in (("train", comp.train_dataset), ("eval", comp.eval_dataset)):
+        d = next(trainer._iter_batches(dataset, TRAIN_BATCH, False, 0))["directions"]
+        labels[name] = {g: int((d[..., j] > 0).sum()) for j, g in enumerate(PAPER_GROUPS)}
+    rec["labelled_notes_first_batch"] = labels
+    print("paper recipe: corpus", json.dumps({k: v for k, v in rec.items() if k != "phase_s"}))
+    if not all(n > 0 for counts in labels.values() for n in counts.values()):
+        raise AssertionError(f"a direction group has no labelled note in the windows: {labels}")
+
+    step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                          TRAIN_WARMUP, TRAIN_TIMED)
+    lap("train_steps")
+    median_ms = float(np.median(step_ms))
+    rec["train"] = {"step_ms": step_ms, "median_step_ms": median_ms,
+                    "tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ + 2) / median_ms * 1e3,
+                    "valid_notes_per_s": float(np.mean(notes)) / median_ms * 1e3, "launches": launches,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "last_step": {k: v for k, v in values.items() if k == "loss" or k.startswith("clf")}}
+    print("paper recipe train steps", json.dumps(rec["train"]))
+    prof = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED), ported=PORTED_TRAIN)
+    rec["profile"] = prof
+    print("profile paper recipe train step", json.dumps(prof))
+    counts = {name: prof["ported"][name]["count"] for name in PORTED_TRAIN}
+    if counts != {name: 10 for name in PORTED_TRAIN}:
+        raise AssertionError(f"the profiled step ran the flash kernels {counts} times, expected 10 of each")
+    lap("profiled_step")
+
+    evaluator = EVALUATORS.get("EmbeddingClassifierEvaluator")()
+    eval_batch = trainer._put_batch(next(trainer._iter_batches(comp.eval_dataset, TRAIN_BATCH, False, 0)))
+    model.eval()
+    with torch.no_grad():
+        out = model(**eval_batch, compute_loss=False)
+    valid = eval_batch["perf_mask"]
+    acc = evaluator(eval_batch["directions"][valid], {g: lg[valid] for g, lg in out.classifiers.logits.items()})
+    rec["eval"] = {"accuracy_valid_notes": {k: float(v) for k, v in acc.items()},
+                   **{k: v for k, v in trainer.evaluate().items() if k == "eval/loss" or k.startswith("eval/clf")}}
+    print("paper recipe eval", json.dumps(rec["eval"]))
+    if not all(np.isfinite(v) for v in rec["eval"].values() if isinstance(v, float)):
+        raise AssertionError(f"paper recipe eval: non-finite values {rec['eval']}")
+    lap("eval")
+
+    state = trainer.train()
+    events = sorted(f for f in os.listdir(os.path.join(run, "tb")) if f.startswith("events.out.tfevents."))
+    tags = {v["tag"] for f in events for e in read_events(os.path.join(run, "tb", f)) for v in e.get("summary", [])}
+    rec["tensorboard"] = {"event_files": events, "has_clf": "train_step/clf" in tags, "tags": len(tags)}
+    print(f"paper recipe Trainer.train(): {state.global_step} steps; TensorBoard {json.dumps(rec['tensorboard'])}")
+    if state.global_step != 2 or len(events) != 1 or not rec["tensorboard"]["has_clf"]:
+        raise AssertionError(f"Trainer.train() stopped at {state.global_step} or wrote no classifier loss to {events}")
+    lap("trainer_train")
+
+    host_batch = next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
+    # dropout off: the card and the CPU draw its masks from different streams
+    model_config = json.loads(json.dumps(comp.model_config))
+    model_config["classifiers"]["classifier"]["dropout"] = 0.0
+    del comp, trainer, model, batch, eval_batch, out
+    torch.cuda.empty_cache()
+    loss_err, grad_err, n_grads = compare_train_step(torch, model_config, host_batch)
+    rec["card_vs_cpu"] = {"loss_err": loss_err, "grad_err": grad_err, "gradients": n_grads}
+    print(f"paper recipe train step at batch 4, card vs CPU: loss error {loss_err:.3g}, largest gradient error "
+          f"over its largest value {grad_err:.3g} ({n_grads} gradients, the classifier heads' included)")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3):
+        raise AssertionError(f"the paper recipe's step on the card differs from the CPU's: loss {loss_err}, "
+                             f"gradients {grad_err}")
+    lap("card_vs_cpu")
+    return rec
 
 
 def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
@@ -1272,7 +1475,7 @@ def main() -> int:
                 for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)] + [
         (CHUNK, 1, SERVE_REQUESTS, 64, idx, dt, idx == 5 and dt == torch.float32)
         for idx in (0, 5, CHUNK - 1, CHUNK + 3, -1) for dt in (torch.float32, torch.bfloat16)] + [
-        (CHUNK, 1, SCALE_REQUESTS, 128, 7, torch.float32, False), (CHUNK, 1, SCALE_REQUESTS, 128, -1, torch.bfloat16, False),
+        (CHUNK, 1, SCALE_REQUESTS, 128, 7, torch.float32, True), (CHUNK, 1, SCALE_REQUESTS, 128, -1, torch.bfloat16, False),
         (272, 16, 512, 64, 100, torch.float32, True), (272, 16, 512, 64, 300, torch.float32, False),
         (272, 16, 512, 64, 40, torch.bfloat16, False), (T, 1, 1, 64, T + 7, torch.float32, False),
         (10, 2, 3, 5, -3, torch.float32, False), (10, 2, 3, 5, 4, torch.bfloat16, False),
@@ -1448,8 +1651,8 @@ def main() -> int:
     print(f"training: dataset of {len(comp.train_dataset)} windows written and loaded in "
           f"{time.perf_counter() - t0:.1f} s; flagship {sum(p.numel() for p in comp.model.parameters())} "
           f"parameters; batch {TRAIN_BATCH} x {TRAIN_SEQ + 2}")
-    step_ms, train_launches, batch, notes = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
-                                                        TRAIN_WARMUP, TRAIN_TIMED)
+    step_ms, train_launches, batch, notes, _ = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                           TRAIN_WARMUP, TRAIN_TIMED)
     median_ms = float(np.median(step_ms))
     train = {
         "step_ms": step_ms, "median_step_ms": median_ms,
@@ -1460,7 +1663,7 @@ def main() -> int:
     }
     print("train steps", json.dumps(train))
     prof_train = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED),
-                                ported=("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+                                ported=PORTED_TRAIN)
     if isinstance(prof_train["device_busy_ms"], float):
         prof_train["backward_kernels_share"] = sum(
             prof_train["ported"][k]["ms"] for k in ("flash_bwd_dkv", "flash_bwd_dq")) / prof_train["device_busy_ms"]
@@ -1516,6 +1719,15 @@ def main() -> int:
     del model, cpu_model
     torch.cuda.empty_cache()
 
+    # ---- the paper's recipe: MIDI and MusicXML prepared, direction classifiers trained ----
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    t0 = time.perf_counter()
+    paper = paper_phase(torch, tokenizer, os.path.join(build, "chip_smoke_paper"))
+    print(f"paper recipe phase: {time.perf_counter() - t0:.1f} s")
+    print("paper recipe", json.dumps({k: v for k, v in paper.items() if k != "profile"}))
+    if paper["train"]["launches"]["prefix_attend"] or paper["train"]["launches"]["write_kv_pair"]:
+        raise AssertionError(f"the paper recipe's train steps launched decode kernels: {paper['train']['launches']}")
+
     # ---- the serving path: a RenderServer on a port checkpoint serves 128 requests ----
     t0 = time.perf_counter()
     served = serve_phase(torch, tokenizer, flagship_config(tokenizer, SERVE_BUCKET),
@@ -1526,7 +1738,6 @@ def main() -> int:
     check_decode_profile(served["profile"], "the served batch's profile", served_launches)
 
     # ---- the recipes' other decoder head dims: smoke.yaml's d = 16, scale_1024's d = 128 ----
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     t0 = time.perf_counter()
     smoke = smoke_phase(torch, tokenizer, os.path.join(build, "chip_smoke_smoke"), serve_scores, serve_inputs)
     print(f"smoke-shaped phase: {time.perf_counter() - t0:.1f} s")
@@ -1538,7 +1749,8 @@ def main() -> int:
     print("scale_1024 served", json.dumps({k: v for k, v in scale.items() if k != "profile"}))
 
     launches = renders["greedy"][1]
-    paths = {"render_greedy": launches, "train_steps": train_launches, "served_batch": served_launches,
+    paths = {"render_greedy": launches, "train_steps": train_launches,
+             "paper_recipe_train_steps": paper["train"]["launches"], "served_batch": served_launches,
              "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
              "scale_1024_served": scale["int8"]["launches"]}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -189,24 +189,49 @@ def _flatten(tree, prefix=()):
 
 # ---- the port's side ----
 
-# weights of modules the port does not have yet; skipped on load
-SKIPPED_PREFIXES = ("classifiers.",)
-
-
 def state_dict_from_jax(params) -> Dict[str, np.ndarray]:
     """JAX (flax) parameter tree -> reference-named state dict of numpy arrays.
     A name may hold one `a|b` alternative (the GLU and the plain feed-forward
-    name their input projection differently); `load_state_dict` resolves it."""
-    sd: Dict[str, np.ndarray] = {}
+    name their input projection differently); `load_state_dict` resolves it.
+    A classifier head's output layer (`{last}`) follows its hidden layers: a
+    Linear and a ReLU each, so index 2 x (number of hidden layers)."""
+    mapped_all = []
     for path, value in _flatten(params).items():
         mapped = _torch_name_for(list(path))
         if mapped is None:
             raise KeyError(f"no reference name for {'.'.join(path)}")
-        name, transform = mapped
-        name = name.replace("{last}", "0").replace("{", "").replace("}", "")
+        mapped_all.append((path, mapped, value))
+    hidden: Dict[str, int] = {}  # classifier head -> its hidden layers
+    for path, _, _ in mapped_all:
+        if path[0] == "classifiers" and path[2].startswith("layer_"):
+            hidden[path[1]] = max(hidden.get(path[1], 0), int(path[2][len("layer_"):]) + 1)
+    sd: Dict[str, np.ndarray] = {}
+    for path, (name, transform), value in mapped_all:
+        if "{last}" in name:
+            name = name.replace("{last}", str(2 * hidden.get(path[1], 0)))
+        name = name.replace("{", "").replace("}", "")
         arr = np.asarray(value)
         sd[name] = arr.T if transform == "t" and arr.ndim == 2 else arr
     return sd
+
+
+def gru_cell_stack_state_from_jax(params) -> Dict[str, np.ndarray]:
+    """A flax `GRUCellStack`'s parameters (`GRUCell_0` with Dense `ir`, `iz`,
+    `in` on the input and `hr`, `hz`, `hn` on the state, then `out`) as the
+    state dict of the port's `models.classifiers.GRUCellStack`. torch stacks
+    the gates r, z, n; flax's r and z carry one bias, on the input side, so
+    torch's hidden-side bias is zero for them."""
+    cell = params["GRUCell_0"]
+    gates = ("r", "z", "n")
+    hn_bias = np.asarray(cell["hn"]["bias"])
+    return {
+        "gru.weight_ih_l0": np.concatenate([np.asarray(cell["i" + g]["kernel"]).T for g in gates]),
+        "gru.weight_hh_l0": np.concatenate([np.asarray(cell["h" + g]["kernel"]).T for g in gates]),
+        "gru.bias_ih_l0": np.concatenate([np.asarray(cell["i" + g]["bias"]) for g in gates]),
+        "gru.bias_hh_l0": np.concatenate([np.zeros_like(hn_bias), np.zeros_like(hn_bias), hn_bias]),
+        "out.weight": np.asarray(params["out"]["kernel"]).T,
+        "out.bias": np.asarray(params["out"]["bias"]),
+    }
 
 
 def _expand(name: str) -> List[str]:
@@ -216,12 +241,11 @@ def _expand(name: str) -> List[str]:
     return [name[: m.start()] + alt + name[m.end():] for alt in m.groups()]
 
 
-def load_state_dict(model: nn.Module, state_dict: Dict[str, object], strict: bool = True) -> List[str]:
+def load_state_dict(model: nn.Module, state_dict: Dict[str, object], strict: bool = True) -> None:
     """Copy `state_dict` (numpy arrays or tensors, reference names) into
     `model` in place. A tied parameter registered under several names is
     filled from whichever of them the dict holds. With `strict`, every
-    parameter must be filled and every name used, except the weights of
-    modules the port does not have (SKIPPED_PREFIXES). Returns the skipped names."""
+    parameter must be filled and every name used."""
     own = model.state_dict(keep_vars=True)
     given = {}
     for name, value in state_dict.items():
@@ -246,11 +270,9 @@ def load_state_dict(model: nn.Module, state_dict: Dict[str, object], strict: boo
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(f"shape mismatch for {hit}: given {tuple(value.shape)}, model {tuple(target.shape)}")
             target.copy_(value.to(target.dtype))
-    skipped = [n for n in given if n not in own and n.startswith(SKIPPED_PREFIXES)]
-    unexpected = [n for n in given if n not in own and not n.startswith(SKIPPED_PREFIXES)]
+    unexpected = [n for n in given if n not in own]
     if strict and (missing or unexpected):
         raise KeyError(f"missing {missing[:5]} ({len(missing)}), unexpected {unexpected[:5]} ({len(unexpected)})")
-    return skipped
 
 
 def optimizer_state_from_jax(model: nn.Module, mu, nu, count: int) -> Dict[str, object]:

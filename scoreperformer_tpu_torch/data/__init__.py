@@ -1,5 +1,6 @@
-"""Datasets, collators and synthetic data, copied from the JAX package (numpy
-only). The standalone Performer's `performance.py` is not ported yet."""
+"""Datasets, collators, synthetic data and dataset preparation (MIDI pairs and
+MusicXML directions), copied from the JAX package (numpy and the standard
+library only). The standalone Performer's `performance.py` is not ported yet."""
 from ..configs import Registry
 from .collators import (
     LMScorePerformanceCollator,
@@ -18,6 +19,9 @@ from .datasets import (
     ScorePerformanceSampleMeta,
 )
 from .directions import DirectionBarEmbeddingDataset, DirectionEmbeddingCollator
+from .music_constants import pitch_to_sitch, sitch_to_pitch
+from .musicxml_directions import parse_directions, read_musicxml
+from .prepare import align_performance_to_score, prepare_dataset
 from .synthetic import build_synthetic_dataset, synthetic_performance, synthetic_score
 
 DATASETS = Registry("datasets")

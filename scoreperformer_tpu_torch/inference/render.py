@@ -28,8 +28,8 @@ def load_model_from_checkpoint(path: str, device="cuda"):
     (`params.pt` with the weights, `meta.json` with "model_config"), or a
     reference single-file checkpoint (`.pt`, {"model": {"config",
     "state_dict"}}) whose embedded config is the post-injection recipe node.
-    Returns (model, config). Classifier heads, which rendering does not use,
-    are not ported and their weights are skipped."""
+    Returns (model, config), the direction classifiers' heads included when
+    the config sets them."""
     device = resolve_device(device)
     if os.path.isdir(path):
         ckpt = load_checkpoint(path)

@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .classifiers import LinearEmbeddingClassifierConfig, MultiHeadEmbeddingClassifierConfig
 from .embeddings import TupleTokenEmbeddingsConfig, TupleTokenHeadConfig
 from .mmd import MMDTupleTransformerConfig
 from .scoreperformer import ScorePerformerConfig, ScorePerformerModel
@@ -51,6 +52,16 @@ def build_tuple_transformer_config(data: Optional[Dict[str, Any]], mmd: bool = F
     return cfg
 
 
+def build_classifiers_config(data: Optional[Dict[str, Any]]) -> Optional[MultiHeadEmbeddingClassifierConfig]:
+    if data is None:
+        return None
+    data = dict(data)
+    cfg = MultiHeadEmbeddingClassifierConfig.from_dict(data)
+    if "classifier" in data:
+        cfg.classifier = LinearEmbeddingClassifierConfig.from_dict(data["classifier"])
+    return cfg
+
+
 def build_scoreperformer_config(data: Dict[str, Any]) -> ScorePerformerConfig:
     """Full model config from a recipe `model:` dict (post data-injection)."""
     data = dict(data)
@@ -62,6 +73,7 @@ def build_scoreperformer_config(data: Dict[str, Any]) -> ScorePerformerConfig:
     cfg.perf_encoder = (
         build_tuple_transformer_config(data["perf_encoder"], mmd=True) if data.get("perf_encoder") is not None else None
     )
+    cfg.classifiers = build_classifiers_config(data.get("classifiers"))
     return cfg
 
 

@@ -3,10 +3,10 @@
 Counterpart of scoreperformer_tpu/models/scoreperformer.py: the score encoder
 and the MMD style encoder produce context and style embeddings. In training,
 `forward` runs the decoder over the shifted sequence and returns the MixedLM
-cross-entropy plus the MMD losses; in rendering, the decoder consumes the
-embeddings one position at a time over static KV caches (`decode_step`).
-Direction classifiers are not ported: a model configured with them raises in
-`forward` rather than train without their loss.
+cross-entropy, the MMD losses and, when the config sets direction
+classifiers, their loss over the style embeddings; in rendering, the decoder
+consumes the embeddings one position at a time over static KV caches
+(`decode_step`).
 """
 from __future__ import annotations
 
@@ -18,6 +18,11 @@ from torch import nn
 
 from ..configs import ModuleConfig
 from ..device import resolve_device
+from .classifiers import (
+    MultiHeadEmbeddingClassifier,
+    MultiHeadEmbeddingClassifierConfig,
+    MultiHeadEmbeddingClassifierOutput,
+)
 from .dropout import dropout_generator
 from .embeddings import TupleTokenHeadConfig, build_stream_embeddings
 from .mmd import (
@@ -81,6 +86,7 @@ class ScorePerformerOutput:
     loss: Optional[torch.Tensor] = None
     losses: Dict[str, torch.Tensor] = field(default_factory=dict)
     perf_encoder: Optional[MMDTupleTransformerOutput] = None
+    classifiers: Optional[MultiHeadEmbeddingClassifierOutput] = None
 
 
 @dataclass
@@ -90,7 +96,7 @@ class ScorePerformerConfig(ModuleConfig):
     perf_decoder: TupleTransformerConfig = field(default_factory=TupleTransformerConfig)
     score_encoder: Optional[TupleTransformerConfig] = None
     perf_encoder: Optional[MMDTupleTransformerConfig] = None
-    classifiers: Optional[dict] = None
+    classifiers: Optional[MultiHeadEmbeddingClassifierConfig] = None
     tie_token_emb: bool = False
     mode: Optional[str] = None
     num_score_tokens: Optional[Dict[str, int]] = None
@@ -115,8 +121,6 @@ class ScorePerformerModel(nn.Module):
         cfg = self.config = config
         num_tokens = cfg.num_tokens
         num_score_tokens = cfg.num_score_tokens or num_tokens
-        # classifier heads read the style embeddings in training only; they
-        # are not ported, and their weights are skipped on load
         shared = (
             build_stream_embeddings(num_tokens, cfg.perf_decoder.token_embeddings, cfg.dim)
             if cfg.tie_token_emb
@@ -131,6 +135,12 @@ class ScorePerformerModel(nn.Module):
         if cfg.perf_encoder is not None:
             self.perf_encoder = MMDTupleTransformer(
                 num_tokens, cfg.perf_encoder.replace(dim=cfg.dim, lm_head=None), shared_streams=shared
+            )
+        self.classifiers = None
+        if cfg.classifiers is not None and cfg.classifiers.num_classes:
+            assert self.perf_encoder is not None
+            self.classifiers = MultiHeadEmbeddingClassifier(
+                self.perf_encoder.embedding_dim, cfg.classifiers.num_classes, cfg.classifiers
             )
         dec_cfg = cfg.perf_decoder.replace(
             dim=cfg.dim,
@@ -168,14 +178,13 @@ class ScorePerformerModel(nn.Module):
                 generators: Optional[Dict[str, torch.Generator]] = None,
                 mmd_sampler: Optional[MMDSampler] = None) -> ScorePerformerOutput:
         """The training forward (model.py:259-351): encoders, the shifted
-        decoder, the LM and MMD losses. Inputs carry the names of
-        `data.collators.scoreperformer_model_inputs`. In `module.train()`
+        decoder, the LM and MMD losses, and the direction classifiers' loss
+        when the model has them and `directions` is given. Inputs carry the
+        names of `data.collators.scoreperformer_model_inputs`. In `module.train()`
         mode dropout draws from generators["dropout"] and latent dropout from
         generators["latent_dropout"]; the MMD samples come from `mmd_sampler`
         or generators["mmd"]."""
         cfg = self.config
-        if cfg.classifiers and cfg.classifiers.get("num_classes"):
-            raise NotImplementedError("direction classifiers are not ported yet; their loss would be missing")
         generators = generators or {}
         if compute_loss and mmd_sampler is None and self.perf_encoder is not None:
             enc = self.perf_encoder.config
@@ -199,6 +208,15 @@ class ScorePerformerModel(nn.Module):
                 style_embeddings=style, context=context,
                 context_mask=None if context_is_cat else score_mask,
             )
+            clf_out = None
+            if self.classifiers is not None and directions is not None:
+                clf_mask = perf_mask
+                if deadpan_mask is not None and clf_mask is not None:
+                    clf_mask = clf_mask & ~deadpan_mask[:, None]
+                clf_out = self.classifiers(
+                    perf_enc_out.full_embeddings, labels=directions,
+                    sample_weights=clf_mask.float() if clf_mask is not None else None,
+                )
         logits = self.decoder.apply_lm_head(hidden)
 
         loss, losses = None, {}
@@ -209,7 +227,11 @@ class ScorePerformerModel(nn.Module):
         if perf_enc_out is not None and perf_enc_out.loss is not None:
             loss = perf_enc_out.loss if loss is None else loss + perf_enc_out.loss
             losses.update(perf_enc_out.losses)
-        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out)
+        if clf_out is not None and clf_out.loss is not None:
+            loss = clf_out.loss if loss is None else loss + clf_out.loss
+            losses.update(clf_out.losses)
+        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out,
+                                    classifiers=clf_out)
 
     def encode_embeddings(self, perf, perf_mask=None, score=None, score_mask=None,
                           bars=None, beats=None, onsets=None):

@@ -1,8 +1,11 @@
 """Training entry point of the PyTorch port (counterpart of train.py).
 
-Usage: python -m scoreperformer_tpu_torch.train -r recipes -n scoreperformer/no_classifiers.yaml [--device cpu]
+Usage: python -m scoreperformer_tpu_torch.train -r recipes -n scoreperformer/base.yaml [--device cpu]
 
-It runs on the GPU unless asked for the CPU (`--device cpu`).
+It runs on the GPU unless asked for the CPU (`--device cpu`). base.yaml, the
+paper's recipe, trains the direction classifiers on a dataset with direction
+labels (`python -m scoreperformer_tpu_torch.prepare_dataset` writes one from
+MIDI pairs and MusicXML scores); no_classifiers.yaml needs none.
 """
 import argparse
 

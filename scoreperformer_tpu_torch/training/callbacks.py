@@ -1,5 +1,4 @@
-# Copy of scoreperformer_tpu/training/callbacks.py without TensorBoardCallback (not
-# ported yet); the port imports nothing of the JAX package.
+# Verbatim copy of scoreperformer_tpu/training/callbacks.py; the port imports nothing of the JAX package.
 """Trainer state, control flags, and the callback event API.
 
 Counterpart of scoreperformer/experiments/callbacks.py:23-517.
@@ -275,3 +274,54 @@ class EpochReproducibilityCallback(TrainerCallback):
             self.dataset.reseed(seed)
         if self.collator is not None and hasattr(self.collator, "reseed"):
             self.collator.reseed(seed)
+
+
+class TensorBoardCallback(TrainerCallback):
+    """TensorBoard scalar + config-text logging (reference
+    integrations.py:14-55), via this repo's own event-file writer
+    (`training/tensorboard.py`) since the tensorboard package is absent.
+    Event files land in {output_dir}/tb and open in stock TensorBoard."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self._writer = None
+
+    def _ensure(self, config):
+        if self._writer is None:
+            import os
+
+            from .tensorboard import TensorBoardWriter
+
+            self._writer = TensorBoardWriter(
+                self.log_dir or os.path.join(config.output_dir, "tb")
+            )
+        return self._writer
+
+    def on_train_begin(self, config, state, control, **kwargs):
+        import dataclasses
+        import json as _json
+
+        writer = self._ensure(config)
+        try:
+            cfg = dataclasses.asdict(config)
+        except TypeError:
+            cfg = {k: str(v) for k, v in vars(config).items()}
+        writer.add_text(
+            "config/trainer", _json.dumps(cfg, default=str, indent=2), step=0
+        )
+
+    def on_log(self, config, state, control, logs=None, **kwargs):
+        if not logs:
+            return
+        writer = self._ensure(config)
+        for key, value in logs.items():
+            try:
+                writer.add_scalar(key, float(value), state.global_step)
+            except (TypeError, ValueError):
+                continue
+        writer.flush()
+
+    def on_train_end(self, config, state, control, **kwargs):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None

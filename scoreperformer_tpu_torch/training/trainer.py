@@ -5,9 +5,10 @@ unless the model lives elsewhere). Batches are the JAX trainer's: each is a
 pure function of (seed, epoch, batch index), made by the same formulas
 (`_iter_batches`), so both frameworks see the very same data. Dropout, latent
 dropout and the MMD samples draw from generators seeded per step from
-(seed, step), as the JAX trainer folds its key. Meshes and sharding, ZeRO,
-multihost, remat, bf16 compute, fine-tuning a subset, warm starts, TensorBoard
-and profiling are not ported yet and raise when set.
+(seed, step), as the JAX trainer folds its key. TensorBoard event files go to
+{output_dir}/tb unless `tensorboard` is off, as in the JAX trainer. Meshes and
+sharding, ZeRO, multihost, remat, bf16 compute, fine-tuning a subset, warm
+starts and profiling are not ported yet and raise when set.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from .callbacks import (
     FileLogCallback,
     JSONLMetricsCallback,
     ProgressCallback,
+    TensorBoardCallback,
     TrainerCallback,
     TrainerControl,
     TrainerState,
@@ -74,6 +76,9 @@ class TrainerConfig(ModuleConfig):
 
     resume_from_checkpoint: Optional[str] = None
 
+    # TensorBoard event files in {output_dir}/tb (training/tensorboard.py)
+    tensorboard: bool = True
+
     # options of the JAX trainer that are not ported yet: each raises when set
     warm_start: bool = False
     finetune_layers: List[str] = field(default_factory=list)
@@ -85,7 +90,6 @@ class TrainerConfig(ModuleConfig):
     sequence_parallel: bool = False
     bf16_compute: bool = False
     remat: bool = False
-    tensorboard: bool = False
     async_checkpoint: bool = False
     sharded_checkpoint: bool = False
     debug_nans: bool = False
@@ -101,7 +105,6 @@ _NOT_PORTED = {
     "sequence_parallel": lambda c: c.sequence_parallel,
     "bf16_compute": lambda c: c.bf16_compute,
     "remat": lambda c: c.remat,
-    "tensorboard": lambda c: c.tensorboard,
     "async_checkpoint": lambda c: c.async_checkpoint,
     "sharded_checkpoint": lambda c: c.sharded_checkpoint,
     "debug_nans": lambda c: c.debug_nans,
@@ -177,6 +180,8 @@ class Trainer:
         self.state = TrainerState()
         self.control = TrainerControl()
         cb = [DefaultFlowCallback(), JSONLMetricsCallback(), FileLogCallback()]
+        if config.tensorboard:
+            cb.append(TensorBoardCallback())
         if not config.disable_progress:
             cb.append(ProgressCallback(config.progress_metrics, config.progress_steps))
         self.callback_handler = CallbackHandler(cb + list(callbacks or []))

@@ -576,6 +576,9 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(root)) for p in files}
     for serving in ("inference/server.py", "serve.py", "render.py", "ops/prefix_attend.py"):
         assert f"scoreperformer_tpu_torch/{serving}" in names
+    for paper in ("models/classifiers.py", "data/prepare.py", "data/musicxml_directions.py", "data/music_constants.py",
+                  "prepare_dataset.py", "training/tensorboard.py"):
+        assert f"scoreperformer_tpu_torch/{paper}" in names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

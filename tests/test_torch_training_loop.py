@@ -194,12 +194,18 @@ def test_iter_batches_match_the_jax_trainer(data_root, tmp_path):
 # ---- the trainer end to end ----
 
 
-def write_recipe(path: Path, data_root: Path, out: Path, **trainer):
+def write_recipe(path: Path, data_root: Path, out: Path, base="no_classifiers.yaml", **trainer):
+    """A tiny recipe on `base` (a recipe of recipes/scoreperformer/); on
+    base.yaml, with its direction classifiers, the labels are the dataset's
+    `direction_classes.json` and `score_directions.json`."""
     trainer = {"output_dir": str(out), "epochs": 2, "batch_size": 4, "eval_batch_size": 4, "num_workers": 2,
                "log_steps": 1, "save_strategy": "no", "eval_strategy": "no", "disable_progress": True, **trainer}
-    lines = [f"base: {REPO / 'recipes/scoreperformer/no_classifiers.yaml'}",
-             "data:", "  dataset:", f"    root: {data_root}", "    max_seq_len: 30", "    bar_sliding_window: 4",
-             "model:", "  dim: 32"]
+    lines = [f"base: {REPO / 'recipes/scoreperformer' / base}",
+             "data:", "  dataset:", f"    root: {data_root}", "    max_seq_len: 30", "    bar_sliding_window: 4"]
+    if base == "base.yaml":
+        lines += [f"    performance_directions: {data_root / 'direction_classes.json'}",
+                  f"    score_directions_dict: {data_root / 'score_directions.json'}"]
+    lines += ["model:", "  dim: 32"]
     for key in ("score_encoder", "perf_encoder", "perf_decoder"):
         lines += [f"  {key}:", "    token_embeddings:", "      emb_dims: 16", "    max_seq_len: 32",
                   "    transformer:", "      depth: 1", "      heads: 2"]
@@ -301,3 +307,89 @@ def test_dropout_in_train_mode_only(monkeypatch):
     # per forward: 3 encoder layers take flash always, the 2 decoder layers
     # (attention dropout 0.3) only in eval()
     assert n_train_flash == 3 * 3 and len(flash_calls) - n_train_flash == 2 * 5
+
+
+# ---- the paper's recipe: direction classifiers from the dataset's labels ----
+
+
+def paper_recipe(data_root, tmp_path, **trainer):
+    from scoreperformer_tpu_torch.configs import load_experiment_config
+
+    write_recipe(tmp_path / "paper.yaml", data_root, tmp_path / "run", base="base.yaml", **trainer)
+    return load_experiment_config(tmp_path, "paper.yaml")
+
+
+def test_components_inject_the_jax_direction_classes(data_root, tmp_path):
+    """base.yaml's classifiers on a dataset with direction labels: the port
+    injects JAX's `num_classes` and `class_samples`, in the same order, builds
+    a head per group, and its eval loop reports the classifier losses."""
+    from scoreperformer_tpu.training.components import inject_data_config as jinject
+
+    config = paper_recipe(data_root, tmp_path, eval_batches=1)
+    comp = ExperimentComponents(config, device="cpu").init_components()
+    ds_cfg = {k: v for k, v in config["data"]["dataset"].items() if k not in ("_name_", "_splits_")}
+    jds = JDATASETS.get("LocalScorePerformanceDataset")(**{**ds_cfg, "split": "train"})
+    want = jinject({k: v for k, v in config["model"].items() if not k.startswith("_")}, jds)["classifiers"]
+    got = comp.model_config["classifiers"]
+    assert list(got["num_classes"].items()) == list(want["num_classes"].items())
+    assert list(got["class_samples"]) == list(want["class_samples"]) == list(want["num_classes"])
+    for group, samples in want["class_samples"].items():
+        np.testing.assert_array_equal(got["class_samples"][group], samples, err_msg=group)
+    assert list(comp.model.classifiers.heads) == list(want["num_classes"])
+    metrics = comp.trainer.evaluate()
+    for key in ["eval/clf"] + [f"eval/clf/{group}" for group in want["num_classes"]]:
+        assert np.isfinite(metrics[key]), key
+
+
+def test_train_entry_point_trains_the_paper_recipe_on_the_cpu(data_root, tmp_path):
+    """`python -m scoreperformer_tpu_torch.train` on a base.yaml-derived
+    recipe: two steps that log the classifier losses, and a TensorBoard
+    event file by default, as the JAX trainer writes one."""
+    import json
+
+    from scoreperformer_tpu_torch.training.tensorboard import read_events
+
+    paper_recipe(data_root, tmp_path, max_steps=2)
+    ttrain.main(["-r", str(tmp_path), "-n", "paper.yaml", "--device", "cpu"])
+    logs = [json.loads(line) for line in (tmp_path / "run" / "metrics.jsonl").read_text().splitlines()]
+    steps = [log for log in logs if "train_step/loss" in log]
+    groups = json.loads((data_root / "direction_classes.json").read_text())
+    assert len(steps) == 2
+    for log in steps:
+        for key in ["train_step/clf"] + [f"train_step/clf/{group}" for group in groups]:
+            assert np.isfinite(log[key]), key
+    events = sorted((tmp_path / "run" / "tb").glob("events.out.tfevents.*"))
+    assert len(events) == 1
+    tags = {v["tag"] for e in read_events(str(events[0])) for v in e.get("summary", [])}
+    assert {"config/trainer", "train_step/loss", "train_step/clf"} <= tags
+
+
+# ---- TensorBoard: the JAX default and the JAX writer's bytes ----
+
+
+def test_tensorboard_is_on_by_default_in_both_trainers():
+    assert TrainerConfig().tensorboard is True
+    assert TrainerConfig().tensorboard == JTrainerConfig().tensorboard
+
+
+def test_tensorboard_writer_writes_the_jax_bytes(tmp_path, monkeypatch):
+    import scoreperformer_tpu.training.tensorboard as jtb
+    import scoreperformer_tpu_torch.training.tensorboard as ttb
+
+    paths = []
+    for module, out in ((jtb, tmp_path / "j"), (ttb, tmp_path / "t")):
+        clock = iter(1_700_000_000.0 + 0.25 * i for i in range(100))
+        monkeypatch.setattr(module.time, "time", lambda: next(clock))
+        monkeypatch.setattr(module.socket, "gethostname", lambda: "host")
+        writer = module.TensorBoardWriter(str(out))
+        writer.add_text("config/trainer", '{"epochs": 3, "name": "été"}', step=0)
+        for step, value in enumerate((2.5, 1.25, float("nan"), -3e-7, 7e30)):
+            writer.add_scalar("train_step/loss", value, step)
+            writer.add_scalar("train_step/clf/dynamics", value / 3, step)
+        writer.add_scalar("big/step", 1.0, 2**40)
+        writer.close()
+        paths.append(Path(writer.path))
+    assert paths[0].name == paths[1].name == "events.out.tfevents.1700000000.host"
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    events = ttb.read_events(str(paths[1]))
+    assert events[0]["file_version"] == "brain.Event:2" and len(events) == 13

@@ -65,6 +65,7 @@ non-zero.
 """
 import base64
 import collections
+import contextlib
 import itertools
 import json
 import math
@@ -139,6 +140,20 @@ PAPER_GROUPS = {"dynamics": ["dynamic/p", "dynamic/f"], "hairpins": ["dynamic/cr
                 "tempo": ["tempo/allegro", "tempo/andante"], "articulations": ["articulation/staccato"]}
 PAPER_CLASSIFIERS = {"classifier": {"hidden_dims": [], "dropout": 0.2}, "loss_weight": 1.0,
                      "weighted_classes": True, "detach_inputs": True}
+# the bf16 flash kernels' gate: one bf16 ulp of each element, where an element
+# below this share of its tensor's largest takes the ulp at that share (there
+# both sides are fp32 sums whose rounding, about 2^-21 of their operands,
+# exceeds the element's own ulp)
+BF16_ULP_FLOOR = 2.0**-10
+# scale_1024's training phase: the recipe's batch and sequences (1024 notes
+# and SOS/EOS), windows of 96 bars of 224-bar scores, so that most fill them
+SCALE_TRAIN_BATCH, SCALE_TRAIN_SEQ, SCALE_WINDOW_BARS, SCALE_SCORE_BARS = 8, 1024, 96, 224
+# the optimizers' card-vs-CPU step: lamb, lion and adafactor with the plateau
+# schedule at scale 0.5 (as after one bad epoch), each parameter after the
+# update within 1e-4 relative L2 of the CPU's; lr 1e-5, so that lion's sign,
+# which turns a gradient element within rounding of 0 into -+lr where the
+# other side has +-lr, moves a parameter by less than the gate
+OPTIMIZER_CHECKS = ("lamb", "lion", "adafactor")
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -480,6 +495,7 @@ def sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal, iters=10):
 
     b, h, t, d = q.shape
     bias, _ = sdpa_bias(torch, slopes, mask, causal)
+    bias = bias.to(q.dtype)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -502,6 +518,108 @@ def sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal, iters=10):
         torch.cuda.synchronize()
         return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
                        iters=iters, warmup=2), "eager"
+
+
+def bf16_ulps(torch, got, want):
+    """Largest |got - want| in bf16 ulps of max(|got|, |want|), an element
+    below BF16_ULP_FLOOR of the tensor's largest counted at that floor."""
+    got, want = got.float(), want.float()
+    floor = want.abs().max() * BF16_ULP_FLOOR
+    m = torch.maximum(torch.maximum(got.abs(), want.abs()), floor).clamp_min(1.2e-38)
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)).max().item()
+
+
+def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, lengths=None):
+    """The bf16 instances of the three flash kernels against their plain
+    versions on the same bf16 q, k, v and dout (fp32 slopes, the kernel
+    forward's lse, delta the bf16 row sum as the autograd Function takes it):
+    o, dk, dv and dq within one bf16 ulp (`bf16_ulps`), lse to 1e-5, dslopes
+    (fp32 with fp32 slopes, a sum over b*h*t*t terms in another order) to 1e-3
+    of its largest as in `check_flash_bwd`, and two backward calls give the
+    same bits. Returns the records of the
+    forward, dK/dV and dQ/dslope kernels at this shape, timed by CUDA-graph
+    replay when `timed`, beside SDPA on bf16 (bias materialized in bf16) and
+    its backward."""
+    import torch.nn.functional as F
+
+    q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
+    q, k, v, dout = (x.bfloat16() for x in (q, k, v, dout))
+    o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal)
+    po, plse = fa.flash_attention_plain(q, k, v, slopes, mask, causal, return_lse=True)
+    delta = (dout * o).sum(-1).float()
+    args = (q, k, v, slopes, mask, dout, lse, delta, causal)
+    got = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
+    again = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
+    want = fa.flash_attention_bwd_dkv_plain(*args) + fa.flash_attention_bwd_dq_plain(*args)
+    torch.cuda.synchronize()
+    if o.dtype != torch.bfloat16 or any(x.dtype != torch.bfloat16 for x in got[:3]):
+        raise AssertionError(f"the bf16 kernels returned {o.dtype} and {[x.dtype for x in got]}")
+    ulps = {"o": bf16_ulps(torch, o, po),
+            **{name: bf16_ulps(torch, x, y) for name, x, y in zip(("dk", "dv", "dq", "dslopes"), got, want)}}
+    lse_err = (lse - plse).abs().max().item()
+    dslopes_err = ((got[3] - want[3]).abs().max() / want[3].abs().max().clamp_min(1e-30)).item()
+    where = (b, t, causal, padded, d, hk)
+    if not (max(v for k, v in ulps.items() if k != "dslopes") <= 1.0 and lse_err <= 1e-5 and dslopes_err <= 1e-3):
+        raise AssertionError(f"bf16 flash kernels differ from their plain versions at {where}: ulps {ulps}, "
+                             f"lse {lse_err}, dslopes {dslopes_err}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"two bf16 flash backward calls give other bits at {where}")
+    shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "dtype": "bf16",
+             "bf16_ulps": ulps, "lse_err": lse_err, "dslopes_err": dslopes_err}
+    fwd = {**shape, "max_abs_err": (o.float() - po.float()).abs().max().item()}
+    dkv = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[:2], want[:2]))}
+    dq = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[2:], want[2:]))}
+    if not timed:
+        return fwd, dkv, dq
+    copies = [(q.clone(), k.clone(), v.clone(), dout.clone())
+              for _ in range(n_copies(2 * (q.numel() + k.numel() + v.numel() + dout.numel())))]
+    fwd["ms"] = graph_ms(torch, lambda qc, kc, vc, oc: fa.flash_attention_fwd(qc, kc, vc, slopes, mask, causal),
+                         copies, iters=50)
+    rest = (slopes, mask)
+    dkv["ms"] = graph_ms(torch, lambda qc, kc, vc, oc: fa.flash_attention_bwd_dkv(qc, kc, vc, *rest, oc, lse, delta,
+                                                                                  causal), copies, iters=20)
+    dq["ms"] = graph_ms(torch, lambda qc, kc, vc, oc: fa.flash_attention_bwd_dq(qc, kc, vc, *rest, oc, lse, delta,
+                                                                                causal), copies, iters=20)
+    del copies
+    fwd["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask, causal))
+    dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args), iters=10, warmup=2)
+    dq["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(*args), iters=10, warmup=2)
+    for rec in (fwd, dkv, dq):
+        rec["plain_timing"] = "eager"
+    bias, ok = sdpa_bias(torch, slopes, mask, causal)
+    bias = bias.bfloat16()
+    sdpa = [(q.clone(), k.expand(b, h, t, d).contiguous(), v.expand(b, h, t, d).contiguous())
+            for _ in range(n_copies(3 * 2 * q.numel()))]
+    fwd["library_ms"] = graph_ms(
+        torch, lambda qc, kc, vc: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=bias), sdpa, iters=50)
+    del sdpa, bias
+    library, library_timing = sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal)
+    dkv["library_ms"] = dq["library_ms"] = library
+    dkv["library_timing"] = dq["library_timing"] = library_timing
+    # bounds: bf16 operands (2 bytes an element), fp32 lse, delta, slopes and
+    # slope parts; fp32 arithmetic, as the Pallas kernels upcast; the
+    # tensor-core floor counts the TF32 products this design takes, with the
+    # q*scale operand exact when scale is a power of two
+    pairs = ok.expand(b, 1, t, t).sum().item()
+    product = 2 * d * h * pairs  # one d-long product over every (query, key) pair and head
+    exact_q = math.frexp(d**-0.5)[0] == 0.5
+    bf16, f32 = 2, 4
+    parts = math.prod(fa.dq_slope_parts(b, h, hk, t))
+    for rec, products, tc_products, nbytes in (
+        (fwd, 2, (1 if exact_q else 2) + 2,
+         bf16 * (2 * q.numel() + k.numel() + v.numel()) + f32 * (lse.numel() + h) + mask.numel()),
+        (dkv, 4, (1 if exact_q else 2) + 1 + 2 + (2 if exact_q else 3),
+         bf16 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) + f32 * (2 * lse.numel() + h) + mask.numel()),
+        (dq, 3, (1 if exact_q else 2) + 1 + 2,
+         bf16 * (3 * q.numel() + k.numel() + v.numel()) + f32 * (2 * lse.numel() + h + parts) + mask.numel()),
+    ):
+        ops = products * product
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S
+        rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        rec["tf32_products"] = tc_products
+        rec["bound_tc_ms"] = max(tc_products * product / TF32_OPS_PER_S, t_bytes) * 1e3
+    return fwd, dkv, dq
 
 
 def graph_ms(torch, fn, arg_sets, iters):
@@ -653,20 +771,26 @@ def train_config(tokenizer, root, out_dir, batch_size, max_steps):
     }
 
 
-def flash_counts(fa):
-    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches}
+FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def flash_counts(fa, dtype="fp32"):
+    """The flash wrappers' counts of their fp32 (`launches`) or bf16
+    (`launches_bf16`) kernel instances."""
+    attr = "launches_bf16" if dtype == "bf16" else "launches"
+    return {name: getattr(getattr(fa, name), attr) for name in FLASH}
 
 
 def reset_counts(fa, kv, pa):
     kv.write_kv.launches = kv.write_kv_pair.launches = pa.prefix_attend.launches = 0
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd_dkv.launches = fa.flash_attention_bwd_dq.launches = 0
+    for name in FLASH:
+        getattr(fa, name).launches = getattr(fa, name).launches_bf16 = 0
 
 
 def all_counts(fa, kv, pa):
     return {"write_kv": kv.write_kv.launches, "write_kv_pair": kv.write_kv_pair.launches,
-            "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa)}
+            "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa),
+            **{f"{name}_bf16": n for name, n in flash_counts(fa, "bf16").items()}}
 
 
 def decode_launches(n_steps, layers=DECODER_LAYERS, flash=2 + 4):
@@ -676,7 +800,8 @@ def decode_launches(n_steps, layers=DECODER_LAYERS, flash=2 + 4):
     `write_kv_pair` (the layer's K and V rows) and one `prefix_attend` per
     decoder layer and step; no single `write_kv` and no backward."""
     return {"write_kv": 0, "write_kv_pair": layers * n_steps, "prefix_attend": layers * n_steps,
-            "flash_attention_fwd": flash, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+            "flash_attention_fwd": flash, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            **{f"{name}_bf16": 0 for name in FLASH}}
 
 
 def check_launches(what, got, expected):
@@ -684,11 +809,12 @@ def check_launches(what, got, expected):
         raise AssertionError(f"{what} launched {got}, expected {expected}")
 
 
-def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
+def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed, dtype="fp32", flash=10):
     """Train steps through `Trainer.train_step` on the trainer's own batches;
-    every step's losses must be finite and launch 10 flash forwards and 10 of
-    each backward kernel. Returns (step times in ms, launch totals, the last
-    device batch, valid notes per batch, the last step's metrics)."""
+    every step's losses must be finite and launch `flash` flash forwards and
+    as many of each backward kernel, all of them the `dtype` instances.
+    Returns (step times in ms, launch totals, the last device batch, valid
+    notes per batch, the last step's metrics)."""
     n = n_warmup + n_timed
     batches, epoch = [], 0
     while len(batches) < n:
@@ -698,16 +824,18 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
     reset_counts(fa, kv, pa)
     for step, host_batch in enumerate(batches[:n]):
         batch = trainer._put_batch(host_batch)
-        before = flash_counts(fa)
+        before = all_counts(fa, kv, pa)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, step)
         torch.cuda.synchronize()
         if step >= n_warmup:
             times.append((time.perf_counter() - t0) * 1e3)
-        per_step = {k: v - before[k] for k, v in flash_counts(fa).items()}
-        if per_step != {k: 10 for k in per_step}:
-            raise AssertionError(f"train step {step} launched {per_step}, expected 10 of each")
+        per_step = {k: v - before[k] for k, v in all_counts(fa, kv, pa).items()}
+        suffix = "_bf16" if dtype == "bf16" else ""
+        expected = {k: flash if k in {name + suffix for name in FLASH} else 0 for k in per_step}
+        if per_step != expected:
+            raise AssertionError(f"train step {step} launched {per_step}, expected {expected}")
         values = {k: float(v) for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {step}: non-finite metrics {values}")
@@ -718,12 +846,41 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed):
     return times, all_counts(fa, kv, pa), batch, notes, values
 
 
-def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda")):
+@contextlib.contextmanager
+def plain_flash(fa):
+    """The flash wrappers swapped for their plain versions, on CUDA tensors
+    too (the autograd Function calls them by their module names)."""
+    saved = {name: getattr(fa, name) for name in FLASH}
+    fa.flash_attention_fwd = lambda q, k, v, slopes, mask=None, causal=True, scale=None: fa.flash_attention_plain(
+        q, k, v, slopes, mask, causal, scale, return_lse=True)
+    fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
+    fa.flash_attention_bwd_dq = fa.flash_attention_bwd_dq_plain
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fa, name, fn)
+
+
+def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda"), precision="fp32",
+                       optimizer=None, reference_plain_flash=False):
     """One train step (forward, loss, backward) of the same weights on the
     card and on the CPU (the plain versions), on the first `b` sequences and
-    the same MMD samples: (loss error, largest gradient error over each
-    gradient's largest value)."""
+    the same MMD samples: {"loss_err", "loss_rel" (its relative error),
+    "grad_err" (the largest gradient error over that gradient's largest
+    value), "grad_rel_l2" (the largest relative L2 error of a gradient) and
+    its "worst" gradient, "global_rel_l2" (over all gradients as one
+    vector), "gradients" (their number)}. `precision`: "fp32";
+    "bf16_compute", the Trainer's bf16 copies of the fp32 parameters; "bf16",
+    the model held in bf16. With `optimizer` (an OptimizerConfig dict) the
+    step also updates the parameters, and the gradient errors are those of
+    the parameters after the update. With `reference_plain_flash` the
+    reference (the first of `devices`) runs the plain flash functions."""
+    from scoreperformer_tpu_torch.convert import jax_param_paths
     from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.training import Optimizer, OptimizerConfig
+    from scoreperformer_tpu_torch.training.trainer import _bf16_parameters
 
     cfg = {k: v for k, v in model_config.items() if not k.startswith("_")}
     enc = cfg["perf_encoder"]
@@ -739,21 +896,41 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
     results = {}
     for dev in devices:
         model, _ = build_scoreperformer(cfg, device=dev, seed=SEED)
+        if precision == "bf16":
+            model.to(torch.bfloat16)
         model.train()
         batch = {k: torch.as_tensor(np.asarray(v)[:b]).to(dev) for k, v in host_batch.items()}
         replay = iter(list(draws))
-        sampler = draw if not draws else (
+        sampler = (lambda d, n: tuple(None if x is None else x.to(dev) for x in draw(d, n))) if not draws else (
             lambda d, n: tuple(None if x is None else x.to(dev) for x in next(replay)))
-        out = model(**batch, mmd_sampler=sampler)
-        out.loss.backward()
-        results[len(results)] = (out.loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                                                   if p.grad is not None})
+        with contextlib.ExitStack() as stack:
+            if precision == "bf16_compute":
+                stack.enter_context(_bf16_parameters(model))
+            if reference_plain_flash and not results:
+                stack.enter_context(plain_flash(fa))
+            out = model(**batch, mmd_sampler=sampler)
+            out.loss.float().backward()
+        if optimizer is not None:
+            transposed = [n for n, (_, t) in jax_param_paths(model).items() if t]
+            opt = Optimizer(model.named_parameters(), OptimizerConfig.from_dict(optimizer), 1, transposed)
+            opt.plateau_scale = 0.5 if opt.plateau_scale is not None else None
+            opt.step()
+            values = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+        else:
+            values = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        results[len(results)] = (out.loss.item(), values)
     (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results[0], results[1]
     if set(cpu_grads) != set(gpu_grads):
         raise AssertionError("the card's step and the CPU's reach different parameters")
     grad_err = max(((gpu_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
                    for n, g in cpu_grads.items())
-    return abs(gpu_loss - cpu_loss), grad_err, len(cpu_grads)
+    rel_l2, worst = max((((gpu_grads[n] - g).norm() / g.norm().clamp_min(1e-30)).item(), n)
+                        for n, g in cpu_grads.items())
+    diff = math.sqrt(sum(((gpu_grads[n] - g).norm() ** 2).item() for n, g in cpu_grads.items()))
+    total = math.sqrt(sum((g.norm() ** 2).item() for g in cpu_grads.values()))
+    return {"loss_err": abs(gpu_loss - cpu_loss), "loss_rel": abs(gpu_loss - cpu_loss) / abs(cpu_loss),
+            "grad_err": grad_err, "grad_rel_l2": rel_l2, "worst": worst, "global_rel_l2": diff / total,
+            "gradients": len(cpu_grads)}
 
 
 def score_musicxml(n_bars, divisions=480):
@@ -882,6 +1059,7 @@ def paper_phase(torch, tokenizer, work):
     if not all(n > 0 for counts in labels.values() for n in counts.values()):
         raise AssertionError(f"a direction group has no labelled note in the windows: {labels}")
 
+    torch.cuda.reset_peak_memory_stats()  # this phase's peak, not the phases' before it
     step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
                                                           TRAIN_WARMUP, TRAIN_TIMED)
     lap("train_steps")
@@ -929,7 +1107,8 @@ def paper_phase(torch, tokenizer, work):
     model_config["classifiers"]["classifier"]["dropout"] = 0.0
     del comp, trainer, model, batch, eval_batch, out
     torch.cuda.empty_cache()
-    loss_err, grad_err, n_grads = compare_train_step(torch, model_config, host_batch)
+    gate = compare_train_step(torch, model_config, host_batch)
+    loss_err, grad_err, n_grads = gate["loss_err"], gate["grad_err"], gate["gradients"]
     rec["card_vs_cpu"] = {"loss_err": loss_err, "grad_err": grad_err, "gradients": n_grads}
     print(f"paper recipe train step at batch 4, card vs CPU: loss error {loss_err:.3g}, largest gradient error "
           f"over its largest value {grad_err:.3g} ({n_grads} gradients, the classifier heads' included)")
@@ -937,6 +1116,191 @@ def paper_phase(torch, tokenizer, work):
         raise AssertionError(f"the paper recipe's step on the card differs from the CPU's: loss {loss_err}, "
                              f"gradients {grad_err}")
     lap("card_vs_cpu")
+    return rec
+
+
+def train_record(torch, step_ms, notes, launches, batch=TRAIN_BATCH, seq=TRAIN_SEQ + 2):
+    median_ms = float(np.median(step_ms))
+    return {"step_ms": step_ms, "median_step_ms": median_ms, "tokens_per_s": batch * seq / median_ms * 1e3,
+            "valid_notes_per_s": float(np.mean(notes)) / median_ms * 1e3, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def options_phase(torch, tokenizer, root, work):
+    """The trainer's options on the card, on the train phase's dataset at
+    `root`:
+    (b) the flagship (use_flash=True) with `bf16_compute`: 10 + 2 steps at
+        batch 128, profiled; its activations stay fp32 as JAX's do (the
+        stream tables promote), so the fp32 flash instances run, 10 of each
+        a step; a batch-4 step against the CPU's; then the flagship held in
+        bf16 (`model.to(torch.bfloat16)`, every floating tensor), whose
+        attention inputs are bf16: the bf16 flash instances, 10 of each a
+        step, profiled, and a batch-4 step against the CPU's;
+    (c) the fp32 step with `remat`: gradients equal to the step without it
+        (same generators), peak memory and step time of both;
+    (d) recipes/scoreperformer/scale_1024.yaml trained as the recipe sets
+        it: dim 1024, batch 8, sequences of 1024 notes (windows of 96 bars),
+        zero_sharding, fp32, no flash, softmax_bf16, base.yaml's classifiers;
+    (e) one batch-4 flagship step each with lamb, lion and adafactor (the
+        plateau schedule at scale 0.5): the parameters after the update
+        against the CPU's.
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.data import build_synthetic_dataset
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):  # host seconds of each step of the phase
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    def components(cfg, **trainer):
+        cfg["trainer"].update(trainer)
+        comp = ExperimentComponents(cfg, device="cuda").init_components()
+        return comp
+
+    rec = {"phase_s": phase_s}
+    # (b) bf16_compute, then the model held in bf16
+    for name, precision in (("bf16_compute", "bf16_compute"), ("bf16_model", "bf16")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = train_config(tokenizer, root, os.path.join(work, name), TRAIN_BATCH, 2)
+        comp = components(cfg, bf16_compute=precision == "bf16_compute")
+        if precision == "bf16":
+            comp.model.to(torch.bfloat16)
+        trainer = comp.trainer
+        trainer._prepare()
+        dtype = "bf16" if precision == "bf16" else "fp32"
+        step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                              TRAIN_WARMUP, TRAIN_TIMED, dtype=dtype)
+        rec[name] = train_record(torch, step_ms, notes, launches)
+        rec[name]["last_loss"] = values["loss"]
+        prof = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED),
+                              ported=PORTED_TRAIN)
+        rec[name]["profile"] = prof
+        counts = {k: prof["ported"][k]["count"] for k in PORTED_TRAIN}
+        if counts != {k: 10 for k in PORTED_TRAIN}:
+            raise AssertionError(f"the profiled {name} step ran the flash kernels {counts} times, expected 10 of each")
+        kernels = {k for n in PORTED_TRAIN for k in prof["ported"][n]["kernels"]}
+        if any(("bfloat16" in k) != (precision == "bf16") for k in kernels):
+            raise AssertionError(f"the profiled {name} step ran the flash kernels {sorted(kernels)}")
+        host_batch = next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
+        model_config = comp.model_config
+        del comp, trainer, batch
+        torch.cuda.empty_cache()
+        gate = compare_train_step(torch, model_config, host_batch, precision=precision)
+        rec[name]["card_vs_cpu"] = gate
+        # bf16_compute: the CPU test's gates (tests/test_torch_bf16.py), loss
+        # 1e-5 relative and each gradient 5e-3 relative L2 (a gradient is a
+        # bf16 cotangent, rounded to bf16). The bf16 model rounds every
+        # activation and cotangent to bf16 in the order its device's GEMMs
+        # and reductions sum, which the card and the CPU do not share: its
+        # card-vs-CPU record is kept, and its gate holds the kernels' step
+        # against the same step on the card with the plain flash functions,
+        # as one vector (a cancelling sum such as the ALiBi slopes' gradient
+        # can differ wholly), to the gates first set for bf16_compute, loss
+        # 1e-2 and gradients 5e-2
+        if precision == "bf16_compute":
+            ok = gate["loss_rel"] <= 1e-5 and gate["grad_rel_l2"] <= 5e-3
+        else:
+            gate = compare_train_step(torch, model_config, host_batch, devices=("cuda", "cuda"), precision=precision,
+                                      reference_plain_flash=True)
+            rec[name]["kernels_vs_plain_on_card"] = gate
+            ok = gate["loss_rel"] <= 1e-2 and gate["global_rel_l2"] <= 5e-2
+        print(f"{name} train steps", json.dumps(rec[name]))
+        if not ok:
+            raise AssertionError(f"the {name} step on the card differs from the CPU's: {gate}")
+        lap(name)
+
+    # (c) remat: the same fp32 step's gradients, and the peak memory of both.
+    # Deterministic algorithms for the comparison: the MMD subsample's
+    # backward (`flat[idx]` with repeated indices) accumulates by atomics,
+    # so two plain steps differ in the last bits otherwise
+    cfg = train_config(tokenizer, root, os.path.join(work, "remat"), TRAIN_BATCH, 2)
+    comp = components(cfg)
+    trainer, model = comp.trainer, comp.model
+    trainer._prepare()
+    batch = trainer._put_batch(next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0)))
+    grads, rec["remat"] = {}, {}
+    model.train()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for remat in (False, True, False, True):  # in turns; the second pair is timed
+        trainer.config.remat = remat
+        model.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = trainer.loss_fn(batch, 5)
+        loss.backward()
+        torch.cuda.synchronize()
+        key = "remat" if remat else "plain"
+        rec["remat"][key] = {"forward_backward_ms": (time.perf_counter() - t0) * 1e3,
+                             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "activation_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                             "loss": loss.item()}
+        grads[remat] = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    torch.use_deterministic_algorithms(False)
+    err = max(((grads[True][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item() for n, g in grads[False].items())
+    rec["remat"]["grad_err"] = err
+    print("remat", json.dumps(rec["remat"]))
+    if set(grads[True]) != set(grads[False]) or not err <= 1e-5:
+        raise AssertionError(f"remat changes the gradients on the card by {err}")
+    del comp, trainer, model, batch, grads
+    torch.cuda.empty_cache()
+    lap("remat")
+
+    # (d) scale_1024.yaml as the recipe sets it
+    scale_root = os.path.join(work, "scale_data")
+    build_synthetic_dataset(scale_root, n_scores=4, n_perfs_per_score=2, n_bars=SCALE_SCORE_BARS, seed=SEED,
+                            splits=True)
+    cfg = train_config(tokenizer, scale_root, os.path.join(work, "scale_run"), SCALE_TRAIN_BATCH, 2)
+    cfg["data"]["dataset"].update(max_seq_len=SCALE_TRAIN_SEQ, bar_sliding_window=SCALE_WINDOW_BARS,
+                                  performance_directions=os.path.join(scale_root, "direction_classes.json"),
+                                  score_directions_dict=os.path.join(scale_root, "score_directions.json"))
+    cfg["model"] = {"_name_": "ScorePerformer", **scale_1024_config(tokenizer),
+                    "classifiers": json.loads(json.dumps(PAPER_CLASSIFIERS))}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comp = components(cfg, zero_sharding=True, bf16_compute=False, remat=False, eval_batch_size=SCALE_TRAIN_BATCH)
+    trainer = comp.trainer
+    trainer._prepare()
+    step_ms, launches, _, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset, 2, 4, flash=0)
+    rec["scale_1024"] = {**train_record(torch, step_ms, notes, launches, SCALE_TRAIN_BATCH, SCALE_TRAIN_SEQ + 2),
+                         "parameters": sum(p.numel() for p in comp.model.parameters()),
+                         "last_step": {k: v for k, v in values.items() if k == "loss" or k.startswith("clf")}}
+    print("scale_1024 train steps", json.dumps(rec["scale_1024"]))
+    rec["scale_1024"]["filled_share"] = float(np.mean(notes)) / (SCALE_TRAIN_BATCH * SCALE_TRAIN_SEQ)
+    if not rec["scale_1024"]["filled_share"] >= 0.75:  # windows are sampled; most fill their 1024 notes
+        raise AssertionError(f"scale_1024's batches hold {np.mean(notes)} valid notes, not sequences of "
+                             f"{SCALE_TRAIN_SEQ}")
+    del comp, trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(scale_root, ignore_errors=True)
+    lap("scale_1024")
+
+    # (e) lamb, lion and adafactor with the plateau schedule, card vs CPU
+    cfg = train_config(tokenizer, root, os.path.join(work, "opt"), TRAIN_BATCH, 2)
+    comp = components(cfg)
+    host_batch = next(comp.trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
+    model_config = comp.model_config
+    del comp
+    torch.cuda.empty_cache()
+    rec["optimizers"] = {}
+    for name in OPTIMIZER_CHECKS:
+        opt = {"optimizer": name, "lr": 1e-5, "lr_scheduler": "plateau", "grad_clip": 2.0}
+        gate = compare_train_step(torch, model_config, host_batch, optimizer=opt)
+        rec["optimizers"][name] = {"param_err": gate["grad_err"], "param_rel_l2": gate["grad_rel_l2"],
+                                   "worst": gate["worst"], "parameters": gate["gradients"]}
+        if not gate["grad_rel_l2"] <= 1e-4:
+            raise AssertionError(f"{name}: the parameters after the card's update differ from the CPU's: "
+                                 f"{rec['optimizers'][name]} (relative L2 of a parameter)")
+    print("optimizers card vs CPU", json.dumps(rec["optimizers"]))
+    lap("optimizers")
     return rec
 
 
@@ -1557,6 +1921,24 @@ def main() -> int:
         print("flash_attention_bwd_dq", json.dumps(dq_rec))
     for _, _, pair in (bwd_main, bwd_causal):
         print("flash_attention_bwd_pair", json.dumps(pair))
+    # the bf16 instances of the three flash kernels (a model held in bf16
+    # feeds them): at the training step's shapes, timed, and at the edges
+    # (d=32, whose scale is no power of two, one KV head per query head,
+    # rows with no valid key, t around the tiles)
+    bf16_main = check_flash_bf16(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, causal=False, padded=True, timed=True)
+    bf16_causal = check_flash_bf16(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded=True, timed=True)
+    bf16_recs = [
+        check_flash_bf16(torch, fa, 3, 77, causal=True, padded="empty", timed=False, d=32),
+        check_flash_bf16(torch, fa, 2, 77, causal=False, padded=True, timed=False, d=32),
+        check_flash_bf16(torch, fa, 4, 130, causal=False, padded=True, timed=False, hk=4),
+        check_flash_bf16(torch, fa, 2, 300, causal=True, padded="empty", timed=False, hk=4),
+    ] + [
+        check_flash_bf16(torch, fa, 2, t, causal=c, padded=False, timed=False)
+        for t in (15, 17, 63, 65, 129) for c in (False, True)
+    ]
+    for recs in [bf16_main, bf16_causal] + bf16_recs:
+        for name, rec in zip(FLASH, recs):
+            print(f"{name}_bf16", json.dumps(rec))
     # the prefix attend of the chunked decode: the served batch (timed in
     # fp32, bf16 and int8, halfway through its decode), the TPU script's
     # shape, the render's (b=1, the 32-bar score's cache), and the edges:
@@ -1711,13 +2093,20 @@ def main() -> int:
         raise AssertionError("greedy tokens on the GPU differ from the port's CPU path")
 
     # one train step on the card against the port's CPU path, same weights
-    loss_err, grad_err, n_grads = compare_train_step(torch, model_config, host_batch)
+    gate = compare_train_step(torch, model_config, host_batch)
+    loss_err, grad_err, n_grads = gate["loss_err"], gate["grad_err"], gate["gradients"]
     print(f"train step at batch 4, card vs CPU: loss error {loss_err:.3g}, largest gradient error over "
           f"its largest value {grad_err:.3g} ({n_grads} gradients)")
     if not (loss_err <= 1e-4 and grad_err <= 1e-3):
         raise AssertionError(f"the card's train step differs from the CPU's: loss {loss_err}, gradients {grad_err}")
     del model, cpu_model
     torch.cuda.empty_cache()
+
+    # ---- the trainer's options: bf16_compute and a bf16 model, remat, scale_1024, lamb/lion/adafactor ----
+    t0 = time.perf_counter()
+    options = options_phase(torch, tokenizer, root, os.path.join(work, "options"))
+    print(f"options phase: {time.perf_counter() - t0:.1f} s")
+    print("options", json.dumps({k: v for k, v in options.items() if k not in ("bf16_compute", "bf16_model")}))
 
     # ---- the paper's recipe: MIDI and MusicXML prepared, direction classifiers trained ----
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -1750,6 +2139,9 @@ def main() -> int:
 
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
+             "bf16_compute_train_steps": options["bf16_compute"]["launches"],
+             "bf16_model_train_steps": options["bf16_model"]["launches"],
+             "scale_1024_train_steps": options["scale_1024"]["launches"],
              "paper_recipe_train_steps": paper["train"]["launches"], "served_batch": served_launches,
              "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
              "scale_1024_served": scale["int8"]["launches"]}
@@ -1777,6 +2169,22 @@ def main() -> int:
         for name, kernel, replaces, rec in (
             ("flash_attention_bwd_dkv", "flash_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
             ("flash_attention_bwd_dq", "flash_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
+        )
+    ] + [
+        # the bf16 instances, as the flagship held in bf16 launches them in
+        # its train steps (bf16_compute keeps JAX's fp32 activations, so its
+        # steps launch the fp32 instances)
+        {"name": f"{name}_bf16", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": options["bf16_model"]["launches"][f"{name}_bf16"],
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "tf32_products", "bf16_ulps", "library_timing")
+            if k in rec}, "shape": rec["shape"], "dtype": "bf16", "tf32_hmma_in_sass": hmma[kernel]}
+        for name, kernel, source, replaces, rec in (
+            ("flash_attention_fwd", "flash_fwd", "flash_attention_fwd.cu",
+             "scoreperformer_tpu/ops/flash_attention.py:49", bf16_main[0]),
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv", "flash_attention_bwd.cu",
+             "scoreperformer_tpu/ops/flash_attention.py:135", bf16_main[1]),
+            ("flash_attention_bwd_dq", "flash_bwd_dq", "flash_attention_bwd.cu",
+             "scoreperformer_tpu/ops/flash_attention.py:192", bf16_main[2]),
         )
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",

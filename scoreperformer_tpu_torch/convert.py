@@ -215,6 +215,97 @@ def state_dict_from_jax(params) -> Dict[str, np.ndarray]:
     return sd
 
 
+def jax_path_for(model: nn.Module, name: str) -> Tuple[str, ...]:
+    """The reverse of `_torch_name_for`: the flax parameter path of the port
+    parameter `name` of a `ScorePerformerModel` (a tied embedding's path is
+    its `shared_emb_<key>` one, whichever of its names is given). Raises
+    KeyError for a name with no JAX counterpart. The result maps back to
+    `name` through `_torch_name_for`."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    owner = model.get_submodule(".".join(parts[:-1]))
+    jleaf = {"weight": "scale" if isinstance(owner, nn.LayerNorm) else "kernel"}.get(leaf, leaf)
+    path = _jax_path(model, parts, leaf, jleaf)
+    mapped = _torch_name_for(list(path))
+    if mapped is None or not _same_name(model, mapped[0], name):
+        raise KeyError(f"no JAX path for {name} (tried {'/'.join(path)})")
+    return path
+
+
+def _same_name(model: nn.Module, mapped: str, name: str) -> bool:
+    """`mapped` (one of `_torch_name_for`'s names, with its `a|b` and
+    classifier `{i}` forms) names the same parameter as `name`."""
+    params = dict(model.named_parameters(remove_duplicate=False))
+    if "{last}" in mapped:
+        mapped = mapped.replace("{last}", name.split(".")[4])
+    mapped = mapped.replace("{", "").replace("}", "")
+    hits = [params[c] for c in _expand(mapped) if c in params]
+    return bool(hits) and hits[0] is params[name]
+
+
+def _jax_path(model, parts, leaf, jleaf) -> Tuple[str, ...]:
+    top = parts[0]
+    if top == "classifiers":  # classifiers.heads.<group>.layers.<i>.<leaf>
+        n_layers = len(model.get_submodule(".".join(parts[:4])))
+        i = int(parts[4])
+        return ("classifiers", f"head_{parts[2]}", "out" if i == n_layers - 1 else f"layer_{i // 2}", jleaf)
+    if top == "perf_encoder" and parts[1] == "vae_head":
+        return ("perf_encoder", f"vae_{parts[2]}", "linear", jleaf)
+    prefix, rest = {
+        "score_encoder": (("score_encoder",), parts[1:]),
+        "perf_encoder": (("perf_encoder", "transformer"), parts[1:]),
+        "perf_decoder": (("perf_decoder",), parts[2:]),  # perf_decoder.model.*
+    }.get(top, ((), None))
+    if rest is None:
+        raise KeyError(f"no JAX path for {'.'.join(parts)}")
+    head = rest[0]
+    if head == "token_emb":
+        sub = rest[1]
+        if sub == "embs":
+            key, tail = rest[2], rest[3:]
+            tied = getattr(getattr(model, "config", None), "tie_token_emb", False)
+            base = (f"shared_emb_{key}",) if tied else prefix + ("token_emb", f"emb_{key}")
+            if tail[0] == "index_weight":
+                return base + ("index_weight",)
+            return base + (("value",) if len(tail) == 2 else (f"value_{tail[1]}",)) + (jleaf,)
+        if sub == "project_emb":
+            return prefix + ("token_emb", "project_kernel" if leaf == "weight" else "project_bias")
+        return prefix + ("token_emb", sub, jleaf)  # norm, project_multiemb
+    if head == "pos_emb":
+        return prefix + ("pos_emb", "emb")
+    if head in ("emb_norm", "project_emb"):
+        return prefix + (head, jleaf)
+    if head == "lm_head":
+        return prefix + ("lm_head", rest[1], jleaf)
+    if head == "transformer":
+        if rest[1] == "final_norm":
+            return prefix + ("transformer", "final_norm") + (("to_gamma_beta",) if rest[2] == "linear" else ()) + (jleaf,)
+        i, part = int(rest[2]), rest[3]  # transformer.layers.<i>.<0: norm | 1: block>
+        stack = model.get_submodule(".".join(parts[: len(parts) - len(rest) + 1]))
+        if part == "0":
+            return prefix + ("transformer", f"layer_{i}_norm") + (("to_gamma_beta",) if rest[5] == "linear" else ()) + (jleaf,)
+        kind = {"a": "attn", "c": "cross", "f": "ff"}[stack.layer_types[i]]
+        inner = rest[4]
+        if kind == "ff":
+            return prefix + ("transformer", f"layer_{i}_ff", "proj_in" if rest[5] == "0" else
+                             "post_act_norm" if rest[5] == "1" else "proj_out", jleaf)
+        if inner == "rel_pos":
+            return prefix + ("transformer", f"layer_{i}_{kind}", "rel_pos", leaf)
+        return prefix + ("transformer", f"layer_{i}_{kind}", inner, jleaf)
+    raise KeyError(f"no JAX path for {'.'.join(parts)}")
+
+
+def jax_param_paths(model: nn.Module) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """{port parameter name: (flax path, transposed)} for every parameter of
+    `model` (tied ones once, under their first name); `transposed`: the JAX
+    array is the port's transposed (a Dense kernel)."""
+    out = {}
+    for name, _ in model.named_parameters():
+        path = jax_path_for(model, name)
+        out[name] = (path, _torch_name_for(list(path))[1] == "t")
+    return out
+
+
 def gru_cell_stack_state_from_jax(params) -> Dict[str, np.ndarray]:
     """A flax `GRUCellStack`'s parameters (`GRUCell_0` with Dense `ir`, `iz`,
     `in` on the input and `hr`, `hz`, `hn` on the state, then `out`) as the

@@ -20,7 +20,7 @@ from ..ops.flash_attention import flash_attention_alibi
 from ..ops.kv_cache import write_kv_pair
 from ..ops.prefix_attend import combine_lse, prefix_attend
 from .dropout import Dropout
-from .layers import ALiBiPositionalBias
+from .layers import ALiBiPositionalBias, Linear
 
 MASK_VALUE = -1e9
 
@@ -95,10 +95,10 @@ class Attention(nn.Module):
         self.attn_dropout = Dropout(dropout)
         q_dim = dim_head * heads
         kv_dim = dim_head if one_kv_head else q_dim
-        self.to_q = nn.Linear(dim, q_dim, bias=False)
-        self.to_k = nn.Linear(dim, kv_dim, bias=False)
-        self.to_v = nn.Linear(dim, kv_dim, bias=False)
-        self.to_out = nn.Linear(q_dim, dim, bias=False)
+        self.to_q = Linear(dim, q_dim, bias=False)
+        self.to_k = Linear(dim, kv_dim, bias=False)
+        self.to_v = Linear(dim, kv_dim, bias=False)
+        self.to_out = Linear(q_dim, dim, bias=False)
         self.rel_pos = (
             ALiBiPositionalBias(
                 heads=alibi_num_heads or heads,
@@ -273,8 +273,8 @@ class Attention(nn.Module):
             v_h = v.reshape(b, j, self.kv_heads, d).transpose(1, 2)
         dots = (q @ k_h.transpose(-1, -2)) * scale
 
-        if self.rel_pos is not None:
-            dots = dots + self.rel_pos(pos_q, key_pos)[None]
+        if self.rel_pos is not None:  # in the scores' type, as the JAX module adds it
+            dots = dots + self.rel_pos(pos_q, key_pos)[None].to(dots.dtype)
         if self.softmax_bf16:
             dots = dots.to(torch.bfloat16)
 

@@ -19,6 +19,7 @@ from torch import nn
 
 from ..configs import ModuleConfig
 from .dropout import dropout
+from .layers import Linear
 
 
 @dataclass
@@ -87,8 +88,8 @@ class LinearEmbeddingClassifier(nn.Module):
         dims = [input_dim, *(hidden_dims or ())]
         layers: List[nn.Module] = []
         for d_in, d_out in zip(dims[:-1], dims[1:]):
-            layers += [nn.Linear(d_in, d_out), nn.ReLU()]
-        layers.append(nn.Linear(dims[-1], num_classes))
+            layers += [Linear(d_in, d_out), nn.ReLU()]
+        layers.append(Linear(dims[-1], num_classes))
         self.layers = nn.Sequential(*layers)
         self.dropout = float(dropout)
         self.register_buffer(
@@ -117,7 +118,7 @@ class GRUCellStack(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int, num_classes: int):
         super().__init__()
         self.gru = nn.GRU(input_dim, hidden_dim, batch_first=True)
-        self.out = nn.Linear(hidden_dim, num_classes)
+        self.out = Linear(hidden_dim, num_classes)
 
     def forward(self, embeddings, labels=None, class_weights=None) -> EmbeddingClassifierOutput:
         states, _ = self.gru(embeddings)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import ModuleConfig
+from .layers import LayerNorm, Linear, promoted
 
 
 @dataclass
@@ -87,7 +88,7 @@ class StreamEmbedding(nn.Module):
             self.register_buffer("values", torch.from_numpy(values.reshape(-1, 1)), persistent=False)
             if dense:
                 self.value_layer = nn.ModuleList(
-                    nn.Sequential(nn.Linear(1 if i == 0 else embedding_dim, embedding_dim),
+                    nn.Sequential(Linear(1 if i == 0 else embedding_dim, embedding_dim),
                                   nn.Mish() if i < dense_depth - 1 else nn.Identity())
                     for i in range(dense_depth)
                 )
@@ -95,7 +96,7 @@ class StreamEmbedding(nn.Module):
                     nn.init.normal_(seq[0].weight, std=1e-2)
                     nn.init.zeros_(seq[0].bias)
             else:
-                self.value_layer = nn.Linear(1, embedding_dim, bias=False)
+                self.value_layer = Linear(1, embedding_dim, bias=False)
                 nn.init.normal_(self.value_layer.weight, std=1e-2)
             value_keep = torch.ones(num_embeddings, 1)
             if discrete_ids is not None:
@@ -181,12 +182,12 @@ class TupleTokenEmbeddings(nn.Module):
         self.tie_keys_map = tie_keys
         self.emb_dims_map = dims
         self.total_emb_dim = total
-        self.norm = nn.LayerNorm(total, eps=1e-5) if cfg.emb_norm else None
+        self.norm = LayerNorm(total, eps=1e-5) if cfg.emb_norm else None
         self.has_project = total != project_emb_dim
         # the tied LM head reuses this projection transposed
-        self.project_emb = nn.Linear(total, project_emb_dim) if self.has_project else None
+        self.project_emb = Linear(total, project_emb_dim) if self.has_project else None
         if self.multiseq_mode == "post-cat":
-            self.project_multiemb = nn.Linear(cfg.num_sequences * project_emb_dim, project_emb_dim)
+            self.project_multiemb = Linear(cfg.num_sequences * project_emb_dim, project_emb_dim)
 
     @property
     def multiseq_mode(self) -> Optional[str]:
@@ -240,16 +241,18 @@ class TupleTokenTiedLMHead(nn.Module):
 
     def __init__(self, total_emb_dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(total_emb_dim, eps=1e-5)
+        self.norm = LayerNorm(total_emb_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings) -> Dict[str, torch.Tensor]:
         if not embeddings.has_project:
             raise ValueError("the tied head requires an embedding projection")
-        h = self.norm(x @ embeddings.project_emb.weight)
+        x, weight = promoted(x, embeddings.project_emb.weight)
+        h = self.norm(x @ weight)
         tables = embeddings.tables()
         logits, offset = {}, 0
         for key in embeddings.num_tokens:
             dim = embeddings.emb_dims_map[key]
-            logits[key] = h[..., offset : offset + dim] @ tables[key].T
+            hk, table = promoted(h[..., offset : offset + dim], tables[key])
+            logits[key] = hk @ table.T
             offset += dim
         return logits

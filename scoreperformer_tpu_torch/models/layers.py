@@ -3,6 +3,12 @@
 Parameter names follow the reference PyTorch modules, the names that
 scoreperformer_tpu/training/torch_convert.py maps, so a reference state dict
 loads without renaming (see convert.py).
+
+Types follow flax's promotion (`bf16_compute` runs the modules on bf16
+parameters): `Linear` computes in the promoted type of its input and weight,
+as flax's Dense does (a bf16 weight on an fp32 input computes in fp32);
+`LayerNorm` takes its statistics and arithmetic in fp32 and writes the
+promoted type of its input and parameters, as flax's LayerNorm does.
 """
 from __future__ import annotations
 
@@ -16,6 +22,36 @@ from torch import nn
 from .dropout import Dropout
 
 
+def promoted(*xs: torch.Tensor):
+    """`xs` cast to their promoted type, as jnp promotes the operands of an
+    op (a bf16 array with an fp32 one computes in fp32)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
+class Linear(nn.Linear):
+    """nn.Linear in the promoted type of its input and weight (flax's Dense)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype:
+            dt = torch.promote_types(x.dtype, w.dtype)
+            x, w, b = x.to(dt), w.to(dt), None if b is None else b.to(dt)
+        return F.linear(x, w, b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm computed in fp32, written in the promoted type of its
+    input and parameters (flax's LayerNorm)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        out = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
+        return out.to(dt)
+
+
 class AdaptiveLayerNorm(nn.Module):
     """LayerNorm without affine + Linear(cond -> 2*dim) giving per-position
     gamma/beta. `linear` is the JAX package's `to_gamma_beta`."""
@@ -23,7 +59,7 @@ class AdaptiveLayerNorm(nn.Module):
     def __init__(self, dim: int, condition_dim: int, eps: float = 1e-5):
         super().__init__()
         self.dim, self.eps = dim, eps
-        self.linear = nn.Linear(condition_dim, 2 * dim)
+        self.linear = Linear(condition_dim, 2 * dim)
         with torch.no_grad():  # gamma = 1, beta = 0 at start
             self.linear.bias.copy_(torch.cat([torch.ones(dim), torch.zeros(dim)]))
 
@@ -42,7 +78,7 @@ class _GLUProjIn(nn.Module):
 
     def __init__(self, dim: int, inner: int, act: nn.Module):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * inner)
+        self.proj = Linear(dim, 2 * inner)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -64,12 +100,12 @@ class FeedForward(nn.Module):
         if glu:
             proj_in = _GLUProjIn(dim, inner, act)
         else:
-            proj_in = nn.Sequential(nn.Linear(dim, inner, bias=not no_bias), act)
+            proj_in = nn.Sequential(Linear(dim, inner, bias=not no_bias), act)
         self.ff = nn.Sequential(
             proj_in,
-            nn.LayerNorm(inner, eps=1e-5) if post_act_ln else nn.Identity(),
+            LayerNorm(inner, eps=1e-5) if post_act_ln else nn.Identity(),
             Dropout(dropout),
-            nn.Linear(inner, dim, bias=not no_bias),
+            Linear(inner, dim, bias=not no_bias),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

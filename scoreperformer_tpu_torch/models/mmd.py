@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .embeddings import StreamEmbedding
+from .layers import Linear
 from .tuple_transformer import TupleTransformerConfig, TupleTransformerModule
 
 
@@ -111,13 +112,14 @@ def mmd_loss(
     otherwise the kernel means are exact, mask-weighted."""
     d = latents.shape[-1]
     flat = latents.reshape(-1, d)
+    z = z.to(flat.dtype)  # the samples in the latents' dtype, as JAX draws them
     w = torch.ones(flat.shape[0], dtype=flat.dtype, device=flat.device) if mask is None \
         else mask.reshape(-1).to(flat.dtype)
     if flat.shape[0] > max_num_latents:
         if u is None or u.shape != (max_num_latents,):
             raise ValueError(f"mmd_loss: {flat.shape[0]} latents need {max_num_latents} subsample uniforms")
         cdf = torch.cumsum((w > 0).to(flat.dtype), 0)
-        idx = torch.searchsorted(cdf, u * cdf[-1], right=True).clamp_max(flat.shape[0] - 1)
+        idx = torch.searchsorted(cdf, u.to(flat.dtype) * cdf[-1], right=True).clamp_max(flat.shape[0] - 1)
         y = flat[idx]
         wy = torch.ones(max_num_latents, dtype=flat.dtype, device=flat.device)
     else:
@@ -149,7 +151,7 @@ def mmd_sampler(generator: Optional[torch.Generator], num_samples: int, max_num_
 class MMDVAE(nn.Module):
     def __init__(self, input_dim: int, latent_dim: int):
         super().__init__()
-        self.linear = nn.Linear(input_dim, latent_dim)
+        self.linear = Linear(input_dim, latent_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear(x)

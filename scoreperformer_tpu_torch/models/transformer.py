@@ -14,7 +14,7 @@ from torch import nn
 
 from ..configs import ModuleConfig
 from .attention import Attention, init_kv_cache
-from .layers import AdaptiveLayerNorm, FeedForward
+from .layers import AdaptiveLayerNorm, FeedForward, LayerNorm
 
 
 @dataclass
@@ -90,7 +90,7 @@ class TransformerStack(nn.Module):
         def make_norm():
             if cfg.use_adanorm:
                 return AdaptiveLayerNorm(cfg.dim, cfg.style_emb_dim)
-            return nn.LayerNorm(cfg.dim, eps=1e-5)
+            return LayerNorm(cfg.dim, eps=1e-5)
 
         layers = []
         for layer_type in self.layer_types:

@@ -21,7 +21,7 @@ from .embeddings import (
     TupleTokenTiedLMHead,
 )
 from .dropout import Dropout
-from .layers import AbsolutePositionalEmbedding
+from .layers import AbsolutePositionalEmbedding, LayerNorm, Linear
 from .transformer import TransformerConfig, TransformerStack
 
 
@@ -84,14 +84,14 @@ class TupleTransformerModule(nn.Module):
             )
         )
         self.pos_emb = AbsolutePositionalEmbedding(dim, cfg.max_seq_len) if cfg.use_abs_pos_emb else None
-        self.emb_norm = nn.LayerNorm(dim, eps=1e-5) if cfg.emb_norm else None
+        self.emb_norm = LayerNorm(dim, eps=1e-5) if cfg.emb_norm else None
         self.emb_dropout = Dropout(cfg.emb_dropout)
         total_emb_dim = (
             dim
             + int(cfg.context_emb_mode == EmbeddingModes.CONCAT) * self.context_dim
             + int(cfg.style_emb_mode == EmbeddingModes.CONCAT) * self.style_dim
         )
-        self.project_emb = nn.Linear(total_emb_dim, dim) if total_emb_dim != dim else None
+        self.project_emb = Linear(total_emb_dim, dim) if total_emb_dim != dim else None
 
         self.lm_head = None
         if cfg.lm_head is not None:

@@ -12,6 +12,13 @@ softmax sum is clamped at 1e-30, P is recomputed from the saved logsumexp, all
 in fp32 (the kernels take every product on the tensor cores in split TF32,
 three TF32 products each, within about 2^-21 of fp32).
 
+q, k, v and the output gradient may be bf16 (a model held in bf16 gives
+them), as the Pallas kernels take them: the arithmetic stays fp32, the output is written in q's
+dtype, the gradients in their inputs' dtypes (dslopes in the slopes'), lse in
+fp32, and delta = rowsum(dout * out) is taken in the residuals' dtype, as the
+JAX wrapper takes it. A bf16 launch counts in `launches_bf16`, an fp32 one in
+`launches`.
+
 A query row whose keys are all masked gets the JAX wrapper's answer: that
 wrapper pads keys to whole blocks with mask 0, so the row averages v over
 every key of the blocks it visits (`jax_masked_row_keys`), not over t keys.
@@ -176,8 +183,12 @@ def flash_attention_bwd_plain(q, k, v, slopes, mask, dout, lse, delta, causal=Tr
     return dq, dk, dv, dslopes
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _kernel_args(name, tensors, mask, b, tk, d, device):
-    """Checks shared by the kernel wrappers; returns the byte mask."""
+    """Checks shared by the kernel wrappers; returns the byte mask. `tensors`
+    are the operands (q, k, v[, dout]), of one dtype, fp32 or bf16."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: the kernel is built for head dims {KERNEL_HEAD_DIMS}, got {d}")
     for t in tensors + ([mask] if mask is not None else []):
@@ -185,9 +196,10 @@ def _kernel_args(name, tensors, mask, b, tk, d, device):
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    dtype = tensors[0].dtype
+    if dtype not in KERNEL_DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 operands of one dtype, "
+                        f"got {[str(t.dtype) for t in tensors]}")
     if mask is None:
         return torch.ones(b, tk, dtype=torch.bool, device=device)
     if mask.dtype != torch.bool:
@@ -200,6 +212,24 @@ def _raise_on(name, err):
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
+def _f32(name, x, shape, device):
+    """`x` as a contiguous fp32 tensor of `shape` on `device` (slopes, lse, delta)."""
+    if tuple(x.shape) != tuple(shape) or x.device != device:
+        raise ValueError(f"{name}: {tuple(x.shape)} on {x.device}, expected {tuple(shape)} on {device}")
+    return x.float().contiguous()
+
+
+def _count(fn, dtype):
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
+def _symbol(symbol, dtype):
+    return symbol + "_bf16" if dtype == torch.bfloat16 else symbol
+
+
 def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     """(out, lse): the forward kernel on CUDA tensors, its plain version on CPU
     tensors."""
@@ -210,18 +240,19 @@ def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     _check(q, k, v, slopes, mask)
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
-    mask = _kernel_args("flash_attention", [q, k, v, slopes], mask, b, tk, d, q.device)
+    mask = _kernel_args("flash_attention", [q, k, v], mask, b, tk, d, q.device)
+    slopes = _f32("flash_attention: slopes", slopes, (h,), q.device)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     scale = scale if scale is not None else d**-0.5
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    _raise_on("flash_attention", kernel("flash_attention_fwd", "sp_flash_attention_fwd")(
+    _raise_on("flash_attention", kernel("flash_attention_fwd", _symbol("sp_flash_attention_fwd", q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, hk, tq, tk, d, int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q.dtype)
     return out, lse
 
 
@@ -229,14 +260,16 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     _check(q, k, v, slopes, mask)
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
-    mask = _kernel_args(name, [q, k, v, slopes, dout, lse, delta], mask, b, tk, d, q.device)
-    if dout.shape != q.shape or lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
-        raise ValueError(f"{name}: dout {tuple(dout.shape)}, lse {tuple(lse.shape)}, "
-                         f"delta {tuple(delta.shape)} do not fit q {tuple(q.shape)}")
+    mask = _kernel_args(name, [q, k, v, dout], mask, b, tk, d, q.device)
+    if dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} does not fit q {tuple(q.shape)}")
+    slopes = _f32(f"{name}: slopes", slopes, (h,), q.device)
+    lse = _f32(f"{name}: lse", lse, (b, h, tq), q.device)
+    delta = _f32(f"{name}: delta", delta, (b, h, tq), q.device)
     if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
     scale = scale if scale is not None else d**-0.5
-    _raise_on(name, kernel("flash_attention_bwd", symbol)(
+    _raise_on(name, kernel("flash_attention_bwd", _symbol(symbol, q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, h, hk, tq, tk, d, int(causal), float(scale),
@@ -252,7 +285,7 @@ def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_launch("flash_attention_bwd_dkv", "sp_flash_attention_bwd_dkv",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dk, dv))
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
@@ -267,7 +300,7 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
     parts = torch.empty(dq_slope_parts(b, h, k.shape[1], tq), dtype=torch.float32, device=q.device)
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q.dtype)
     dslopes = parts.sum(dim=(0, 2))
     padded = padded_key_dslopes(lse, delta, tq, k.shape[2], causal)
     if padded is not None:
@@ -290,7 +323,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, slopes, mask, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        delta = (dout.float() * out.float()).sum(-1)
+        delta = (dout * out).sum(-1).float()  # in the residuals' dtype, as the JAX wrapper
         args = (q, k, v, slopes, mask, dout, lse, delta, ctx.causal, ctx.scale)
         dk, dv = flash_attention_bwd_dkv(*args)
         dq, dslopes = flash_attention_bwd_dq(*args)
@@ -314,6 +347,5 @@ def flash_attention_alibi(
     return _FlashAttention.apply(q, k, v, slopes, mask, causal, scale)
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dq.launches = 0
+for _fn in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
+    _fn.launches = _fn.launches_bf16 = 0

@@ -1,19 +1,32 @@
 """Optimizers held to optax's numbers.
 
 Counterpart of scoreperformer_tpu/training/optimizers.py, which builds
-    MultiSteps(apply_if_finite(chain(clip_by_global_norm, <optimizer>)))
-on optax. `Optimizer` applies the same chain to a model's parameters in place:
-- adam / adamw / sgd with optax's defaults (adamw's weight decay is 1e-4,
-  not torch.optim.AdamW's 1e-2; adam's eps is added outside the square root);
+    [flatten](MultiSteps(apply_if_finite(chain(clip_by_global_norm,
+                                               <optimizer>, [plateau_scale]))))
+on optax 0.2.6. `Optimizer` applies the same chain to a model's parameters in
+place:
+- adam / adamw / sgd / lamb / lion / adafactor with optax's defaults and
+  formulas (adamw's weight decay is 1e-4, not torch.optim.AdamW's 1e-2; adam's
+  eps is added outside the square root; lamb is adam, weight decay and one
+  trust ratio a parameter; lion's weight decay is 1e-3; adafactor factors the
+  second moment of a parameter whose two largest dims are both at least
+  `min_dim_size_to_factor`, 128, taken in the JAX layout, decays it by
+  1 - (t+1)^-0.8, clips each parameter's update to RMS 1 and multiplies it by
+  the parameter's RMS, at least 1e-3);
 - global-norm clipping as optax does it: g * max / norm when norm >= max
   (torch's clip_grad_norm_ divides by norm + 1e-6);
 - a step whose (accumulated) gradients hold a non-finite entry is skipped and
   leaves every count where it was, so the schedule does not advance; finite
   entries whose squares overflow the global norm do not skip it;
-- accumulation over k steps keeps optax's running mean and updates on the k-th.
+- accumulation over k steps keeps optax's running mean and updates on the k-th;
+- `flat_updates`, optax.flatten around the whole chain: every parameter is one
+  vector, so lamb's trust ratio and adafactor's clipping and parameter scale
+  are taken over all of them at once, and adafactor factors nothing;
+- the `plateau` schedule: a constant lr whose updates are multiplied by
+  `plateau_scale`, which the trainer sets from `PlateauController` once an
+  epoch (the JAX package's PlateauScaleState leaf).
 The learning-rate schedules (constant, per-epoch exponential staircase,
-cosine) are optax's. lamb, lion, adafactor, the plateau controller and
-`flat_updates` are not ported yet and raise.
+cosine) are optax's.
 """
 from __future__ import annotations
 
@@ -40,23 +53,99 @@ class OptimizerConfig(ModuleConfig):
     flat_updates: bool = False
 
 
-OPTIMIZERS = ("adam", "adamw", "sgd")
-NOT_PORTED = ("lamb", "lion", "adafactor")
 # optax's defaults per optimizer
 _DEFAULTS = {
     "adam": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0),
     "adamw": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4),
     "sgd": dict(momentum=None, nesterov=False),
+    "lamb": dict(b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0),
+    "lion": dict(b1=0.9, b2=0.99, weight_decay=1e-3),
+    "adafactor": dict(min_dim_size_to_factor=128, decay_rate=0.8, decay_offset=0, multiply_by_parameter_scale=True,
+                      clipping_threshold=1.0, momentum=None, weight_decay_rate=None, eps=1e-30, factored=True),
 }
+OPTIMIZERS = tuple(_DEFAULTS)
+# optax options that take another dtype or a mask tree: not ported
+_NOT_PORTED_PARAMS = ("mu_dtype", "mask", "dtype_momentum", "weight_decay_mask", "accumulator_dtype")
+
+
+class PlateauController:
+    """Host-side ReduceLROnPlateau decision logic, as the JAX package's
+    (scoreperformer_tpu/training/optimizers.py:105-193; the reference routes
+    'plateau' to torch.optim.lr_scheduler.ReduceLROnPlateau and the trainer
+    steps it with the epoch's mean train loss).
+
+    Semantics match torch (mode='min', threshold_mode='rel'): an epoch is
+    "bad" unless metric < best * (1 - threshold); after `patience` bad epochs
+    the scale is multiplied by `factor` (floored at min_lr/lr) and a cooldown
+    starts. `step(metric)` returns the current scale.
+    """
+
+    def __init__(self, factor: float = 0.1, patience: int = 10, threshold: float = 1e-4, cooldown: int = 0,
+                 min_scale: float = 0.0, base_lr: float = 1.0, eps: float = 1e-8):
+        self.factor = float(factor)
+        self.patience = int(patience)
+        self.threshold = float(threshold)
+        self.cooldown = int(cooldown)
+        self.min_scale = float(min_scale)
+        # torch skips a reduction when the absolute lr change is <= eps
+        self.base_lr = float(base_lr)
+        self.eps = float(eps)
+        self.best: Optional[float] = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.scale = 1.0
+
+    @classmethod
+    def from_config(cls, config: "OptimizerConfig") -> Optional["PlateauController"]:
+        if config.lr_scheduler != "plateau":
+            return None
+        p = dict(config.lr_scheduler_params or {})
+        min_lr = float(p.get("min_lr", 0.0))
+        return cls(
+            factor=float(p.get("factor", 0.1)),
+            patience=int(p.get("patience", 10)),
+            threshold=float(p.get("threshold", 1e-4)),
+            cooldown=int(p.get("cooldown", 0)),
+            min_scale=min_lr / config.lr if config.lr > 0 else 0.0,
+            base_lr=config.lr,
+            eps=float(p.get("eps", 1e-8)),
+        )
+
+    def step(self, metric: float) -> float:
+        metric = float(metric)
+        if self.best is None or metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_scale = max(self.scale * self.factor, self.min_scale)
+            if (self.scale - new_scale) * self.base_lr > self.eps:
+                self.scale = new_scale
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        return self.scale
+
+    def state_dict(self) -> Dict:
+        return {"best": self.best, "num_bad_epochs": self.num_bad_epochs,
+                "cooldown_counter": self.cooldown_counter, "scale": self.scale}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.best = state.get("best")
+        self.num_bad_epochs = int(state.get("num_bad_epochs", 0))
+        self.cooldown_counter = int(state.get("cooldown_counter", 0))
+        self.scale = float(state.get("scale", 1.0))
 
 
 def build_lr_schedule(config: OptimizerConfig, steps_per_epoch: int = 1) -> Callable[[int], float]:
     """count -> lr, as optax's schedules. `exponential` anneals by gamma once
-    per epoch (a staircase over steps)."""
+    per epoch (a staircase over steps); `plateau` keeps the base lr, its decay
+    is `Optimizer.plateau_scale`."""
     name, lr, p = config.lr_scheduler, config.lr, config.lr_scheduler_params or {}
-    if name == "plateau":
-        raise NotImplementedError("the plateau lr controller is not ported yet")
-    if name in (None, "", "none", "constant"):
+    if name in (None, "", "none", "constant", "plateau"):
         return lambda count: lr
     if name == "exponential":
         gamma, every = float(p.get("gamma", 1.0)), max(1, steps_per_epoch)
@@ -90,42 +179,102 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
 
 
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
 class Optimizer:
     """The optax chain of `build_optimizer` over `named_params` (name,
-    parameter) pairs; the state is keyed by parameter name."""
+    parameter) pairs; the state is keyed by parameter name. `transposed`
+    names the parameters whose JAX array is the transpose of the port's (Dense
+    kernels, `convert.jax_param_paths`): adafactor picks the dims it factors
+    in the JAX layout, where a square kernel's tie between its dims goes the
+    JAX way."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], config: OptimizerConfig,
-                 steps_per_epoch: int = 1):
+                 steps_per_epoch: int = 1, transposed: Iterable[str] = ()):
         name = config.optimizer.lower()
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"optimizer {name} is not ported yet; available: {OPTIMIZERS}")
         if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {name}; available: {OPTIMIZERS}")
-        if config.flat_updates:
-            raise NotImplementedError("flat_updates is not ported yet")
         params = dict(config.optimizer_params or {})
         if "betas" in params:  # torch -> optax parameter names
             params["b1"], params["b2"] = params.pop("betas")
+        given = [k for k in _NOT_PORTED_PARAMS if params.get(k) not in (None, False)]
+        if given:
+            raise NotImplementedError(f"{name}: optax options {given} are not ported")
+        params = {k: v for k, v in params.items() if k not in _NOT_PORTED_PARAMS}
         unknown = set(params) - set(_DEFAULTS[name])
         if unknown:
             raise TypeError(f"{name} takes no parameters {sorted(unknown)}")
         self.name, self.hp = name, {**_DEFAULTS[name], **params}
         self.config = config
+        self.flat = bool(config.flat_updates)
         self.schedule = build_lr_schedule(config, steps_per_epoch)
+        self.plateau_scale = 1.0 if config.lr_scheduler == "plateau" else None
         self.names, self.params = [], []
         for n, p in named_params:
             if p.requires_grad:
                 self.names.append(n)
                 self.params.append(p)
+        transposed = set(transposed)
+        self.transposed = [n in transposed for n in self.names]
         self.accum_steps = max(1, int(config.grad_accum_steps or 1))
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
-        self.count = 0  # applied updates: the adam and schedule count inside apply_if_finite
-        self.mu = zeros() if name != "sgd" else None
-        self.nu = zeros() if name != "sgd" else None
+        self.count = 0  # applied updates: the moments' and schedule's count inside apply_if_finite
+        self.mu = zeros() if name in ("adam", "adamw", "lamb", "lion") else None
+        self.nu = zeros() if name in ("adam", "adamw", "lamb") else None
         self.trace = zeros() if name == "sgd" and self.hp["momentum"] is not None else None
+        if name == "adafactor" and self.hp["momentum"] is not None:
+            self.trace = zeros()
+        self.v_row = self.v_col = self.v = None
+        if name == "adafactor":
+            self.factored_dims = [None if self.flat else self._factored_dims(p, t)
+                                  for p, t in zip(self.params, self.transposed)]
+            self.v_row, self.v_col, self.v = [], [], []
+            for p, dims in zip(self.params, self.factored_dims):
+                none = p.new_zeros(1)
+                if dims is None:
+                    self.v_row.append(none), self.v_col.append(none), self.v.append(torch.zeros_like(p))
+                else:  # row stats reduce the largest dim d0, column stats the second d1
+                    d1, d0 = dims
+                    self.v_row.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d0]))
+                    self.v_col.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d1]))
+                    self.v.append(none)
         self.acc = zeros() if self.accum_steps > 1 else None
         self.mini_step = 0
         self.skipped = 0  # updates skipped for non-finite gradients
+
+    def _factored_dims(self, p: torch.Tensor, transposed: bool) -> Optional[Tuple[int, int]]:
+        """optax's `_factored_dims` on the JAX layout of `p`: (d1, d0), the
+        second largest and the largest dim (stable argsort), as dims of the
+        port's tensor; None when the second largest is below
+        `min_dim_size_to_factor` or `factored` is off."""
+        shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
+        if not self.hp["factored"] or len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < self.hp["min_dim_size_to_factor"]:
+            return None
+        d1, d0 = int(order[-2]), int(order[-1])
+        if transposed:
+            d1, d0 = len(shape) - 1 - d1, len(shape) - 1 - d0
+        return d1, d0
+
+    # ---- reductions over a block: one parameter, or all of them with `flat_updates` ----
+
+    def _block_sums(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Sum of squares of each block, one entry a parameter."""
+        sums = [(x * x).sum() for x in xs]
+        if self.flat:
+            total = torch.stack(sums).sum()
+            return [total] * len(xs)
+        return sums
+
+    def _block_sizes(self, xs: List[torch.Tensor]) -> List[int]:
+        return [sum(x.numel() for x in xs)] * len(xs) if self.flat else [x.numel() for x in xs]
+
+    def _block_rms(self, xs):
+        return [torch.sqrt(s / n) for s, n in zip(self._block_sums(xs), self._block_sizes(xs))]
 
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
@@ -154,31 +303,104 @@ class Optimizer:
         if clip is not None and not bool(norm < clip):
             grads = torch._foreach_mul(torch._foreach_div(grads, norm), float(clip))
         lr = self.schedule(self.count)
-        if self.name == "sgd":
-            updates = grads
-            if self.trace is not None:
-                m = self.hp["momentum"]
-                torch._foreach_mul_(self.trace, m)
-                torch._foreach_add_(self.trace, grads)
-                updates = torch._foreach_add(grads, self.trace, alpha=m) if self.hp["nesterov"] else self.trace
-        else:
-            b1, b2, eps, eps_root = self.hp["b1"], self.hp["b2"], self.hp["eps"], self.hp["eps_root"]
-            torch._foreach_mul_(self.mu, b1)
-            torch._foreach_add_(self.mu, grads, alpha=1 - b1)
-            torch._foreach_mul_(self.nu, b2)
-            torch._foreach_add_(self.nu, torch._foreach_mul(grads, grads), alpha=1 - b2)
-            t = self.count + 1
-            mu_hat = torch._foreach_div(self.mu, _bias_correction(b1, t))
-            nu_hat = torch._foreach_div(self.nu, _bias_correction(b2, t))
-            if eps_root:
-                torch._foreach_add_(nu_hat, eps_root)
-            denom = torch._foreach_sqrt(nu_hat)
-            torch._foreach_add_(denom, eps)
-            updates = torch._foreach_div(mu_hat, denom)
-            if self.name == "adamw" and self.hp["weight_decay"]:
-                torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
-        torch._foreach_add_(self.params, updates, alpha=-lr)
+        updates = getattr(self, f"_{self.name}")(grads, lr)  # the update to add, its sign included
+        if self.plateau_scale is not None:
+            torch._foreach_mul_(updates, _f32(self.plateau_scale))
+        torch._foreach_add_(self.params, updates)
         self.count += 1
+
+    # ---- the optimizers: gradients (clipped) -> the update to add ----
+
+    def _sgd(self, grads, lr):
+        updates = grads
+        if self.trace is not None:
+            m = self.hp["momentum"]
+            torch._foreach_mul_(self.trace, m)
+            torch._foreach_add_(self.trace, grads)
+            updates = torch._foreach_add(grads, self.trace, alpha=m) if self.hp["nesterov"] else self.trace
+        return torch._foreach_mul(updates, -lr)
+
+    def _scale_by_adam(self, grads):
+        b1, b2, eps, eps_root = self.hp["b1"], self.hp["b2"], self.hp["eps"], self.hp["eps_root"]
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(grads, grads), alpha=1 - b2)
+        t = self.count + 1
+        mu_hat = torch._foreach_div(self.mu, _bias_correction(b1, t))
+        nu_hat = torch._foreach_div(self.nu, _bias_correction(b2, t))
+        if eps_root:
+            torch._foreach_add_(nu_hat, eps_root)
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, eps)
+        return torch._foreach_div(mu_hat, denom)
+
+    def _adam(self, grads, lr):
+        return torch._foreach_mul(self._scale_by_adam(grads), -lr)
+
+    def _adamw(self, grads, lr):
+        updates = self._scale_by_adam(grads)
+        if self.hp["weight_decay"]:
+            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        return torch._foreach_mul(updates, -lr)
+
+    def _lamb(self, grads, lr):
+        """scale_by_adam, add_decayed_weights, scale_by_trust_ratio: each
+        block's update times |param| / |update|, 1 where either is 0."""
+        updates = self._scale_by_adam(grads)
+        if self.hp["weight_decay"]:
+            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        p_norms = [torch.sqrt(s) for s in self._block_sums(self.params)]
+        u_norms = [torch.sqrt(s) for s in self._block_sums(updates)]
+        ratios = [torch.where((pn == 0) | (un == 0), 1.0, pn / un) for pn, un in zip(p_norms, u_norms)]
+        torch._foreach_mul_(updates, ratios)
+        return torch._foreach_mul(updates, -lr)
+
+    def _lion(self, grads, lr):
+        """sign((1-b1) g + b1 mu), then mu = (1-b2) g + b2 mu; weight decay."""
+        b1, b2 = self.hp["b1"], self.hp["b2"]
+        updates = [torch.sign((1.0 - b1) * g + b1 * m) for g, m in zip(grads, self.mu)]
+        self.mu = [(1.0 - b2) * g + b2 * m for g, m in zip(grads, self.mu)]
+        if self.hp["weight_decay"]:
+            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        return torch._foreach_mul(updates, -lr)
+
+    def _adafactor(self, grads, lr):
+        """scale_by_factored_rms, clip_by_block_rms, the lr, scale_by_param_
+        block_rms, [ema], [add_decayed_weights], scale(-1)."""
+        hp = self.hp
+        t = np.float32(self.count - hp["decay_offset"] + 1)
+        decay = _f32(np.float32(1.0) - t ** np.float32(-hp["decay_rate"]))
+        keep = _f32(np.float32(1.0) - np.float32(decay))
+        updates = []
+        for i, (g, dims) in enumerate(zip(grads, self.factored_dims)):
+            g2 = g * g + hp["eps"]
+            if dims is None:
+                self.v[i] = decay * self.v[i] + keep * g2
+                updates.append(g * self.v[i] ** -0.5)
+                continue
+            d1, d0 = dims
+            self.v_row[i] = decay * self.v_row[i] + keep * g2.mean(dim=d0)
+            self.v_col[i] = decay * self.v_col[i] + keep * g2.mean(dim=d1)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (self.v_row[i] / self.v_row[i].mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            col_factor = self.v_col[i] ** -0.5
+            updates.append(g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1))
+        if hp["clipping_threshold"] is not None:
+            clip = float(hp["clipping_threshold"])
+            denoms = [torch.clamp(rms / clip, min=1.0) for rms in self._block_rms(updates)]
+            updates = torch._foreach_div(updates, denoms)
+        updates = torch._foreach_mul(updates, lr)
+        if hp["multiply_by_parameter_scale"]:
+            scales = [torch.clamp(rms, min=1e-3) for rms in self._block_rms(self.params)]
+            updates = torch._foreach_mul(updates, scales)
+        if self.trace is not None:  # optax.ema, not debiased
+            m = hp["momentum"]
+            self.trace = [(1.0 - m) * u + m * tr for u, tr in zip(updates, self.trace)]
+            updates = [tr.clone() for tr in self.trace]
+        if hp["weight_decay_rate"] is not None:
+            torch._foreach_add_(updates, self.params, alpha=hp["weight_decay_rate"])
+        return torch._foreach_neg(updates)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -186,18 +408,22 @@ class Optimizer:
 
     # ---- state ----
 
+    _STATE = ("mu", "nu", "trace", "acc", "v_row", "v_col", "v")
+
     def state_dict(self) -> Dict:
         def named(xs):
             return None if xs is None else {n: x.detach().cpu() for n, x in zip(self.names, xs)}
 
         return {"count": self.count, "mini_step": self.mini_step, "skipped": self.skipped,
-                "mu": named(self.mu), "nu": named(self.nu), "trace": named(self.trace), "acc": named(self.acc)}
+                "plateau_scale": self.plateau_scale, **{key: named(getattr(self, key)) for key in self._STATE}}
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
         self.skipped = int(state.get("skipped", 0))
-        for key in ("mu", "nu", "trace", "acc"):
+        if self.plateau_scale is not None and state.get("plateau_scale") is not None:
+            self.plateau_scale = float(state["plateau_scale"])
+        for key in self._STATE:
             own, given = getattr(self, key), state.get(key)
             if own is None or given is None:
                 continue

@@ -6,20 +6,46 @@ pure function of (seed, epoch, batch index), made by the same formulas
 (`_iter_batches`), so both frameworks see the very same data. Dropout, latent
 dropout and the MMD samples draw from generators seeded per step from
 (seed, step), as the JAX trainer folds its key. TensorBoard event files go to
-{output_dir}/tb unless `tensorboard` is off, as in the JAX trainer. Meshes and
-sharding, ZeRO, multihost, remat, bf16 compute, fine-tuning a subset, warm
-starts and profiling are not ported yet and raise when set.
+{output_dir}/tb unless `tensorboard` is off, as in the JAX trainer.
+
+Every option of the JAX trainer that means something on one device is taken:
+- `bf16_compute`: the forward runs on bf16 copies of the fp32 master
+  parameters (buffers stay fp32, as JAX casts only `params`); the gradients
+  come back fp32 through the casts, the loss and metrics are cast to fp32;
+- `remat`: the whole forward under `torch.utils.checkpoint` (the JAX
+  trainer's `jax.checkpoint(forward)`), its generators made inside it from
+  (seed, step), so the recompute draws the same masks and samples;
+- `finetune_layers`: regexes over the flax path of each parameter
+  (`convert.jax_path_for`); the others get no gradient, so they add nothing to
+  the norm and move only by weight decay, as the JAX trainer zeroes theirs;
+- `warm_start` with `ignore_layers` and `ignore_mismatched_keys`: the
+  parameters of a port checkpoint or a reference `.pt` that match by flax path
+  and shape, no optimizer or trainer state;
+- the `plateau` lr schedule: `PlateauController` stepped with each epoch's
+  mean train loss, its scale applied to the updates and the logged lr, its
+  state in `trainer_state["plateau"]`;
+- `debug_nans`: FloatingPointError at the first non-finite module output in
+  the forward (forward hooks, naming the module) or op in the backward
+  (anomaly mode); nothing is installed when it is off;
+- `profile_dir`: a `torch.profiler` trace of steps [profile_start_step,
+  +profile_num_steps), each step a `train/<step>` range, written to
+  profile_dir/trace_<first>-<last>.json, stopped early if training ends;
+- `zero_sharding` and `sequence_parallel` are what they are on one device in
+  JAX: nothing.
+What needs more than one device raises (`_NOT_PORTED`).
 """
 from __future__ import annotations
 
 import os
 import signal
 import time
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs import ModuleConfig
 from ..data.collators import scoreperformer_model_inputs
@@ -34,8 +60,8 @@ from .callbacks import (
     TrainerControl,
     TrainerState,
 )
-from .checkpoint import load_checkpoint, save_checkpoint
-from .optimizers import Optimizer, OptimizerConfig, global_norm
+from .checkpoint import freeze_mask, from_jax_tree, jax_tree, load_checkpoint, save_checkpoint, warm_start_params
+from .optimizers import Optimizer, OptimizerConfig, PlateauController, global_norm
 
 
 @dataclass
@@ -75,13 +101,14 @@ class TrainerConfig(ModuleConfig):
     metric_maximize: bool = False
 
     resume_from_checkpoint: Optional[str] = None
-
-    # TensorBoard event files in {output_dir}/tb (training/tensorboard.py)
-    tensorboard: bool = True
-
-    # options of the JAX trainer that are not ported yet: each raises when set
     warm_start: bool = False
+    ignore_layers: List[str] = field(default_factory=list)
+    ignore_mismatched_keys: bool = True
     finetune_layers: List[str] = field(default_factory=list)
+
+    # the JAX trainer's device options; on one device ZeRO and sequence
+    # parallelism are no-ops, and a mesh, multihost and orbax's async and
+    # sharded checkpoints raise (_NOT_PORTED)
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     mesh_expert: int = 1
@@ -90,27 +117,26 @@ class TrainerConfig(ModuleConfig):
     sequence_parallel: bool = False
     bf16_compute: bool = False
     remat: bool = False
+    # TensorBoard event files in {output_dir}/tb (training/tensorboard.py)
+    tensorboard: bool = True
     async_checkpoint: bool = False
     sharded_checkpoint: bool = False
     debug_nans: bool = False
+    # torch.profiler trace of [profile_start_step, +profile_num_steps) steps
     profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
 
 
+# options that need more than one device (torch.distributed) or orbax, with
+# why each raises
 _NOT_PORTED = {
-    "mesh_data": lambda c: c.mesh_data not in (None, 1),
-    "mesh_model": lambda c: c.mesh_model != 1,
-    "mesh_expert": lambda c: c.mesh_expert != 1,
-    "multihost": lambda c: c.multihost,
-    "zero_sharding": lambda c: c.zero_sharding,
-    "sequence_parallel": lambda c: c.sequence_parallel,
-    "bf16_compute": lambda c: c.bf16_compute,
-    "remat": lambda c: c.remat,
-    "async_checkpoint": lambda c: c.async_checkpoint,
-    "sharded_checkpoint": lambda c: c.sharded_checkpoint,
-    "debug_nans": lambda c: c.debug_nans,
-    "profile_dir": lambda c: c.profile_dir is not None,
-    "warm_start": lambda c: c.warm_start,
-    "finetune_layers": lambda c: bool(c.finetune_layers),
+    "mesh_data": (lambda c: c.mesh_data not in (None, 1), "a data axis of more than one device"),
+    "mesh_model": (lambda c: c.mesh_model != 1, "a model axis (tensor parallelism)"),
+    "mesh_expert": (lambda c: c.mesh_expert != 1, "an expert axis"),
+    "multihost": (lambda c: c.multihost, "more than one host"),
+    "async_checkpoint": (lambda c: c.async_checkpoint, "orbax's asynchronous checkpoints"),
+    "sharded_checkpoint": (lambda c: c.sharded_checkpoint, "orbax's sharded checkpoints"),
 }
 
 
@@ -163,9 +189,9 @@ class Trainer:
         model_config: Optional[Dict] = None,
         input_fn: Callable = scoreperformer_model_inputs,
     ):
-        for name, is_set in _NOT_PORTED.items():
+        for name, (is_set, needs) in _NOT_PORTED.items():
             if is_set(config):
-                raise NotImplementedError(f"trainer option {name} is not ported yet")
+                raise NotImplementedError(f"trainer option {name} needs {needs}: the port trains on one device")
         self.model = model
         self.device = next(model.parameters()).device
         self.config = config
@@ -187,7 +213,13 @@ class Trainer:
         self.callback_handler = CallbackHandler(cb + list(callbacks or []))
 
         self.optimizer: Optional[Optimizer] = None
+        self._plateau: Optional[PlateauController] = None
+        self._frozen: List[torch.nn.Parameter] = []
         self._loaded = False
+        self._hooks = []
+        if config.debug_nans:
+            self._hooks = [m.register_forward_hook(_finite_output_check(name or "model"))
+                           for name, m in model.named_modules()]
         self.steps_per_epoch = None
         if train_dataset is not None:
             self.steps_per_epoch = max(1, len(train_dataset) // config.batch_size)
@@ -196,8 +228,19 @@ class Trainer:
     # ---- setup ----
 
     def setup_optimizer(self):
+        from ..convert import jax_param_paths
+
+        try:  # adafactor factors in the JAX layout; a model with no JAX tree keeps the port's
+            transposed = [n for n, (_, t) in jax_param_paths(self.model).items() if t]
+        except KeyError:
+            transposed = []
         self.optimizer = Optimizer(self.model.named_parameters(), self.config.optimization,
-                                   self.steps_per_epoch or 1)
+                                   self.steps_per_epoch or 1, transposed)
+        self._plateau = PlateauController.from_config(self.config.optimization)
+        if self.config.finetune_layers:  # the JAX trainer's freeze_mask over flax paths
+            trainable = from_jax_tree(self.model, freeze_mask(jax_tree(self.model), self.config.finetune_layers))
+            params = dict(self.model.named_parameters())
+            self._frozen = [params[n] for n, keep in trainable.items() if not keep]
 
     def _prepare(self):
         if self.optimizer is None:
@@ -213,6 +256,12 @@ class Trainer:
         from ..convert import load_state_dict
 
         loaded = load_checkpoint(path)
+        if self.config.warm_start:  # matching parameters only, by flax path
+            params = warm_start_params(jax_tree(self.model), jax_tree(self.model, loaded["params"]),
+                                       ignore_layers=self.config.ignore_layers,
+                                       ignore_mismatched=self.config.ignore_mismatched_keys)
+            load_state_dict(self.model, from_jax_tree(self.model, params))
+            return
         load_state_dict(self.model, loaded["params"])
         if "opt_state" in loaded:
             self.optimizer.load_state_dict(loaded["opt_state"])
@@ -221,22 +270,46 @@ class Trainer:
             self.state.epoch = ts.get("epoch", 0.0)
             self.state.global_step = ts.get("global_step", 0)
             self.state.best_metric = ts.get("best_metric")
+            if self._plateau is not None and ts.get("plateau") is not None:
+                self._plateau.load_state_dict(ts["plateau"])
 
     # ---- steps ----
+
+    def _apply(self, batch: Dict[str, torch.Tensor], generators: Dict[str, torch.Generator]):
+        """The model's forward, on bf16 copies of its floating parameters
+        with `bf16_compute` (their backward returns fp32 gradients)."""
+        with _bf16_parameters(self.model) if self.config.bf16_compute else nullcontext():
+            return self.model(**batch, generators=generators)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], step: int):
+        """(fp32 loss, {name: fp32 loss term}) of the training forward of
+        step `step`, under `torch.utils.checkpoint` with `remat`. The step's
+        generators are made inside, so a recompute draws what the forward
+        drew."""
+
+        def forward():
+            out = self._apply(batch, step_generators(self.config.seed, step, self.device))
+            return out.loss.float(), {k: v.float() for k, v in out.losses.items()}
+
+        if self.config.remat:
+            return torch.utils.checkpoint.checkpoint(forward, use_reentrant=False)
+        return forward()
 
     def train_step(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         """Forward, backward, clip and update; the metrics stay on the device."""
         self.model.train()
-        out = self.model(**batch, generators=step_generators(self.config.seed, step, self.device))
-        loss = out.loss.float()
         self.optimizer.zero_grad()
-        loss.backward()
+        with _anomaly_mode() if self.config.debug_nans else nullcontext():
+            loss, losses = self.loss_fn(batch, step)
+            loss.backward()
+        for p in self._frozen:  # the JAX trainer zeroes their gradients
+            p.grad = None
         with torch.no_grad():  # a parameter without a gradient adds 0 to the norm
             grads = [p.grad for p in self.optimizer.params if p.grad is not None]
             grad_norm = global_norm(grads) if grads else torch.zeros((), device=self.device)
         self.optimizer.step(grad_norm)
         metrics = {"loss": loss.detach(), "stats/grad_norm": grad_norm}
-        metrics.update({k: v.detach().float() for k, v in out.losses.items()})
+        metrics.update({k: v.detach() for k, v in losses.items()})
         return metrics
 
     @torch.no_grad()
@@ -244,11 +317,11 @@ class Trainer:
         self.model.eval()
         # deterministic but decorrelated across eval batches (the MMD samples)
         gens = {"mmd": step_generators(0, index, self.device)["mmd"]}
-        out = self.model(**batch, generators=gens)
+        out = self._apply(batch, gens)
         metrics = {"loss": out.loss.float()}
         metrics.update({k: v.float() for k, v in out.losses.items()})
         if self.evaluator is not None and "labels" in batch:
-            metrics.update(self.evaluator(batch["labels"], out.logits))
+            metrics.update(self.evaluator(batch["labels"], {k: v.float() for k, v in out.logits.items()}))
         return metrics
 
     # ---- data ----
@@ -340,19 +413,30 @@ class Trainer:
                 resume_skip = done_in_epoch
         self._last_log_time = time.perf_counter()
         self._last_log_step = self.state.global_step
+        profiler = None
         try:
             for epoch in range(start_epoch, config.epochs):
                 self.control._new_epoch()
                 self.callback_handler.on_epoch_begin(config, self.state, self.control)
+                epoch_loss = Accumulator() if self._plateau is not None else None
                 for batch in self._iter_batches(self.train_dataset, config.batch_size, config.shuffle, epoch,
                                                 skip=resume_skip if epoch == start_epoch else 0):
                     self.control._new_step()
                     self.callback_handler.on_step_begin(config, self.state, self.control)
+                    step = self.state.global_step
+                    if config.profile_dir is not None and step == config.profile_start_step:
+                        profiler = _start_profiler()
                     t0 = time.perf_counter()
-                    metrics = self.train_step(self._put_batch(batch), self.state.global_step)
+                    with torch.profiler.record_function(f"train/{step}") if profiler else nullcontext():
+                        metrics = self.train_step(self._put_batch(batch), step)
                     metrics["stats/time"] = time.perf_counter() - t0
                     accumulator.update(metrics)
+                    if epoch_loss is not None:
+                        epoch_loss.update({"loss": metrics["loss"]})
                     self.state.global_step += 1
+                    if profiler and self.state.global_step >= config.profile_start_step + config.profile_num_steps:
+                        self._stop_profiler(profiler)
+                        profiler = None
                     self.state.epoch = epoch + (
                         (self.state.global_step % self.steps_per_epoch) / self.steps_per_epoch or 1.0
                     )
@@ -367,10 +451,16 @@ class Trainer:
                 if not stopped_mid_epoch:
                     self.state.epoch = float(epoch + 1)
                 self.callback_handler.on_epoch_end(config, self.state, self.control)
+                if epoch_loss is not None and not stopped_mid_epoch:
+                    loss = epoch_loss.means().get("loss")
+                    if loss is not None:
+                        self.optimizer.plateau_scale = self._plateau.step(loss)
                 self._maybe_log_save_evaluate(accumulator, prefix="train")
                 if self.control.should_training_stop:
                     break
         finally:
+            if profiler:
+                self._stop_profiler(profiler)
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
             self.save_checkpoint(name="checkpoint_last")
@@ -380,7 +470,10 @@ class Trainer:
     def _maybe_log_save_evaluate(self, accumulator: Accumulator, prefix: str = "train_step"):
         if self.control.should_log:
             logs = {f"{prefix}/{k}": v for k, v in accumulator.means().items()}
-            logs[f"{prefix}/lr"] = float(self.optimizer.schedule(self.state.global_step))
+            lr = float(self.optimizer.schedule(self.state.global_step))
+            if self._plateau is not None:
+                lr *= self._plateau.scale
+            logs[f"{prefix}/lr"] = lr
             now = time.perf_counter()
             dsteps = self.state.global_step - self._last_log_step
             if dsteps > 0:
@@ -403,6 +496,15 @@ class Trainer:
                 self.save_checkpoint(name=name)
             self.callback_handler.on_save(self.config, self.state, self.control)
             self.control.should_save = False
+
+    def _stop_profiler(self, profiler) -> None:
+        """Stop `profiler` and write its trace under `profile_dir`, named by
+        the steps it holds."""
+        profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        first = self.config.profile_start_step
+        path = os.path.join(self.config.profile_dir, f"trace_{first}-{self.state.global_step - 1}.json")
+        profiler.export_chrome_trace(path)
 
     def _track_best(self, metrics: Dict[str, float]):
         key = f"eval/{self.config.metric_for_best_model}"
@@ -439,6 +541,7 @@ class Trainer:
                 "epoch": self.state.epoch,
                 "global_step": self.state.global_step,
                 "best_metric": self.state.best_metric,
+                **({"plateau": self._plateau.state_dict()} if self._plateau is not None else {}),
             },
             model_config=self.model_config,
         )
@@ -448,3 +551,76 @@ class Trainer:
         if tokenizer is not None:
             tokenizer.save(os.path.join(path, "tokenizer.json"))
         return path
+
+
+@contextmanager
+def _bf16_parameters(model: torch.nn.Module):
+    """`model`'s floating parameters swapped for bf16 copies (one a
+    parameter, however many modules share it), restored on exit; the copies'
+    backward gives the fp32 parameters their gradients. (torch.func.
+    functional_call does not restore parameters of a module registered under
+    two parents, as the tied stream embeddings are.)"""
+    casts, swapped = {}, []
+    for module in model.modules():
+        for name, p in module._parameters.items():
+            if p is not None and p.is_floating_point():
+                if id(p) not in casts:
+                    casts[id(p)] = p.to(torch.bfloat16)
+                swapped.append((module, name, p))
+    try:
+        for module, name, p in swapped:
+            module._parameters[name] = casts[id(p)]
+        yield
+    finally:
+        for module, name, p in swapped:
+            module._parameters[name] = p
+
+
+def _start_profiler():
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+    elif hasattr(x, "__dataclass_fields__"):
+        for name in x.__dataclass_fields__:
+            yield from _tensors(getattr(x, name))
+
+
+def _finite_output_check(name: str):
+    """A forward hook that raises FloatingPointError when a floating tensor
+    of the module's output holds a non-finite value (`debug_nans`)."""
+
+    def hook(module, args, output):
+        for t in _tensors(output):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(f"non-finite value in the output of {name} "
+                                         f"({type(module).__name__}, {tuple(t.shape)} {t.dtype})")
+
+    return hook
+
+
+@contextmanager
+def _anomaly_mode():
+    """torch.autograd's anomaly mode around the forward and backward
+    (`debug_nans`): a backward op that returns NaN raises FloatingPointError,
+    naming the op, as jax_debug_nans names the primitive."""
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    except RuntimeError as err:
+        if "nan values" not in str(err):
+            raise
+        raise FloatingPointError(str(err)) from err

@@ -46,6 +46,7 @@ OPT_CASES = {
                               grad_clip=1.5, grad_accum_steps=2, lr_scheduler="cosine",
                               lr_scheduler_params={"decay_steps": 3}),
     "sgd_momentum": dict(optimizer="sgd", lr=0.1, optimizer_params={"momentum": 0.9}),
+    "sgd_nesterov": dict(optimizer="sgd", lr=0.1, optimizer_params={"momentum": 0.9, "nesterov": True}),
     # one finite entry of 2e19 whose square overflows fp32 (the global norm
     # is inf): optax applies the step, clipped to 0 by 2/inf, or raw
     "adamw_clip_overflowing_square": dict(optimizer="adamw", lr=0.1, optimizer_params={"weight_decay": 1e-2},
@@ -100,14 +101,19 @@ def test_optimizer_matches_optax(case):
 
 
 def test_optimizer_refuses_what_is_not_ported():
+    """Every optax optimizer the JAX package names is ported (held to optax in
+    tests/test_torch_optimizers.py); its dtype and mask-tree options are not,
+    and raise, and an unknown optimizer or parameter is refused."""
     params = [("w", torch.nn.Parameter(torch.zeros(2)))]
-    for name in ("lamb", "lion", "adafactor"):
+    for name, option in (("adamw", "mu_dtype"), ("lamb", "mask"), ("lion", "mu_dtype"),
+                         ("adafactor", "weight_decay_mask"), ("adafactor", "dtype_momentum")):
         with pytest.raises(NotImplementedError):
-            toptim.Optimizer(params, toptim.OptimizerConfig(optimizer=name))
-    with pytest.raises(NotImplementedError):
-        toptim.Optimizer(params, toptim.OptimizerConfig(optimizer="adamw", flat_updates=True))
-    with pytest.raises(NotImplementedError):
-        toptim.build_lr_schedule(toptim.OptimizerConfig(lr_scheduler="plateau"))
+            toptim.Optimizer(params, toptim.OptimizerConfig(optimizer=name, optimizer_params={option: "bfloat16"}))
+    with pytest.raises(ValueError):
+        toptim.Optimizer(params, toptim.OptimizerConfig(optimizer="adagrad"))
+    with pytest.raises(TypeError):
+        toptim.Optimizer(params, toptim.OptimizerConfig(optimizer="lion", optimizer_params={"eps": 1e-8}))
+    assert toptim.build_lr_schedule(toptim.OptimizerConfig(lr=0.3, lr_scheduler="plateau"))(7) == 0.3
 
 
 def test_adam_state_from_optax_gives_optax_next_step():

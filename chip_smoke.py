@@ -51,7 +51,19 @@ checkout. It
    recipes/scoreperformer/scale_1024.yaml's model at full width (8 heads of
    128, 285M parameters) serves 32 requests with its `auto` (int8) caches,
    profiled once, each from a port checkpoint and against the CPU path;
-9. checks the output: notes with the score's pitches and finite times (a
+9. streaming: scripts/exp_streaming_slo.py's regime (a 48-bar synthetic
+   piece, 0.2 s windows with 0.1 s overflow, a 256-row decoder cache, top-k
+   sampling) through `ScorePerformerGenerator`: the flagship for 60
+   windows and scale_1024 for 20, the encoder pass and `warmup` timed, the
+   median, p95 and largest window wall and the windows over 0.2 s, the
+   decoder's counters and the kernel launches they predict, one more window
+   profiled; greedy windows
+   against the port's CPU path (12 over a 64-row cache, so that the
+   window shifts; 4 at scale_1024), one seed sampling the same tokens
+   through blocks as through the per-note path; then `write_kv_pair` and
+   the flash forward held against their plain versions at the streaming
+   shapes and timed;
+10. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
@@ -154,6 +166,17 @@ SCALE_TRAIN_BATCH, SCALE_TRAIN_SEQ, SCALE_WINDOW_BARS, SCALE_SCORE_BARS = 8, 102
 # which turns a gradient element within rounding of 0 into -+lr where the
 # other side has +-lr, moves a parameter by less than the gate
 OPTIMIZER_CHECKS = ("lamb", "lion", "adafactor")
+# the streaming phase: scripts/exp_streaming_slo.py's regime (a 48-bar
+# piece, windows of 256 notes for the encoder pass, a 256-row decoder cache,
+# 0.2 s windows with 0.1 s overflow, the first 5 of them warm-up); the
+# flagship streams 60 windows, scale_1024 20. The greedy card-vs-CPU gate:
+# 12 windows of 1.2 s over a 64-row cache (so that the context window
+# shifts), 4 of 0.2 s at scale_1024 (the CPU decodes a 285M-parameter model)
+STREAM_BARS, STREAM_SEQ, STREAM_CTX = 48, 256, 256
+STREAM_WINDOW, STREAM_OVERFLOW, STREAM_WARMUP = 0.2, 0.1, 5
+STREAM_WINDOWS, STREAM_SCALE_WINDOWS = 60, 20
+STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX = 12, 1.2, 64
+STREAM_SCALE_GATE_WINDOWS = 4
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -1777,6 +1800,221 @@ def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET
     return rec
 
 
+def streaming_dataset(work):
+    """scripts/exp_streaming_slo.py's piece: one synthetic score of
+    STREAM_BARS bars with one performance (seed 7), in a dataset of
+    STREAM_SEQ-note windows, and its collator."""
+    from scoreperformer_tpu_torch.data import (
+        LocalScorePerformanceDataset, MixedLMScorePerformanceCollator, build_synthetic_dataset,
+    )
+
+    shutil.rmtree(work, ignore_errors=True)
+    build_synthetic_dataset(work, n_scores=1, n_perfs_per_score=1, n_bars=STREAM_BARS, seed=7,
+                            with_directions=False)
+    dataset = LocalScorePerformanceDataset(root=work, max_seq_len=STREAM_SEQ, bar_sliding_window=8,
+                                           fit_to_zero_bar=True, add_sos_eos=True, preload=True,
+                                           auxiliary_data_keys=["bars"])
+    return dataset, MixedLMScorePerformanceCollator(mask_ignore_token_ids=COLLATOR["mask_ignore_token_ids"],
+                                                    mask_ignore_token_dims=COLLATOR["mask_ignore_token_dims"])
+
+
+def stream(gen, n_windows, window, ctx, seeds=None, **kw):
+    """`n_windows` windows of `generate_performance_notes` from the piece's
+    start (prepared already): each window's tokens, host wall seconds and
+    the decoder's window start after it. Window w samples from seed SEED + w,
+    or every window from `seeds` when it is given."""
+    import torch
+
+    out, clock = [], 0.0
+    for w in range(n_windows):
+        seed = SEED + w if seeds is None else seeds
+        t0 = time.perf_counter()
+        tokens, _ = gen.generate_performance_notes(start_time=clock, time_window=window,
+                                                   time_window_overflow=STREAM_OVERFLOW, max_context_len=ctx,
+                                                   seed=seed, **kw)
+        if gen.device.type == "cuda":
+            torch.cuda.synchronize()
+        out.append({"tokens": tokens, "wall_s": time.perf_counter() - t0, "window_start": gen._last_window_start})
+        clock += window
+        if gen.perf_data.reached_eos:
+            break
+    return out
+
+
+def check_stream_vocab(gen, windows, what):
+    """Every generated id lies inside its stream's vocabulary, and no MASK is left."""
+    sizes = np.asarray(list(gen.model.config.num_tokens.values()))
+    for w, rec in enumerate(windows):
+        tokens = rec["tokens"]
+        if tokens is not None and ((tokens < 0).any() or (tokens >= sizes).any() or (tokens == 1).any()):
+            raise AssertionError(f"{what}, window {w}: ids outside their streams' vocabularies or MASK left")
+
+
+def same_stream_tokens(a, b):
+    return len(a) == len(b) and all(
+        (x["tokens"] is None and y["tokens"] is None)
+        or (x["tokens"] is not None and y["tokens"] is not None and np.array_equal(x["tokens"], y["tokens"]))
+        for x, y in zip(a, b))
+
+
+def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_windows, gate_ctx, gate_window,
+                    flash_per_chunk, smi, gate_softmax_bf16_off=False, sampled_parity=False):
+    """The streaming generator on the card, exp_streaming_slo.py's regime:
+    the piece prepared (the encoder pass, counted in chunks), `warmup`, then
+    `n_windows` windows of STREAM_WINDOW s (STREAM_OVERFLOW s overflow) with
+    top-k sampling at temperature 1.0, a seed a window, in a
+    STREAM_CTX-row cache: wall times after STREAM_WARMUP windows, notes a
+    window, SLO misses, the decoder's counters; the kernel launches of the
+    whole run against what the counters predict (one `write_kv_pair` a
+    decoder layer a consume call and a decode step, `flash_per_chunk` flash
+    forwards an encoder chunk); one more window profiled. Gates: every id
+    in its stream's vocabulary;
+    `gate_windows` greedy windows (of `gate_window` s over a `gate_ctx`-row
+    cache) on the card equal to the port's CPU path on the same weights,
+    with softmax_bf16 off on both when `gate_softmax_bf16_off`; with
+    `sampled_parity`, one seed samples the same tokens through blocks of 16
+    as through the per-note path (the same blocks, each refused by
+    `decode_block`) over twice `gate_windows` windows. Returns the phase's
+    record."""
+    from unittest import mock
+
+    from scoreperformer_tpu_torch.inference import ScorePerformerGenerator, SPMuple2Messenger, StreamingDecoder
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):  # host seconds of each step of the phase
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    def generator(device):
+        model, _ = build_scoreperformer(cfg, device=device, seed=SEED)
+        return ScorePerformerGenerator(model, dataset, collator, SPMuple2Messenger(dataset.tokenizer))
+
+    gen = generator("cuda")
+    layers = cfg["perf_decoder"]["transformer"]["depth"]
+    chunks = []  # (t, valid keys) of each encoder pass
+    encode = gen.model.encode_embeddings
+
+    def counted_encode(perf, perf_mask, *args):
+        chunks.append((int(perf.shape[1]), int(perf_mask.sum())))
+        return encode(perf, perf_mask, *args)
+
+    gen.model.encode_embeddings = counted_encode
+    rec = {"regime": label, "card": smi, "parameters": sum(p.numel() for p in gen.model.parameters()),
+           "notes": int(len(dataset.performances[0])), "windows": n_windows, "warmup_windows": STREAM_WARMUP,
+           "window_s": STREAM_WINDOW, "overflow_s": STREAM_OVERFLOW, "max_context_len": STREAM_CTX,
+           "phase_s": phase_s}
+    lap("build")
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen.prepare_performance_notes(0, overlay_bars=0.0)
+    torch.cuda.synchronize()
+    rec["prepare_s"] = time.perf_counter() - t0
+    rec["encoder_chunks"] = [list(c) for c in chunks]
+    t0 = time.perf_counter()
+    gen.warmup(max_context_len=STREAM_CTX, greedy=False, temperature=1.0)
+    torch.cuda.synchronize()
+    rec["warmup_s"] = time.perf_counter() - t0
+    lap("prepare_and_warmup")
+    windows = stream(gen, n_windows, STREAM_WINDOW, STREAM_CTX, greedy=False, temperature=1.0)
+    launches = all_counts(fa, kv, pa)
+    stats = dict(gen._decoder.stats)
+    lap("windows")
+    check_stream_vocab(gen, windows, f"{label} streaming")
+    steady = np.asarray([w["wall_s"] for w in windows[STREAM_WARMUP:]]) * 1e3
+    notes = np.asarray([0 if w["tokens"] is None else len(w["tokens"]) for w in windows[STREAM_WARMUP:]])
+    rec.update({
+        "window_ms": {"median": float(np.median(steady)), "p95": float(np.percentile(steady, 95)),
+                      "max": float(steady.max()), "all": [round(w["wall_s"] * 1e3, 3) for w in windows]},
+        "notes_per_window": {"mean": float(notes.mean()), "max": int(notes.max()), "total": int(notes.sum())},
+        "slo_misses": int((steady > STREAM_WINDOW * 1e3).sum()), "measured_windows": int(len(steady)),
+        "window_starts": sorted({w["window_start"] for w in windows}), "decoder_stats": stats,
+    })
+    expected = {k: 0 for k in launches}
+    expected["write_kv_pair"] = layers * (stats["consume_calls"] + stats["block_steps"])
+    expected["flash_attention_fwd"] = flash_per_chunk * len(chunks)
+    rec["launches"] = launches
+    check_launches(f"the {label} streaming run", launches, expected)
+    print(f"{label} streaming ({smi})", json.dumps({k: v for k, v in rec.items() if k != "window_ms"}))
+    print(f"{label} streaming window wall ms ({smi}): median {rec['window_ms']['median']:.3f}, "
+          f"p95 {rec['window_ms']['p95']:.3f}, max {rec['window_ms']['max']:.3f}; "
+          f"{rec['slo_misses']} of {len(steady)} windows over {STREAM_WINDOW} s")
+
+    # where a window's time goes: the next window under the profiler, with
+    # its decode steps and consume calls from the decoder's counters
+    before = dict(gen._decoder.stats)
+    rec["profile"] = profile_device(torch, lambda: gen.generate_performance_notes(
+        start_time=n_windows * STREAM_WINDOW, time_window=STREAM_WINDOW, time_window_overflow=STREAM_OVERFLOW,
+        max_context_len=STREAM_CTX, seed=SEED + n_windows, greedy=False, temperature=1.0),
+        ported=("write_rows", "flash_fwd"))
+    rec["profile"]["decode_steps"] = gen._decoder.stats["block_steps"] - before["block_steps"]
+    rec["profile"]["consume_calls"] = gen._decoder.stats["consume_calls"] - before["consume_calls"]
+    lap("profiled_window")
+    print(f"profile {label} streaming window", json.dumps(rec["profile"]))
+
+    if sampled_parity:
+        # one seed for every window: the same blocks, decoded as blocks or,
+        # each block refused, note by note
+        def sampled_run():
+            gen.reset()
+            gen.prepare_performance_notes(0, overlay_bars=0.0)
+            return stream(gen, 2 * gate_windows, gate_window, STREAM_CTX, seeds=SEED, greedy=False, block_size=16)
+
+        block = sampled_run()
+
+        def refuse(self, *args, **kwargs):
+            self.stats["block_refusals"] += 1
+
+        with mock.patch.object(StreamingDecoder, "decode_block", refuse):
+            per_note = sampled_run()
+        check_stream_vocab(gen, block + per_note, f"{label} sampled parity")
+        rec["sampled_block_vs_per_note"] = {
+            "identical": same_stream_tokens(block, per_note),
+            "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in block)}
+        lap("sampled_parity")
+        print(f"{label} sampled tokens, blocks of 16 vs the per-note path, one seed:",
+              json.dumps(rec["sampled_block_vs_per_note"]))
+        if not rec["sampled_block_vs_per_note"]["identical"]:
+            raise AssertionError(f"{label}: sampled tokens through blocks differ from the per-note path's")
+
+    # greedy windows, the card against the port's CPU path on the same weights
+    cpu = generator("cpu")
+    if gate_softmax_bf16_off:
+        set_softmax_bf16(gen.model, False)
+        set_softmax_bf16(cpu.model, False)
+    runs = {}
+    for name, g in (("card", gen), ("cpu", cpu)):
+        g.reset()
+        g.prepare_performance_notes(0, overlay_bars=0.0)
+        runs[name] = stream(g, gate_windows, gate_window, gate_ctx, greedy=True)
+    check_stream_vocab(gen, runs["card"], f"{label} greedy gate")
+    emb_err = max(float(np.abs(a - b).max()) for a, b in ((gen.perf_data.context, cpu.perf_data.context),
+                                                            (gen.perf_data.embeddings, cpu.perf_data.embeddings)))
+    rec["greedy_card_vs_cpu"] = {
+        "windows": len(runs["card"]), "window_s": gate_window, "max_context_len": gate_ctx,
+        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in runs["card"]),
+        "window_starts": sorted({w["window_start"] for w in runs["card"]}),
+        "identical": same_stream_tokens(runs["card"], runs["cpu"]), "embeddings_max_abs_err": emb_err,
+        "softmax_bf16_off": gate_softmax_bf16_off}
+    lap("greedy_card_vs_cpu")
+    print(f"{label} greedy windows, card vs CPU:", json.dumps(rec["greedy_card_vs_cpu"]))
+    if not rec["greedy_card_vs_cpu"]["identical"]:
+        raise AssertionError(f"{label}: the card's greedy streaming tokens differ from the CPU path's")
+    if not emb_err <= 1e-3:
+        raise AssertionError(f"{label}: the encoder pass differs between the card and the CPU by {emb_err}")
+    if gate_windows >= 12 and max(rec["greedy_card_vs_cpu"]["window_starts"]) == 0:
+        raise AssertionError(f"{label}: the greedy gate's windows never shifted the context window")
+    del gen, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2137,6 +2375,31 @@ def main() -> int:
     print(f"scale_1024 phase: {time.perf_counter() - t0:.1f} s")
     print("scale_1024 served", json.dumps({k: v for k, v in scale.items() if k != "profile"}))
 
+    # ---- streaming: the generator window by window, flagship and scale_1024 ----
+    t0 = time.perf_counter()
+    stream_data = streaming_dataset(os.path.join(build, "chip_smoke_stream"))
+    stream_flag = streaming_phase(torch, *stream_data, flagship_config(tokenizer, STREAM_SEQ), "flagship",
+                                  STREAM_WINDOWS, STREAM_GATE_WINDOWS, STREAM_GATE_CTX, STREAM_GATE_WINDOW, 2 + 4,
+                                  smi, sampled_parity=True)
+    stream_scale = streaming_phase(torch, *stream_data, scale_1024_config(tokenizer), "scale_1024",
+                                   STREAM_SCALE_WINDOWS, STREAM_SCALE_GATE_WINDOWS, STREAM_CTX, STREAM_WINDOW, 0,
+                                   smi, gate_softmax_bf16_off=True)
+    # the kernels at the streaming shapes: the decoder's row writes of each
+    # consume chunk (128, 64, 8, 1 rows) and decode step into the 256-row
+    # cache, at the flagship's kv width (64) and scale_1024's (128), one
+    # start clamped; the flash forward at each encoder chunk's shape (b=1,
+    # non-causal, its valid keys), the first timed
+    stream_kv = [check_write_kv(torch, kv, STREAM_CTX, n, 1, d, idx, torch.float32, True, pair=True)
+                 for d in (64, 128) for n, idx in ((128, 0), (64, 128), (8, 192), (1, 250))] + [
+        check_write_kv(torch, kv, STREAM_CTX, 8, 1, 64, STREAM_CTX - 4, torch.float32, False, pair=True)]
+    stream_fa = [check_flash(torch, fa, 1, t, causal=False, padded="stream", timed=i == 0, lengths=[valid])
+                 for i, (t, valid) in enumerate(stream_flag["encoder_chunks"])]
+    for rec in stream_kv:
+        print("write_kv_pair, streaming", json.dumps(rec))
+    for rec in stream_fa:
+        print("flash_attention_fwd, streaming", json.dumps(rec))
+    print(f"streaming phase: {time.perf_counter() - t0:.1f} s")
+
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
              "bf16_compute_train_steps": options["bf16_compute"]["launches"],
@@ -2144,7 +2407,8 @@ def main() -> int:
              "scale_1024_train_steps": options["scale_1024"]["launches"],
              "paper_recipe_train_steps": paper["train"]["launches"], "served_batch": served_launches,
              "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
-             "scale_1024_served": scale["int8"]["launches"]}
+             "scale_1024_served": scale["int8"]["launches"], "streaming_flagship": stream_flag["launches"],
+             "streaming_scale_1024": stream_scale["launches"]}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
@@ -2156,12 +2420,15 @@ def main() -> int:
          "replaces": "scoreperformer_tpu/ops/kv_cache.py:34", "launches": launches["write_kv_pair"],
          **{k: pair_main[k] for k in bound_keys + ("eager_ms", "copy_ms", "index_copy_ms")},
          "shape": pair_main["shape"], "cap": pair_main["cap"],
-         "single_write_kv": {k: kv_main[k] for k in timed + ("copy_ms", "index_copy_ms", "shape", "cap")}},
+         "single_write_kv": {k: kv_main[k] for k in timed + ("copy_ms", "index_copy_ms", "shape", "cap")},
+         "streaming_shapes": [{k: r[k] for k in timed + ("copy_ms", "index_copy_ms", "shape", "cap", "index")}
+                              for r in stream_kv if "ms" in r]},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma["flash_fwd"]},
+         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma["flash_fwd"],
+         "streaming_shape": {k: stream_fa[0][k] for k in bound_keys + ("bound_tc_ms", "eager_ms", "shape")}},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[name],

@@ -8,7 +8,9 @@ into the last segment, as in the JAX package. In `module.train()` mode the
 latents are dropped per segment (inclusively down the hierarchy); with
 `compute_loss` each level's latents are held to N(0, I) by an MMD loss whose
 prior samples (and subsample uniforms) come from an `MMDSampler`, so a test
-can hand in the very samples JAX drew.
+can hand in the very samples JAX drew. `embeddings_to_latents` and
+`latents_to_embeddings` map note embeddings to per-level latents and back,
+for the streaming generator.
 """
 from __future__ import annotations
 
@@ -314,3 +316,51 @@ class MMDTupleTransformer(TupleTransformerModule):
             loss=loss,
             losses=losses if compute_loss else None,
         )
+
+    # ---- inference helpers (mmd.py:429-469 of the JAX package) ----
+
+    def embeddings_to_latents(self, embeddings, mask=None, bars=None, beats=None, onsets=None):
+        """Per-level latents of (b, t, embedding_dim) note embeddings: the
+        mean level pooled over the notes (over `mask`'s when given), the
+        segment levels averaged per bar, beat or onset. One tensor for a
+        single level, else a list by level."""
+        if self.single:
+            mode = self.modes[0]
+            return self._emb_to_latents(embeddings, mode, mask, self._segments(mode, bars, beats, onsets))
+        parts, offset = [], 0
+        for mode, dim in zip(self.modes, self.latent_dims):
+            segments = self._segments(mode, bars, beats, onsets)
+            parts.append(self._emb_to_latents(embeddings[..., offset : offset + dim], mode, mask, segments))
+            offset += dim
+        return parts
+
+    def _emb_to_latents(self, embeddings, mode, mask=None, segments=None):
+        if mode == AggregateModes.MEAN:
+            if mask is None:
+                latents = embeddings.mean(dim=1)
+            else:
+                latents = embeddings.sum(dim=1) / mask[..., None].sum(dim=1)
+            return latents[:, None]
+        if mode in SEGMENT_MODES:
+            return self._aggregate(embeddings, segments)
+        return embeddings
+
+    def latents_to_embeddings(self, latents, seq_len, bars=None, beats=None, onsets=None):
+        """(b, seq_len, embedding_dim) note embeddings of per-level latents,
+        the inverse of `embeddings_to_latents` on the segments that hold
+        notes."""
+        if self.single:
+            mode = self.modes[0]
+            return self._latents_to_emb(latents, seq_len, mode, self._segments(mode, bars, beats, onsets))
+        parts = [
+            self._latents_to_emb(latents[i], seq_len, mode, self._segments(mode, bars, beats, onsets))
+            for i, mode in enumerate(self.modes)
+        ]
+        return torch.cat(parts, dim=-1)
+
+    def _latents_to_emb(self, latents, seq_len, mode, segments=None):
+        if mode == AggregateModes.MEAN:
+            return latents.expand(latents.shape[0], seq_len, latents.shape[-1])
+        if mode in SEGMENT_MODES:
+            return self._distribute(latents, segments)
+        return latents

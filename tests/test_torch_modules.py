@@ -579,6 +579,9 @@ def test_port_imports_no_jax():
     for paper in ("models/classifiers.py", "data/prepare.py", "data/musicxml_directions.py", "data/music_constants.py",
                   "prepare_dataset.py", "training/tensorboard.py"):
         assert f"scoreperformer_tpu_torch/{paper}" in names
+    for streaming in ("inference/generator.py", "inference/messengers.py", "examples/interactive_streaming.py",
+                      "examples/train_render_lifecycle.py"):
+        assert f"scoreperformer_tpu_torch/{streaming}" in names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

@@ -63,7 +63,17 @@ checkout. It
    through blocks as through the per-note path; then `write_kv_pair` and
    the flash forward held against their plain versions at the streaming
    shapes and timed;
-10. checks the output: notes with the score's pitches and finite times (a
+10. the Performer family (`performer_phase`): recipes/performer.yaml (the
+   standalone Performer LM, batch 128 x 258 of PerformanceDataset windows)
+   trained through `ExperimentComponents`, plain and with the flash kernels,
+   one step of each profiled and a batch-4 step of each against the CPU;
+   `ar_generate` from the trained weights, chunked (16 prompts, 253 steps,
+   top-k) and on the ring past the 258-row window, with exact launch counts
+   and a profiled generation, greedy tokens against the CPU's at both paths,
+   top-p and top-a draws inside their filters' support; `mlm_unmask`
+   single-run and iterative on an mlm Performer against the CPU's tokens;
+   the kernels held to their plain versions at these paths' shapes;
+11. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
@@ -862,10 +872,11 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed, dtype="f
         values = {k: float(v) for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in values.values()):
             raise AssertionError(f"train step {step}: non-finite metrics {values}")
-        notes.append(int(host_batch["perf_mask"].sum()))
+        notes.append(int(host_batch["perf_mask" if "perf_mask" in host_batch else "mask"].sum()))
+        terms = "".join(f" {k} {values[k]:.5f}" for k in ("MMD", "loss/lm") if k in values)
         clf = "".join(f" {k} {v:.5f}" for k, v in values.items() if k.startswith("clf"))
-        print(f"train step {step}: loss {values['loss']:.5f} grad_norm {values['stats/grad_norm']:.4f} "
-              f"MMD {values['MMD']:.5f} lm {values['loss/lm']:.5f}{clf}")
+        print(f"train step {step}: loss {values['loss']:.5f} grad_norm {values['stats/grad_norm']:.4f}"
+              f"{terms}{clf}")
     return times, all_counts(fa, kv, pa), batch, notes, values
 
 
@@ -898,15 +909,17 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
     the model held in bf16. With `optimizer` (an OptimizerConfig dict) the
     step also updates the parameters, and the gradient errors are those of
     the parameters after the update. With `reference_plain_flash` the
-    reference (the first of `devices`) runs the plain flash functions."""
+    reference (the first of `devices`) runs the plain flash functions. A
+    model without an MMD style encoder (the standalone Performer) takes no
+    MMD samples."""
     from scoreperformer_tpu_torch.convert import jax_param_paths
-    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.models.factory import build_model
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.training import Optimizer, OptimizerConfig
     from scoreperformer_tpu_torch.training.trainer import _bf16_parameters
 
     cfg = {k: v for k, v in model_config.items() if not k.startswith("_")}
-    enc = cfg["perf_encoder"]
+    enc = cfg.get("perf_encoder") or {}
     gen = torch.Generator().manual_seed(SEED)
     draws = []
 
@@ -918,7 +931,7 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
 
     results = {}
     for dev in devices:
-        model, _ = build_scoreperformer(cfg, device=dev, seed=SEED)
+        model, _ = build_model(model_config.get("_name_", "ScorePerformer"), cfg, device=dev, seed=SEED)
         if precision == "bf16":
             model.to(torch.bfloat16)
         model.train()
@@ -931,7 +944,7 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
                 stack.enter_context(_bf16_parameters(model))
             if reference_plain_flash and not results:
                 stack.enter_context(plain_flash(fa))
-            out = model(**batch, mmd_sampler=sampler)
+            out = model(**batch, **({"mmd_sampler": sampler} if enc else {}))
             out.loss.float().backward()
         if optimizer is not None:
             transposed = [n for n, (_, t) in jax_param_paths(model).items() if t]
@@ -2015,6 +2028,334 @@ def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_window
     return rec
 
 
+# the Performer family: recipes/performer.yaml resolved over recipes/default.yaml
+# (its data, collator, model and evaluator nodes), written out because the
+# card's machine may have no PyYAML; tests/test_torch_recipes.py holds them to
+# the recipe
+PERFORMER_DATASET = dict(
+    _name_="PerformanceDataset", root="???", max_seq_len=256, max_bar=256, bar_sliding_window=16,
+    fit_to_zero_bar=True, add_sos_eos=True, sample=True, seed=23, augment_performance=True,
+    pitch_shift_range=[-3, 3], velocity_shift_range=[-12, 12], tempo_shift_range=[0, 0],
+)
+PERFORMER_COLLATOR = dict(_name_="LMPerformanceCollator")
+PERFORMER_MODEL = {
+    "_name_": "Performer", "_version_": "v0.1.0", "mode": "clm",
+    "transformer": {
+        "dim": 256, "max_seq_len": 258,
+        "token_embeddings": {"_target_": "simple", "emb_dims": 128, "mode": "cat", "emb_norm": True,
+                             "discrete": False, "continuous": True, "continuous_dense": True,
+                             "discrete_ids": [0, 1, 2, 3]},
+        "emb_norm": True, "use_abs_pos_emb": False,
+        "transformer": {"_target_": "decoder", "depth": 4, "heads": 4,
+                        "attention": {"dim_head": 64, "one_kv_head": True, "dropout": 0.1, "alibi_pos_bias": True,
+                                      "alibi_learned": True},
+                        "feed_forward": {"mult": 4, "glu": True, "swish": True, "dropout": 0.1}},
+        "lm_head": {"_target_": "lm-tied"},
+    },
+}
+PERFORMER_EVALUATOR = dict(_name_="ScorePerformerEvaluator", weighted_distance=True)
+# ar_generate from the trained weights: (a) chunked, 16 prompts of 4 notes
+# continued to 256 (253 steps, padded to 256), top-k 0.9 at T = 1; (b) the
+# ring, one prompt continued to 400 past the 258-row window; (c) greedy
+# tokens against the CPU's on 48 steps, the ring at a 32-row window so that
+# it wraps; (d) one top-p and one top-a run of 60 steps, each draw inside the
+# filter's support. mlm_unmask: 4 sequences of 64 notes with 12 positions
+# masked in 4 streams, an mlm Performer at the recipe's widths
+GEN_BATCH, GEN_T0, GEN_SEQ, RING_SEQ, GREEDY_STEPS, GREEDY_RING_WINDOW, FILTER_STEPS = 16, 4, 256, 400, 48, 32, 60
+MLM_BATCH, MLM_SEQ, MLM_MASKED = 4, 64, 12
+
+
+def performer_config(root, out_dir, batch_size, max_steps, use_flash=False):
+    """The experiment config of the Performer phase: recipes/performer.yaml's
+    nodes on the dataset at `root`, the trainer's run settings as
+    `train_config`'s; with `use_flash`, the flash kernels and no attention
+    dropout (the kernels have none: with it, the JAX module and the port both
+    take the plain path while training)."""
+    model = json.loads(json.dumps(PERFORMER_MODEL))
+    if use_flash:
+        model["transformer"]["transformer"]["attention"].update(use_flash=True, dropout=0.0)
+    return {
+        "data": {"dataset": {**PERFORMER_DATASET, "root": root}, "collator": dict(PERFORMER_COLLATOR)},
+        "model": model, "evaluator": dict(PERFORMER_EVALUATOR),
+        "trainer": {"output_dir": out_dir, "seed": 23, "batch_size": batch_size, "eval_batch_size": batch_size,
+                    "epochs": 500, "max_steps": max_steps, "log_steps": 5, "eval_strategy": "no",
+                    "save_strategy": "no", "disable_progress": True, "num_workers": 4,
+                    "optimization": dict(OPTIMIZATION)},
+    }
+
+
+def ar_launches(t0, steps, chunk=None, layers=DECODER_LAYERS):
+    """The launches of one `ar_generate`: one `write_kv_pair` a decoder layer
+    for the prefill (prompts of 2 or more) and one a layer and step, the
+    steps padded to a multiple of C on the chunked path, where every padded
+    step also runs one `prefix_attend` a layer; none on the ring."""
+    padded = steps if chunk is None else -(-steps // chunk) * chunk
+    return {"write_kv": 0, "write_kv_pair": layers * ((t0 > 1) + padded),
+            "prefix_attend": 0 if chunk is None else layers * padded,
+            **{name: 0 for name in FLASH}, **{f"{name}_bf16": 0 for name in FLASH}}
+
+
+def recording(fn, calls):
+    """`fn`, recording each call's input and output logits in `calls`."""
+    def filter_fn(logits, **kw):
+        out = fn(logits, **kw)
+        calls.append((logits.clone(), out.clone()))
+        return out
+    return filter_fn
+
+
+def check_filtered_support(gen, num, calls, fn, kwargs, sizes, what):
+    """Every id of the rows' live steps (before EOS) lies in its stream's
+    vocabulary and in the support of the filter that ar_generate applied to
+    that step's logits, recomputed here with the plain filter on the
+    recorded input (ar_generate filters stream by stream: call k is step
+    k // S, stream k % S). Returns the number of draws checked."""
+    import torch
+
+    S = len(sizes)
+    gen, num = gen.cpu(), num.cpu()
+    if not ((gen >= 0) & (gen < torch.as_tensor(sizes))).all():
+        raise AssertionError(f"{what}: ids outside their streams' vocabularies")
+    checked = 0
+    for k, (logits, filtered) in enumerate(calls):
+        step, s = divmod(k, S)
+        again = fn(logits, **kwargs)
+        if not (again.isneginf() == filtered.isneginf()).all():
+            raise AssertionError(f"{what}: the filter recomputed at step {step}, stream {s} keeps another set")
+        for row in range(gen.shape[0]):
+            n = int(num[row])
+            if step >= gen.shape[1] or step >= n or (step == n - 1 and gen[row, step, 0] == 3):
+                continue  # padded tail, after the stop, or the EOS row
+            if not filtered[row, int(gen[row, step, s])].isfinite():
+                raise AssertionError(f"{what}: step {step}, stream {s}, row {row} drew id "
+                                     f"{int(gen[row, step, s])} outside the filter's support")
+            checked += 1
+    return checked
+
+
+def performer_phase(torch, smi):
+    """The standalone Performer on the card, on the train phase's dataset:
+    1. recipes/performer.yaml through `ExperimentComponents` and the
+       `Trainer` (PerformanceDataset windows of 256 notes with SOS/EOS,
+       LMPerformanceCollator, batch 128 x 258): 2 + 8 steps, one profiled;
+       again with use_flash (no attention dropout), 4 launches of each fp32
+       flash kernel a step;
+    2. a batch-4 step on the card against the CPU's (dropout off), with and
+       without the flash kernels;
+    3. `ar_generate` from the trained weights: chunked (16 prompts from the
+       dataset's windows, 253 steps, top-k), the ring (one prompt past the
+       258-row window), each with its launches; one chunked generation
+       profiled; greedy tokens against the CPU's on 48 steps at both paths;
+       a top-p and a top-a run, every draw inside its filter's support;
+    4. `mlm_unmask` with an mlm Performer (encoder, untied head, the
+       recipe's widths, flash forward, random weights): single-run and
+       iterative greedy tokens against the CPU's;
+    5. the kernels against their plain versions at the shapes of these
+       paths (timed by graph replay).
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.models.factory import build_performer
+    from scoreperformer_tpu_torch.models.wrappers import ar_generate, mlm_unmask
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.ops import sampling
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    root, work = os.path.join(build, "chip_smoke_train", "data"), os.path.join(build, "chip_smoke_performer")
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"card": smi, "phase_s": phase_s}
+
+    # ---- 1. train performer.yaml, then with the flash kernels ----
+    runs = {}
+    for label, use_flash in (("plain", False), ("flash", True)):
+        comp = ExperimentComponents(performer_config(root, os.path.join(work, label), TRAIN_BATCH, 2, use_flash),
+                                    device="cuda").init_components()
+        trainer = comp.trainer
+        trainer._prepare()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                              TRAIN_WARMUP, TRAIN_TIMED, flash=4 if use_flash else 0)
+        run = train_record(torch, step_ms, notes, launches)
+        run.update(windows=len(comp.train_dataset), parameters=sum(p.numel() for p in comp.model.parameters()),
+                   last_loss=values["loss"])
+        prof = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED),
+                              ported=PORTED_TRAIN)
+        run["profile"] = {k: v for k, v in prof.items() if k != "top"}
+        counts = {name: prof["ported"][name]["count"] for name in PORTED_TRAIN}
+        if counts != {name: 4 if use_flash else 0 for name in PORTED_TRAIN}:
+            raise AssertionError(f"the profiled Performer step ({label}) ran the flash kernels {counts} times")
+        print(f"performer train steps ({label})", json.dumps(run))
+        runs[label] = run
+        host_batch = next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
+        if use_flash:
+            lengths = host_batch["mask"][:, :-1].sum(1).tolist()  # the decoder's keys after the CLM shift
+        else:
+            model, dataset, model_config = comp.model, comp.train_dataset, comp.model_config
+            stream_names = list(dataset.tokenizer.types_idx)
+            del trainer
+        lap(f"train_{label}")
+    rec["train"] = runs
+    del comp, trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- 2. a batch-4 step on the card against the CPU's ----
+    rec["card_vs_cpu"] = {}
+    for label, use_flash in (("plain", False), ("flash", True)):
+        cfg = performer_config(root, "", TRAIN_BATCH, 2, use_flash)["model"]
+        for key in ("attention", "feed_forward"):  # dropout off: the two sides draw other masks
+            cfg["transformer"]["transformer"][key]["dropout"] = 0.0
+        cfg = {**model_config, "transformer": {**model_config["transformer"],
+                                               "transformer": cfg["transformer"]["transformer"]}}
+        gate = compare_train_step(torch, cfg, host_batch)
+        rec["card_vs_cpu"][label] = {k: gate[k] for k in ("loss_err", "grad_err", "gradients")}
+        print(f"performer train step at batch 4 ({label}), card vs CPU: {json.dumps(rec['card_vs_cpu'][label])}")
+        if not (gate["loss_err"] <= 1e-4 and gate["grad_err"] <= 1e-3):
+            raise AssertionError(f"the Performer's step on the card ({label}) differs from the CPU's: {gate}")
+    lap("card_vs_cpu")
+
+    # ---- 3. ar_generate from the trained weights ----
+    model.eval()
+    prompts = torch.as_tensor(np.asarray(host_batch["perf"])[:GEN_BATCH, :GEN_T0], dtype=torch.int64,
+                              device="cuda")
+    sizes = list(model.config.num_tokens.values())
+    gens = {}
+    for label, b, seq_len, kw in (("chunked", GEN_BATCH, GEN_SEQ, {"filter_kwargs": {"thres": 0.9}}),
+                                  ("ring", 1, RING_SEQ, {"filter_kwargs": {"thres": 0.9}})):
+        steps = seq_len + 1 - GEN_T0
+        chunk = CHUNK if label == "chunked" else None
+        for attempt in ("warm", "timed"):
+            reset_counts(fa, kv, pa)
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen, num = ar_generate(model, prompts[:b], seq_len, g, stream_names=stream_names, **kw)
+            t_host = time.perf_counter() - t0
+            gen, num = gen.cpu(), num.cpu()
+            wall = time.perf_counter() - t0
+            launches = all_counts(fa, kv, pa)
+        check_launches(f"ar_generate ({label})", launches, ar_launches(GEN_T0, steps, chunk))
+        if not ((gen >= 0) & (gen < torch.as_tensor(sizes)) & (gen != 1)).all():
+            raise AssertionError(f"ar_generate ({label}): ids outside their vocabularies, or MASK")
+        if label == "ring" and seq_len + 1 <= model.config.transformer.max_seq_len:
+            raise AssertionError("the ring generation does not pass the window")
+        gens[label] = {"batch": b, "steps": steps, "padded_steps": steps if chunk is None else -(-steps // chunk) * chunk,
+                       "wall_ms": wall * 1e3, "steps_per_s": steps / wall, "host_ms_per_step": t_host * 1e3 / steps,
+                       "wall_ms_per_step": wall * 1e3 / steps, "num_generated": num.tolist(), "launches": launches}
+        print(f"performer ar_generate ({label})", json.dumps(gens[label]))
+    prof = profile_device(torch, lambda: ar_generate(model, prompts, GEN_SEQ, torch.Generator(device="cuda").manual_seed(SEED),
+                                                     stream_names=stream_names, filter_kwargs={"thres": 0.9}),
+                          ported=PORTED_DECODE)
+    gens["chunked"]["profile"] = {k: v for k, v in prof.items() if k != "top"}
+    print("profile performer ar_generate (chunked)", json.dumps(prof))
+    check_decode_profile(prof, "the chunked ar_generate's profile", ar_launches(GEN_T0, GEN_SEQ + 1 - GEN_T0, CHUNK))
+    lap("ar_generate")
+
+    # (c) greedy: the card's tokens against the CPU's, chunked and ring (a 32-row window, so that it wraps)
+    cpu_model, _ = build_performer({k: v for k, v in model_config.items() if not k.startswith("_")}, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_model.eval()
+    greedy = {}
+    for label, b, kw in (("chunked", GEN_BATCH, {}), ("ring", 4, {"max_seq_len": GREEDY_RING_WINDOW})):
+        seq_len = GEN_T0 - 1 + GREEDY_STEPS
+        out = [ar_generate(m, prompts[:b].to(dev), seq_len, greedy=True, stream_names=stream_names, **kw)
+               for m, dev in ((model, "cuda"), (cpu_model, "cpu"))]
+        same = torch.equal(out[0][0].cpu(), out[1][0]) and torch.equal(out[0][1].cpu(), out[1][1])
+        greedy[label] = {"batch": b, "steps": GREEDY_STEPS, "identical": same, "num_generated": out[0][1].tolist()}
+        print(f"performer greedy ar_generate ({label}), card vs CPU", json.dumps(greedy[label]))
+        if not same:
+            raise AssertionError(f"greedy ar_generate ({label}) on the card differs from the CPU's")
+    rec["greedy_card_vs_cpu"] = greedy
+    # (d) top-p and top-a: every draw inside its filter's support
+    filters = {}
+    for name, kwargs in (("top_p", {"thres": 0.9}), ("top_a", {})):
+        fn, calls = getattr(sampling, name), []
+        gen, num = ar_generate(model, prompts, GEN_T0 - 1 + FILTER_STEPS, torch.Generator(device="cuda").manual_seed(SEED),
+                               filter_fn=recording(fn, calls), filter_kwargs=kwargs, stream_names=stream_names,
+                               fix_errors=False)
+        checked = check_filtered_support(gen, num, calls, fn, kwargs, sizes, f"ar_generate with {name}")
+        filters[name] = {"draws_checked": checked, "num_generated": num.tolist()}
+        print(f"performer ar_generate with {name}", json.dumps(filters[name]))
+    gens["filters"] = filters
+    rec["ar_generate"] = gens
+    del cpu_model, calls
+    lap("ar_generate_checks")
+
+    # ---- 4. mlm_unmask: an mlm Performer at the recipe's widths ----
+    mlm_cfg = json.loads(json.dumps({k: v for k, v in model_config.items() if not k.startswith("_")}))
+    mlm_cfg["mode"] = "mlm"
+    mlm_cfg["transformer"]["transformer"]["_target_"] = "encoder"
+    mlm_cfg["transformer"]["transformer"]["attention"]["use_flash"] = True
+    mlm_cfg["transformer"]["lm_head"] = {"_target_": "lm"}
+    rng = np.random.RandomState(SEED)
+    x = np.asarray(host_batch["perf"])[:MLM_BATCH, :MLM_SEQ].copy()
+    positions = np.sort(rng.choice(np.arange(1, MLM_SEQ), MLM_MASKED, replace=False))
+    x[:, positions[:, None], [3, 5, 7, 8]] = 1  # Velocity, Tempo, RelOnsetDev, RelPerfDuration
+    mask = np.ones(x.shape[:2], bool)
+    mask[-1, MLM_SEQ - 10:] = False
+    mlm = {}
+    for label, single_run in (("single_run", True), ("iterative", False)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m, _ = build_performer(mlm_cfg, device=dev, seed=SEED)
+            reset_counts(fa, kv, pa)
+            t0 = time.perf_counter()
+            out[dev] = mlm_unmask(m.eval(), torch.as_tensor(x, device=dev), single_run=single_run,
+                                  mask=torch.as_tensor(mask, device=dev), greedy=True).cpu()
+            if dev == "cuda":
+                launches, wall = all_counts(fa, kv, pa), time.perf_counter() - t0
+        forwards = 1 if single_run else MLM_MASKED
+        expected = {**{k: 0 for k in launches}, "flash_attention_fwd": DECODER_LAYERS * forwards}
+        check_launches(f"mlm_unmask ({label})", launches, expected)
+        same = torch.equal(out["cuda"], out["cpu"])
+        mlm[label] = {"shape": list(x.shape), "masked_positions": MLM_MASKED, "wall_ms": wall * 1e3,
+                      "identical": same, "launches": launches, "mask_left": int((out["cuda"] == 1).sum())}
+        print(f"performer mlm_unmask ({label}), card vs CPU", json.dumps(mlm[label]))
+        # the single run takes the plain argmax, which may pick MASK itself (as in JAX); the iterative
+        # fill never draws a special id
+        if not same or (not single_run and mlm[label]["mask_left"]):
+            raise AssertionError(f"mlm_unmask ({label}): card tokens differ from the CPU's or MASK left")
+    rec["mlm_unmask"] = mlm
+    del model
+    torch.cuda.empty_cache()
+    lap("mlm_unmask")
+
+    # ---- 5. the kernels at this slice's shapes ----
+    # the chunked run's cache; the ring's window, at the slot of its last step
+    cap = max(GEN_SEQ + 1, GEN_T0 - 2 + gens["chunked"]["padded_steps"])
+    window = model_config["transformer"]["max_seq_len"]
+    shapes = {
+        "write_kv_pair": [check_write_kv(torch, kv, CHUNK, 1, GEN_BATCH, 64, 5, torch.float32, True, pair=True),
+                          check_write_kv(torch, kv, window, 1, 1, 64, RING_SEQ % window, torch.float32, True,
+                                         pair=True),
+                          check_write_kv(torch, kv, cap, GEN_T0 - 1, GEN_BATCH, 64, 0, torch.float32, False,
+                                         pair=True)],
+        "prefix_attend": [check_prefix_attend(torch, pa, GEN_BATCH, cap, base, timed=base == GEN_T0 - 2 + 128)
+                          for base in range(GEN_T0 - 2, cap - CHUNK + 1, CHUNK)],
+        "flash_attention_fwd": [check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded="performer",
+                                            timed=True, lengths=lengths),
+                                check_flash(torch, fa, MLM_BATCH, MLM_SEQ, causal=False, padded="mlm", timed=False,
+                                            lengths=mask.sum(1).tolist())],
+    }
+    dkv, dq, pair = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded="performer",
+                                    timed=True, lengths=lengths)
+    shapes["flash_attention_bwd_dkv"], shapes["flash_attention_bwd_dq"] = [dkv], [dq]
+    rec["kernel_pair_bwd"] = pair
+    for name, recs in shapes.items():
+        for r in recs:
+            print(f"{name}, performer", json.dumps(r))
+    rec["kernels"] = shapes
+    lap("kernels")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2400,6 +2741,12 @@ def main() -> int:
         print("flash_attention_fwd, streaming", json.dumps(rec))
     print(f"streaming phase: {time.perf_counter() - t0:.1f} s")
 
+    # ---- the Performer family: train performer.yaml, ar_generate, mlm_unmask ----
+    t0 = time.perf_counter()
+    performer = performer_phase(torch, smi)
+    print(f"performer phase: {time.perf_counter() - t0:.1f} s")
+    print("performer", json.dumps({k: v for k, v in performer.items() if k != "kernels"}))
+
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
              "bf16_compute_train_steps": options["bf16_compute"]["launches"],
@@ -2408,7 +2755,13 @@ def main() -> int:
              "paper_recipe_train_steps": paper["train"]["launches"], "served_batch": served_launches,
              "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
              "scale_1024_served": scale["int8"]["launches"], "streaming_flagship": stream_flag["launches"],
-             "streaming_scale_1024": stream_scale["launches"]}
+             "streaming_scale_1024": stream_scale["launches"],
+             "performer_train_steps": performer["train"]["plain"]["launches"],
+             "performer_flash_train_steps": performer["train"]["flash"]["launches"],
+             "performer_ar_generate_chunked": performer["ar_generate"]["chunked"]["launches"],
+             "performer_ar_generate_ring": performer["ar_generate"]["ring"]["launches"],
+             "performer_mlm_unmask_single_run": performer["mlm_unmask"]["single_run"]["launches"],
+             "performer_mlm_unmask_iterative": performer["mlm_unmask"]["iterative"]["launches"]}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
@@ -2460,8 +2813,12 @@ def main() -> int:
          "head_dims": [{"shape": r["shape"], "cap": r["cap"], "base": r["base"], "dtype": r["dtype"],
                         **{k: r[k] for k in timed}} for r in pa_dims if "ms" in r]},
     ]
+    shape_keys = ("shape", "cap", "base", "index", "causal", "max_abs_err") + timed + ("bound_by",)
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
+        if rec["name"] in performer["kernels"]:  # the Performer paths' shapes, timed
+            rec["performer_shapes"] = [{k: r[k] for k in shape_keys if k in r}
+                                       for r in performer["kernels"][rec["name"]] if "ms" in r]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 The port's modules carry the reference PyTorch parameter names. A JAX
 parameter tree (nested dicts of numpy arrays) becomes a state dict by the
 name mapping of scoreperformer_tpu/training/torch_convert.py, of which this
-module keeps its own copy (`_torch_name_for` and helpers, copied verbatim);
-Dense kernels are transposed to torch's (out, in). A reference `.pt` state
+module keeps its own copy (`_torch_name_for` and helpers, copied verbatim,
+plus the regression head's names, which the JAX converter lacks); Dense
+kernels are transposed to torch's (out, in). A reference `.pt` state
 dict already has these names and loads through the same `load_state_dict`.
 """
 from __future__ import annotations
@@ -61,6 +62,7 @@ def _torch_name_for(path: List[str]) -> Optional[Tuple[str, str]]:
         return (name, "t" if leaf == "kernel" else "id")
     elif parts[0] == "transformer" and len(parts) > 1 and parts[1] in (
         "token_emb", "pos_emb", "emb_norm", "project_emb", "transformer", "final_norm", "lm_head",
+        "regression_head",
     ):
         # Performer: PerformerModel.transformer → reference transformer.model.*
         prefix = "transformer.model."
@@ -130,6 +132,9 @@ def _tuple_transformer_leaf(prefix: str, parts: List[str]) -> Optional[Tuple[str
         if sub.startswith("norm_"):
             key = sub[len("norm_"):]
             return (f"{prefix}lm_head.to_embs.{key}.1.{_wb(leaf)}", "id")
+    if head == "regression_head":  # the port's own: the JAX converter names no regression head
+        key = parts[1][len("reg_"):]
+        return (f"{prefix}regression_head.heads.{key}.{_wb(leaf)}", "t" if leaf == "kernel" else "id")
     if head == "transformer":
         sub = parts[1]
         m = re.fullmatch(r"layer_(\d+)_(attn|cross|ff|norm)", sub)
@@ -217,8 +222,9 @@ def state_dict_from_jax(params) -> Dict[str, np.ndarray]:
 
 def jax_path_for(model: nn.Module, name: str) -> Tuple[str, ...]:
     """The reverse of `_torch_name_for`: the flax parameter path of the port
-    parameter `name` of a `ScorePerformerModel` (a tied embedding's path is
-    its `shared_emb_<key>` one, whichever of its names is given). Raises
+    parameter `name` of a `ScorePerformerModel` or a `PerformerModel` (a tied
+    embedding's path is its `shared_emb_<key>` one, whichever of its names is
+    given). Raises
     KeyError for a name with no JAX counterpart. The result maps back to
     `name` through `_torch_name_for`."""
     parts = name.split(".")
@@ -255,6 +261,7 @@ def _jax_path(model, parts, leaf, jleaf) -> Tuple[str, ...]:
         "score_encoder": (("score_encoder",), parts[1:]),
         "perf_encoder": (("perf_encoder", "transformer"), parts[1:]),
         "perf_decoder": (("perf_decoder",), parts[2:]),  # perf_decoder.model.*
+        "transformer": (("transformer",), parts[2:]),  # a Performer's transformer.model.*
     }.get(top, ((), None))
     if rest is None:
         raise KeyError(f"no JAX path for {'.'.join(parts)}")
@@ -276,7 +283,15 @@ def _jax_path(model, parts, leaf, jleaf) -> Tuple[str, ...]:
     if head in ("emb_norm", "project_emb"):
         return prefix + (head, jleaf)
     if head == "lm_head":
+        if rest[1] == "heads":  # untied: heads.<key>
+            return prefix + ("lm_head", f"head_{rest[2]}", jleaf)
+        if rest[1] == "to_embs":  # tied split: to_embs.<key>.<0: Linear | 1: LayerNorm>
+            return prefix + ("lm_head", f"{'to_emb' if rest[3] == '0' else 'norm'}_{rest[2]}", jleaf)
+        if rest[1] == "project_emb":  # tied without reuse_projection
+            return prefix + ("lm_head", "project", jleaf)
         return prefix + ("lm_head", rest[1], jleaf)
+    if head == "regression_head":
+        return prefix + ("regression_head", f"reg_{rest[2]}", jleaf)
     if head == "transformer":
         if rest[1] == "final_norm":
             return prefix + ("transformer", "final_norm") + (("to_gamma_beta",) if rest[2] == "linear" else ()) + (jleaf,)

@@ -16,7 +16,7 @@ import torch
 from ..convert import load_state_dict
 from ..device import resolve_device
 from ..midi import MidiScore
-from ..models.factory import build_scoreperformer
+from ..models.factory import build_model
 from ..models.wrappers import mixedlm_unmask
 from ..ops.sampling import top_k
 from ..tokenizers import MASK, TokSequence
@@ -29,7 +29,9 @@ def load_model_from_checkpoint(path: str, device="cuda"):
     reference single-file checkpoint (`.pt`, {"model": {"config",
     "state_dict"}}) whose embedded config is the post-injection recipe node.
     Returns (model, config), the direction classifiers' heads included when
-    the config sets them."""
+    the config sets them; the config's `_name_` picks the model (a
+    ScorePerformer, or a standalone Performer, which only the decode
+    wrappers drive: `render_performance` needs a ScorePerformer)."""
     device = resolve_device(device)
     if os.path.isdir(path):
         ckpt = load_checkpoint(path)
@@ -43,11 +45,8 @@ def load_model_from_checkpoint(path: str, device="cuda"):
     model_cfg = model_node.get("config")
     if model_cfg is None:
         raise ValueError(f"{path} carries no embedded model config")
-    name = model_cfg.get("_name_", "ScorePerformer")
-    if name != "ScorePerformer":
-        raise NotImplementedError(f"model {name!r} is not ported yet")
     data = {k: v for k, v in model_cfg.items() if not k.startswith("_")}
-    model, cfg = build_scoreperformer(data, device=device)
+    model, cfg = build_model(model_cfg.get("_name_", "ScorePerformer"), data, device=device)
     load_state_dict(model, model_node["state_dict"])
     return model.eval(), cfg
 
@@ -112,6 +111,8 @@ def render_performance(
     deadpan performance; pass `style_embeddings` (T, dim) to steer. Sampling
     draws from a generator seeded with `seed`."""
     device = resolve_device(device)
+    if not hasattr(model, "encode_embeddings"):
+        raise TypeError(f"render_performance needs a ScorePerformer, not a {type(model).__name__}")
     param_device = next(model.parameters()).device
     if param_device.type != device.type:
         raise ValueError(f"the model lives on {param_device}, the render runs on {device}")

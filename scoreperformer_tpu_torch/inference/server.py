@@ -79,6 +79,8 @@ class RenderServer:
         measured ladder does. `chunk_size`: the chunked decode's chunk."""
         self.device = resolve_device(device)
         self.model, self.model_cfg = load_model_from_checkpoint(checkpoint, device=self.device)
+        if not hasattr(self.model, "encode_embeddings"):
+            raise TypeError(f"{checkpoint}: the server renders with a ScorePerformer, not a {type(self.model).__name__}")
         if cache_dtype == "auto":
             cache_dtype = "int8" if int(getattr(self.model_cfg, "dim", 0)) >= 1024 else "fp32"
         if cache_dtype not in CACHE_DTYPES:

@@ -1,8 +1,12 @@
-"""Tuple-token embeddings and the tied LM head.
+"""Tuple-token embeddings and the output heads.
 
 Counterpart of scoreperformer_tpu/models/embeddings.py. Each stream's full
 table (discrete rows + an MLP over fixed token values) is materialized and
-gathered from; the same tables serve the tied LM head.
+gathered from; the same tables serve the tied LM heads. The heads carry the
+reference's parameter names, to which `convert.py` maps the JAX ones: the
+untied head's `head_<key>` is `heads.<key>`, the tied split head's
+`to_emb_<key>` and `norm_<key>` are `to_embs.<key>.0` and `.1`, the
+regression head's `reg_<key>` is `heads.<key>`.
 """
 from __future__ import annotations
 
@@ -234,25 +238,84 @@ class TupleTokenEmbeddings(nn.Module):
         raise ValueError(f"unknown multiseq_mode {mode}")
 
 
-class TupleTokenTiedLMHead(nn.Module):
-    """Tied head: the embedding projection transposed, a LayerNorm, then
-    logits against each stream's embedding table. The embeddings are passed
-    at call time, so their parameters are registered only once."""
+class TupleTokenLMHead(nn.Module):
+    """Independent per-stream linear heads (JAX `TupleTokenLMHead`), one
+    stream's logits a Linear, for the streams of `filter_keys` when set."""
 
-    def __init__(self, total_emb_dim: int):
+    def __init__(self, dim: int, num_tokens: Dict[str, int], filter_keys: Optional[List[str]] = None):
         super().__init__()
+        self.heads = nn.ModuleDict(
+            {key: Linear(dim, num) for key, num in num_tokens.items() if not filter_keys or key in filter_keys}
+        )
+
+    def forward(self, x: torch.Tensor, embeddings=None, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        return {key: head(x) for key, head in self.heads.items() if keys is None or key in keys}
+
+
+class TupleTokenTiedLMHead(nn.Module):
+    """Tied head: the embedding projection transposed (or, without
+    `reuse_projection`, a Linear of its own into the embedding space), a
+    LayerNorm, then logits against each stream's embedding table. The
+    embeddings are passed at call time, so their parameters are registered
+    only once."""
+
+    def __init__(self, total_emb_dim: int, dim: Optional[int] = None, reuse_projection: bool = True):
+        super().__init__()
+        self.reuse_projection = reuse_projection
+        if not reuse_projection:
+            self.project_emb = Linear(dim, total_emb_dim, bias=False)
         self.norm = LayerNorm(total_emb_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings) -> Dict[str, torch.Tensor]:
-        if not embeddings.has_project:
-            raise ValueError("the tied head requires an embedding projection")
-        x, weight = promoted(x, embeddings.project_emb.weight)
-        h = self.norm(x @ weight)
+    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings,
+                keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        if self.reuse_projection:
+            if not embeddings.has_project:
+                raise ValueError("the tied head requires an embedding projection")
+            x, weight = promoted(x, embeddings.project_emb.weight)
+            h = self.norm(x @ weight)
+        else:
+            h = self.norm(self.project_emb(x))
         tables = embeddings.tables()
         logits, offset = {}, 0
         for key in embeddings.num_tokens:
             dim = embeddings.emb_dims_map[key]
-            hk, table = promoted(h[..., offset : offset + dim], tables[key])
-            logits[key] = hk @ table.T
+            if keys is None or key in keys:
+                hk, table = promoted(h[..., offset : offset + dim], tables[key])
+                logits[key] = hk @ table.T
             offset += dim
         return logits
+
+
+class TupleTokenTiedSplitLMHead(nn.Module):
+    """Per-stream Linear and LayerNorm into that stream's embedding space,
+    then logits against its table (JAX `TupleTokenTiedSplitLMHead`)."""
+
+    def __init__(self, dim: int, embeddings: TupleTokenEmbeddings, filter_keys: Optional[List[str]] = None):
+        super().__init__()
+        self.to_embs = nn.ModuleDict({
+            key: nn.Sequential(Linear(dim, embeddings.emb_dims_map[key]),
+                               LayerNorm(embeddings.emb_dims_map[key], eps=1e-5))
+            for key in embeddings.num_tokens if not filter_keys or key in filter_keys
+        })
+
+    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings,
+                keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        tables = embeddings.tables()
+        logits = {}
+        for key, to_emb in self.to_embs.items():
+            if keys is None or key in keys:
+                h, table = promoted(to_emb(x), tables[key])
+                logits[key] = h @ table.T
+        return logits
+
+
+class TupleTokenRegressionHead(nn.Module):
+    """Scalar value heads, one Linear(dim, 1) a regression key (JAX
+    `TupleTokenRegressionHead`)."""
+
+    def __init__(self, dim: int, regression_keys: List[str]):
+        super().__init__()
+        self.heads = nn.ModuleDict({key: Linear(dim, 1) for key in regression_keys})
+
+    def forward(self, x: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        return {key: head(x) for key, head in self.heads.items() if keys is None or key in keys}

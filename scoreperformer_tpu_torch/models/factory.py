@@ -10,9 +10,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .classifiers import LinearEmbeddingClassifierConfig, MultiHeadEmbeddingClassifierConfig
-from .embeddings import TupleTokenEmbeddingsConfig, TupleTokenHeadConfig
+from .embeddings import TupleTokenEmbeddingsConfig, TupleTokenHeadConfig, TupleTokenRegressionHeadConfig
 from .mmd import MMDTupleTransformerConfig
-from .scoreperformer import ScorePerformerConfig, ScorePerformerModel
+from .scoreperformer import PerformerConfig, PerformerModel, ScorePerformerConfig, ScorePerformerModel
 from .transformer import AttentionConfig, FeedForwardConfig, TransformerConfig
 from .tuple_transformer import TupleTransformerConfig
 
@@ -47,8 +47,9 @@ def build_tuple_transformer_config(data: Optional[Dict[str, Any]], mmd: bool = F
         head = dict(data["lm_head"])
         cfg.lm_head = TupleTokenHeadConfig.from_dict(head)
         cfg.lm_head._target_ = head.get("_target_", "lm")
+    cfg.regression_head = None
     if data.get("regression_head") is not None:
-        raise NotImplementedError("regression heads are not ported yet")
+        cfg.regression_head = TupleTokenRegressionHeadConfig.from_dict(data["regression_head"])
     return cfg
 
 
@@ -77,14 +78,48 @@ def build_scoreperformer_config(data: Dict[str, Any]) -> ScorePerformerConfig:
     return cfg
 
 
+def _seeded(build, seed: Optional[int]):
+    if seed is None:
+        return build()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
 def build_scoreperformer(
     data: Dict[str, Any], device="cuda", seed: Optional[int] = None
 ) -> Tuple[ScorePerformerModel, ScorePerformerConfig]:
     """Build the model from a config dict on `device` (the GPU by default);
     with `seed`, the initial weights come from that seed alone."""
     cfg = build_scoreperformer_config(data)
-    if seed is None:
-        return ScorePerformerModel(cfg, device=device), cfg
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        return ScorePerformerModel(cfg, device=device), cfg
+    return _seeded(lambda: ScorePerformerModel(cfg, device=device), seed), cfg
+
+
+def build_performer_config(data: Dict[str, Any]) -> PerformerConfig:
+    """The standalone Performer's config from a recipe `model:` dict (post
+    data-injection: `num_tokens` and the token values set)."""
+    data = dict(data)
+    cfg = PerformerConfig.from_dict(data)
+    cfg.transformer = build_tuple_transformer_config(data.get("transformer"))
+    cfg.num_tokens = dict(data["num_tokens"])
+    return cfg
+
+
+def build_performer(
+    data: Dict[str, Any], device="cuda", seed: Optional[int] = None
+) -> Tuple[PerformerModel, PerformerConfig]:
+    """The standalone Performer LM, as `build_scoreperformer` builds the
+    ScorePerformer."""
+    cfg = build_performer_config(data)
+    return _seeded(lambda: PerformerModel(cfg, device=device), seed), cfg
+
+
+# the model constructors by the recipes' `model._name_`
+MODELS = {"ScorePerformer": build_scoreperformer, "Performer": build_performer}
+
+
+def build_model(name: str, data: Dict[str, Any], device="cuda", seed: Optional[int] = None):
+    """(model, config) of the model a recipe names."""
+    if name not in MODELS:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(MODELS)}")
+    return MODELS[name](data, device=device, seed=seed)

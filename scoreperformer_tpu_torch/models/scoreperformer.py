@@ -1,17 +1,19 @@
-"""ScorePerformer composite model.
+"""ScorePerformer composite model and the plain Performer LM.
 
 Counterpart of scoreperformer_tpu/models/scoreperformer.py: the score encoder
 and the MMD style encoder produce context and style embeddings. In training,
 `forward` runs the decoder over the shifted sequence and returns the MixedLM
-cross-entropy, the MMD losses and, when the config sets direction
-classifiers, their loss over the style embeddings; in rendering, the decoder
-consumes the embeddings one position at a time over static KV caches
-(`decode_step`).
+cross-entropy (with a regression head, plus its L1 term), the MMD losses and,
+when the config sets direction classifiers, their loss over the style
+embeddings; in rendering, the decoder consumes the embeddings one position at
+a time over static KV caches (`decode_step`). `PerformerModel` is the
+standalone performance LM, with the same decode-path methods, so that the
+same wrappers (`ar_generate`, `mlm_unmask`) drive it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -63,6 +65,25 @@ def lm_losses(logits: Dict[str, torch.Tensor], labels: torch.Tensor, ignore_inde
     return total / torch.clamp_min(torch.as_tensor(denom), 1.0), losses
 
 
+def regression_losses(reg_values: Dict[str, torch.Tensor], logits_keys: List[str], labels: torch.Tensor,
+                      token_values: Dict[str, list], num_special: int = 4):
+    """L1 regression against the token values of the non-special labels
+    (wrappers.py:66-78): (mean over the regressed streams, {"<key>/l1": term})."""
+    reg_losses = {}
+    for i, key in enumerate(logits_keys):
+        if key not in reg_values:
+            continue
+        lab = labels[..., i]
+        valid = lab > (num_special - 1)
+        values = torch.as_tensor(token_values[key], dtype=torch.float32, device=lab.device)
+        targets = values[lab.clamp(0, len(values) - 1).long()]
+        l1 = (reg_values[key][..., 0] - targets).abs()
+        reg_losses[f"{key}/l1"] = (l1 * valid).sum() / valid.sum().clamp_min(1)
+    if not reg_losses:
+        return 0.0, reg_losses
+    return sum(reg_losses.values()) / len(reg_losses), reg_losses
+
+
 def shift_for_lm(mode, perf, labels, masked_perf, context, style, mask, context_is_cat: bool):
     """CLM/MixedLM shift by one (wrappers.py:290-307, 409-431): the input drops
     the last position; labels, masked sequence, context and style drop the first."""
@@ -87,6 +108,7 @@ class ScorePerformerOutput:
     losses: Dict[str, torch.Tensor] = field(default_factory=dict)
     perf_encoder: Optional[MMDTupleTransformerOutput] = None
     classifiers: Optional[MultiHeadEmbeddingClassifierOutput] = None
+    reg_values: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclass
@@ -218,11 +240,17 @@ class ScorePerformerModel(nn.Module):
                     sample_weights=clf_mask.float() if clf_mask is not None else None,
                 )
         logits = self.decoder.apply_lm_head(hidden)
+        reg_values = self.decoder.apply_regression_head(hidden)
 
         loss, losses = None, {}
         if compute_loss and shifted_labels is not None:
             loss, stream_losses = lm_losses(logits, shifted_labels)
             losses.update({f"loss/{k}": v for k, v in stream_losses.items()})
+            if reg_values is not None:
+                token_values = self.decoder.config.token_embeddings.token_values or {}
+                reg_loss, reg = regression_losses(reg_values, list(logits), shifted_labels, token_values)
+                loss = loss + reg_loss
+                losses.update(reg)
             losses["loss/lm"] = loss
         if perf_enc_out is not None and perf_enc_out.loss is not None:
             loss = perf_enc_out.loss if loss is None else loss + perf_enc_out.loss
@@ -231,7 +259,7 @@ class ScorePerformerModel(nn.Module):
             loss = clf_out.loss if loss is None else loss + clf_out.loss
             losses.update(clf_out.losses)
         return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out,
-                                    classifiers=clf_out)
+                                    classifiers=clf_out, reg_values=reg_values)
 
     def encode_embeddings(self, perf, perf_mask=None, score=None, score_mask=None,
                           bars=None, beats=None, onsets=None):
@@ -254,5 +282,77 @@ class ScorePerformerModel(nn.Module):
             caches=caches, cache_index=cache_index,
         )
 
-    def init_decoder_cache(self, batch: int, max_len: int, dtype=torch.float32, device="cpu"):
-        return self.decoder.init_cache(batch, max_len, dtype, device)
+    def init_decoder_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
+        """The decoder's static KV caches, on the parameters' device unless
+        `device` is given."""
+        return self.decoder.init_cache(batch, max_len, dtype, device or next(self.parameters()).device)
+
+
+@dataclass
+class PerformerConfig(ModuleConfig):
+    transformer: TupleTransformerConfig = field(default_factory=TupleTransformerConfig)
+    mode: Optional[str] = None
+    num_tokens: Optional[Dict[str, int]] = None
+
+
+class PerformerModel(nn.Module):
+    """The standalone performance LM (model.py:50-122): one TupleTransformer
+    over the performance tokens, trained as a CLM, MLM or MixedLM by
+    `config.mode`. Its parameters live under `transformer.model.`, the
+    reference's names. Built on the GPU unless `device` says otherwise."""
+
+    def __init__(self, config: PerformerConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        cfg = config.transformer
+        if cfg.lm_head is None:
+            cfg = cfg.replace(lm_head=TupleTokenHeadConfig(_target_="lm"))
+        self.transformer = _DecoderWrapper(TupleTransformerModule(config.num_tokens, cfg))
+        self.to(device)
+
+    @property
+    def decoder(self) -> TupleTransformerModule:
+        return self.transformer.model
+
+    @property
+    def perf_decoder(self) -> _DecoderWrapper:
+        """The decode path's decoder under the ScorePerformer's name."""
+        return self.transformer
+
+    @property
+    def perf_decoder_dim(self) -> int:
+        return self.config.transformer.dim
+
+    def forward(self, perf, mask=None, labels=None, masked_perf=None, compute_loss: bool = True,
+                generators: Optional[Dict[str, torch.Generator]] = None) -> ScorePerformerOutput:
+        """The training forward: the mode's shift, the transformer, the
+        per-stream cross-entropy. Inputs carry the names of
+        `data.performer_model_inputs`; in `module.train()` mode dropout
+        draws from generators["dropout"]."""
+        seq, labels, masked, _, _, mask = shift_for_lm(self.config.mode, perf, labels, masked_perf, None, None,
+                                                       mask, False)
+        with dropout_generator((generators or {}).get("dropout")):
+            hidden = self.decoder(seq, mask=mask, x_extra=[masked] if masked is not None else None)
+        logits = self.decoder.apply_lm_head(hidden)
+        loss, losses = None, {}
+        if compute_loss and labels is not None:
+            loss, stream_losses = lm_losses(logits, labels)
+            losses = {f"loss/{k}": v for k, v in stream_losses.items()}
+        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses)
+
+    def decode_step(self, seq_tokens, masked_tokens=None, style_embeddings=None, context=None,
+                    caches=None, cache_index=None, mask=None):
+        """The transformer's hidden states of a few positions over static KV
+        caches, updated in place; a Performer has no style or context, and
+        ignores them as the JAX model does."""
+        return self.decoder(
+            seq_tokens, mask=mask,
+            x_extra=[masked_tokens] if masked_tokens is not None else None,
+            caches=caches, cache_index=cache_index,
+        )
+
+    def init_decoder_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
+        """The transformer's static KV caches, on the parameters' device
+        unless `device` is given."""
+        return self.decoder.init_cache(batch, max_len, dtype, device or next(self.parameters()).device)

@@ -17,8 +17,11 @@ from .embeddings import (
     TupleTokenEmbeddings,
     TupleTokenEmbeddingsConfig,
     TupleTokenHeadConfig,
+    TupleTokenLMHead,
+    TupleTokenRegressionHead,
     TupleTokenRegressionHeadConfig,
     TupleTokenTiedLMHead,
+    TupleTokenTiedSplitLMHead,
 )
 from .dropout import Dropout
 from .layers import AbsolutePositionalEmbedding, LayerNorm, Linear
@@ -95,13 +98,19 @@ class TupleTransformerModule(nn.Module):
 
         self.lm_head = None
         if cfg.lm_head is not None:
-            if cfg.lm_head._target_ != "lm-tied" or not cfg.lm_head.reuse_projection:
-                raise NotImplementedError(
-                    f"LM head {cfg.lm_head._target_!r} is not ported yet; only the tied head is"
-                )
-            self.lm_head = TupleTokenTiedLMHead(self.token_emb.total_emb_dim)
+            target, filter_keys = cfg.lm_head._target_, cfg.lm_head.filter_keys
+            if target == "lm":
+                self.lm_head = TupleTokenLMHead(dim, self.num_tokens, filter_keys=filter_keys)
+            elif target == "lm-tied":
+                self.lm_head = TupleTokenTiedLMHead(self.token_emb.total_emb_dim, dim,
+                                                    reuse_projection=cfg.lm_head.reuse_projection)
+            elif target == "lm-tied-split":
+                self.lm_head = TupleTokenTiedSplitLMHead(dim, self.token_emb, filter_keys=filter_keys)
+            else:
+                raise ValueError(f"unknown lm head target {target}")
+        self.regression_head = None
         if cfg.regression_head is not None:
-            raise NotImplementedError("regression heads are not ported yet")
+            self.regression_head = TupleTokenRegressionHead(dim, cfg.regression_head.regression_keys)
 
     @property
     def dim(self) -> int:
@@ -153,6 +162,14 @@ class TupleTransformerModule(nn.Module):
             style_embeddings=style_embeddings, caches=caches, cache_index=cache_index,
         )
 
-    def apply_lm_head(self, hidden: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Per-stream logits, keyed in the order of `num_tokens`."""
-        return self.lm_head(hidden, self.token_emb)
+    def apply_lm_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+        """Per-stream logits, keyed in the order of `num_tokens` (of `keys`
+        only, when given)."""
+        return self.lm_head(hidden, self.token_emb, keys=keys)
+
+    def apply_regression_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None):
+        """{key: (..., 1) value} of the regression head, None without one
+        (the JAX output's `reg_values`)."""
+        if self.regression_head is None:
+            return None
+        return self.regression_head(hidden, keys=keys)

@@ -1,10 +1,11 @@
-"""MixedLM unmasking decode loop.
+"""Decode loops: MixedLM unmasking, autoregressive generation, MLM unmasking.
 
-Counterpart of `mixedlm_unmask` in scoreperformer_tpu/models/wrappers.py. The
-JAX package compiles the loop into one `lax.scan`; here it is a Python loop of
-eager steps over static KV caches that each step updates in place. Position
-`j` consumes the already final token `j` and predicts `j + 1`; positions at or
-past `valid_len` are left as they are.
+Counterpart of `mixedlm_unmask`, `ar_generate` and `mlm_unmask` in
+scoreperformer_tpu/models/wrappers.py. The JAX package compiles each loop
+into one `lax.scan`; here it is a Python loop of eager steps over static KV
+caches that each step updates in place, with no host sync inside the loop.
+In `mixedlm_unmask`, position `j` consumes the already final token `j` and
+predicts `j + 1`; positions at or past `valid_len` are left as they are.
 
 Two layouts give the same tokens, as in the JAX package:
 - `chunk_size=None`: each layer's cache is written at slot `j` per step;
@@ -65,6 +66,11 @@ def batched_top_k(logits: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
     ranked = torch.sort(logits, dim=-1, descending=True).values
     kth = ranked.gather(-1, (ks - 1).view(1, S, 1).expand(b, S, 1))
     return torch.where(logits < kth, NEG_INF, logits)
+
+
+def _stacked(columns, vmax: int) -> torch.Tensor:
+    """(b, S, Vmax) of per-stream (b, V_s) logits, padded with NEG_INF."""
+    return torch.stack([F.pad(l, (0, vmax - l.shape[-1]), value=NEG_INF) for _, _, l in columns], dim=1)
 
 
 def _sample_stream(generator, logits, temperature, filter_fn, filter_kwargs, greedy):
@@ -175,8 +181,7 @@ def mixedlm_unmask(
         columns = logits_by_column(model, model.decoder.apply_lm_head(hidden[:, 0]))
         target = tokens[:, j1]
         if use_batched:
-            lg = torch.stack([F.pad(l, (0, vmax - l.shape[-1]), value=NEG_INF) for _, _, l in columns], dim=1)
-            lg = lg + col_mask
+            lg = _stacked(columns, vmax) + col_mask
             if greedy:
                 samples = torch.argmax(lg, dim=-1)
             else:
@@ -230,3 +235,245 @@ def mixedlm_unmask(
                     rows, layer[key + "_s"][base : base + C] = quantize_kv_rows(rows.float())
                 layer[key][base : base + C].copy_(rows)
     return tokens
+
+
+@torch.inference_mode()
+def ar_generate(
+    model,
+    start_tokens: torch.Tensor,
+    seq_len: int,
+    generator: Optional[torch.Generator] = None,
+    style_embeddings: Optional[torch.Tensor] = None,
+    context: Optional[torch.Tensor] = None,
+    temperature: float = 1.0,
+    filter_fn: Callable = top_k,
+    filter_kwargs: Optional[Dict] = None,
+    greedy: bool = False,
+    stream_names: Optional[List[str]] = None,
+    fix_errors: bool = True,
+    eos_token_id: int = 3,
+    pad_token_id: int = 0,
+    max_bar: Optional[int] = None,
+    max_seq_len: Optional[int] = None,
+    chunk_size: Optional[int] = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Autoregressive generation with per-stream constraints (the JAX
+    package's `ar_generate`, reference wrappers.py:200-270).
+
+    Continues the (b, t0, S) prompt to `seq_len + 1` positions and returns
+    (generated (b, seq_len + 1 - t0, S), num_generated (b,)), both on the
+    prompt's device. Step k consumes token `t0 + k - 2` (the reference's CLM
+    shift never consumes the latest token) and predicts position `t0 + k`;
+    style and context are read one position later. With `fix_errors`, the
+    Bar stream cannot go back (ids in [4, last bar) are forbidden), Tempo
+    copies forward inside a bar, judged by this step's Bar sample, and
+    TimeSig always copies forward; ids 0-1 (PAD, MASK) are never drawn. EOS
+    on the Bar stream, or a Bar above `max_bar`, pads the row's other
+    streams, and every later row of that sequence is PAD; `num_generated` is
+    the first such step plus one, else the step count.
+
+    `max_seq_len` (default: the decoder's) bounds the attention context. A
+    generation that fits it, from a prompt of 2 or more, runs the chunked
+    layout of `mixedlm_unmask` when `chunk_size` is set: the step count is
+    padded to a multiple of C, the first chunk starts at position t0 - 2,
+    and padded tail steps rewrite the last row unchanged. Otherwise the
+    caches are rings of `max_seq_len` slots, and past the window the oldest
+    position is overwritten each step.
+
+    Greedy decoding gives the JAX package's tokens. Sampling draws from
+    `generator` (on the prompt's device), one stacked draw a step for top-k
+    and one a stream for other filters; it cannot reproduce `jax.random`."""
+    b, t0, S = start_tokens.shape
+    dev = start_tokens.device
+    if not greedy and generator is None:
+        raise ValueError("ar_generate: sampling needs a torch.Generator")
+    stream_names = list(stream_names or [str(i) for i in range(S)])
+    name_to_idx = {n: i for i, n in enumerate(stream_names)}
+    bar_idx = name_to_idx.get("Bar", 0)
+    if fix_errors and "Tempo" in name_to_idx and "Bar" in name_to_idx and name_to_idx["Bar"] > name_to_idx["Tempo"]:
+        # the same-bar Tempo copy-forward reads this step's Bar sample
+        raise ValueError("ar_generate: Bar must precede Tempo in the stream order for copy-forward")
+    tempo_idx = name_to_idx.get("Tempo") if fix_errors else None
+    timesig_idx = name_to_idx.get("TimeSig") if fix_errors else None
+    has_bar = "Bar" in name_to_idx
+
+    if max_seq_len is None:  # the decoder's window: a ScorePerformer's perf_decoder, a Performer's transformer
+        dec_cfg = getattr(model.config, "perf_decoder", None) or getattr(model.config, "transformer", None)
+        max_seq_len = getattr(dec_cfg, "max_seq_len", None)
+    total = seq_len + 1
+    cache_len = total if max_seq_len is None else min(total, int(max_seq_len))
+    if t0 > cache_len:
+        raise ValueError(f"ar_generate: the prompt ({t0}) must fit the context window ({cache_len})")
+    num_steps = total - t0
+    C = int(chunk_size) if chunk_size is not None and cache_len == total and t0 >= 2 else None
+    n_padded = num_steps if C is None else -(-num_steps // C) * C
+    if C is not None:
+        cache_len = max(cache_len, (t0 - 2) + n_padded)
+    caches = model.init_decoder_cache(b, cache_len, device=dev)
+    # cache positions as device views: no host-to-device copy a step
+    positions = torch.arange(max(t0 + n_padded, 1), dtype=torch.int64, device=dev)
+
+    buf = torch.zeros((b, total, S), dtype=start_tokens.dtype, device=dev)
+    buf[:, :t0] = start_tokens
+    if t0 > 1:  # prefill with tokens [0, t0 - 2]
+        model.decode_step(
+            start_tokens[:, : t0 - 1],
+            style_embeddings=style_embeddings[:, 1:t0] if style_embeddings is not None else None,
+            context=context[:, 1:t0] if context is not None else None,
+            caches=caches, cache_index=positions[0:1],
+        )
+
+    sizes = list(model.config.num_tokens.values())
+    vmax = max(sizes)
+    col = torch.arange(vmax, device=dev)
+    # NEG_INF on each stream's padded columns and on PAD and MASK (ids 0-1)
+    invalid = torch.stack([(col >= V) | (col < 2) for V in sizes])
+    batched_k = filter_fn is top_k
+    if batched_k:
+        thres, kfix = (filter_kwargs or {}).get("thres", 0.9), (filter_kwargs or {}).get("k")
+        ks = torch.tensor([max(1, min(int(kfix) if kfix else math.ceil((1 - thres) * V), V)) for V in sizes],
+                          device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    dones = []
+
+    def clamp(i, n):  # dynamic_slice's start of one row: from the end if negative, then clamped
+        return min(max(i + n if i < 0 else i, 0), n - 1)
+
+    def step(step_caches, k):
+        L = t0 + k  # consume token L - 2, predict position L
+        consume = L - 2
+        cj, sj = clamp(consume, total), consume + 1
+        hidden = model.decode_step(
+            buf[:, cj : cj + 1],
+            style_embeddings=style_embeddings[:, clamp(sj, style_embeddings.shape[1])][:, None]
+            if style_embeddings is not None else None,
+            context=context[:, clamp(sj, context.shape[1])][:, None] if context is not None else None,
+            caches=step_caches, cache_index=positions[consume : consume + 1] if consume >= 0 else positions[0:1] - 1,
+        )
+        if k >= num_steps:  # a padded chunk-tail step: its rows are written, its prediction is not kept
+            return
+        lg = _stacked(logits_by_column(model, model.decoder.apply_lm_head(hidden[:, 0])), vmax)  # (b, S, Vmax)
+        last = buf[:, clamp(L - 1, total)]
+        last_bar = last[:, bar_idx]
+        forbid = invalid.expand(b, S, vmax)
+        if fix_errors and has_bar:  # the Bar stream cannot go back
+            bar_forbid = (col >= 4) & (col < last_bar[:, None])
+            forbid = forbid.clone()
+            forbid[:, bar_idx] |= bar_forbid
+        lg = lg.masked_fill(forbid, NEG_INF)
+        if greedy:
+            samples = torch.argmax(lg, dim=-1)
+        elif batched_k:
+            samples = categorical(apply_temperature(batched_top_k(lg, ks), temperature), generator)
+        else:
+            samples = torch.stack([
+                categorical(apply_temperature(filter_fn(lg[:, s, :V], **(filter_kwargs or {})), temperature),
+                            generator)
+                for s, V in enumerate(sizes)], dim=-1)
+        samples = samples.to(buf.dtype)
+        if tempo_idx is not None:
+            same_bar = samples[:, bar_idx] == last_bar if has_bar else torch.ones_like(done)
+            samples[:, tempo_idx] = torch.where(same_bar, last[:, tempo_idx], samples[:, tempo_idx])
+        if timesig_idx is not None:
+            samples[:, timesig_idx] = last[:, timesig_idx]
+
+        bar = samples[:, bar_idx]
+        is_eos = bar == eos_token_id
+        if max_bar is not None:
+            is_eos = is_eos | (bar > max_bar)
+        pad_row = torch.full_like(samples, pad_token_id)
+        pad_row[:, bar_idx] = bar
+        samples = torch.where(is_eos[:, None], pad_row, samples)
+        buf[:, L] = torch.where(done[:, None], torch.full_like(samples, pad_token_id), samples)
+        done.logical_or_(is_eos)
+        dones.append(done.clone())
+
+    if C is None:
+        for k in range(num_steps):
+            step(caches, k)
+    else:
+        fresh = [{"fk": torch.zeros((C,) + layer["k"].shape[1:], dtype=layer["k"].dtype, device=dev),
+                  "fv": torch.zeros((C,) + layer["v"].shape[1:], dtype=layer["v"].dtype, device=dev)}
+                 if layer is not None else None for layer in caches]
+        for c in range(n_padded // C):
+            base = (t0 - 2) + c * C
+            for f in fresh:
+                if f is not None:
+                    f["fk"].zero_()
+                    f["fv"].zero_()
+            merged = [{**layer, **f, "base": base} if layer is not None else None for layer, f in zip(caches, fresh)]
+            for kk in range(C):
+                step(merged, c * C + kk)
+            for layer, f in zip(caches, fresh):  # merge the chunk into the prefix, in place
+                if layer is not None:
+                    layer["k"][base : base + C].copy_(f["fk"])
+                    layer["v"][base : base + C].copy_(f["fv"])
+
+    dones = torch.stack(dones)  # (num_steps, b)
+    first = torch.argmax(dones.to(torch.int64), dim=0)
+    num_generated = torch.where(dones.any(dim=0), first + 1, torch.full_like(first, num_steps))
+    return buf[:, t0:total], num_generated
+
+
+@torch.inference_mode()
+def mlm_unmask(
+    model,
+    tokens: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    single_run: bool = True,
+    mask: Optional[torch.Tensor] = None,
+    style_embeddings: Optional[torch.Tensor] = None,
+    context: Optional[torch.Tensor] = None,
+    temperature: float = 1.0,
+    filter_fn: Callable = top_k,
+    filter_kwargs: Optional[Dict] = None,
+    greedy: bool = False,
+    mask_token_id: int = 1,
+    num_special_tokens: int = 4,
+    forbid_ids: Optional[Dict[int, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """MLM unmasking (reference wrappers.py:99-182) of the MASK entries of
+    `tokens` (b, T, S); returns a new tensor.
+
+    `single_run`: one bidirectional forward and an argmax fill (the reference
+    takes the argmax here too). Otherwise the masked positions are revealed
+    left to right, each by a full forward masked to the revealed prefix
+    (bidirectional attention rules out incremental caches): position `idx`
+    takes the prediction at `idx - 1`, with the special ids (below
+    `num_special_tokens`) and `forbid_ids[s]` never drawn. Sampling draws
+    from `generator`; greedy gives the JAX package's tokens."""
+    b, T, S = tokens.shape
+    dev = tokens.device
+    if not single_run and not greedy and generator is None:
+        raise ValueError("mlm_unmask: sampling needs a torch.Generator")
+    if mask is None:
+        mask = torch.ones((b, T), dtype=torch.bool, device=dev)
+    unmask_mask = tokens == mask_token_id
+
+    def forward(tok, attn_len_mask):
+        return model.decode_step(tok, mask=attn_len_mask, style_embeddings=style_embeddings, context=context)
+
+    if single_run:
+        logits = model.decoder.apply_lm_head(forward(tokens, mask))
+        samples = torch.stack([torch.argmax(lg, dim=-1) for _, _, lg in logits_by_column(model, logits)], dim=-1)
+        return torch.where(unmask_mask, samples.to(tokens.dtype), tokens)
+
+    # the positions to reveal, read once on the host
+    position_masked = unmask_mask.any(dim=-1).cpu().numpy()
+    forbid = {s: torch.as_tensor(ids, device=dev) for s, ids in (forbid_ids or {}).items()}
+    out = tokens.clone()
+    arange = torch.arange(T, device=dev)
+    for idx in range(1, T):
+        if not position_masked[:, idx].any():
+            continue
+        hidden = forward(out, mask & (arange[None, :] <= idx))
+        samples = []
+        for s, _, lg in logits_by_column(model, model.decoder.apply_lm_head(hidden[:, idx - 1])):
+            lg = lg.clone()
+            lg[:, :num_special_tokens] = NEG_INF
+            if s in forbid:
+                lg[:, forbid[s]] = NEG_INF
+            samples.append(_sample_stream(generator, lg, temperature, filter_fn, filter_kwargs, greedy))
+        samples = torch.stack(samples, dim=-1).to(out.dtype)
+        out[:, idx] = torch.where(unmask_mask[:, idx], samples, out[:, idx])
+    return out

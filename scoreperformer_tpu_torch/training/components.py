@@ -17,8 +17,9 @@ from typing import Any, Dict
 from ..configs import load_experiment_config
 from ..data import COLLATORS, DATASETS
 from ..data.collators import scoreperformer_model_inputs
+from ..data.performance import performer_model_inputs
 from ..device import resolve_device
-from ..models.factory import build_scoreperformer
+from ..models.factory import build_model
 from .callbacks import EpochReproducibilityCallback
 from .evaluator import EVALUATORS
 from .optimizers import OptimizerConfig
@@ -30,6 +31,11 @@ def inject_data_config(model_cfg: Dict[str, Any], dataset) -> Dict[str, Any]:
     model_cfg = copy.deepcopy(model_cfg)
     model_cfg["num_tokens"] = dataset.tokenizer.performance_sizes
     token_values = {key: value.tolist() for key, value in dataset.tokenizer.token_values(normalize=True).items()}
+    if "transformer" in model_cfg and "perf_decoder" not in model_cfg:
+        # the standalone Performer: one transformer config node
+        model_cfg["transformer"].setdefault("token_embeddings", {})
+        model_cfg["transformer"]["token_embeddings"]["token_values"] = token_values
+        return model_cfg
     model_cfg["num_score_tokens"] = dataset.tokenizer.score_sizes
     for key in ("score_encoder", "perf_encoder", "perf_decoder"):
         if model_cfg.get(key) is not None:
@@ -84,12 +90,10 @@ class ExperimentComponents:
 
     def build_model(self):
         name = self.config["model"].get("_name_", "ScorePerformer")
-        if name != "ScorePerformer":
-            raise NotImplementedError(f"model {name!r} is not ported yet")
         model_cfg = {k: v for k, v in self.config["model"].items() if not k.startswith("_")}
         model_cfg = inject_data_config(model_cfg, self.train_dataset or self.eval_dataset)
         seed = int((self.config.get("trainer") or {}).get("seed", 23))
-        self.model, _ = build_scoreperformer(model_cfg, device=self.device, seed=seed)
+        self.model, _ = build_model(name, model_cfg, device=self.device, seed=seed)
         # the post-injection recipe node, as checkpoints embed it
         self.model_config = {"_name_": name, **model_cfg}
         return self.model
@@ -113,10 +117,12 @@ class ExperimentComponents:
             tcfg.output_dir = os.path.join(*map(str, tcfg_data["output_dir"]))
         callbacks = list(callbacks or [])
         callbacks.append(EpochReproducibilityCallback(dataset=self.train_dataset, collator=self.collator))
+        performer = self.config["model"].get("_name_", "ScorePerformer") == "Performer"
         self.trainer = Trainer(
             model=self.model, config=tcfg, train_dataset=self.train_dataset, eval_dataset=self.eval_dataset,
             collator=self.collator, evaluator=self.evaluator, callbacks=callbacks,
-            model_config=self.model_config, input_fn=scoreperformer_model_inputs,
+            model_config=self.model_config,
+            input_fn=performer_model_inputs if performer else scoreperformer_model_inputs,
         )
         return self.trainer
 

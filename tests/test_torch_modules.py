@@ -582,6 +582,8 @@ def test_port_imports_no_jax():
     for streaming in ("inference/generator.py", "inference/messengers.py", "examples/interactive_streaming.py",
                       "examples/train_render_lifecycle.py"):
         assert f"scoreperformer_tpu_torch/{streaming}" in names
+    for performer in ("data/performance.py", "models/wrappers.py", "ops/sampling.py"):
+        assert f"scoreperformer_tpu_torch/{performer}" in names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

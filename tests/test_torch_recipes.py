@@ -5,7 +5,7 @@ the `prefix_attend` kernel, to which the chunked decode sends every step's
 prefix on the card; recipes/scoreperformer/scale_1024.yaml builds (on the
 meta device, so its parameters are not allocated); and the configs that
 chip_smoke.py writes out (the card's machine may have no PyYAML) are the
-recipes' own.
+recipes' own; recipes/performer.yaml and the untied-head ablation build.
 """
 import importlib.util
 from pathlib import Path
@@ -16,8 +16,9 @@ import torch
 
 from scoreperformer_tpu_torch.configs.yaml_loader import load_experiment_config
 from scoreperformer_tpu_torch.models.attention import Attention
-from scoreperformer_tpu_torch.models.factory import build_scoreperformer_config
-from scoreperformer_tpu_torch.models.scoreperformer import ScorePerformerModel
+from scoreperformer_tpu_torch.models.embeddings import TupleTokenLMHead, TupleTokenTiedLMHead
+from scoreperformer_tpu_torch.models.factory import build_model, build_scoreperformer_config
+from scoreperformer_tpu_torch.models.scoreperformer import PerformerModel, ScorePerformerModel
 from scoreperformer_tpu_torch.ops.prefix_attend import KERNEL_HEAD_DIMS, KERNEL_HEADS
 from scoreperformer_tpu_torch.tokenizers import SPMupleWindow, TokenizerConfig
 from scoreperformer_tpu_torch.training.components import inject_data_config
@@ -108,3 +109,35 @@ def test_chip_smoke_configs_are_the_recipes(tokenizer, chip_smoke):
         smoke[key]["max_seq_len"] = 386
     smoke["perf_encoder"]["max_segments"] = 388
     assert chip_smoke.smoke_config(tokenizer, 384) == smoke
+
+
+@pytest.mark.parametrize("name", ["performer.yaml", "scoreperformer/ablation/no_io_tie.yaml"])
+def test_performer_and_untied_head_recipes_build(name, tokenizer):
+    """recipes/performer.yaml (the standalone Performer: 4 decoder layers of
+    4 heads of 64, one KV head, the tied head) and the ablation with the
+    untied `lm` head build in the port, on the meta device."""
+    node = load_experiment_config(ROOT / "recipes", name)["model"]
+    model, cfg = build_model(node["_name_"], injected_model(name, tokenizer), device="meta", seed=None)
+    assert all(p.device.type == "meta" for p in model.parameters())
+    if node["_name_"] == "Performer":
+        assert isinstance(model, PerformerModel) and cfg.mode == "clm"
+        assert isinstance(model.decoder.lm_head, TupleTokenTiedLMHead)
+        decoder = [m for m in model.decoder.modules() if isinstance(m, Attention)]
+        assert len(decoder) == 4 and all((m.heads, m.dim_head, m.kv_heads, m.causal) == (4, 64, 1, True)
+                                         for m in decoder)
+    else:
+        assert isinstance(model, ScorePerformerModel)
+        head = model.decoder.lm_head
+        assert isinstance(head, TupleTokenLMHead) and list(head.heads) == list(tokenizer.performance_sizes)
+        assert all(head.heads[k].out_features == n for k, n in tokenizer.performance_sizes.items())
+
+
+def test_chip_smoke_performer_nodes_are_the_recipe(chip_smoke):
+    """chip_smoke.py's Performer phase trains recipes/performer.yaml's own
+    dataset, collator, model and evaluator nodes."""
+    recipe = load_experiment_config(ROOT / "recipes", "performer.yaml")
+    assert chip_smoke.PERFORMER_DATASET == recipe["data"]["dataset"]
+    assert chip_smoke.PERFORMER_COLLATOR == recipe["data"]["collator"]
+    assert chip_smoke.PERFORMER_MODEL == recipe["model"]
+    assert chip_smoke.PERFORMER_EVALUATOR == recipe["evaluator"]
+    assert recipe["trainer"]["batch_size"] == chip_smoke.TRAIN_BATCH

@@ -73,7 +73,18 @@ checkout. It
    top-p and top-a draws inside their filters' support; `mlm_unmask`
    single-run and iterative on an mlm Performer against the CPU's tokens;
    the kernels held to their plain versions at these paths' shapes;
-11. checks the output: notes with the score's pitches and finite times (a
+11. Mixture-of-Experts (`moe_phase`): recipes/scoreperformer/moe.yaml (an
+   MoE layer of 4 experts in every 2nd feed-forward of all three stacks)
+   trained as written on the paper phase's corpus (batch 128 x 258,
+   `loss/moe_aux` and `stats/moe_drop`, a profiled step, a batch-4 step
+   against the CPU's); from those weights the 32-bar render, 16 served
+   requests and 12 greedy streamed windows, each with the CPU's tokens and
+   the dense formula's launches; an 8-bar score decoded with the classic
+   layout and every `mixedlm_unmask` variant (static_prefix, unrolled,
+   capacity_stages, chunk_tokens), each with the classic tokens; the
+   tokenizer ops on the card against the CPU; `prefix_attend` at the
+   variants' caps against its plain version, timed;
+12. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
@@ -187,6 +198,18 @@ STREAM_WINDOW, STREAM_OVERFLOW, STREAM_WARMUP = 0.2, 0.1, 5
 STREAM_WINDOWS, STREAM_SCALE_WINDOWS = 60, 20
 STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX = 12, 1.2, 64
 STREAM_SCALE_GATE_WINDOWS = 4
+# the MoE phase: recipes/scoreperformer/moe.yaml's feed-forward over
+# base.yaml (every 2nd feed-forward of each stack 4 GLU-swish experts, top-2);
+# the mixedlm_unmask variants it decodes an 8-bar score with (the classic
+# layout, then each chunked variant, all greedy, each held to the classic
+# tokens; the render is the default chunked layout); the served requests
+# and streamed greedy windows it holds to the CPU
+MOE_FEED_FORWARD = dict(num_experts=4, expert_top_k=2, capacity_factor=1.25, moe_stride=2, router_aux_weight=0.01)
+MOE_VARIANTS = {"static_prefix": dict(static_prefix=True), "unrolled": dict(unrolled_chunks=True),
+                "unrolled_static_prefix": dict(unrolled_chunks=True, static_prefix=True),
+                "capacity_stages_4": dict(capacity_stages=4), "chunk_tokens": dict(chunk_tokens=True),
+                "chunk_tokens_capacity_stages_2": dict(chunk_tokens=True, capacity_stages=2)}
+MOE_VARIANT_BARS, MOE_REQUESTS = 8, 16
 
 
 def flagship_config(tokenizer, n_notes, use_flash=True):
@@ -277,6 +300,23 @@ def scale_1024_config(tokenizer):
     return base_recipe_config(tokenizer, dim=1024, emb_dims=256, depths=(4, 6, 8), heads=8,
                               latent_dim=(64, 40, 16, 8), enc_attn=levers, dec_attn=dec_attn, max_seq_len=1026,
                               max_segments=1028)
+
+
+def moe_config(tokenizer, n_notes=TRAIN_SEQ):
+    """recipes/scoreperformer/moe.yaml's model: base.yaml's (dim 256,
+    stacks 2/4/4 deep, 4 heads of 64 with one KV head, learned ALiBi,
+    dropout 0.1, GLU-swish) with moe.yaml's feed-forward in all three stacks
+    (base.yaml points both encoders' feed_forward at the decoder's), without
+    the direction classifiers; positions and segments for `n_notes` notes
+    (the recipe's 256 train; a served bucket of 384 needs more). No
+    parameter depends on them (no absolute positions), so weights trained at
+    one size load at the other."""
+    attn = {"dim_head": 64, "one_kv_head": True, "dropout": 0.1, "alibi_pos_bias": True, "alibi_learned": True}
+    cfg = base_recipe_config(tokenizer, dim=256, emb_dims=128, depths=(2, 4, 4), heads=4, latent_dim=(32, 20, 8, 4),
+                             enc_attn=attn, dec_attn=attn, max_seq_len=n_notes + 2, max_segments=n_notes + 4)
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        cfg[key]["transformer"]["feed_forward"].update(MOE_FEED_FORWARD)
+    return cfg
 
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -911,7 +951,8 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
     the parameters after the update. With `reference_plain_flash` the
     reference (the first of `devices`) runs the plain flash functions. A
     model without an MMD style encoder (the standalone Performer) takes no
-    MMD samples."""
+    MMD samples. An MoE model's loss is the trainer's: its layers' aux
+    added."""
     from scoreperformer_tpu_torch.convert import jax_param_paths
     from scoreperformer_tpu_torch.models.factory import build_model
     from scoreperformer_tpu_torch.ops import flash_attention as fa
@@ -945,7 +986,8 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
             if reference_plain_flash and not results:
                 stack.enter_context(plain_flash(fa))
             out = model(**batch, **({"mmd_sampler": sampler} if enc else {}))
-            out.loss.float().backward()
+            loss = out.loss.float() if out.moe_aux is None else out.loss.float() + out.moe_aux
+            loss.backward()
         if optimizer is not None:
             transposed = [n for n, (_, t) in jax_param_paths(model).items() if t]
             opt = Optimizer(model.named_parameters(), OptimizerConfig.from_dict(optimizer), 1, transposed)
@@ -954,7 +996,7 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
             values = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
         else:
             values = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}
-        results[len(results)] = (out.loss.item(), values)
+        results[len(results)] = (loss.item(), values)
     (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results[0], results[1]
     if set(cpu_grads) != set(gpu_grads):
         raise AssertionError("the card's step and the CPU's reach different parameters")
@@ -1420,13 +1462,13 @@ def tensor_core_counts(path, kernels):
     return counts
 
 
-def check_performance(tokenizer, score_ids, perf, what, all_performed=True):
+def check_performance(tokenizer, score_ids, perf, what, all_performed=True, max_left_out=MAX_LEFT_OUT):
     """A rendered performance has the score's pitches and finite, ordered
     note times. With `all_performed` every score note is played; without,
     the notes whose Velocity came out as the tokenizer's "not performed"
     token are left out, so the pitches need only be the score's, and at most
-    MAX_LEFT_OUT of the score's notes may be left out. Returns the number of
-    score notes left out."""
+    `max_left_out` of the score's notes may be left out. Returns the number
+    of score notes left out."""
     pitch_ids = np.asarray(score_ids)[:, tokenizer.types_idx["Pitch"]]
     src = collections.Counter((pitch_ids - tokenizer.zero_token + tokenizer.config.pitch_range[0]).tolist())
     notes = perf.all_notes()
@@ -1436,7 +1478,7 @@ def check_performance(tokenizer, score_ids, perf, what, all_performed=True):
     if not (np.isfinite(notes.start).all() and np.isfinite(notes.end).all() and (notes.end >= notes.start).all()):
         raise AssertionError(f"{what}: note times are not finite and ordered")
     left_out = sum(src.values()) - perf.num_notes
-    if left_out > MAX_LEFT_OUT * sum(src.values()):
+    if left_out > max_left_out * sum(src.values()):
         raise AssertionError(f"{what}: {left_out} of the score's {sum(src.values())} notes left out")
     return left_out
 
@@ -2341,7 +2383,7 @@ def performer_phase(torch, smi):
                           for base in range(GEN_T0 - 2, cap - CHUNK + 1, CHUNK)],
         "flash_attention_fwd": [check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded="performer",
                                             timed=True, lengths=lengths),
-                                check_flash(torch, fa, MLM_BATCH, MLM_SEQ, causal=False, padded="mlm", timed=False,
+                                check_flash(torch, fa, MLM_BATCH, MLM_SEQ, causal=False, padded="mlm", timed=True,
                                             lengths=mask.sum(1).tolist())],
     }
     dkv, dq, pair = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, causal=True, padded="performer",
@@ -2351,6 +2393,341 @@ def performer_phase(torch, smi):
     for name, recs in shapes.items():
         for r in recs:
             print(f"{name}, performer", json.dumps(r))
+    rec["kernels"] = shapes
+    lap("kernels")
+    return rec
+
+
+def moe_train_config(tokenizer, root, out_dir, batch_size, max_steps):
+    """recipes/scoreperformer/moe.yaml's experiment on the prepared corpus at
+    `root`: base.yaml's dataset with direction labels, its 4 direction
+    classifier heads, moe.yaml's model, the train phase's run settings."""
+    cfg = paper_config(tokenizer, root, out_dir, batch_size, max_steps)
+    cfg["model"] = {"_name_": "ScorePerformer", **moe_config(tokenizer),
+                    "classifiers": json.loads(json.dumps(PAPER_CLASSIFIERS))}
+    return cfg
+
+
+def moe_stacks(model):
+    """{stack: [layer indices of its MoE feed-forwards]} of a ScorePerformer."""
+    from scoreperformer_tpu_torch.models.moe import MoEFeedForward
+
+    stacks = {"score_encoder": model.score_encoder, "perf_encoder": model.perf_encoder,
+              "perf_decoder": model.decoder}
+    return {name: [i for i, (_, block) in enumerate(m.transformer.layers) if isinstance(block, MoEFeedForward)]
+            for name, m in stacks.items()}
+
+
+@contextlib.contextmanager
+def router_margins(torch, models):
+    """Forward hooks on the MoE layers of `models`: each call appends, per
+    model, the smallest margin over its tokens between the last routing
+    probability chosen and the first one left out (where a routing can flip
+    between two devices)."""
+    from scoreperformer_tpu_torch.models.moe import MoEFeedForward
+
+    margins, hooks = [[] for _ in models], []
+    for record, model in zip(margins, models):
+        for m in model.modules():
+            if isinstance(m, MoEFeedForward):
+                def hook(mod, args, out, record=record):
+                    probs = torch.softmax(args[0].float() @ mod.router.float(), dim=-1)
+                    top = probs.sort(dim=-1, descending=True).values
+                    record.append(float((top[..., mod.top_k - 1] - top[..., mod.top_k]).min()))
+                hooks.append(m.register_forward_hook(hook))
+    try:
+        yield margins
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def same_greedy(torch, what, models, run, outs=None):
+    """`run(0)` (the card) and `run(1)` (the CPU), or their results `outs`
+    when given, are the same greedy tokens (a tensor, or a list of arrays,
+    None for none); if not, both are run again with their `models`' MoE
+    layers hooked, and the smallest top-k router margins of each side's MoE
+    calls are printed before the gate fails."""
+    outs = outs or [run(0), run(1)]
+    flat = [np.concatenate([np.asarray(x).reshape(-1) for x in (o if isinstance(o, list) else [o]) if x is not None]
+                           or [np.zeros(0)]) for o in outs]
+    n = min(len(flat[0]), len(flat[1]))
+    if len(flat[0]) == len(flat[1]) and np.array_equal(flat[0], flat[1]):
+        return True
+    first = int(np.flatnonzero(flat[0][:n] != flat[1][:n])[0]) if (flat[0][:n] != flat[1][:n]).any() else n
+    with router_margins(torch, models) as margins:
+        run(0)
+        run(1)
+    print(f"{what}: card and CPU differ first at flat token {first}; smallest router margins of the card's "
+          f"MoE calls {sorted(margins[0])[:8]}, the CPU's {sorted(margins[1])[:8]}")
+    raise AssertionError(f"{what}: the card's greedy tokens differ from the CPU path's")
+
+
+def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data):
+    """recipes/scoreperformer/moe.yaml on the card (5 MoE layers: 1 in the
+    score encoder, 2 in the performance encoder, 2 in the decoder):
+    1. trained as written (base.yaml's widths, dropout and 4 direction
+       classifier heads, moe.yaml's feed-forward) on the paper phase's
+       prepared corpus at batch 128 x 258: 2 + 8 steps with `loss/moe_aux`
+       and `stats/moe_drop`, peak memory, one step profiled; a batch-4 step
+       (dropout off) within 1e-4 and 1e-3 of the CPU's, aux included;
+    2. from those weights (a port checkpoint): the 32-bar render, 16 served
+       requests and 12 greedy streamed windows (1.2 s over a 64-row cache),
+       each with the CPU path's greedy tokens and the dense formula's
+       `write_kv_pair` and `prefix_attend` launches; renditions with the
+       score's pitches and finite times (10-step weights may leave any share
+       of the notes "not performed": counted, not gated);
+    3. an 8-bar score decoded with the classic layout and every
+       `mixedlm_unmask` variant, each with the classic tokens and its own
+       launches (static_prefix's first chunk launches no `prefix_attend`);
+    4. the tokenizer ops on the served renditions, card against CPU;
+    5. `prefix_attend` against its plain version at the variants' caps (a
+       static prefix at cap = base, each stage of `capacity_stages` at its
+       first and last chunk, timed at one of each) and at the served batch's
+       b = 16, and `write_kv_pair` into the served batch's fresh buffers.
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import (
+        RenderServer, ScorePerformerGenerator, SPMuple2Messenger, load_model_from_checkpoint, prepare_render_inputs,
+        render_performance,
+    )
+    from scoreperformer_tpu_torch.models.factory import build_model
+    from scoreperformer_tpu_torch.models.wrappers import mixedlm_unmask
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.ops.tokenizer_ops import TokenizerOps
+    from scoreperformer_tpu_torch.training import ExperimentComponents, save_checkpoint
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    root, work = os.path.join(build, "chip_smoke_paper", "data"), os.path.join(build, "chip_smoke_moe")
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"card": smi, "phase_s": phase_s}
+    layers = DECODER_LAYERS
+
+    # ---- 1. train moe.yaml as written ----
+    comp = ExperimentComponents(moe_train_config(tokenizer, root, os.path.join(work, "run"), TRAIN_BATCH, 2),
+                                device="cuda").init_components()
+    trainer, model = comp.trainer, comp.model
+    trainer._prepare()
+    stacks = moe_stacks(model)
+    moe_shapes = sorted({(tuple(m.wi.shape), tuple(m.wo.shape)) for m in model.modules() if hasattr(m, "router")})
+    if [len(v) for v in stacks.values()] != [1, 2, 2]:
+        raise AssertionError(f"moe.yaml's model has MoE layers {stacks}, expected 1, 2 and 2")
+    lap("build")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                          TRAIN_WARMUP, TRAIN_TIMED, flash=0)
+    train = train_record(torch, step_ms, notes, launches)
+    train.update(parameters=sum(p.numel() for p in model.parameters()), moe_layers=stacks,
+                 moe_wi_wo_shapes=[list(map(list, x)) for x in moe_shapes],
+                 last_step={k: v for k, v in values.items() if k in ("loss", "loss/moe_aux", "stats/moe_drop")
+                            or k.startswith("clf")})
+    if not ("loss/moe_aux" in values and 0.0 <= values["stats/moe_drop"] <= 1.0):
+        raise AssertionError(f"the MoE train step logged {sorted(values)}")
+    lap("train_steps")
+    prof = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED), ported=PORTED_TRAIN)
+    train["profile"] = {k: v for k, v in prof.items() if k != "top"}
+    print("profile MoE train step", json.dumps(prof))
+    print(f"MoE train steps ({smi})", json.dumps(train))
+    rec["train"] = train
+    host_batch = {k: v.cpu().numpy() for k, v in batch.items()}  # the last step's batch
+    model_config = json.loads(json.dumps(comp.model_config))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del comp, trainer, model, batch
+    torch.cuda.empty_cache()
+    lap("profiled_step")
+
+    # a batch-4 step against the CPU's, dropout off (the two draw other masks)
+    gate_cfg = json.loads(json.dumps(model_config))
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        gate_cfg[key]["transformer"]["attention"]["dropout"] = gate_cfg[key]["transformer"]["feed_forward"]["dropout"] = 0.0
+    gate_cfg["perf_encoder"]["latent_dropout"] = [0.0] * len(gate_cfg["perf_encoder"]["latent_dropout"])
+    gate_cfg["classifiers"]["classifier"]["dropout"] = 0.0
+    gate = compare_train_step(torch, gate_cfg, host_batch)
+    rec["card_vs_cpu"] = {k: gate[k] for k in ("loss_err", "grad_err", "worst", "gradients")}
+    print("MoE train step at batch 4, card vs CPU (aux included):", json.dumps(rec["card_vs_cpu"]))
+    if not (gate["loss_err"] <= 1e-4 and gate["grad_err"] <= 1e-3):
+        raise AssertionError(f"the MoE step on the card differs from the CPU's: {gate}")
+    lap("card_vs_cpu")
+
+    # ---- 2. the trained weights as a port checkpoint: render, serve, stream ----
+    serve_cfg = json.loads(json.dumps(model_config))
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        serve_cfg[key]["max_seq_len"] = SERVE_BUCKET + 2
+    serve_cfg["perf_encoder"]["max_segments"] = SERVE_BUCKET + 4
+    cpu_model, _ = build_model("ScorePerformer", {k: v for k, v in serve_cfg.items() if not k.startswith("_")},
+                               device="cpu", seed=SEED)
+    cpu_model.load_state_dict(state)
+    ckpt = save_checkpoint(os.path.join(work, "checkpoint"), cpu_model, model_config=serve_cfg)
+    tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
+    card_model = load_model_from_checkpoint(ckpt, device="cuda")[0]
+    models = (card_model, cpu_model.eval())
+
+    T = len(inputs["deadpan_ids"])
+    n_steps = -(-(T - 1) // CHUNK) * CHUNK
+
+    def rendered(i):  # the rendition's notes: equal notes are equal tokens
+        notes = render_performance(models[i], tokenizer, score, seed=SEED, device=("cuda", "cpu")[i],
+                                   greedy=True).all_notes()
+        return [notes.pitch, notes.velocity, notes.start, notes.end]
+
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perf = render_performance(card_model, tokenizer, score, seed=SEED, device="cuda", greedy=True)
+    torch.cuda.synchronize()
+    rec["render"] = {"bars": N_BARS, "notes": perf.num_notes, "wall_s": time.perf_counter() - t0,
+                     "launches": all_counts(fa, kv, pa),
+                     "notes_not_performed": check_performance(tokenizer, inputs["score_ids"], perf, "MoE render",
+                                                              all_performed=False, max_left_out=1.0)}
+    check_launches("the MoE render", rec["render"]["launches"], decode_launches(n_steps, layers, 0))
+    notes = perf.all_notes()
+    rec["render"]["identical_to_cpu"] = same_greedy(
+        torch, "the MoE render", models, rendered,
+        outs=[[notes.pitch, notes.velocity, notes.start, notes.end], rendered(1)])
+    print(f"MoE render ({smi})", json.dumps(rec["render"]))
+    lap("render")
+
+    # ---- 3. every mixedlm_unmask variant on an 8-bar score ----
+    xv = prepare_render_inputs(tokenizer, synthetic_score(np.random.RandomState(SEED + 3), n_bars=MOE_VARIANT_BARS))
+    Tv = len(xv["deadpan_ids"])
+    nv = -(-(Tv - 1) // CHUNK) * CHUNK
+    with torch.inference_mode():
+        x = {k: torch.as_tensor(np.asarray(xv[k])[None], dtype=torch.int64, device="cuda")
+             for k in ("deadpan_ids", "score_ids", "bars", "beats", "onsets", "tokens_in", "masked_all")}
+        mask = torch.ones_like(x["bars"], dtype=torch.bool)
+        score_emb, style_emb, _ = card_model.encode_embeddings(x["deadpan_ids"], mask, x["score_ids"], mask,
+                                                               x["bars"], x["beats"], x["onsets"])
+    variants = {}
+    for name, kw in [("classic", {"chunk_size": None})] + list(MOE_VARIANTS.items()):
+        reset_counts(fa, kv, pa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = mixedlm_unmask(card_model, x["tokens_in"], x["masked_all"], style_embeddings=style_emb,
+                                context=score_emb, greedy=True, **kw).cpu()
+        wall = time.perf_counter() - t0
+        got = all_counts(fa, kv, pa)
+        if name == "classic":
+            classic, expected = tokens, {**{k: 0 for k in got}, "write_kv_pair": layers * (Tv - 1)}
+        else:
+            expected = {**{k: 0 for k in got}, "write_kv_pair": layers * nv,
+                        "prefix_attend": layers * (nv - (CHUNK if kw.get("static_prefix") else 0))}
+        check_launches(f"mixedlm_unmask ({name})", got, expected)
+        variants[name] = {"wall_s": wall, "launches": got, "identical_to_classic": torch.equal(tokens, classic)}
+        if not variants[name]["identical_to_classic"]:
+            raise AssertionError(f"mixedlm_unmask ({name}) on the card differs from the classic layout's tokens")
+    rec["variants"] = {"bars": MOE_VARIANT_BARS, "notes": Tv, "steps": nv, "runs": variants}
+    print("MoE mixedlm_unmask variants", json.dumps(rec["variants"]))
+    lap("variants")
+
+    requests = [dict(score_midi=sc, greedy=True) for sc in serve_scores[:MOE_REQUESTS]]
+    bucket = -(-max(len(s["deadpan_ids"]) for s in serve_inputs[:MOE_REQUESTS]) // 128) * 128
+    server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cuda")
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = server.render_batch(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_counts(fa, kv, pa)
+    check_launches("the MoE served batch", launches, decode_launches(-(-(bucket - 1) // CHUNK) * CHUNK, layers, 0))
+    left_out = sum(check_performance(tokenizer, serve_inputs[i]["score_ids"], r["perf"], f"MoE served request {i}",
+                                     all_performed=False, max_left_out=1.0) for i, r in enumerate(out))
+    servers = (server, RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu"))
+    served = lambda i: [r["tokens"] for r in servers[i].render_batch(requests)]  # noqa: E731
+    same = same_greedy(torch, "the MoE served batch", [srv.model for srv in servers], served,
+                       outs=[[r["tokens"] for r in out], served(1)])
+    rec["served"] = {"requests": len(requests), "bucket": bucket, "wall_s": wall, "notes": sum(r["notes"] for r in out),
+                     "notes_not_performed": left_out, "launches": launches, "identical_to_cpu": same}
+    print(f"MoE served batch ({smi})", json.dumps(rec["served"]))
+    del server, servers
+    lap("served")
+
+    dataset, collator = stream_data
+    gens = [ScorePerformerGenerator(m, dataset, collator, SPMuple2Messenger(dataset.tokenizer)) for m in models]
+
+    def streamed(i):
+        gens[i].reset()
+        gens[i].prepare_performance_notes(0, overlay_bars=0.0)
+        return stream(gens[i], STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX, greedy=True)
+
+    reset_counts(fa, kv, pa)
+    runs = [streamed(0)]
+    launches, stats = all_counts(fa, kv, pa), dict(gens[0]._decoder.stats)
+    runs.append(streamed(1))
+    check_stream_vocab(gens[0], runs[0], "MoE greedy streaming")
+    expected = {**{k: 0 for k in launches}, "write_kv_pair": layers * (stats["consume_calls"] + stats["block_steps"])}
+    check_launches("the MoE streaming run", launches, expected)
+    rec["streaming"] = {
+        "windows": len(runs[0]), "window_s": STREAM_GATE_WINDOW, "max_context_len": STREAM_GATE_CTX,
+        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in runs[0]),
+        "window_ms": [round(w["wall_s"] * 1e3, 3) for w in runs[0]],
+        "window_starts": sorted({w["window_start"] for w in runs[0]}), "decoder_stats": stats, "launches": launches,
+        "identical_to_cpu": same_stream_tokens(*runs)}
+    print(f"MoE greedy streaming ({smi})", json.dumps(rec["streaming"]))
+    if not rec["streaming"]["identical_to_cpu"]:
+        same_greedy(torch, "the MoE streamed windows", models, streamed,
+                    outs=[[w["tokens"] for w in run] for run in runs])
+        raise AssertionError("the MoE streamed windows on the card differ from the CPU path's")
+    if max(rec["streaming"]["window_starts"]) == 0:
+        raise AssertionError("the MoE streaming gate's windows never shifted the context window")
+    del gens
+    lap("streaming")
+
+    # ---- 4. the tokenizer ops on the served renditions, card against CPU ----
+    ops = TokenizerOps(tokenizer)
+    worst = {"ticks": 0.0, "times": 0.0}
+    for r, x_in in zip(out, serve_inputs):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tok = torch.as_tensor(r["tokens"], device=dev)
+            res[dev] = [t.cpu() for t in (ops.note_on_ticks(tok, tokenizer.max_beat_res),
+                                          *ops.spmuple2_decode_times(tok, tokenizer.max_beat_res),
+                                          ops.score_tokens_as_performance(torch.as_tensor(x_in["score_ids"], device=dev)))]
+        (ticks, t0_, t1_, perf_mask, deadpan), (cticks, ct0, ct1, cmask, cdeadpan) = res["cuda"], res["cpu"]
+        worst["ticks"] = max(worst["ticks"], float((ticks - cticks).abs().max() / cticks.abs().max().clamp_min(1.0)))
+        worst["times"] = max(worst["times"], max(float((a - b).abs().max() / b.abs().max().clamp_min(1.0))
+                                                 for a, b in ((t0_, ct0), (t1_, ct1))))
+        if not (torch.equal(perf_mask, cmask) and torch.equal(deadpan, cdeadpan)
+                and np.array_equal(deadpan.numpy(), np.asarray(x_in["deadpan_ids"]))):
+            raise AssertionError("the tokenizer ops' masks or deadpan tokens differ between the card and the CPU")
+    stacked = torch.as_tensor(np.stack([out[0]["tokens"]] * 4))
+    batched = [ops.spmuple2_decode_times_batch(stacked.to(dev), tokenizer.max_beat_res) for dev in ("cuda", "cpu")]
+    worst["batched_times"] = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1.0))
+                                 for a, b in zip(batched[0][:2], batched[1][:2]))
+    rec["tokenizer_ops"] = {"performances": len(out), "max_rel_err": worst}
+    print("MoE tokenizer ops, card vs CPU:", json.dumps(rec["tokenizer_ops"]))
+    if not max(worst.values()) <= 1e-5:
+        raise AssertionError(f"the tokenizer ops on the card differ from the CPU's by {worst}")
+    del card_model, cpu_model, models
+    torch.cuda.empty_cache()
+    lap("tokenizer_ops")
+
+    # ---- 5. the kernels at this phase's shapes ----
+    n_chunks = nv // CHUNK
+    bounds = sorted({(g * n_chunks) // 4 for g in range(5)})
+    stage_cases = [(c1 * CHUNK, c * CHUNK) for c0, c1 in zip(bounds[:-1], bounds[1:]) for c in sorted({c0, c1 - 1})]
+    shapes = {
+        "prefix_attend": [dict(check_prefix_attend(torch, pa, 1, base, base, timed=base == nv // 2),
+                               path="static_prefix") for base in range(CHUNK, nv, CHUNK)]
+        + [dict(check_prefix_attend(torch, pa, 1, cap, base, timed=(cap, base) == stage_cases[-2]),
+                path="capacity_stages_4") for cap, base in stage_cases]
+        + [dict(check_prefix_attend(torch, pa, MOE_REQUESTS, SERVE_BUCKET, base, timed=False), path="moe_served")
+           for base in (0, CHUNK, SERVE_BUCKET // 2, SERVE_BUCKET - CHUNK)],
+        "write_kv_pair": [dict(check_write_kv(torch, kv, CHUNK, 1, MOE_REQUESTS, 64, idx, torch.float32, idx == 5,
+                                              pair=True), path="moe_served") for idx in (0, 5, CHUNK - 1)],
+    }
+    for name, recs in shapes.items():
+        for r in recs:
+            print(f"{name}, MoE", json.dumps(r))
     rec["kernels"] = shapes
     lap("kernels")
     return rec
@@ -2747,6 +3124,12 @@ def main() -> int:
     print(f"performer phase: {time.perf_counter() - t0:.1f} s")
     print("performer", json.dumps({k: v for k, v in performer.items() if k != "kernels"}))
 
+    # ---- Mixture-of-Experts: moe.yaml trained, rendered, served, streamed; the decode variants ----
+    t0 = time.perf_counter()
+    moe = moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data)
+    print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
+    print("moe", json.dumps({k: v for k, v in moe.items() if k != "kernels"}))
+
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
              "bf16_compute_train_steps": options["bf16_compute"]["launches"],
@@ -2761,7 +3144,10 @@ def main() -> int:
              "performer_ar_generate_chunked": performer["ar_generate"]["chunked"]["launches"],
              "performer_ar_generate_ring": performer["ar_generate"]["ring"]["launches"],
              "performer_mlm_unmask_single_run": performer["mlm_unmask"]["single_run"]["launches"],
-             "performer_mlm_unmask_iterative": performer["mlm_unmask"]["iterative"]["launches"]}
+             "performer_mlm_unmask_iterative": performer["mlm_unmask"]["iterative"]["launches"],
+             "moe_train_steps": moe["train"]["launches"], "moe_render": moe["render"]["launches"],
+             "moe_served": moe["served"]["launches"], "moe_streaming": moe["streaming"]["launches"],
+             **{f"moe_unmask_{name}": run["launches"] for name, run in moe["variants"]["runs"].items()}}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
@@ -2819,6 +3205,9 @@ def main() -> int:
         if rec["name"] in performer["kernels"]:  # the Performer paths' shapes, timed
             rec["performer_shapes"] = [{k: r[k] for k in shape_keys if k in r}
                                        for r in performer["kernels"][rec["name"]] if "ms" in r]
+        if rec["name"] in moe["kernels"]:  # the MoE phase's shapes and the variants' caps, timed
+            rec["moe_shapes"] = [{k: r[k] for k in shape_keys + ("path",) if k in r}
+                                 for r in moe["kernels"][rec["name"]] if "ms" in r]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

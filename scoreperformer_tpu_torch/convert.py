@@ -4,7 +4,9 @@ The port's modules carry the reference PyTorch parameter names. A JAX
 parameter tree (nested dicts of numpy arrays) becomes a state dict by the
 name mapping of scoreperformer_tpu/training/torch_convert.py, of which this
 module keeps its own copy (`_torch_name_for` and helpers, copied verbatim,
-plus the regression head's names, which the JAX converter lacks); Dense
+plus the regression head's and the MoE layers' names, which the JAX
+converter lacks: an MoE layer's `router`, `wi`, `wo`, `bi`, `bo` keep flax's
+names and layouts under the layer's block, `transformer.layers.<i>.1.wi`); Dense
 kernels are transposed to torch's (out, in). A reference `.pt` state
 dict already has these names and loads through the same `load_state_dict`.
 """
@@ -18,6 +20,8 @@ import torch
 from torch import nn
 
 # ---- name mapping, copied from scoreperformer_tpu/training/torch_convert.py ----
+
+MOE_PARAMS = ("router", "wi", "wo", "bi", "bo")  # models/moe.py's, in flax's layouts
 
 
 def _torch_name_for(path: List[str]) -> Optional[Tuple[str, str]]:
@@ -150,6 +154,8 @@ def _tuple_transformer_leaf(prefix: str, parts: List[str]) -> Optional[Tuple[str
                 )
             if kind == "ff":
                 inner = parts[2]
+                if inner in MOE_PARAMS:  # the port's own: the JAX converter names no MoE layer
+                    return (f"{prefix}transformer.layers.{idx}.1.{inner}", "id")
                 if inner == "proj_in":
                     # GLU: ff.0.proj; plain: ff.0.0
                     return (
@@ -301,6 +307,8 @@ def _jax_path(model, parts, leaf, jleaf) -> Tuple[str, ...]:
             return prefix + ("transformer", f"layer_{i}_norm") + (("to_gamma_beta",) if rest[5] == "linear" else ()) + (jleaf,)
         kind = {"a": "attn", "c": "cross", "f": "ff"}[stack.layer_types[i]]
         inner = rest[4]
+        if kind == "ff" and inner in MOE_PARAMS:
+            return prefix + ("transformer", f"layer_{i}_ff", inner)
         if kind == "ff":
             return prefix + ("transformer", f"layer_{i}_ff", "proj_in" if rest[5] == "0" else
                              "post_act_norm" if rest[5] == "1" else "proj_out", jleaf)

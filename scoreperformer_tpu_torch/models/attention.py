@@ -174,10 +174,6 @@ class Attention(nn.Module):
         key_pos = torch.cat([torch.arange(cap, device=dev), base + torch.arange(chunk, device=dev)])
 
         bias = self._decode_bias(mask, attn_mask, pos_q, key_pos, cap, base)
-        o_p, lse_p = prefix_attend(
-            (q * scale).contiguous(), cache["k"], cache["v"], bias[:, :cap].contiguous(),
-            cache.get("k_s"), cache.get("v_s"), n_valid=base,
-        )
 
         # the fresh half: the chunk's C slots
         dots = (q[:, :, None] @ self._split_kv(fk).to(q.dtype).transpose(-1, -2))[:, :, 0] * scale
@@ -186,8 +182,14 @@ class Attention(nn.Module):
         p_f = torch.exp(dots - m_f)
         l_f = p_f.sum(dim=-1, keepdim=True)
         o_f = ((p_f / l_f)[:, :, None] @ self._split_kv(fv).to(q.dtype))[:, :, 0]
+        if cap == 0:  # a static prefix's first chunk: no prefix, the fresh chunk's softmax alone
+            return self.to_out(o_f.reshape(b, n, h * d))
         lse_f = (m_f + torch.log(l_f))[..., 0]
 
+        o_p, lse_p = prefix_attend(
+            (q * scale).contiguous(), cache["k"], cache["v"], bias[:, :cap].contiguous(),
+            cache.get("k_s"), cache.get("v_s"), n_valid=base,
+        )
         out, _ = combine_lse(o_p, lse_p, o_f, lse_f)
         return self.to_out(out.reshape(b, n, h * d))
 

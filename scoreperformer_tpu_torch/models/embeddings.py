@@ -319,3 +319,28 @@ class TupleTokenRegressionHead(nn.Module):
 
     def forward(self, x: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
         return {key: head(x) for key, head in self.heads.items() if keys is None or key in keys}
+
+
+class TupleTokenEmbeddingHead(nn.Module):
+    """An MLP over (partly) detached hidden states (JAX
+    `TupleTokenEmbeddingHead`): `depth` Linear layers, `layers.<i>` (flax's
+    `layer_<i>`), hidden ones `hidden_dim` wide (default `emb_dim`) with
+    Mish between them, the last `emb_dim` wide. The input is
+    `d * x.detach() + (1 - d) * x` for `detach_inputs` d, so at 1 no
+    gradient reaches it."""
+
+    def __init__(self, in_dim: int, emb_dim: int, hidden_dim: Optional[int] = None, depth: int = 2,
+                 detach_inputs: float = 1.0):
+        super().__init__()
+        self.detach_inputs = detach_inputs
+        hidden = hidden_dim or emb_dim
+        dims = [in_dim] + [hidden] * (depth - 1) + [emb_dim]
+        self.layers = nn.ModuleList([Linear(a, b) for a, b in zip(dims[:-1], dims[1:])])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.detach_inputs * x.detach() + (1 - self.detach_inputs) * x
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.mish(x)
+        return x

@@ -122,6 +122,14 @@ class AbsolutePositionalEmbedding(nn.Module):
         return self.emb(pos) * (self.dim**-0.5)
 
 
+def fixed_positional_embedding(dim: int, pos: torch.Tensor) -> torch.Tensor:
+    """Sinusoidal embedding (..., dim) of positions `pos`: [sin | cos] of
+    pos / 10000^(2i/dim), in fp32 (embeddings.py:248-265)."""
+    inv_freq = 1.0 / (10000 ** (torch.arange(0, dim, 2, device=pos.device) / dim))
+    sinusoid = pos[..., None] * inv_freq
+    return torch.cat([torch.sin(sinusoid), torch.cos(sinusoid)], dim=-1)
+
+
 def alibi_slopes(heads: int) -> torch.Tensor:
     """ALiBi head slopes, including head counts that are not a power of 2."""
 

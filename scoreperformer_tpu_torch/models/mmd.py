@@ -238,10 +238,11 @@ class MMDTupleTransformer(TupleTransformerModule):
     def forward(self, x, mask=None, x_extra=None, bars=None, beats=None, onsets=None,
                 deadpan_mask=None, compute_loss: bool = False,
                 latent_generator: Optional[torch.Generator] = None,
-                sampler: Optional[MMDSampler] = None) -> MMDTupleTransformerOutput:
+                sampler: Optional[MMDSampler] = None, moe_stats: Optional[list] = None) -> MMDTupleTransformerOutput:
         """With `compute_loss`, `sampler` gives each level's MMD samples (by
         default drawn from torch's global generator); latent dropout in
-        `module.train()` mode draws from `latent_generator`."""
+        `module.train()` mode draws from `latent_generator`; MoE layers append
+        their (aux loss, drop rate) to `moe_stats`."""
         cfg = self.config
         if cfg.deadpan_zero_latent and compute_loss and deadpan_mask is None:
             raise ValueError("deadpan_zero_latent needs deadpan_mask")
@@ -255,7 +256,8 @@ class MMDTupleTransformer(TupleTransformerModule):
             attn_mask = (bars[:, :, None] == bars[:, None, :]) & valid[:, :, None] & valid[:, None, :]
             attn_mask = attn_mask[:, None]
 
-        hidden_state = super().forward(x_input, mask=mask, x_extra=x_extra, attn_mask=attn_mask)
+        hidden_state = super().forward(x_input, mask=mask, x_extra=x_extra, attn_mask=attn_mask,
+                                       moe_stats=moe_stats)
         out = hidden_state
         if mask is None:
             mask3 = torch.ones_like(out[..., :1], dtype=torch.bool)

@@ -34,6 +34,7 @@ from .mmd import (
     MMDTupleTransformerOutput,
     mmd_sampler as mmd_sampler_for,
 )
+from .moe import moe_summary
 from .tuple_transformer import EmbeddingModes, TupleTransformerConfig, TupleTransformerModule
 
 IGNORE_INDEX = -100
@@ -109,6 +110,10 @@ class ScorePerformerOutput:
     perf_encoder: Optional[MMDTupleTransformerOutput] = None
     classifiers: Optional[MultiHeadEmbeddingClassifierOutput] = None
     reg_values: Optional[Dict[str, torch.Tensor]] = None
+    # MoE models: the aux losses of this forward's MoE layers summed (not in
+    # `loss`: the trainer adds it) and their drop rates' mean (logged only)
+    moe_aux: Optional[torch.Tensor] = None
+    moe_drop: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -182,14 +187,15 @@ class ScorePerformerModel(nn.Module):
     def forward_encoders(self, perf=None, perf_mask=None, score=None, score_mask=None,
                          bars=None, beats=None, onsets=None, deadpan_mask=None,
                          compute_loss: bool = False, latent_generator=None,
-                         mmd_sampler: Optional[MMDSampler] = None):
+                         mmd_sampler: Optional[MMDSampler] = None, moe_stats: Optional[list] = None):
         score_emb = perf_emb = perf_enc_out = None
         if self.score_encoder is not None:
-            score_emb = self.score_encoder(score, mask=score_mask)
+            score_emb = self.score_encoder(score, mask=score_mask, moe_stats=moe_stats)
         if self.perf_encoder is not None:
             perf_enc_out = self.perf_encoder(
                 perf, mask=perf_mask, bars=bars, beats=beats, onsets=onsets, deadpan_mask=deadpan_mask,
                 compute_loss=compute_loss, latent_generator=latent_generator, sampler=mmd_sampler,
+                moe_stats=moe_stats,
             )
             perf_emb = perf_enc_out.embeddings
         return score_emb, perf_emb, perf_enc_out
@@ -205,9 +211,12 @@ class ScorePerformerModel(nn.Module):
         names of `data.collators.scoreperformer_model_inputs`. In `module.train()`
         mode dropout draws from generators["dropout"] and latent dropout from
         generators["latent_dropout"]; the MMD samples come from `mmd_sampler`
-        or generators["mmd"]."""
+        or generators["mmd"]. An MoE model reports its layers' aux loss and
+        drop rate in `moe_aux` and `moe_drop`, outside `loss`, as the JAX
+        model sows them."""
         cfg = self.config
         generators = generators or {}
+        moe_stats = []
         if compute_loss and mmd_sampler is None and self.perf_encoder is not None:
             enc = self.perf_encoder.config
             mmd_sampler = mmd_sampler_for(generators.get("mmd"), enc.mmd_num_samples, enc.mmd_max_num_latents,
@@ -219,7 +228,7 @@ class ScorePerformerModel(nn.Module):
                 perf_mask=noisy_perf_mask if noisy_perf_mask is not None else perf_mask,
                 score=score, score_mask=score_mask, bars=bars, beats=beats, onsets=onsets,
                 deadpan_mask=deadpan_mask, compute_loss=compute_loss,
-                latent_generator=generators.get("latent_dropout"), mmd_sampler=mmd_sampler,
+                latent_generator=generators.get("latent_dropout"), mmd_sampler=mmd_sampler, moe_stats=moe_stats,
             )
             seq, shifted_labels, shifted_masked, context, style, dec_mask = shift_for_lm(
                 cfg.mode, perf, labels, masked_perf, score_emb, perf_emb, perf_mask, context_is_cat,
@@ -228,7 +237,7 @@ class ScorePerformerModel(nn.Module):
                 seq, mask=dec_mask,
                 x_extra=[shifted_masked] if shifted_masked is not None else None,
                 style_embeddings=style, context=context,
-                context_mask=None if context_is_cat else score_mask,
+                context_mask=None if context_is_cat else score_mask, moe_stats=moe_stats,
             )
             clf_out = None
             if self.classifiers is not None and directions is not None:
@@ -259,7 +268,7 @@ class ScorePerformerModel(nn.Module):
             loss = clf_out.loss if loss is None else loss + clf_out.loss
             losses.update(clf_out.losses)
         return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out,
-                                    classifiers=clf_out, reg_values=reg_values)
+                                    classifiers=clf_out, reg_values=reg_values, **moe_summary(moe_stats))
 
     def encode_embeddings(self, perf, perf_mask=None, score=None, score_mask=None,
                           bars=None, beats=None, onsets=None):
@@ -329,17 +338,20 @@ class PerformerModel(nn.Module):
         """The training forward: the mode's shift, the transformer, the
         per-stream cross-entropy. Inputs carry the names of
         `data.performer_model_inputs`; in `module.train()` mode dropout
-        draws from generators["dropout"]."""
+        draws from generators["dropout"]. MoE layers report as in
+        `ScorePerformerModel.forward`."""
         seq, labels, masked, _, _, mask = shift_for_lm(self.config.mode, perf, labels, masked_perf, None, None,
                                                        mask, False)
+        moe_stats = []
         with dropout_generator((generators or {}).get("dropout")):
-            hidden = self.decoder(seq, mask=mask, x_extra=[masked] if masked is not None else None)
+            hidden = self.decoder(seq, mask=mask, x_extra=[masked] if masked is not None else None,
+                                  moe_stats=moe_stats)
         logits = self.decoder.apply_lm_head(hidden)
         loss, losses = None, {}
         if compute_loss and labels is not None:
             loss, stream_losses = lm_losses(logits, labels)
             losses = {f"loss/{k}": v for k, v in stream_losses.items()}
-        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses)
+        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, **moe_summary(moe_stats))
 
     def decode_step(self, seq_tokens, masked_tokens=None, style_embeddings=None, context=None,
                     caches=None, cache_index=None, mask=None):

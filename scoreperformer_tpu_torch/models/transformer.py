@@ -2,7 +2,11 @@
 layer pattern, AdaLayerNorm style conditioning and static KV caches.
 
 Counterpart of scoreperformer_tpu/models/transformer.py. Layer `i` lives at
-`layers.{i}` as [[norm], block], the reference's layout.
+`layers.{i}` as [[norm], block], the reference's layout. With
+`feed_forward.num_experts > 1`, every `moe_stride`-th feed-forward of a stack
+(counted by feed-forward ordinal, per stack) is a `moe.MoEFeedForward`; the
+stack hands each MoE layer's (aux loss, drop rate) to the caller's
+`moe_stats` list.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from torch import nn
 from ..configs import ModuleConfig
 from .attention import Attention, init_kv_cache
 from .layers import AdaptiveLayerNorm, FeedForward, LayerNorm
+from .moe import MoEFeedForward
 
 
 @dataclass
@@ -80,9 +85,7 @@ class TransformerStack(nn.Module):
     def __init__(self, config: TransformerConfig):
         super().__init__()
         cfg = self.config = config
-        att = cfg.attention
-        if cfg.feed_forward.num_experts > 1:
-            raise NotImplementedError("MoE feed-forward layers are not ported yet")
+        att, ff = cfg.attention, cfg.feed_forward
         if cfg.use_adanorm and cfg.style_emb_dim is None:
             raise ValueError("style_emb_dim required for adanorm")
         self.layer_types = cfg.layer_types()
@@ -93,6 +96,8 @@ class TransformerStack(nn.Module):
             return LayerNorm(cfg.dim, eps=1e-5)
 
         layers = []
+        ff_ord = 0
+        stride = max(1, int(ff.moe_stride))
         for layer_type in self.layer_types:
             if layer_type in ("a", "c"):
                 block = Attention(
@@ -110,12 +115,21 @@ class TransformerStack(nn.Module):
                     use_flash=att.use_flash if layer_type == "a" else False,
                     softmax_bf16=att.softmax_bf16,
                 )
+            elif ff.num_experts > 1 and ff_ord % stride == stride - 1:
+                if ff.post_act_ln:
+                    raise ValueError("post_act_ln is not supported by MoE feed-forward layers "
+                                     "(num_experts > 1); disable one of them")
+                block = MoEFeedForward(
+                    dim=cfg.dim, num_experts=ff.num_experts, mult=ff.mult, top_k=ff.expert_top_k,
+                    capacity_factor=ff.capacity_factor, glu=ff.glu, swish=ff.swish, dropout=ff.dropout,
+                    no_bias=ff.no_bias, router_aux_weight=ff.router_aux_weight, router_z_weight=ff.router_z_weight,
+                )
             else:
-                ff = cfg.feed_forward
                 block = FeedForward(
                     dim=cfg.dim, mult=ff.mult, glu=ff.glu, swish=ff.swish,
                     post_act_ln=ff.post_act_ln, dropout=ff.dropout, no_bias=ff.no_bias,
                 )
+            ff_ord += layer_type == "f"
             layers.append(nn.ModuleList([nn.ModuleList([make_norm()]), block]))
         self.layers = nn.ModuleList(layers)
         self.final_norm = make_norm() if (cfg.pre_norm and cfg.final_norm) else None
@@ -144,8 +158,13 @@ class TransformerStack(nn.Module):
         style_embeddings: Optional[torch.Tensor] = None,
         caches: Optional[List[Any]] = None,
         cache_index: Optional[torch.Tensor] = None,
+        moe_stats: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
     ) -> torch.Tensor:
-        """With `caches`, each self-attention layer updates its cache in place."""
+        """With `caches`, each self-attention layer updates its cache in place.
+        With `moe_stats` (a list), each MoE layer appends its (aux loss, drop
+        rate) to it. MoE routing takes `mask` as its padding mask only
+        without caches and when it covers x's tokens (with a cache, `mask`
+        covers the cache's keys): otherwise every token routes."""
         cfg = self.config
         if cfg.cross_attend != (context is not None):
             raise ValueError("context must be passed iff cross_attend is set")
@@ -164,6 +183,13 @@ class TransformerStack(nn.Module):
                 )
             elif layer_type == "c":
                 out = block(x, context=context, mask=attn_in_mask, context_mask=context_mask)
+            elif isinstance(block, MoEFeedForward):
+                ff_mask = mask if not has_cache and mask is not None and mask.shape[:2] == x.shape[:2] else None
+                if moe_stats is None:
+                    out = block(x, mask=ff_mask)
+                else:
+                    out, aux, drop = block(x, mask=ff_mask, with_stats=True)
+                    moe_stats.append((aux, drop))
             else:
                 out = block(x)
             x = out + residual

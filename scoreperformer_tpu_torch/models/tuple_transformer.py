@@ -130,8 +130,10 @@ class TupleTransformerModule(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         caches: Optional[List[Any]] = None,
         cache_index: Optional[torch.Tensor] = None,
+        moe_stats: Optional[list] = None,
     ) -> torch.Tensor:
-        """The hidden states; `apply_lm_head` turns them into logits."""
+        """The hidden states; `apply_lm_head` turns them into logits. MoE
+        layers append their (aux loss, drop rate) to `moe_stats`, a list."""
         cfg = self.config
         if x_extra is not None and not isinstance(x_extra, (list, tuple)):
             x_extra = [x_extra]
@@ -159,7 +161,7 @@ class TupleTransformerModule(nn.Module):
 
         return self.transformer(
             h, mask=mask, context=context, context_mask=context_mask, attn_mask=attn_mask,
-            style_embeddings=style_embeddings, caches=caches, cache_index=cache_index,
+            style_embeddings=style_embeddings, caches=caches, cache_index=cache_index, moe_stats=moe_stats,
         )
 
     def apply_lm_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:

@@ -19,6 +19,23 @@ Two layouts give the same tokens, as in the JAX package:
 The caches may be fp32, bf16 or int8 (`cache_dtype`). An int8 prefix holds
 rows quantized once per chunk at the merge (`attention.quantize_kv_rows`),
 with fp32 fresh buffers; it needs the chunked layout.
+
+The chunked layout's variants of the JAX package (wrappers.py:422-590) give
+the same tokens and keep its cache shapes, so each step attends over the
+prefix capacity the JAX variant gives it:
+- `static_prefix`: chunk c attends over the prefix sliced to its `c * C`
+  written rows (`prefix_attend` at cap = base; the first chunk has no prefix
+  and takes the fresh chunk's softmax alone);
+- `capacity_stages=G`: G stages whose caches hold the rows of their chunks
+  (`c1 * C`), each stage's caches copied into the next, larger ones at the
+  boundary, int8 row scales included;
+- `chunk_tokens`: each chunk carries a (C+1, b, S) row buffer whose row 0 is
+  the token at `base` and whose rows merge into the token tensor (padded to
+  `n_chunks * C + 1`) once a chunk; a step's target comes from the
+  pre-decode tokens;
+- `unrolled_chunks`: the same chunk loop (the JAX package unrolls its outer
+  scan; here the loop is Python already). It takes the carried tokens, as
+  does `static_prefix`, which takes precedence over the other variants.
 """
 from __future__ import annotations
 
@@ -80,12 +97,6 @@ def _sample_stream(generator, logits, temperature, filter_fn, filter_kwargs, gre
     return categorical(filtered, generator)
 
 
-def _not_ported(**knobs):
-    for name, (value, default) in knobs.items():
-        if value != default:
-            raise NotImplementedError(f"mixedlm_unmask: {name}={value!r} is not ported yet")
-
-
 @torch.inference_mode()
 def mixedlm_unmask(
     model,
@@ -130,11 +141,11 @@ def mixedlm_unmask(
     one argmax, or one top-k and one draw, serves every stream (the JAX
     package's batched stack, `wrappers.py:234-296`). Eager PyTorch pays per
     launch, so this replaces S filter-and-draw chains by one; greedy tokens
-    are the same either way."""
-    _not_ported(
-        static_prefix=(static_prefix, False), chunk_tokens=(chunk_tokens, False),
-        unrolled_chunks=(unrolled_chunks, False), capacity_stages=(capacity_stages, 1),
-    )
+    are the same either way.
+
+    `static_prefix`, `capacity_stages`, `chunk_tokens` and `unrolled_chunks`
+    select the chunked layout's variants (module docstring); the classic
+    layout ignores them, as in the JAX package."""
     if cache_dtype == torch.int8 and chunk_size is None:
         raise ValueError("mixedlm_unmask: int8 caches need the chunked decode (quantization lives in the chunk merge)")
     if not greedy and generator is None:
@@ -155,9 +166,11 @@ def mixedlm_unmask(
 
     C = None if chunk_size is None else int(chunk_size)
     n_steps = T - 1 if C is None else -(-(T - 1) // C) * C
+    n_chunks = None if C is None else n_steps // C
+    staged = C is not None and not static_prefix and not unrolled_chunks and int(capacity_stages or 1) > 1
     # the chunked layout pads the step count; the caches hold every step
-    cache_len = max(n_steps, T)
-    caches = model.init_decoder_cache(b, cache_len, dtype=cache_dtype, device=dev)
+    # (the staged variant makes its own, stage by stage)
+    caches = None if staged else model.init_decoder_cache(b, max(n_steps, T), dtype=cache_dtype, device=dev)
     # step j's cache position as a device view: no host-to-device copy per step
     positions = torch.arange(max(n_steps, 1), dtype=torch.int64, device=dev)
 
@@ -167,11 +180,13 @@ def mixedlm_unmask(
         valid_len = torch.full((b,), T, dtype=torch.int64, device=dev)
     forbid = {s: torch.as_tensor(ids, device=dev) for s, ids in (forbid_ids or {}).items()}
 
-    def step(step_caches, j):
-        """Consume token j (already final), predict j+1 and write it back."""
-        jr, j1 = min(j, T - 1), min(j + 1, T - 1)  # dynamic_slice clamping
+    def predict(step_caches, j, seq_j, target_src):
+        """Consume `seq_j` (b, 1, S), token j (already final), and return the
+        row that position j+1 takes: the prediction where it is masked and
+        below `valid_len`, else its token in `target_src`."""
+        j1 = min(j + 1, T - 1)  # dynamic_slice clamping
         hidden = model.decode_step(
-            tokens[:, jr : jr + 1],
+            seq_j,
             masked_tokens=tokens_masked[:, j1 : j1 + 1],
             style_embeddings=style_embeddings[:, j1 : j1 + 1] if style_embeddings is not None else None,
             context=context[:, j1 : j1 + 1] if context is not None else None,
@@ -179,7 +194,7 @@ def mixedlm_unmask(
             cache_index=positions[j : j + 1],
         )
         columns = logits_by_column(model, model.decoder.apply_lm_head(hidden[:, 0]))
-        target = tokens[:, j1]
+        target = target_src[:, min(j + 1, target_src.shape[1] - 1)]
         if use_batched:
             lg = _stacked(columns, vmax) + col_mask
             if greedy:
@@ -200,7 +215,13 @@ def mixedlm_unmask(
                 samples.append(_sample_stream(generator, lg, temperature, filter_fn, filter_kwargs, greedy))
             samples = torch.stack(samples, dim=-1)
         fill = unmask_mask[:, j1] & ((j + 1) < valid_len)[:, None]
-        tokens[:, j1] = torch.where(fill, samples, target)  # in place
+        return torch.where(fill, samples, target)
+
+    def step(step_caches, j):
+        """The carried tokens: consume token j, write position j+1 in place
+        (a padded tail step rewrites position T-1 with its current token)."""
+        jr = min(j, T - 1)
+        tokens[:, min(j + 1, T - 1)] = predict(step_caches, j, tokens[:, jr : jr + 1], tokens)
 
     if C is None:
         for j in range(n_steps):
@@ -209,32 +230,65 @@ def mixedlm_unmask(
 
     if fresh_dtype is None:
         fresh_dtype = torch.float32 if cache_dtype == torch.int8 else cache_dtype
+    layers = caches if caches is not None else model.init_decoder_cache(b, 0, dtype=cache_dtype, device=dev)
     fresh = [
         {"fk": torch.zeros((C,) + layer["k"].shape[1:], dtype=fresh_dtype, device=dev),
          "fv": torch.zeros((C,) + layer["v"].shape[1:], dtype=fresh_dtype, device=dev)}
         if layer is not None else None
-        for layer in caches
+        for layer in layers
     ]
-    for base in range(0, n_steps, C):
+    rows = chunk_tokens and not static_prefix and not unrolled_chunks
+    if rows:  # the row buffers merge into tokens padded so that the last merge fits
+        tokens0, tokens = tokens, F.pad(tokens, (0, 0, 0, max(0, n_chunks * C + 1 - T)))
+        ftok = torch.zeros((C + 1, b, S), dtype=tokens.dtype, device=dev)
+
+    def run_chunk(prefix, base):
+        """The C steps of the chunk at `base` over the frozen `prefix` (a
+        static prefix's slice of `base` rows, or whole caches), then its
+        fresh rows merged into `prefix`'s full caches in place."""
+        view = prefix
+        if static_prefix:
+            view = [{key: t[:base] for key, t in layer.items()} if layer is not None else None for layer in prefix]
         for f in fresh:
             if f is not None:
                 f["fk"].zero_()
                 f["fv"].zero_()
-        merged = [
-            {**layer, **f, "base": base} if layer is not None else None
-            for layer, f in zip(caches, fresh)
-        ]
-        for j in range(base, base + C):
-            step(merged, j)
-        for layer, f in zip(caches, fresh):  # merge the chunk into the prefix, in place
+        merged = [{**layer, **f, "base": base} if layer is not None else None for layer, f in zip(view, fresh)]
+        if rows:
+            ftok[0] = tokens[:, base]
+            for kk in range(C):
+                ftok[kk + 1] = predict(merged, base + kk, ftok[kk][:, None], tokens0)
+            tokens[:, base + 1 : base + C + 1] = ftok[1:].transpose(0, 1)
+        else:
+            for j in range(base, base + C):
+                step(merged, j)
+        for layer, f in zip(prefix, fresh):
             if layer is None:
                 continue
             for key in ("k", "v"):
-                rows = f["f" + key]
+                fresh_rows = f["f" + key]
                 if "k_s" in layer:  # int8: quantize the chunk's rows once, with their scales
-                    rows, layer[key + "_s"][base : base + C] = quantize_kv_rows(rows.float())
-                layer[key][base : base + C].copy_(rows)
-    return tokens
+                    fresh_rows, layer[key + "_s"][base : base + C] = quantize_kv_rows(fresh_rows.float())
+                layer[key][base : base + C].copy_(fresh_rows)
+
+    if not staged:
+        for c in range(n_chunks):
+            run_chunk(caches, c * C)
+        return tokens[:, :T]
+    G = int(capacity_stages)
+    bounds = sorted({(g * n_chunks) // G for g in range(G + 1)})
+    prefix = None
+    for c0, c1 in zip(bounds[:-1], bounds[1:]):
+        stage = model.init_decoder_cache(b, c1 * C, dtype=cache_dtype, device=dev)
+        if prefix is not None:  # the smaller caches into the larger ones, row scales included
+            for new, old in zip(stage, prefix):
+                if new is not None:
+                    for key, t in old.items():
+                        new[key][: t.shape[0]].copy_(t)
+        for c in range(c0, c1):
+            run_chunk(stage, c * C)
+        prefix = stage
+    return tokens[:, :T]
 
 
 @torch.inference_mode()

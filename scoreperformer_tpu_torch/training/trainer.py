@@ -32,6 +32,10 @@ Every option of the JAX trainer that means something on one device is taken:
   profile_dir/trace_<first>-<last>.json, stopped early if training ends;
 - `zero_sharding` and `sequence_parallel` are what they are on one device in
   JAX: nothing.
+A model with MoE layers adds their summed aux loss to the train step's loss
+and logs it as `loss/moe_aux`, with their mean drop rate as `stats/moe_drop`
+(not in the loss); eval logs both beside a loss without the aux, as the JAX
+trainer's steps do.
 What needs more than one device raises (`_NOT_PORTED`).
 """
 from __future__ import annotations
@@ -289,7 +293,11 @@ class Trainer:
 
         def forward():
             out = self._apply(batch, step_generators(self.config.seed, step, self.device))
-            return out.loss.float(), {k: v.float() for k, v in out.losses.items()}
+            loss, losses = out.loss.float(), {k: v.float() for k, v in out.losses.items()}
+            if getattr(out, "moe_aux", None) is not None:
+                loss = loss + out.moe_aux
+                losses.update(_moe_metrics(out))
+            return loss, losses
 
         if self.config.remat:
             return torch.utils.checkpoint.checkpoint(forward, use_reentrant=False)
@@ -319,6 +327,8 @@ class Trainer:
         gens = {"mmd": step_generators(0, index, self.device)["mmd"]}
         out = self._apply(batch, gens)
         metrics = {"loss": out.loss.float()}
+        if getattr(out, "moe_aux", None) is not None:
+            metrics.update(_moe_metrics(out))
         metrics.update({k: v.float() for k, v in out.losses.items()})
         if self.evaluator is not None and "labels" in batch:
             metrics.update(self.evaluator(batch["labels"], {k: v.float() for k, v in out.logits.items()}))
@@ -551,6 +561,11 @@ class Trainer:
         if tokenizer is not None:
             tokenizer.save(os.path.join(path, "tokenizer.json"))
         return path
+
+
+def _moe_metrics(out) -> Dict[str, torch.Tensor]:
+    """The JAX trainer's names for an MoE model's aux loss and drop rate."""
+    return {"loss/moe_aux": out.moe_aux, "stats/moe_drop": out.moe_drop}
 
 
 @contextmanager

@@ -584,6 +584,8 @@ def test_port_imports_no_jax():
         assert f"scoreperformer_tpu_torch/{streaming}" in names
     for performer in ("data/performance.py", "models/wrappers.py", "ops/sampling.py"):
         assert f"scoreperformer_tpu_torch/{performer}" in names
+    for module in ("models/moe.py", "ops/tokenizer_ops.py", "utils/plots.py", "utils/playback.py"):
+        assert f"scoreperformer_tpu_torch/{module}" in names
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]

@@ -5,7 +5,9 @@ the `prefix_attend` kernel, to which the chunked decode sends every step's
 prefix on the card; recipes/scoreperformer/scale_1024.yaml builds (on the
 meta device, so its parameters are not allocated); and the configs that
 chip_smoke.py writes out (the card's machine may have no PyYAML) are the
-recipes' own; recipes/performer.yaml and the untied-head ablation build.
+recipes' own; recipes/performer.yaml and the untied-head ablation build;
+every recipe's model builds, recipes/scoreperformer/moe.yaml's with its 5
+MoE layers in all three stacks.
 """
 import importlib.util
 from pathlib import Path
@@ -17,6 +19,7 @@ import torch
 from scoreperformer_tpu_torch.configs.yaml_loader import load_experiment_config
 from scoreperformer_tpu_torch.models.attention import Attention
 from scoreperformer_tpu_torch.models.embeddings import TupleTokenLMHead, TupleTokenTiedLMHead
+from scoreperformer_tpu_torch.models.moe import MoEFeedForward
 from scoreperformer_tpu_torch.models.factory import build_model, build_scoreperformer_config
 from scoreperformer_tpu_torch.models.scoreperformer import PerformerModel, ScorePerformerModel
 from scoreperformer_tpu_torch.ops.prefix_attend import KERNEL_HEAD_DIMS, KERNEL_HEADS
@@ -95,13 +98,15 @@ def test_scale_1024_builds_and_its_decoder_fits_prefix_attend(tokenizer):
         assert m.dim_head in KERNEL_HEAD_DIMS and m.heads in KERNEL_HEADS
 
 
+def strip(model):
+    """A recipe's `model:` node less its name, version and classifiers."""
+    return {k: v for k, v in model.items() if k not in ("_name_", "_version_", "classifiers")}
+
+
 def test_chip_smoke_configs_are_the_recipes(tokenizer, chip_smoke):
     """chip_smoke.py's scale_1024 model is the recipe's `model:` node less
     the direction classifiers; its smoke-shaped model is recipes/smoke.yaml's
     with the positions and segments a served bucket of 384 needs."""
-    def strip(model):
-        return {k: v for k, v in model.items() if k not in ("_name_", "_version_", "classifiers")}
-
     assert chip_smoke.scale_1024_config(tokenizer) == strip(injected_model("scoreperformer/scale_1024.yaml",
                                                                            tokenizer))
     smoke = strip(injected_model("smoke.yaml", tokenizer))
@@ -141,3 +146,48 @@ def test_chip_smoke_performer_nodes_are_the_recipe(chip_smoke):
     assert chip_smoke.PERFORMER_MODEL == recipe["model"]
     assert chip_smoke.PERFORMER_EVALUATOR == recipe["evaluator"]
     assert recipe["trainer"]["batch_size"] == chip_smoke.TRAIN_BATCH
+
+
+@pytest.mark.parametrize("name", RECIPES)
+def test_every_recipe_model_builds(name, tokenizer):
+    """Each of the 15 recipes' models builds in the port on the meta device
+    (no direction labels are injected, so no classifier heads);
+    recipes/default.yaml, the 16th file, holds the shared trainer settings
+    and no model."""
+    assert len(RECIPES) == 16
+    node = load_experiment_config(ROOT / "recipes", name).get("model", {})
+    if node.get("_name_") in (None, "???"):
+        assert name == "default.yaml"
+        return
+    model, _ = build_model(node["_name_"], injected_model(name, tokenizer), device="meta", seed=None)
+    assert sum(p.numel() for p in model.parameters()) > 0
+    assert all(p.device.type == "meta" for p in model.parameters())
+
+
+def test_moe_recipe_puts_moe_layers_in_all_three_stacks(tokenizer, chip_smoke):
+    """base.yaml points both encoders' feed_forward at the decoder's, so
+    moe.yaml's MoE feed-forward reaches all three stacks: every 2nd
+    feed-forward (moe_stride 2, counted per stack) of the score encoder (2
+    deep), the performance encoder (4) and the decoder (4), 5 layers of 4
+    GLU-swish experts, top-2, at the model's dim 256 (the stacks' configs
+    keep TransformerConfig's default dim 512, which the model replaces)."""
+    model, _ = build_model("ScorePerformer", injected_model("scoreperformer/moe.yaml", tokenizer), device="meta",
+                           seed=None)
+    assert chip_smoke.moe_stacks(model) == {"score_encoder": [3], "perf_encoder": [3, 7], "perf_decoder": [3, 7]}
+    layers = [m for m in model.modules() if isinstance(m, MoEFeedForward)]
+    assert len(layers) == 5
+    for m in layers:
+        assert (m.num_experts, m.top_k, m.capacity_factor, m.glu, m.swish) == (4, 2, 1.25, True, True)
+        assert (tuple(m.router.shape), tuple(m.wi.shape), tuple(m.wo.shape)) == ((256, 4), (4, 256, 2048), (4, 1024, 256))
+        assert m.router_aux_weight == 0.01 and m.bi is None
+        # the capacity of a training sequence (258, the decoder's 257 after
+        # the shift), a decode step, a served bucket
+        assert [m.capacity(s) for s in (258, 257, 1, 384)] == [162, 161, 1, 240]
+
+
+def test_chip_smoke_moe_config_is_the_recipe(tokenizer, chip_smoke):
+    """chip_smoke.py's MoE model is moe.yaml's `model:` node (base.yaml's
+    resolved, MoE in all three stacks), its classifiers base.yaml's."""
+    recipe = injected_model("scoreperformer/moe.yaml", tokenizer)
+    assert chip_smoke.moe_config(tokenizer) == strip(recipe)
+    assert chip_smoke.moe_train_config(tokenizer, "root", "out", 128, 2)["model"]["classifiers"] == recipe["classifiers"]

@@ -84,7 +84,17 @@ checkout. It
    capacity_stages, chunk_tokens), each with the classic tokens; the
    tokenizer ops on the card against the CPU; `prefix_attend` at the
    variants' caps against its plain version, timed;
-12. checks the output: notes with the score's pitches and finite times (a
+12. several processes (`parallel_phase`): the flagship with `use_flash`
+   (batch 128 x 258, 2 adamw steps) at data = 2 with ZeRO, model = 2 and
+   data = 2 x model = 2, and moe.yaml at expert = 2, each against the
+   one-process steps of the same batch, started through
+   `scoreperformer_tpu_torch.parallel.launch` (nccl with a card a rank;
+   with one card, a world-size-1 nccl group plus the ranks sharing the card
+   over gloo); sharded, async and gathered checkpoints restored in one
+   process and at model = 2, a render from the gathered one; the flash
+   kernels at the model axis's shape and `prefix_attend` at moe.yaml's
+   served batch, timed;
+13. checks the output: notes with the score's pitches and finite times (a
    served sampled rendition, or one from a bf16 or int8 cache, may leave a
    few notes out as "not performed"), and, on 4-bar scores, the same greedy
    tokens as the port's CPU path (one render, and a batch of four through
@@ -2733,6 +2743,230 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     return rec
 
 
+PARALLEL_RANKS = 2  # processes of the data, model and expert checks; data x model takes 4
+
+
+def parallel_gates(one, got, what, grad_tol=1e-3, param_tol=1e-4, loss_tol=1e-4):
+    """A multi-rank run held to the one-process run of the same payload:
+    each step's loss within `loss_tol`, every gradient of the first step
+    within `grad_tol` of that gradient's largest value, and every parameter
+    after the steps within `param_tol` of that parameter's largest value.
+    Also reported: the parameters' error as one relative L2 over all of
+    them, and the elements past `param_tol` of their tensor's largest
+    value. Returns the errors."""
+    def rel(a, b):
+        return max(((a[n] - w).abs().max() / w.abs().max().clamp_min(1e-12)).item() for n, w in b.items())
+
+    if set(got["grads"]) != set(one["grads"]) or set(got["params"]) != set(one["params"]):
+        raise AssertionError(f"{what}: the ranks' step reaches other tensors than the one-process step")
+    diff = math.sqrt(sum(((got["params"][n] - w).float().norm() ** 2).item() for n, w in one["params"].items()))
+    total = math.sqrt(sum((w.float().norm() ** 2).item() for w in one["params"].values()))
+    worst = max((((got["params"][n] - w).abs().max() / w.abs().max().clamp_min(1e-12)).item(), n)
+                for n, w in one["params"].items())
+    errs = {"loss_err": max(abs(g["loss"] - o["loss"]) for g, o in zip(got["metrics"], one["metrics"])),
+            "grad_err": rel(got["grads"], one["grads"]), "param_rel_l2": diff / total,
+            "param_err": worst[0], "param_worst": worst[1],
+            "param_elements_past_tol": sum(int(((got["params"][n] - w).abs() > param_tol * w.abs().max()).sum())
+                                           for n, w in one["params"].items()),
+            "param_elements": sum(w.numel() for w in one["params"].values())}
+    if not (errs["loss_err"] <= loss_tol and errs["grad_err"] <= grad_tol and errs["param_err"] <= param_tol):
+        raise AssertionError(f"{what}: the multi-rank steps differ from the one-process steps: {errs}")
+    return errs
+
+
+def parallel_phase(torch, tokenizer, smi, inputs):
+    """Training on several processes (`scoreperformer_tpu_torch.parallel`):
+    the flagship with `use_flash` at batch 128 x 258 (2 adamw steps on the
+    training phase's dataset) on data = 2 with ZeRO, model = 2 (2 query
+    heads a rank) and data = 2 x model = 2 (4 ranks), and moe.yaml as written
+    at expert = 2 (2 experts a rank, on the paper phase's corpus), each held
+    to the one-process steps of the same global batch: loss within 1e-4,
+    gradients within 1e-3 and the parameters after 2 steps within 1e-4 of
+    each tensor's largest value (`parallel_gates`), moe.yaml's
+    `loss/moe_aux` and `stats/moe_drop` within 1e-5; 10 launches of each flash kernel a step
+    on every rank. Processes start through `parallel.launch`: with two cards
+    or more, one a rank over nccl; with one card, a world-size-1 nccl group
+    (a step and each collective on the card) and the multi-rank checks as
+    processes sharing the card over gloo (their times measure contention,
+    not scaling). The data = 2 run saves a sharded and an async checkpoint
+    (ZeRO on, the optimizer's state in them) and a gathered one; the first
+    two restore in one process and at model = 2 to every saved tensor, and
+    the gathered `params.pt` renders the 32-bar score with the CPU path's
+    greedy tokens. Then the flash kernels at the model axis's shape (b 128,
+    h 2, hk 1, t 258 padded and 257 causal, d 64) and `prefix_attend` at
+    moe.yaml's served batch (b 16, cap 384) against their plain versions,
+    timed. Returns the phase's record."""
+    from scoreperformer_tpu_torch.inference import load_model_from_checkpoint
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.parallel.launch import launch
+    from scoreperformer_tpu_torch.parallel.workers import run_one_process, train_worker
+    from scoreperformer_tpu_torch.training import ExperimentComponents, load_checkpoint
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    work = os.path.join(build, "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= PARALLEL_RANKS else "gloo"
+    rec = {"card": smi, "cards": cards, "backend": backend, "phase_s": phase_s,
+           "ranks_a_card": 1 if backend == "nccl" else PARALLEL_RANKS}
+
+    def payload_of(config, steps=2, **trainer):
+        comp = ExperimentComponents(config, device="cpu")
+        comp.build_datasets(), comp.build_collator(), comp.build_model(), comp.build_trainer()
+        host = next(iter(comp.trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0)))
+        cfg = {k: v for k, v in comp.model_config.items() if k != "_name_"}
+        return {"model_name": comp.model_config["_name_"], "model_config": cfg,
+                "state_dict": {k: v.detach().clone() for k, v in comp.model.state_dict().items()},
+                "batch": {k: np.asarray(v) for k, v in host.items()}, "steps": steps,
+                "trainer": {"seed": 23, "optimization": dict(OPTIMIZATION), **trainer}}
+
+    def run(name, payload, n, ranks_backend=backend):
+        path = os.path.join(work, f"{name}.pt")
+        torch.save({**payload, "device": "cuda", "output_dir": os.path.join(work, name)}, path)
+        t0 = time.perf_counter()
+        out = launch(train_worker, n, (path,), backend=ranks_backend, device="cuda")
+        lap(name)
+        print(f"parallel {name}: {n} ranks over {ranks_backend} in {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    # ---- the payloads and the one-process references ----
+    root = os.path.join(build, "chip_smoke_train", "data")
+    flag = payload_of(train_config(tokenizer, root, os.path.join(work, "flagship"), TRAIN_BATCH, 2))
+    torch.cuda.empty_cache()
+    one_flag = run_one_process(flag, device="cuda")
+    moe = payload_of(moe_train_config(tokenizer, os.path.join(build, "chip_smoke_paper", "data"),
+                                      os.path.join(work, "moe"), TRAIN_BATCH, 2))
+    one_moe = run_one_process(moe, device="cuda")
+    torch.cuda.empty_cache()
+    lap("one_process")
+    for what, one in (("flagship", one_flag), ("moe.yaml", one_moe)):
+        if not all(np.isfinite(m["loss"]) for m in one["metrics"]):
+            raise AssertionError(f"{what}: non-finite one-process loss {one['metrics']}")
+
+    # ---- one card: a world-size-1 nccl group runs a step and each collective on the card ----
+    if backend == "gloo":  # in this process: spawning one costs more than the step
+        import torch.distributed as dist
+
+        path = os.path.join(work, "nccl_world1.pt")
+        torch.save({**flag, "steps": 1, "probe_collectives": True, "device": "cuda",
+                    "output_dir": os.path.join(work, "nccl_world1")}, path)
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(work, 'nccl_store')}", world_size=1, rank=0)
+        try:
+            nccl = train_worker(0, 1, path)
+        finally:
+            dist.destroy_process_group()
+        lap("nccl_world1")
+        if any(v != "ok" for v in nccl["collectives"].values()):
+            raise AssertionError(f"nccl on one rank: {nccl['collectives']}")
+        if abs(nccl["metrics"][0]["loss"] - one_flag["metrics"][0]["loss"]) > 1e-4:
+            raise AssertionError("the world-size-1 nccl step differs from the one-process step")
+        rec["nccl_world1"] = {"collectives": nccl["collectives"], "step_ms": nccl["step_ms"],
+                              "backend": nccl["backend"]}
+
+    # ---- data = 2 with ZeRO: checkpoints; model = 2; data = 2 x model = 2; expert = 2 ----
+    saves = [{"name": "sharded", "sharded": True}, {"name": "async", "async": True}, {"name": "gathered"}]
+    runs = {
+        "data2_zero": run("data2_zero", {**flag, "trainer": {**flag["trainer"], "mesh_data": 2, "zero_sharding": True},
+                                         "probe_collectives": True, "profile": True, "checkpoints": saves}, 2),
+        # (data2_zero has saved its checkpoints when model2 starts: model2
+        # restores the sharded one last)
+        "model2": run("model2", {**flag, "trainer": {**flag["trainer"], "mesh_model": 2}, "profile": True,
+                                 "check_restore": os.path.join(work, "data2_zero", "sharded")}, 2),
+        "data2_model2": run("data2_model2", {**flag, "trainer": {**flag["trainer"], "mesh_data": 2, "mesh_model": 2},
+                                             "profile": True}, 4),
+        "moe_expert2": run("moe_expert2", {**moe, "trainer": {**moe["trainer"], "mesh_expert": 2}, "profile": True}, 2),
+    }
+    # each collective of the ranks' backend on CUDA tensors, its result read
+    # at once on the current stream: the port stages none through host
+    # memory, so each it calls must be "ok"
+    rec["collectives_on_cuda"] = runs["data2_zero"][0]["collectives"]
+    print(f"parallel: {backend}'s collectives on CUDA tensors", json.dumps(rec["collectives_on_cuda"]),
+          "; none staged through host memory")
+    if any(rec["collectives_on_cuda"][k] != "ok" for k in ("all_reduce", "all_gather")):
+        raise AssertionError(f"{backend} gives wrong results of the port's collectives on CUDA tensors")
+    steps = {}
+    for name, ranks in runs.items():
+        one = one_moe if name.startswith("moe") else one_flag
+        got = ranks[0]
+        errs = parallel_gates(one, got, name)
+        if name.startswith("moe"):
+            for key in ("loss/moe_aux", "stats/moe_drop"):
+                err = max(abs(g[key] - o[key]) for g, o in zip(got["metrics"], one["metrics"]))
+                if not err <= 1e-5:
+                    raise AssertionError(f"{name}: {key} differs from the one-process value by {err}")
+                errs[f"{key}_err"] = err
+        flash = 0 if name.startswith("moe") else 10  # moe.yaml sets no use_flash
+        for r in ranks:
+            want = {k: flash * len(r["step_ms"]) for k in FLASH}
+            if r["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: flash launches {r['launches']}, expected {want}")
+        steps[name] = {
+            "ranks": len(ranks), "backend": got["backend"], "mesh": got["mesh"], **errs,
+            "step_ms": [r["step_ms"] for r in ranks], "peak_gb": [r["peak_gb"] for r in ranks],
+            "profiled_step": [r["profiled_step"] for r in ranks], "launches_a_rank": ranks[0]["launches"],
+            "one_process_step_ms": (one_moe if name.startswith("moe") else one_flag)["step_ms"],
+            "one_process_peak_gb": (one_moe if name.startswith("moe") else one_flag)["peak_gb"],
+        }
+    rec["steps"] = steps
+
+    # ---- the checkpoints: restored in one process and at model = 2; the gathered one renders ----
+    saved = runs["data2_zero"][0]
+    ckpts = saved["checkpoints"]
+    for name in ("sharded", "async"):
+        loaded = load_checkpoint(ckpts[name])
+        for key, want in (("params", saved["params"]), ("mu", saved["opt_state"]["mu"]),
+                          ("nu", saved["opt_state"]["nu"])):
+            got = loaded["params"] if key == "params" else loaded["opt_state"][key]
+            bad = [n for n in want if not torch.equal(got[n], want[n])]
+            if bad or set(got) != set(want):
+                raise AssertionError(f"{name} checkpoint restored in one process: {key} differs at {bad[:3]}")
+    if ckpts["sharded"] != os.path.join(work, "data2_zero", "sharded"):
+        raise AssertionError(f"the sharded checkpoint was saved at {ckpts['sharded']}")
+    restored = runs["model2"][0]["restored"]
+    bad = [n for n in saved["params"] if not torch.equal(restored["params"][n], saved["params"][n])]
+    bad += [f"mu/{n}" for n in saved["opt_state"]["mu"]
+            if not torch.equal(restored["opt_state"]["mu"][n], saved["opt_state"]["mu"][n])]
+    if bad:
+        raise AssertionError(f"the sharded checkpoint restored at model = 2 differs at {bad[:3]}")
+    lap("checkpoint_restores")
+    reset_counts(fa, kv, pa)
+    model, _ = load_model_from_checkpoint(os.path.join(ckpts["gathered"], "params.pt"), device="cuda")
+    card = greedy_tokens(torch, model, inputs, "cuda")
+    launches = all_counts(fa, kv, pa)
+    lap("render_card")
+    cpu_model, _ = load_model_from_checkpoint(os.path.join(ckpts["gathered"], "params.pt"), device="cpu")
+    cpu = greedy_tokens(torch, cpu_model, inputs, "cpu")
+    lap("render_cpu")
+    if not torch.equal(card, cpu):
+        raise AssertionError("the render from the gathered checkpoint differs from the CPU path's greedy tokens")
+    n_steps = -(-(len(inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
+    check_launches("render from the gathered checkpoint", launches, decode_launches(n_steps))
+    rec["checkpoints"] = {"restored": ["sharded in one process", "async in one process", "sharded at model = 2"],
+                          "render_launches": launches, "render_tokens": list(card.shape)}
+    del model, cpu_model
+
+    # ---- the kernels at the model axis's shape and prefix_attend at moe.yaml's served batch ----
+    kernels = {"flash_attention_fwd": [check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, False, True, True, h=2),
+                                       check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, True, False, False, h=2)]}
+    dkv, dq, pair = check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, False, True, True, h=2)
+    check_flash_bwd(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 1, True, False, False, h=2)
+    kernels.update(flash_attention_bwd_dkv=[dkv], flash_attention_bwd_dq=[dq], flash_attention_bwd_pair=[pair])
+    kernels["prefix_attend"] = [check_prefix_attend(torch, pa, SMOKE_REQUESTS, SERVE_BUCKET, SERVE_BUCKET // 2, True)]
+    rec["kernels"] = kernels
+    lap("kernels")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3130,6 +3364,15 @@ def main() -> int:
     print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
     print("moe", json.dumps({k: v for k, v in moe.items() if k != "kernels"}))
 
+    # ---- training on several processes: data, model and expert axes, ZeRO, checkpoints ----
+    t0 = time.perf_counter()
+    parallel = parallel_phase(torch, tokenizer, smi, inputs)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    print(f"parallel: {parallel['cards']} card(s); multi-rank checks over {parallel['backend']}, "
+          f"{parallel['ranks_a_card']} rank(s) a card"
+          + ("; a world-size-1 nccl group ran a step and each collective" if "nccl_world1" in parallel else ""))
+    print("parallel", json.dumps({k: v for k, v in parallel.items() if k != "kernels"}))
+
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
              "bf16_compute_train_steps": options["bf16_compute"]["launches"],
@@ -3147,7 +3390,10 @@ def main() -> int:
              "performer_mlm_unmask_iterative": performer["mlm_unmask"]["iterative"]["launches"],
              "moe_train_steps": moe["train"]["launches"], "moe_render": moe["render"]["launches"],
              "moe_served": moe["served"]["launches"], "moe_streaming": moe["streaming"]["launches"],
-             **{f"moe_unmask_{name}": run["launches"] for name, run in moe["variants"]["runs"].items()}}
+             **{f"moe_unmask_{name}": run["launches"] for name, run in moe["variants"]["runs"].items()},
+             "parallel_render_from_gathered_checkpoint": parallel["checkpoints"]["render_launches"],
+             **{f"parallel_{name}_train_steps_a_rank": {**{k: 0 for k in launches}, **run["launches_a_rank"]}
+                for name, run in parallel["steps"].items()}}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
@@ -3208,6 +3454,9 @@ def main() -> int:
         if rec["name"] in moe["kernels"]:  # the MoE phase's shapes and the variants' caps, timed
             rec["moe_shapes"] = [{k: r[k] for k in shape_keys + ("path",) if k in r}
                                  for r in moe["kernels"][rec["name"]] if "ms" in r]
+        if rec["name"] in parallel["kernels"]:  # the model axis's shape; moe.yaml's served batch
+            rec["parallel_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms") if k in r}
+                                      for r in parallel["kernels"][rec["name"]] if "ms" in r]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

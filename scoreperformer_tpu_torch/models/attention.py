@@ -8,6 +8,13 @@ the device, so a decode step never waits for the host. Softmax runs in fp32,
 or in bf16 with `softmax_bf16` outside the chunked decode, as in the JAX
 module. Attention-probability dropout applies in `module.train()` mode only
 (see `dropout.py`).
+
+On a model axis (`parallel/shard.py` sets `head_range`), a rank holds its
+query heads' rows of `to_q` and columns of `to_out`, and its KV heads' rows
+of `to_k`/`to_v`, or all of them when there are fewer KV heads than ranks
+(their gradient is then summed over the axis). The input passes through
+copy-to-group and one reduce-from-group sums the ranks' `to_out` outputs.
+Only the training and eval forward run sharded; a cache raises.
 """
 from __future__ import annotations
 
@@ -19,8 +26,10 @@ from torch import nn
 from ..ops.flash_attention import flash_attention_alibi
 from ..ops.kv_cache import write_kv_pair
 from ..ops.prefix_attend import combine_lse, prefix_attend
+from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .dropout import Dropout
-from .layers import ALiBiPositionalBias, Linear
+from .layers import ALiBiPositionalBias, Linear, linear
 
 MASK_VALUE = -1e9
 
@@ -109,6 +118,25 @@ class Attention(nn.Module):
             if alibi_pos_bias
             else None
         )
+        self.head_range: Optional[tuple] = None  # this rank's query heads on a model axis
+        self.kv_whole = False  # K/V projections whole on every model rank
+
+    def shard_heads(self, n: int, index: int) -> None:
+        """Keep query heads [index*h/n, (index+1)*h/n) (their slopes and
+        dropout masks too); the parameters are sliced by `parallel/shard.py`."""
+        h = self.heads // n
+        self.head_range = (index * h, (index + 1) * h)
+        self.kv_whole = self.kv_heads < n
+        self.heads = h
+        self.attn_dropout.layout = (DATA_AXIS, MODEL_AXIS)
+        if self.rel_pos is not None:
+            self.rel_pos.head_range = self.head_range
+
+    def _project_kv(self, x: torch.Tensor):
+        if not self.kv_whole:
+            return self.to_k(x), self.to_v(x)
+        return (linear(x, copy_to_group(self.to_k.weight, MODEL_AXIS)),
+                linear(x, copy_to_group(self.to_v.weight, MODEL_AXIS)))
 
     @property
     def kv_heads(self) -> int:
@@ -207,6 +235,12 @@ class Attention(nn.Module):
         `context`). With a cache: the keys/values of `x` are written IN PLACE
         at slot `cache_index % cap` (a ring) and the queries attend over the
         whole buffer, masked to the written positions."""
+        sharded = self.head_range is not None
+        if sharded:
+            if cache is not None:
+                raise NotImplementedError("a model axis shards the training and eval forward, not a cached decode")
+            x = copy_to_group(x, MODEL_AXIS)
+            context = None if context is None else copy_to_group(context, MODEL_AXIS)
         if cache is not None and "fk" in cache:
             if context is not None:
                 raise ValueError("a chunked cache is not compatible with cross-attention")
@@ -218,8 +252,7 @@ class Attention(nn.Module):
         dev = x.device
         kv_input = context if context is not None else x
         q = self.to_q(x).reshape(b, n, h, d).transpose(1, 2)  # b h n d
-        k = self.to_k(kv_input)
-        v = self.to_v(kv_input)
+        k, v = self._project_kv(kv_input)
 
         # flash path: full self-attention, no cache/window/attn_mask, symmetric
         # ALiBi, no attention dropout while training (the kernels have none).
@@ -243,6 +276,8 @@ class Attention(nn.Module):
                 causal=self.causal, scale=scale,
             )
             out = self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
+            if sharded:
+                out = reduce_from_group(out, MODEL_AXIS)
             if mask is not None:
                 out = out * mask[..., None]
             return out
@@ -310,6 +345,8 @@ class Attention(nn.Module):
             attn = self.attn_dropout(torch.softmax(dots.float(), dim=-1).to(dots.dtype))
         out = (attn @ v_h).transpose(1, 2).reshape(b, n, h * d)
         out = self.to_out(out)
+        if sharded:
+            out = reduce_from_group(out, MODEL_AXIS)
         if mask is not None and not has_cache:
             out = out * mask[..., None]
         return out

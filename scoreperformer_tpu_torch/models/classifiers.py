@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..configs import ModuleConfig
+from ..parallel.collectives import partial_ratio
 from .dropout import dropout
 from .layers import Linear
 
@@ -67,14 +68,15 @@ def weighted_cross_entropy(logits, labels, class_weights=None, sample_weights=No
     """Cross-entropy weighted per class and per sample (classifiers.py:64-78).
     Labels are clamped to [0, C-1], so a -100 pad reads class 0 and its sample
     weight removes it; the mean is over the sum of the applied weights, at
-    least 1e-9, so a batch with no weight gives 0."""
+    least 1e-9, so a batch with no weight gives 0. On a data axis, this
+    rank's partial: its weighted sum over the global batch's weights."""
     num_classes = logits.shape[-1]
     labels = labels.long().clamp(0, num_classes - 1)
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
     w = class_weights[labels] if class_weights is not None else torch.ones_like(nll)
     if sample_weights is not None:
         w = w * sample_weights
-    return (nll * w).sum() / w.sum().clamp_min(1e-9)
+    return partial_ratio((nll * w).sum(), w.sum(), min_den=1e-9)
 
 
 class LinearEmbeddingClassifier(nn.Module):

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.mesh import MODEL_AXIS
 from .dropout import Dropout
 
 
@@ -31,15 +33,19 @@ def promoted(*xs: torch.Tensor):
     return [x.to(dt) for x in xs]
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """F.linear in the promoted type of its input and weight (flax's Dense)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w, b = x.to(dt), w.to(dt), None if b is None else b.to(dt)
+    return F.linear(x, w, b)
+
+
 class Linear(nn.Linear):
     """nn.Linear in the promoted type of its input and weight (flax's Dense)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.weight, self.bias
-        if x.dtype != w.dtype:
-            dt = torch.promote_types(x.dtype, w.dtype)
-            x, w, b = x.to(dt), w.to(dt), None if b is None else b.to(dt)
-        return F.linear(x, w, b)
+        return linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -89,7 +95,12 @@ class _GLUProjIn(nn.Module):
 class FeedForward(nn.Module):
     """GELU/SiLU MLP with an optional GLU gate. `ff` keeps the reference's
     layout: [proj_in, post-activation norm, dropout, proj_out]; the dropout
-    applies in `module.train()` mode only."""
+    applies in `module.train()` mode only.
+
+    On a model axis (`parallel/shard.py` sets `model_sharded`), proj_in holds
+    this rank's columns (of both GLU halves) and proj_out the matching rows:
+    the input passes through copy-to-group, and one reduce-from-group sums
+    the partial outputs before proj_out's bias."""
 
     def __init__(self, dim: int, mult: int = 4, glu: bool = False, swish: bool = False,
                  post_act_ln: bool = False, dropout: float = 0.0, no_bias: bool = True):
@@ -107,9 +118,16 @@ class FeedForward(nn.Module):
             Dropout(dropout),
             Linear(inner, dim, bias=not no_bias),
         )
+        self.inner, self.post_act_ln = inner, post_act_ln
+        self.model_sharded = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ff(x)
+        if not self.model_sharded:
+            return self.ff(x)
+        proj_in, norm, drop, proj_out = self.ff
+        h = drop(norm(proj_in(copy_to_group(x, MODEL_AXIS))))
+        y = reduce_from_group(linear(h, proj_out.weight), MODEL_AXIS)
+        return y if proj_out.bias is None else y + proj_out.bias.to(y.dtype)
 
 
 class AbsolutePositionalEmbedding(nn.Module):
@@ -148,7 +166,9 @@ def alibi_slopes(heads: int) -> torch.Tensor:
 class ALiBiPositionalBias(nn.Module):
     """ALiBi relative position bias, optionally asymmetric and/or learned;
     produces an (total_heads, i, j) additive bias, zero for the heads past
-    `heads`."""
+    `heads`. With `head_range` (a model axis, `parallel/shard.py`), the
+    bias and padded slopes are those heads' only, and the learned slopes'
+    gradient is summed over the model axis into the full vector."""
 
     def __init__(self, heads: int, total_heads: int, symmetric: bool = True, learned: bool = False):
         super().__init__()
@@ -160,14 +180,22 @@ class ALiBiPositionalBias(nn.Module):
             self.learned_logslopes = nn.Parameter(torch.log(slopes))
         else:
             self.register_buffer("slopes", slopes, persistent=False)
+        self.head_range: Optional[tuple] = None
 
     def get_slopes(self) -> torch.Tensor:
-        return torch.exp(self.learned_logslopes) if self.learned else self.slopes
+        if not self.learned:
+            return self.slopes
+        slopes = torch.exp(self.learned_logslopes)
+        # each model rank's heads give part of the slopes' gradient
+        return slopes if self.head_range is None else copy_to_group(slopes, MODEL_AXIS)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.head_range is None else x[self.head_range[0]:self.head_range[1]]
 
     def padded_slopes(self) -> torch.Tensor:
         """Symmetric slopes as a flat (total_heads,) vector, zero-padded."""
         slopes = self.get_slopes().reshape(-1)
-        return F.pad(slopes, (0, self.total_heads - slopes.shape[0]))
+        return self._heads(F.pad(slopes, (0, self.total_heads - slopes.shape[0])))
 
     def forward(self, pos_i: torch.Tensor, pos_j: torch.Tensor) -> torch.Tensor:
         """Bias of query positions `pos_i` (i,) against key positions `pos_j` (j,)."""
@@ -176,9 +204,9 @@ class ALiBiPositionalBias(nn.Module):
         slopes = self.get_slopes()
         if self.symmetric:
             slopes = F.pad(slopes, (0, 0, 0, 0, 0, self.total_heads - slopes.shape[0]))
-            return slopes * bias
+            return self._heads(slopes * bias)
         slopes = F.pad(slopes, (0, 0, 0, 0, 0, self.total_heads - slopes.shape[1]))
         # position-aware split; the diagonal is 0 either way
         lower = torch.where(diff <= 0, bias, 0.0)
         upper = torch.where(diff > 0, bias, 0.0)
-        return slopes[0] * lower + slopes[1] * upper
+        return self._heads(slopes[0] * lower + slopes[1] * upper)

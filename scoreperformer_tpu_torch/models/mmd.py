@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import data_share, gather_rows, partial_ratio
+from .dropout import uniform
 from .embeddings import StreamEmbedding
 from .layers import Linear
 from .tuple_transformer import TupleTransformerConfig, TupleTransformerModule
@@ -221,7 +223,7 @@ class MMDTupleTransformer(TupleTransformerModule):
             latents_mask = mask3[..., 0]
         latents = head(agg) * latents_mask[..., None]
         if mode != AggregateModes.MEAN and self.training and latent_dropout > 0.0:
-            drop = torch.rand(latents_mask.shape, generator=generator, device=out.device) < latent_dropout
+            drop = uniform(latents_mask.shape, generator, out.device) < latent_dropout
             drop_mask = (drop & latents_mask)[..., None]
         else:
             drop_mask = torch.zeros_like(latents_mask[..., None])
@@ -288,14 +290,17 @@ class MMDTupleTransformer(TupleTransformerModule):
             if cfg.hierarchical and not self.single:
                 hidden = torch.cat([hidden, embeddings_i], dim=-1) if cfg.hierarchical_with_context else embeddings_i
             if compute_loss:
+                # on a data axis, every rank takes the MMD of the gathered
+                # latents (the global batch's pairs) and keeps its share
                 d = latents_i.shape[-1]
-                z, u = sampler(d, latents_i.numel() // d)
-                losses[f"MMD/{mode}"] = cfg.loss_weight * mmd_loss(
-                    latents_i, latents_mask_i, z, u, max_num_latents=cfg.mmd_max_num_latents)
+                all_latents_i = gather_rows(latents_i)
+                z, u = sampler(d, all_latents_i.numel() // d)
+                losses[f"MMD/{mode}"] = data_share(cfg.loss_weight * mmd_loss(
+                    all_latents_i, gather_rows(latents_mask_i.to(latents_i.dtype)), z, u, max_num_latents=cfg.mmd_max_num_latents))
                 if cfg.deadpan_zero_latent:
                     dp_w = (deadpan_mask[:, None] & latents_mask_i).to(latents_i.dtype)
-                    denom = (dp_w.sum() * d).clamp_min(1.0)
-                    losses[f"MMD/{mode}/deadpan"] = ((latents_i**2) * dp_w[..., None]).sum() / denom
+                    losses[f"MMD/{mode}/deadpan"] = partial_ratio(
+                        ((latents_i**2) * dp_w[..., None]).sum(), dp_w.sum() * d, min_den=1.0)
 
         embeddings = all_embeddings[0] if self.single else torch.cat(all_embeddings, dim=-1)
         embeddings = embeddings * mask3

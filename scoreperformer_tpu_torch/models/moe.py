@@ -15,6 +15,16 @@ dispatch):
 - the Switch load-balance loss, the optional router z-loss and the share of
   dropped assignments.
 
+On a mesh (`parallel/mesh.py`): over `expert`, a rank holds the slice
+`expert_range` of `wi`, `wo`, `bi` and `bo` (`parallel/shard.py`), routes
+its rows as above (the router stays whole), runs its experts' products on
+their slice of the dispatch, and one reduce-from-group sums the ranks'
+partial outputs; the gates and the products' input pass through
+copy-to-group, so their gradients sum over the experts. Over `data`, the
+aux loss and the drop rate are this rank's partials of the global batch's
+(`parallel/collectives.py`): the token counts and the top-1 load are
+summed over the data axis.
+
 Where the JAX layer sows its aux loss and drop rate into flax collections,
 this one returns them: `forward(x, mask, with_stats=True)` gives (y, aux,
 drop), and the stack that holds it appends them to the caller's list
@@ -34,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to_group, data_share, data_total, reduce_from_group
+from ..parallel.mesh import DATA_AXIS, EXPERT_AXIS
 from .dropout import Dropout
 
 
@@ -71,6 +83,8 @@ class MoEFeedForward(nn.Module):
         self.bi = nn.Parameter(torch.zeros(num_experts, features)) if not no_bias else None
         self.bo = nn.Parameter(torch.zeros(num_experts, dim)) if not no_bias else None
         self.dropout = Dropout(dropout)
+        self.dropout.layout = (None, DATA_AXIS)  # h is (E, B, C, F)
+        self.expert_range: Optional[Tuple[int, int]] = None  # this rank's experts on an expert axis
 
     def capacity(self, seq_len: int) -> int:
         return max(1, int(math.ceil(self.top_k * seq_len * self.capacity_factor / self.num_experts)))
@@ -89,6 +103,9 @@ class MoEFeedForward(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         gate_vals, gate_idx = top_k_lower_first(probs, K)  # (B, S, K)
         gates = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        x_in = x
+        if self.expert_range is not None:  # each rank's experts give part of these gradients
+            gates, x_in = copy_to_group(gates, EXPERT_AXIS), copy_to_group(x, EXPERT_AXIS)
 
         # slot-major: flatten (K, S), so that all first choices come before
         # any second choice; pads are zeroed before the cumsum
@@ -103,9 +120,13 @@ class MoEFeedForward(nn.Module):
         dispatch = slot.sum(dim=1)  # (B, S, E, C), 0 or 1
         combine = (slot * gates.to(dt).transpose(1, 2)[..., None, None]).sum(dim=1)
 
+        if self.expert_range is not None:  # this rank's experts
+            e0, e1 = self.expert_range
+            dispatch, combine = dispatch[:, :, e0:e1], combine[:, :, e0:e1]
+
         # the experts: three batched products over the expert axis
         dt = torch.promote_types(dt, self.wi.dtype)
-        expert_in = torch.einsum("bsd,bsec->ebcd", x.to(dt), dispatch.to(dt))  # (E, B, C, D)
+        expert_in = torch.einsum("bsd,bsec->ebcd", x_in.to(dt), dispatch.to(dt))  # (E, B, C, D)
         h = torch.einsum("ebcd,edf->ebcf", expert_in, self.wi.to(dt))
         if self.bi is not None:
             h = h + self.bi[:, None, None, :]
@@ -120,18 +141,21 @@ class MoEFeedForward(nn.Module):
         if self.bo is not None:
             y_e = y_e + self.bo[:, None, None, :]
         y = torch.einsum("ebcd,bsec->bsd", y_e, combine.to(y_e.dtype)).to(x.dtype)
+        if self.expert_range is not None:
+            y = reduce_from_group(y, EXPERT_AXIS)
         if not with_stats:
             return y
 
-        # the aux loss over real tokens only (onehot is already masked)
-        n_valid = valid.sum().clamp_min(1.0)
+        # the aux loss over real tokens only (onehot is already masked); the
+        # counts and the top-1 load are the global batch's
+        n_valid = data_total(valid.sum()).clamp_min(1.0)
         importance = (probs * valid[..., None]).sum(dim=(0, 1)) / n_valid
-        load = onehot[:, :, 0, :].sum(dim=(0, 1)) / n_valid  # the top-1 share
+        load = data_total(onehot[:, :, 0, :].sum(dim=(0, 1))) / n_valid  # the top-1 share
         aux = E * torch.sum(importance * load) * self.router_aux_weight
         if self.router_z_weight > 0.0:
             z = torch.logsumexp(logits, dim=-1)
             aux = aux + self.router_z_weight * torch.sum(z**2 * valid) / n_valid
-        drop = 1.0 - keep.sum() / oh_flat.sum().clamp_min(1.0)
+        drop = data_share(1.0 - data_total(keep.sum()) / data_total(oh_flat.sum()).clamp_min(1.0))
         return y, aux, drop
 
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..configs import ModuleConfig
 from ..device import resolve_device
+from ..parallel.collectives import data_total, partial_ratio
 from .classifiers import (
     MultiHeadEmbeddingClassifier,
     MultiHeadEmbeddingClassifierConfig,
@@ -49,13 +50,14 @@ class LMModes:
 def lm_losses(logits: Dict[str, torch.Tensor], labels: torch.Tensor, ignore_index: int = IGNORE_INDEX):
     """Per-stream cross-entropy averaged over the streams that carry labels
     (wrappers.py:55-64). Streams without any valid label count neither in the
-    numerator nor in the denominator."""
+    numerator nor in the denominator. On a data axis each term is this
+    rank's partial: its tokens' sum over the global batch's count."""
     losses = {}
     total = denom = 0.0
     for i, (key, lg) in enumerate(logits.items()):
         lab = labels[..., i]
         valid = lab != ignore_index
-        nvalid = valid.sum()
+        nvalid = data_total(valid.sum())
         logp = torch.log_softmax(lg.float(), dim=-1)
         nll = -logp.gather(-1, lab.clamp(0, lg.shape[-1] - 1)[..., None].long())[..., 0]
         stream_loss = (nll * valid).sum() / nvalid.clamp_min(1)
@@ -79,7 +81,7 @@ def regression_losses(reg_values: Dict[str, torch.Tensor], logits_keys: List[str
         values = torch.as_tensor(token_values[key], dtype=torch.float32, device=lab.device)
         targets = values[lab.clamp(0, len(values) - 1).long()]
         l1 = (reg_values[key][..., 0] - targets).abs()
-        reg_losses[f"{key}/l1"] = (l1 * valid).sum() / valid.sum().clamp_min(1)
+        reg_losses[f"{key}/l1"] = partial_ratio((l1 * valid).sum(), valid.sum(), min_den=1)
     if not reg_losses:
         return 0.0, reg_losses
     return sum(reg_losses.values()) / len(reg_losses), reg_losses

@@ -8,6 +8,19 @@ trainer's names) holding
   `inference.load_model_from_checkpoint(<dir>/params.pt)` renders from it;
 - `opt_state.pt`: the optimizer's state, when the trainer saves it;
 - `meta.json`: trainer state and model config.
+On a mesh (`parallel/mesh.py`), rank 0 gathers the model's and expert
+axes' shards and the ZeRO slices into this one-device layout and writes it
+alone. A `sharded` checkpoint (orbax's sharded save in the JAX package)
+holds instead every rank's own blocks, `shards/rank_<r>.pt` ({"params":
+its state dict, "opt_state": its optimizer state, "zero_split": the ZeRO
+dim of each sliced parameter}), and `index.json` (the saving mesh and
+which axis and dim split each parameter): `load_checkpoint` joins them into
+whole tensors, which a run on any mesh then cuts to its own blocks, as
+JAX's `restore_sharded` lays shards on the restoring mesh.
+With `use_async`, tensors are copied to host memory before the call returns
+and the files are written on a background thread (orbax's async commit);
+`wait_for_async_saves()` blocks until every queued write is on disk. A save
+first waits for the one before it, and every load waits for all.
 A reference `.pt` file loads as a checkpoint of its parameters alone.
 
 `warm_start_params` and `freeze_mask` are copies of the JAX package's
@@ -21,12 +34,48 @@ from __future__ import annotations
 import os
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_gather_list
+from ..parallel.mesh import AXES, mesh_layout
+from ..parallel.shard import Shard, gather_state_dict
 from ..utils import dump_json, load_json
+
+_writer: Optional[ThreadPoolExecutor] = None
+_pending: List[Future] = []
+# optimizer state keys that hold one buffer a parameter (Optimizer._STATE)
+_OPT_BUFFERS = ("mu", "nu", "trace", "acc", "v_row", "v_col", "v")
+
+
+def wait_for_async_saves() -> None:
+    """Block until every asynchronous checkpoint write is on disk; a failed
+    write raises here."""
+    while _pending:
+        _pending.pop(0).result()
+
+
+def _write(jobs: List[Callable[[], None]], use_async: bool) -> None:
+    global _writer
+    if not use_async:
+        for job in jobs:
+            job()
+        return
+    if _writer is None:
+        _writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
+    _pending.extend(_writer.submit(job) for job in jobs)
+
+
+def _host(tree):
+    """A host copy of every tensor of a state (nested dicts)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree
 
 
 def save_checkpoint(
@@ -35,34 +84,107 @@ def save_checkpoint(
     optimizer=None,
     trainer_state: Optional[Dict] = None,
     model_config: Optional[Dict] = None,
+    use_async: bool = False,
+    sharded: bool = False,
+    mesh=None,
+    specs: Optional[Dict] = None,
 ) -> str:
-    """Write a checkpoint directory, replacing one that exists; returns its path."""
+    """Write a checkpoint directory, replacing one that exists; returns its
+    path. On a mesh of several ranks every rank calls it: the gathers are
+    collective, and rank 0 writes the directory (every rank its own shard
+    file when `sharded`)."""
     directory = os.path.abspath(directory)
-    if os.path.exists(directory):
-        shutil.rmtree(directory)
-    os.makedirs(directory)
-    state_dict = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"model": {"config": model_config, "state_dict": state_dict}},
-               os.path.join(directory, "params.pt"))
-    if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(directory, "opt_state.pt"))
+    wait_for_async_saves()
+    multi = mesh is not None and mesh.world > 1
+    if multi:
+        mesh.barrier()  # every rank's earlier writes are on disk before rank 0 removes the directory
+    main = mesh is None or mesh.is_main
+    specs = specs or {}
     meta: Dict[str, Any] = {}
     if trainer_state is not None:
         meta["trainer_state"] = trainer_state
     if model_config is not None:
         meta["model_config"] = model_config
-    dump_json(meta, os.path.join(directory, "meta.json"))
+    jobs: List[Callable[[], None]] = []
+    if sharded:
+        rank = mesh.rank if mesh is not None else 0
+        shard = _host({"params": model.state_dict(),
+                       "opt_state": optimizer.state_dict() if optimizer is not None else None,
+                       "zero_split": {} if optimizer is None else
+                       {n: d for n, d in zip(optimizer.names, optimizer.split) if d is not None}})
+        index = {"mesh": dict(mesh.shape) if mesh is not None else {a: 1 for a in AXES},
+                 "specs": {k: [v.axis, v.dim, v.halves] for k, v in specs.items()}}
+        jobs.append(lambda: torch.save(shard, os.path.join(directory, "shards", f"rank_{rank:05d}.pt")))
+        if main:
+            jobs += [lambda: dump_json(index, os.path.join(directory, "index.json"))]
+    else:
+        state_dict = gather_state_dict(model.state_dict(), specs) if multi else model.state_dict()
+        opt_state = None
+        if optimizer is not None:
+            opt_state = whole_opt_state(optimizer, model, specs) if multi else optimizer.state_dict()
+        if main:
+            params = _host({"model": {"config": model_config, "state_dict": state_dict}})
+            jobs.append(lambda: torch.save(params, os.path.join(directory, "params.pt")))
+            if opt_state is not None:
+                opt_host = _host(opt_state)
+                jobs.append(lambda: torch.save(opt_host, os.path.join(directory, "opt_state.pt")))
+    if main:
+        if os.path.exists(directory):
+            shutil.rmtree(directory)
+        os.makedirs(os.path.join(directory, "shards") if sharded else directory)
+        dump_json(meta, os.path.join(directory, "meta.json"))
+    if multi and sharded:
+        mesh.barrier()  # the directory exists before any rank writes into it
+    _write(jobs, use_async)
     return directory
+
+
+def whole_opt_state(optimizer, model: torch.nn.Module, specs: Dict) -> Dict:
+    """The optimizer's state with every buffer whole: its ZeRO slices and
+    the model- and expert-axis shards of the per-parameter buffers (those of
+    the parameter's shape) joined (collective: every rank calls it)."""
+    state = optimizer.full_state_dict()
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    out = dict(state)
+    for key in _OPT_BUFFERS:
+        if state.get(key) is None:
+            continue
+        out[key] = {n: specs[n].join(all_gather_list(t.to(next(model.parameters()).device), specs[n].axis)).cpu()
+                    if n in specs and t.shape == shapes[n] else t for n, t in state[key].items()}
+    return out
+
+
+def shard_opt_state(state: Dict, model: torch.nn.Module, specs: Dict, mesh) -> Dict:
+    """This rank's model- and expert-axis blocks of a whole optimizer state
+    (the optimizer cuts its ZeRO slices itself)."""
+    own = {n: p.shape for n, p in model.named_parameters()}
+
+    def whole_shape(name):
+        shape = list(own[name])
+        shape[specs[name].dim] *= mesh.size(specs[name].axis)
+        return torch.Size(shape)
+
+    out = dict(state)
+    for key in _OPT_BUFFERS:
+        if state.get(key) is not None:
+            out[key] = {n: specs[n].take(t, mesh.size(specs[n].axis), mesh.index(specs[n].axis))
+                        if n in specs and t.shape == whole_shape(n) else t for n, t in state[key].items()}
+    return out
 
 
 def load_checkpoint(directory: str) -> Dict[str, Any]:
     """{"params": state dict, "opt_state": optimizer state (if saved), and the
-    meta.json entries ("trainer_state", "model_config")}, on the CPU. A file
-    is read as a reference `.pt` ({"model": {"state_dict"}}): its params only."""
+    meta.json entries ("trainer_state", "model_config")}, on the CPU, every
+    tensor whole (a sharded checkpoint's blocks joined). A file is read as a
+    reference `.pt` ({"model": {"state_dict"}}): its params only. Waits for
+    the asynchronous saves first."""
+    wait_for_async_saves()
     directory = os.path.abspath(directory)
     if os.path.isfile(directory):
         return {"params": torch.load(directory, map_location="cpu", weights_only=False)["model"]["state_dict"]}
     out: Dict[str, Any] = {}
+    if os.path.exists(os.path.join(directory, "index.json")):
+        out.update(_join_shards(directory))
     params = os.path.join(directory, "params.pt")
     if os.path.exists(params):
         out["params"] = torch.load(params, map_location="cpu", weights_only=False)["model"]["state_dict"]
@@ -72,6 +194,47 @@ def load_checkpoint(directory: str) -> Dict[str, Any]:
     meta = os.path.join(directory, "meta.json")
     if os.path.exists(meta):
         out.update(load_json(meta))
+    return out
+
+
+def _join_shards(directory: str) -> Dict[str, Any]:
+    """The whole params and optimizer state of a sharded checkpoint."""
+    index = load_json(os.path.join(directory, "index.json"))
+    shape = [int(index["mesh"][a]) for a in AXES]
+    layout = mesh_layout(*shape)
+    shards = [torch.load(os.path.join(directory, "shards", f"rank_{r:05d}.pt"), map_location="cpu",
+                         weights_only=False) for r in range(layout.size)]
+    specs = {k: Shard(*v) for k, v in index["specs"].items()}
+
+    def along(axis: str, rank: int = 0) -> List[int]:
+        """The ranks along `axis` through `rank`'s coordinate."""
+        coord = [int(i[0]) for i in np.nonzero(layout == rank)]
+        i = AXES.index(axis)
+        return [int(layout[tuple(coord[:i] + [j] + coord[i + 1:])]) for j in range(shape[i])]
+
+    def whole(name: str, get: Callable[[int], torch.Tensor]) -> torch.Tensor:
+        spec = specs.get(name)
+        return get(0) if spec is None else spec.join([get(r) for r in along(spec.axis)])
+
+    out: Dict[str, Any] = {"params": {n: whole(n, lambda r, n=n: shards[r]["params"][n]) for n in shards[0]["params"]}}
+    opt = shards[0]["opt_state"]
+    if opt is not None:
+        opt = dict(opt)
+        for key in _OPT_BUFFERS:
+            if opt.get(key) is None:
+                continue
+
+            def unsliced(r: int, name: str, key=key) -> torch.Tensor:
+                t = shards[r]["opt_state"][key][name]
+                dim, own = shards[r]["zero_split"].get(name), shards[r]["params"][name].shape
+                if dim is None or t.shape == own or t.ndim != len(own):
+                    return t
+                return torch.cat([shards[q]["opt_state"][key][name] for q in along(AXES[0], r)], dim)
+
+            opt[key] = {n: whole(n, lambda r, n=n: unsliced(r, n))
+                        if shards[0]["params"][n].shape == unsliced(0, n).shape else unsliced(0, n)
+                        for n in opt[key]}
+        out["opt_state"] = opt
     return out
 
 

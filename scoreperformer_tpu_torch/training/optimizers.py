@@ -27,6 +27,16 @@ place:
   epoch (the JAX package's PlateauScaleState leaf).
 The learning-rate schedules (constant, per-epoch exponential staircase,
 cosine) are optax's.
+
+ZeRO-1 (`zero=(n, index)`, the trainer's `zero_sharding` on a data axis of
+n ranks): each state buffer holds rank `index`'s slice of its parameter, on
+the dimension JAX's `_zero_spec` picks (`parallel.mesh.zero_split_dim`);
+a parameter with no such dimension keeps whole buffers. A step updates the
+rank's slices from the (already averaged) gradients, sums lamb's and
+adafactor's per-parameter squares over the slices, and all-gathers the
+updated parameters. adafactor's factored row and column moments (and that
+parameter's update) stay whole on every rank: the values are the same, only
+memory differs.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ import numpy as np
 import torch
 
 from ..configs import ModuleConfig
+from ..parallel.collectives import all_gather_list, all_reduce
+from ..parallel.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, zero_split_dim
 
 
 @dataclass
@@ -192,7 +204,8 @@ class Optimizer:
     JAX way."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], config: OptimizerConfig,
-                 steps_per_epoch: int = 1, transposed: Iterable[str] = ()):
+                 steps_per_epoch: int = 1, transposed: Iterable[str] = (), zero: Optional[Tuple[int, int]] = None,
+                 shard_axes: Optional[Dict[str, Tuple[str, int]]] = None):
         name = config.optimizer.lower()
         if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {name}; available: {OPTIMIZERS}")
@@ -219,6 +232,27 @@ class Optimizer:
         transposed = set(transposed)
         self.transposed = [n in transposed for n in self.names]
         self.accum_steps = max(1, int(config.grad_accum_steps or 1))
+        self._full = list(self.params)
+        self.zero = zero if zero is not None and zero[0] > 1 else None
+        self.numel = [p.numel() for p in self._full]
+        self.factored_dims = [None] * len(self._full)
+        if name == "adafactor" and not self.flat:
+            self.factored_dims = [self._factored_dims(p, t) for p, t in zip(self._full, self.transposed)]
+        self.split: List[Optional[int]] = [None] * len(self._full)  # ZeRO's dim of each parameter
+        # the mesh axis (model or expert) and its size of each parameter the model splits
+        shards = [(shard_axes or {}).get(n) for n in self.names]
+        self.shard_axes = [None if a is None else a[0] for a in shards]
+        self.numel = [k * (1 if a is None else a[1]) for k, a in zip(self.numel, shards)]
+        if any(a is not None and d is not None for a, d in zip(self.shard_axes, self.factored_dims)):
+            raise NotImplementedError("adafactor's factored moments of a parameter split over a model or "
+                                      "expert axis are not ported")
+        if self.zero is not None:
+            n, index = self.zero
+            for i, p in enumerate(self.full):
+                if self.factored_dims[i] is None:
+                    self.split[i] = zero_split_dim(tuple(p.shape), n)
+            self.params = [p if dim is None else p.detach().narrow(dim, index * (p.shape[dim] // n), p.shape[dim] // n)
+                           for p, dim in zip(self.full, self.split)]
         zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
         self.count = 0  # applied updates: the moments' and schedule's count inside apply_if_finite
         self.mu = zeros() if name in ("adam", "adamw", "lamb", "lion") else None
@@ -228,8 +262,6 @@ class Optimizer:
             self.trace = zeros()
         self.v_row = self.v_col = self.v = None
         if name == "adafactor":
-            self.factored_dims = [None if self.flat else self._factored_dims(p, t)
-                                  for p, t in zip(self.params, self.transposed)]
             self.v_row, self.v_col, self.v = [], [], []
             for p, dims in zip(self.params, self.factored_dims):
                 none = p.new_zeros(1)
@@ -240,7 +272,7 @@ class Optimizer:
                     self.v_row.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d0]))
                     self.v_col.append(p.new_zeros([s for i, s in enumerate(p.shape) if i != d1]))
                     self.v.append(none)
-        self.acc = zeros() if self.accum_steps > 1 else None
+        self.acc = [torch.zeros_like(p) for p in self.full] if self.accum_steps > 1 else None
         self.mini_step = 0
         self.skipped = 0  # updates skipped for non-finite gradients
 
@@ -262,16 +294,38 @@ class Optimizer:
 
     # ---- reductions over a block: one parameter, or all of them with `flat_updates` ----
 
+    def _whole_sums(self, sums: List[torch.Tensor], sliced: bool) -> List[torch.Tensor]:
+        """Per-parameter sums of a function of its entries, summed over the
+        blocks of a split parameter: its ZeRO slices (when `sliced`, the
+        entries are this rank's slices) and its model or expert shards."""
+        sums = list(sums)
+        for axis in (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS):
+            idx = [i for i in range(len(sums))
+                   if (axis == DATA_AXIS and sliced and self.split[i] is not None) or self.shard_axes[i] == axis]
+            if idx:
+                total = all_reduce(torch.stack([sums[i] for i in idx]), axis)
+                for j, i in enumerate(idx):
+                    sums[i] = total[j]
+        return sums
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax.global_norm of the whole gradients, from this rank's
+        (model- or expert-split) gradients of `full`."""
+        if not any(self.shard_axes):
+            return global_norm(grads)
+        return torch.sqrt(sum(self._whole_sums([(g.float() * g.float()).sum() for g in grads], sliced=False)))
+
     def _block_sums(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Sum of squares of each block, one entry a parameter."""
-        sums = [(x * x).sum() for x in xs]
+        """Sum of squares of each block, one entry a parameter (summed over
+        its ZeRO slices and model or expert shards)."""
+        sums = self._whole_sums([(x * x).sum() for x in xs], sliced=True)
         if self.flat:
             total = torch.stack(sums).sum()
             return [total] * len(xs)
         return sums
 
     def _block_sizes(self, xs: List[torch.Tensor]) -> List[int]:
-        return [sum(x.numel() for x in xs)] * len(xs) if self.flat else [x.numel() for x in xs]
+        return [sum(self.numel)] * len(xs) if self.flat else list(self.numel)
 
     def _block_rms(self, xs):
         return [torch.sqrt(s / n) for s, n in zip(self._block_sums(xs), self._block_sizes(xs))]
@@ -281,7 +335,7 @@ class Optimizer:
         """One optax update from the parameters' `.grad` (None counts as 0).
         `grad_norm` may pass the global norm of these gradients when it is
         already computed."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.full]
         if self.acc is not None:  # optax.MultiSteps: running mean, update on the k-th step
             n = self.mini_step
             torch._foreach_add_(self.acc, torch._foreach_div(torch._foreach_sub(grads, self.acc), n + 1.0))
@@ -290,15 +344,18 @@ class Optimizer:
                 return
             # optax resets the sums by multiplying with 0, which keeps a NaN
             # forever; here they restart at 0 after the update
-            grads, self.acc = self.acc, [torch.zeros_like(p) for p in self.params]
+            grads, self.acc = self.acc, [torch.zeros_like(p) for p in self.full]
             grad_norm = None
-        norm = global_norm(grads) if grad_norm is None else grad_norm
+        norm = self.global_norm(grads) if grad_norm is None else grad_norm
         # optax.apply_if_finite checks every entry. A finite norm means every
         # entry is finite, so only a non-finite one (rare) pays a second check:
         # its squares may have overflowed from finite entries
-        if not bool(torch.isfinite(norm)) and not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
+        if not bool(torch.isfinite(norm)) and bool(sum(self._whole_sums(
+                [(~torch.isfinite(g)).sum().float() for g in grads], sliced=False)) > 0):
             self.skipped += 1
             return
+        grads = [g if dim is None else g.narrow(dim, self._start(i), p.shape[dim])
+                 for i, (g, p, dim) in enumerate(zip(grads, self.params, self.split))]
         clip = self.config.grad_clip
         if clip is not None and not bool(norm < clip):
             grads = torch._foreach_mul(torch._foreach_div(grads, norm), float(clip))
@@ -307,7 +364,31 @@ class Optimizer:
         if self.plateau_scale is not None:
             torch._foreach_mul_(updates, _f32(self.plateau_scale))
         torch._foreach_add_(self.params, updates)
+        self._gather_params()
         self.count += 1
+
+    @property
+    def full(self) -> List[torch.Tensor]:
+        """The parameters (`params` holds what this rank updates: with ZeRO,
+        views of its slices)."""
+        return self._full if self.zero is not None else self.params
+
+    def _start(self, i: int) -> int:
+        """The first index of this rank's ZeRO slice of parameter i."""
+        n, index = self.zero
+        return index * (self.full[i].shape[self.split[i]] // n)
+
+    def _gather_params(self) -> None:
+        """All-gather the updated ZeRO slices into the whole parameters, in
+        one collective."""
+        sliced = [i for i, dim in enumerate(self.split) if dim is not None]
+        if not sliced:
+            return
+        flat = torch.cat([self.params[i].reshape(-1) for i in sliced])
+        blocks = [b.split([self.params[i].numel() for i in sliced]) for b in all_gather_list(flat, DATA_AXIS)]
+        for j, i in enumerate(sliced):
+            shape = self.params[i].shape
+            self.full[i].data.copy_(torch.cat([b[j].view(shape) for b in blocks], self.split[i]))
 
     # ---- the optimizers: gradients (clipped) -> the update to add ----
 
@@ -403,7 +484,7 @@ class Optimizer:
         return torch._foreach_neg(updates)
 
     def zero_grad(self) -> None:
-        for p in self.params:
+        for p in self.full:
             p.grad = None
 
     # ---- state ----
@@ -411,13 +492,29 @@ class Optimizer:
     _STATE = ("mu", "nu", "trace", "acc", "v_row", "v_col", "v")
 
     def state_dict(self) -> Dict:
+        """The state, each buffer this rank's (ZeRO slices as they are)."""
         def named(xs):
             return None if xs is None else {n: x.detach().cpu() for n, x in zip(self.names, xs)}
 
         return {"count": self.count, "mini_step": self.mini_step, "skipped": self.skipped,
                 "plateau_scale": self.plateau_scale, **{key: named(getattr(self, key)) for key in self._STATE}}
 
+    def full_state_dict(self) -> Dict:
+        """The state with every ZeRO slice joined into the whole buffer
+        (collective over the data axis: every rank calls it)."""
+        state = self.state_dict()
+        for key in self._STATE:
+            if state[key] is None:
+                continue
+            for i, (name, dim) in enumerate(zip(self.names, self.split)):
+                if dim is not None and state[key][name].shape != self.full[i].shape:
+                    own = getattr(self, key)[i].contiguous()
+                    state[key][name] = torch.cat(all_gather_list(own, DATA_AXIS), dim).cpu()
+        return state
+
     def load_state_dict(self, state: Dict) -> None:
+        """Load a state; a whole buffer of a ZeRO-sliced parameter loads
+        this rank's slice of it."""
         self.count = int(state["count"])
         self.mini_step = int(state.get("mini_step", 0))
         self.skipped = int(state.get("skipped", 0))
@@ -428,5 +525,9 @@ class Optimizer:
             if own is None or given is None:
                 continue
             with torch.no_grad():
-                for name, x in zip(self.names, own):
-                    x.copy_(torch.as_tensor(given[name]).to(x.dtype))
+                for i, (name, x) in enumerate(zip(self.names, own)):
+                    value = torch.as_tensor(given[name])
+                    dim = self.split[i]
+                    if dim is not None and value.shape != x.shape:
+                        value = value.narrow(dim, self._start(i), x.shape[dim])
+                    x.copy_(value.to(x.dtype))

@@ -1,9 +1,10 @@
 """Trainer: train and eval steps, the epoch loop, checkpoints, callbacks.
 
-Counterpart of scoreperformer_tpu/training/trainer.py on one device (the GPU
-unless the model lives elsewhere). Batches are the JAX trainer's: each is a
-pure function of (seed, epoch, batch index), made by the same formulas
-(`_iter_batches`), so both frameworks see the very same data. Dropout, latent
+Counterpart of scoreperformer_tpu/training/trainer.py, on one device (the
+GPU unless the model lives elsewhere) or on a mesh of processes. Batches are
+the JAX trainer's: each is a pure function of (seed, epoch, batch index),
+made by the same formulas (`_iter_batches`), so both frameworks see the very
+same data. Dropout, latent
 dropout and the MMD samples draw from generators seeded per step from
 (seed, step), as the JAX trainer folds its key. TensorBoard event files go to
 {output_dir}/tb unless `tensorboard` is off, as in the JAX trainer.
@@ -32,17 +33,38 @@ Every option of the JAX trainer that means something on one device is taken:
   profile_dir/trace_<first>-<last>.json, stopped early if training ends;
 - `zero_sharding` and `sequence_parallel` are what they are on one device in
   JAX: nothing.
+On several processes (torchrun, or `multihost` with `coordinator_address`,
+`num_processes` and `process_id`), the trainer builds a `parallel.
+ProcessMesh` of `mesh_data` x `mesh_model` x `mesh_expert` ranks (the data
+axis by default as the JAX trainer picks it):
+- every rank makes the global batch and takes rows [d*B/n, (d+1)*B/n) of
+  it (a batch's rows depend on the random draws of the rows before them);
+- the loss terms are the global batch's: each rank computes its partial
+  (`parallel/collectives.py`), back-propagates n times it, and the
+  gradients are averaged over `data` in one all-reduce; the logged metrics
+  are the partials summed, the evaluator sees the gathered logits; dropout
+  and the MMD samples do not depend on the number of ranks;
+- `mesh_model` and `mesh_expert` split the layers `parallel/shard.py`
+  names; the global norm and the optimizer's per-parameter norms are taken
+  over the whole parameters, so every rank takes the same branch;
+- `zero_sharding` splits the optimizer's state over `data` (ZeRO-1,
+  `training/optimizers.py`);
+- rank 0 logs, writes TensorBoard and writes non-sharded checkpoints
+  (gathered into the one-device layout); with `sharded_checkpoint` every
+  rank writes its blocks; `async_checkpoint` writes on a background thread;
+- a rank past the mesh (when the data axis leaves ranks out) trains nothing.
 A model with MoE layers adds their summed aux loss to the train step's loss
 and logs it as `loss/moe_aux`, with their mean drop rate as `stats/moe_drop`
 (not in the loss); eval logs both beside a loss without the aux, as the JAX
 trainer's steps do.
-What needs more than one device raises (`_NOT_PORTED`).
+`sequence_parallel` on a model axis raises (`_NOT_PORTED`).
 """
 from __future__ import annotations
 
 import os
 import signal
 import time
+import warnings
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -64,8 +86,27 @@ from .callbacks import (
     TrainerControl,
     TrainerState,
 )
-from .checkpoint import freeze_mask, from_jax_tree, jax_tree, load_checkpoint, save_checkpoint, warm_start_params
-from .optimizers import Optimizer, OptimizerConfig, PlateauController, global_norm
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.shard import gather_state_dict, shard_model, shard_state_dict
+from ..parallel.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    ProcessMesh,
+    default_data_axis,
+    maybe_distributed_initialize,
+)
+from .checkpoint import (
+    freeze_mask,
+    from_jax_tree,
+    jax_tree,
+    load_checkpoint,
+    save_checkpoint,
+    shard_opt_state,
+    wait_for_async_saves,
+    warm_start_params,
+)
+from .optimizers import Optimizer, OptimizerConfig, PlateauController
 
 
 @dataclass
@@ -110,19 +151,26 @@ class TrainerConfig(ModuleConfig):
     ignore_mismatched_keys: bool = True
     finetune_layers: List[str] = field(default_factory=list)
 
-    # the JAX trainer's device options; on one device ZeRO and sequence
-    # parallelism are no-ops, and a mesh, multihost and orbax's async and
-    # sharded checkpoints raise (_NOT_PORTED)
+    # the JAX trainer's device options: the process mesh (mesh_data None =
+    # every rank the model and expert axes leave, limited by the batch
+    # sizes), the multihost start (tcp://coordinator_address, else
+    # torchrun's environment), ZeRO-1 over the data axis; sequence
+    # parallelism is a no-op on one model rank and raises on more
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     mesh_expert: int = 1
     multihost: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     zero_sharding: bool = False
     sequence_parallel: bool = False
     bf16_compute: bool = False
     remat: bool = False
     # TensorBoard event files in {output_dir}/tb (training/tensorboard.py)
     tensorboard: bool = True
+    # checkpoints written on a background thread (wait_for_async_saves) /
+    # as every rank's blocks with an index (training/checkpoint.py)
     async_checkpoint: bool = False
     sharded_checkpoint: bool = False
     debug_nans: bool = False
@@ -132,15 +180,10 @@ class TrainerConfig(ModuleConfig):
     profile_num_steps: int = 5
 
 
-# options that need more than one device (torch.distributed) or orbax, with
-# why each raises
+# options not ported yet, with what they need and the slice that ports them
 _NOT_PORTED = {
-    "mesh_data": (lambda c: c.mesh_data not in (None, 1), "a data axis of more than one device"),
-    "mesh_model": (lambda c: c.mesh_model != 1, "a model axis (tensor parallelism)"),
-    "mesh_expert": (lambda c: c.mesh_expert != 1, "an expert axis"),
-    "multihost": (lambda c: c.multihost, "more than one host"),
-    "async_checkpoint": (lambda c: c.async_checkpoint, "orbax's asynchronous checkpoints"),
-    "sharded_checkpoint": (lambda c: c.sharded_checkpoint, "orbax's sharded checkpoints"),
+    "sequence_parallel": (lambda c: c.sequence_parallel and c.mesh_model > 1,
+                          "sequence parallelism on a model axis, ported with GPipe in the next multi-device slice"),
 }
 
 
@@ -195,9 +238,13 @@ class Trainer:
     ):
         for name, (is_set, needs) in _NOT_PORTED.items():
             if is_set(config):
-                raise NotImplementedError(f"trainer option {name} needs {needs}: the port trains on one device")
+                raise NotImplementedError(f"trainer option {name}: {needs}")
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = self._make_mesh(config)
+        self.specs = {}
+        if self.mesh.size(MODEL_AXIS) > 1 or self.mesh.size(EXPERT_AXIS) > 1:
+            self.specs = shard_model(model, self.mesh)
         self.config = config
         self.train_dataset = train_dataset
         self.eval_dataset = eval_dataset
@@ -209,11 +256,13 @@ class Trainer:
 
         self.state = TrainerState()
         self.control = TrainerControl()
-        cb = [DefaultFlowCallback(), JSONLMetricsCallback(), FileLogCallback()]
-        if config.tensorboard:
-            cb.append(TensorBoardCallback())
-        if not config.disable_progress:
-            cb.append(ProgressCallback(config.progress_metrics, config.progress_steps))
+        cb = [DefaultFlowCallback()]
+        if self.mesh.is_main:  # rank 0 alone logs
+            cb += [JSONLMetricsCallback(), FileLogCallback()]
+            if config.tensorboard:
+                cb.append(TensorBoardCallback())
+            if not config.disable_progress:
+                cb.append(ProgressCallback(config.progress_metrics, config.progress_steps))
         self.callback_handler = CallbackHandler(cb + list(callbacks or []))
 
         self.optimizer: Optional[Optimizer] = None
@@ -231,6 +280,25 @@ class Trainer:
 
     # ---- setup ----
 
+    def _make_mesh(self, config: TrainerConfig) -> ProcessMesh:
+        """The (data, model, expert) mesh over the process group (started
+        here with `multihost`), as the JAX trainer sizes its mesh."""
+        import torch.distributed as dist
+
+        if config.multihost:
+            maybe_distributed_initialize(config, self.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        model, expert = config.mesh_model, config.mesh_expert
+        data = config.mesh_data
+        if data is None:
+            data, warning = default_data_axis(world, model, expert, config.batch_size, config.eval_batch_size)
+            if warning:
+                warnings.warn(warning, stacklevel=3)
+        for size in (config.batch_size, config.eval_batch_size):
+            if size % data:
+                raise ValueError(f"batch size {size} does not split over a data axis of {data}")
+        return ProcessMesh(data, model, expert)
+
     def setup_optimizer(self):
         from ..convert import jax_param_paths
 
@@ -238,8 +306,12 @@ class Trainer:
             transposed = [n for n, (_, t) in jax_param_paths(self.model).items() if t]
         except KeyError:
             transposed = []
+        zero = None
+        if self.config.zero_sharding:
+            zero = (self.mesh.size(DATA_AXIS), self.mesh.index(DATA_AXIS))
+        shard_axes = {n: (s.axis, self.mesh.size(s.axis)) for n, s in self.specs.items()}
         self.optimizer = Optimizer(self.model.named_parameters(), self.config.optimization,
-                                   self.steps_per_epoch or 1, transposed)
+                                   self.steps_per_epoch or 1, transposed, zero=zero, shard_axes=shard_axes)
         self._plateau = PlateauController.from_config(self.config.optimization)
         if self.config.finetune_layers:  # the JAX trainer's freeze_mask over flax paths
             trainable = from_jax_tree(self.model, freeze_mask(jax_tree(self.model), self.config.finetune_layers))
@@ -259,16 +331,18 @@ class Trainer:
             return
         from ..convert import load_state_dict
 
-        loaded = load_checkpoint(path)
+        loaded = load_checkpoint(path)  # whole tensors; this rank keeps its blocks
         if self.config.warm_start:  # matching parameters only, by flax path
-            params = warm_start_params(jax_tree(self.model), jax_tree(self.model, loaded["params"]),
+            with self.mesh.activate():
+                own = gather_state_dict(self.model.state_dict(), self.specs)
+            params = warm_start_params(jax_tree(self.model, own), jax_tree(self.model, loaded["params"]),
                                        ignore_layers=self.config.ignore_layers,
                                        ignore_mismatched=self.config.ignore_mismatched_keys)
-            load_state_dict(self.model, from_jax_tree(self.model, params))
+            load_state_dict(self.model, shard_state_dict(from_jax_tree(self.model, params), self.specs, self.mesh))
             return
-        load_state_dict(self.model, loaded["params"])
+        load_state_dict(self.model, shard_state_dict(loaded["params"], self.specs, self.mesh))
         if "opt_state" in loaded:
-            self.optimizer.load_state_dict(loaded["opt_state"])
+            self.optimizer.load_state_dict(shard_opt_state(loaded["opt_state"], self.model, self.specs, self.mesh))
         ts = loaded.get("trainer_state")
         if ts is not None:
             self.state.epoch = ts.get("epoch", 0.0)
@@ -291,8 +365,9 @@ class Trainer:
         generators are made inside, so a recompute draws what the forward
         drew."""
 
-        def forward():
-            out = self._apply(batch, step_generators(self.config.seed, step, self.device))
+        def forward():  # a recompute runs on autograd's thread: the mesh is activated again
+            with self.mesh.activate():
+                out = self._apply(batch, step_generators(self.config.seed, step, self.device))
             loss, losses = out.loss.float(), {k: v.float() for k, v in out.losses.items()}
             if getattr(out, "moe_aux", None) is not None:
                 loss = loss + out.moe_aux
@@ -304,34 +379,64 @@ class Trainer:
         return forward()
 
     def train_step(self, batch: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
-        """Forward, backward, clip and update; the metrics stay on the device."""
+        """Forward, backward, clip and update on this rank's rows; the
+        metrics (the global batch's) stay on the device."""
         self.model.train()
         self.optimizer.zero_grad()
-        with _anomaly_mode() if self.config.debug_nans else nullcontext():
-            loss, losses = self.loss_fn(batch, step)
-            loss.backward()
-        for p in self._frozen:  # the JAX trainer zeroes their gradients
-            p.grad = None
-        with torch.no_grad():  # a parameter without a gradient adds 0 to the norm
-            grads = [p.grad for p in self.optimizer.params if p.grad is not None]
-            grad_norm = global_norm(grads) if grads else torch.zeros((), device=self.device)
-        self.optimizer.step(grad_norm)
-        metrics = {"loss": loss.detach(), "stats/grad_norm": grad_norm}
-        metrics.update({k: v.detach() for k, v in losses.items()})
+        n = self.mesh.size(DATA_AXIS)
+        with self.mesh.activate():
+            with _anomaly_mode() if self.config.debug_nans else nullcontext():
+                loss, losses = self.loss_fn(batch, step)
+                (loss * n if n > 1 else loss).backward()
+            for p in self._frozen:  # the JAX trainer zeroes their gradients
+                p.grad = None
+            self._average_gradients()
+            with torch.no_grad():  # a parameter without a gradient adds 0 to the norm
+                if any(self.optimizer.shard_axes):  # one entry a parameter: its shards' sums are added up
+                    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.optimizer.full]
+                else:
+                    grads = [p.grad for p in self.optimizer.full if p.grad is not None]
+                grad_norm = self.optimizer.global_norm(grads) if grads else torch.zeros((), device=self.device)
+            self.optimizer.step(grad_norm)
+            metrics = self._global_metrics({"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}})
+        metrics["stats/grad_norm"] = grad_norm
         return metrics
+
+    def _average_gradients(self) -> None:
+        """The mean over the data axis of every gradient, in one all-reduce."""
+        n = self.mesh.size(DATA_AXIS)
+        params = [p for p in self.optimizer.full if p.grad is not None]
+        if n == 1 or not params:
+            return
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), DATA_AXIS) / n
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
+    def _global_metrics(self, partials: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch's metrics: the ranks' partials summed over the
+        data axis, in one all-reduce."""
+        if self.mesh.size(DATA_AXIS) == 1 or not partials:
+            return partials
+        total = all_reduce(torch.stack([v.float().reshape(()) for v in partials.values()]), DATA_AXIS)
+        return dict(zip(partials, total))
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], index: int) -> Dict[str, torch.Tensor]:
+        """The eval forward on this rank's rows; the metrics are the global
+        batch's (the evaluator sees the logits gathered over the data axis)."""
         self.model.eval()
-        # deterministic but decorrelated across eval batches (the MMD samples)
-        gens = {"mmd": step_generators(0, index, self.device)["mmd"]}
-        out = self._apply(batch, gens)
-        metrics = {"loss": out.loss.float()}
-        if getattr(out, "moe_aux", None) is not None:
-            metrics.update(_moe_metrics(out))
-        metrics.update({k: v.float() for k, v in out.losses.items()})
-        if self.evaluator is not None and "labels" in batch:
-            metrics.update(self.evaluator(batch["labels"], {k: v.float() for k, v in out.logits.items()}))
+        with self.mesh.activate():
+            # deterministic but decorrelated across eval batches (the MMD samples)
+            gens = {"mmd": step_generators(0, index, self.device)["mmd"]}
+            out = self._apply(batch, gens)
+            metrics = {"loss": out.loss.float()}
+            if getattr(out, "moe_aux", None) is not None:
+                metrics.update(_moe_metrics(out))
+            metrics.update({k: v.float() for k, v in out.losses.items()})
+            metrics = self._global_metrics(metrics)
+            if self.evaluator is not None and "labels" in batch:
+                logits = {k: all_gather(v.float(), DATA_AXIS) for k, v in out.logits.items()}
+                metrics.update(self.evaluator(all_gather(batch["labels"], DATA_AXIS), logits))
         return metrics
 
     # ---- data ----
@@ -391,11 +496,21 @@ class Trainer:
                 yield batch
 
     def _put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True) for k, v in batch.items()}
+        """This rank's rows of a host batch, on its device: rows
+        [d*B/n, (d+1)*B/n) on data coordinate d of n."""
+        n, d = self.mesh.size(DATA_AXIS), self.mesh.index(DATA_AXIS)
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            rows = v.shape[0] // n
+            out[k] = torch.as_tensor(v[d * rows:(d + 1) * rows]).to(self.device, non_blocking=True)
+        return out
 
     # ---- loops ----
 
     def train(self):
+        if not self.mesh.member:  # left out of the mesh
+            return self.state
         self._prepare()
         config = self.config
         self.state.num_train_epochs = config.epochs
@@ -474,6 +589,8 @@ class Trainer:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
             self.save_checkpoint(name="checkpoint_last")
+            if config.async_checkpoint:  # every queued write on disk before train() returns
+                wait_for_async_saves()
             self.callback_handler.on_train_end(config, self.state, self.control)
         return self.state
 
@@ -531,6 +648,8 @@ class Trainer:
             self.state.best_model_checkpoint = self.save_checkpoint(name="checkpoint_best")
 
     def evaluate(self) -> Dict[str, float]:
+        if not self.mesh.member:
+            return {}
         self._prepare()
         accumulator = Accumulator()
         for i, batch in enumerate(self._iter_batches(self.eval_dataset, self.config.eval_batch_size, False, 0)):
@@ -543,18 +662,25 @@ class Trainer:
         return metrics
 
     def save_checkpoint(self, name: str = "checkpoint_last") -> str:
-        path = save_checkpoint(
-            os.path.join(self.config.output_dir, name),
-            self.model,
-            optimizer=self.optimizer if self.config.save_optimizer else None,
-            trainer_state={
-                "epoch": self.state.epoch,
-                "global_step": self.state.global_step,
-                "best_metric": self.state.best_metric,
-                **({"plateau": self._plateau.state_dict()} if self._plateau is not None else {}),
-            },
-            model_config=self.model_config,
-        )
+        with self.mesh.activate():
+            path = save_checkpoint(
+                os.path.join(self.config.output_dir, name),
+                self.model,
+                optimizer=self.optimizer if self.config.save_optimizer else None,
+                trainer_state={
+                    "epoch": self.state.epoch,
+                    "global_step": self.state.global_step,
+                    "best_metric": self.state.best_metric,
+                    **({"plateau": self._plateau.state_dict()} if self._plateau is not None else {}),
+                },
+                model_config=self.model_config,
+                use_async=self.config.async_checkpoint,
+                sharded=self.config.sharded_checkpoint,
+                mesh=self.mesh,
+                specs=self.specs,
+            )
+        if not self.mesh.is_main:
+            return path
         self.state.save_to_json(os.path.join(path, "trainer_state.json"))
         # ship the tokenizer config so checkpoints are renderable standalone
         tokenizer = getattr(self.train_dataset or self.eval_dataset, "tokenizer", None)

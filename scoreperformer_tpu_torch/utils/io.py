@@ -1,8 +1,11 @@
-# Verbatim copy of scoreperformer_tpu/utils/io.py; the port imports nothing of the JAX package.
+# Copy of scoreperformer_tpu/utils/io.py (the port imports nothing of the JAX package), but
+# `dump_json` replaces the file in one step: ranks that build one dataset side by side write its
+# auxiliary JSON files while the others read them.
 """JSON / file IO helpers (counterpart of scoreperformer/utils/io.py)."""
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 from typing import Any, Union
 
@@ -28,6 +31,9 @@ def load_json(path: PathLike) -> Any:
 
 
 def dump_json(obj: Any, path: PathLike, indent: int = 2) -> None:
+    """Write `obj` as JSON; a reader sees the old file or the whole new one."""
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         json.dump(obj, f, indent=indent, cls=NumpyJSONEncoder)
+    os.replace(tmp, path)

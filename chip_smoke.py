@@ -18,8 +18,12 @@ checkout. It
    pair against one SDPA backward; the row writes also beside `copy_` and
    `index_copy_`); checks that every flash kernel, forward
    and backward, holds TF32 tensor-core instructions in its SASS
-   (`cuobjdump -sass`) and that two calls of `prefix_attend` and of the
-   backward give the same bits; sweeps `prefix_attend`'s split count at the
+   (`cuobjdump -sass`), in an instance at each head dim the wrapper takes
+   (16, 32, 64, 128), and that two calls of `prefix_attend` and of each
+   flash kernel give the same bits; holds the three flash kernels at head
+   dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
+   times them at the scale regime's and the smoke-shaped paths' shapes
+   (`check_flash_head_dims`); sweeps `prefix_attend`'s split count at the
    served shape and at scale_1024's;
 4. render path: builds the flagship ScorePerformer at full width (random
    weights from a seed, use_flash=True) and renders a 32-bar synthetic score
@@ -47,10 +51,17 @@ checkout. It
    concurrent clients through the TCP coalescer; renders 16 of them with
    bf16 and int8 caches; profiles one batched render;
 8. the recipes' other decoder head dims: a recipes/smoke.yaml-shaped model
-   (2 heads of 16) renders an 8-bar score and serves 16 requests, and
+   (2 heads of 16) renders an 8-bar score and serves 16 requests, then with
+   `use_flash` (the kernels at d = 16) trains at the recipe's batch of 4,
+   renders from its weights and trains held in bf16 (`smoke_flash`); and
    recipes/scoreperformer/scale_1024.yaml's model at full width (8 heads of
-   128, 285M parameters) serves 32 requests with its `auto` (int8) caches,
-   profiled once, each from a port checkpoint and against the CPU path;
+   128, 285M parameters) with `use_flash` serves 32 requests with its `auto`
+   (int8) caches, profiled once, and renders, each from a port checkpoint
+   and against the CPU path; then scripts/exp_scale_flash.py's regime
+   (`scale_flash_phase`): scale_1024 with `use_flash` trains at batch 8 x
+   1024 and 2048 notes (18 launches of each flash kernel a step), each
+   beside the same model without the kernels, with an eval pass, a
+   card-vs-CPU step and the model held in bf16;
 9. streaming: scripts/exp_streaming_slo.py's regime (a 48-bar synthetic
    piece, 0.2 s windows with 0.1 s overflow, a 256-row decoder cache, top-k
    sampling) through `ScorePerformerGenerator`: the flagship for 60
@@ -113,6 +124,7 @@ import itertools
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import shutil
@@ -163,6 +175,9 @@ SERVE_DTYPE_REQUESTS = 16  # requests rendered with bf16 and int8 caches
 # first requests of the served cell
 SMOKE_REQUESTS = 16
 SCALE_REQUESTS = 32
+# the smoke-shaped model with use_flash trains at recipes/smoke.yaml's batch
+# of 4 and windows of 8 bars, 48 notes (sequences of 50), warm-up + timed steps
+SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ, SMOKE_WINDOW_BARS, SMOKE_TRAIN_STEPS = 4, 48, 8, (2, 4)
 # the TCP coalescer's window: it closes at 128 requests, so it only has to
 # outlast 128 client threads connecting on a busy host (2 s did not, once)
 SERVE_WINDOW_MS = 60000.0
@@ -188,9 +203,27 @@ PAPER_CLASSIFIERS = {"classifier": {"hidden_dims": [], "dropout": 0.2}, "loss_we
 # both sides are fp32 sums whose rounding, about 2^-21 of their operands,
 # exceeds the element's own ulp)
 BF16_ULP_FLOOR = 2.0**-10
+# the flash kernels at the recipes' other head dims, (heads, head dim):
+# scale_1024's decoder and recipes/smoke.yaml's stacks, one KV head each; the
+# shapes timed: (b, h, KV heads, d, t, causal, what gives them)
+FLASH_NEW_DIMS = ((8, 128), (2, 16))
+FLASH_TIMED_SHAPES = (
+    (8, 8, 1, 128, 1025, True, "scale_1024 decoder at 1024 notes"),
+    (8, 8, 1, 128, 1026, False, "d = 128, non-causal, at 1024 notes"),
+    (8, 8, 1, 128, 2049, True, "scale_1024 decoder at 2048 notes"),
+    (8, 8, 1, 128, 2050, False, "d = 128, non-causal, at 2048 notes"),
+    (8, 8, 8, 64, 1026, False, "scale_1024 encoders at 1024 notes (8 heads of 64, 8 KV heads)"),
+    (4, 2, 1, 16, 49, True, "smoke-shaped decoder"),
+    (4, 2, 1, 16, 50, False, "smoke-shaped encoders"),
+)
 # scale_1024's training phase: the recipe's batch and sequences (1024 notes
 # and SOS/EOS), windows of 96 bars of 224-bar scores, so that most fill them
 SCALE_TRAIN_BATCH, SCALE_TRAIN_SEQ, SCALE_WINDOW_BARS, SCALE_SCORE_BARS = 8, 1024, 96, 224
+# the scale regime with the flash kernels (scripts/exp_scale_flash.py): also
+# at 2048 notes (windows of 192 bars); every attention layer of scale_1024's
+# stacks launches each flash kernel once a step (4 + 6 + 8); its card-vs-CPU
+# step takes the first 130 notes of 2 sequences
+SCALE_LONG_SEQ, SCALE_FLASH_LAUNCHES, SCALE_GATE_SEQ = 2048, 4 + 6 + 8, 130
 # the optimizers' card-vs-CPU step: lamb, lion and adafactor with the plateau
 # schedule at scale 0.5 (as after one bad epoch), each parameter after the
 # update within 1e-4 relative L2 of the CPU's; lr 1e-5, so that lion's sign,
@@ -312,6 +345,48 @@ def scale_1024_config(tokenizer):
                               max_segments=1028)
 
 
+def scale_flash_config(tokenizer, seq=SCALE_TRAIN_SEQ, dropout=0.0):
+    """scale_1024_config with `use_flash` in every stack's attention node (the
+    recipe gives both encoders a node of their own: 8 heads of 64, 8 KV heads,
+    no ALiBi; the decoder's is 8 heads of 128 with one KV head), the
+    decoder's attention dropout `dropout` (the kernels have none, so while
+    training with it the gate keeps a layer off the flash path, as JAX's
+    does: scripts/exp_scale_flash.py trains without), and positions and
+    segments for `seq` notes."""
+    cfg = scale_1024_config(tokenizer)
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        cfg[key]["transformer"]["attention"]["use_flash"] = True
+        cfg[key]["max_seq_len"] = seq + 2
+    cfg["perf_decoder"]["transformer"]["attention"]["dropout"] = dropout
+    cfg["perf_encoder"]["max_segments"] = seq + 4
+    return cfg
+
+
+def smoke_flash_config(tokenizer, n_notes):
+    """smoke_config with `use_flash` and no attention dropout in its one
+    attention node (2 heads of 16, one KV head), which all three stacks
+    share."""
+    cfg = smoke_config(tokenizer, n_notes)
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        cfg[key]["transformer"]["attention"].update(use_flash=True, dropout=0.0)
+    return cfg
+
+
+def dropout_off(model_config):
+    """A copy of a ScorePerformer model config with every dropout at 0 (the
+    card and the CPU draw their masks from other streams)."""
+    cfg = json.loads(json.dumps(model_config))
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        for node in ("attention", "feed_forward"):
+            if "dropout" in cfg[key]["transformer"][node]:
+                cfg[key]["transformer"][node]["dropout"] = 0.0
+    if "latent_dropout" in cfg["perf_encoder"]:
+        cfg["perf_encoder"]["latent_dropout"] = [0.0] * len(cfg["perf_encoder"]["latent_dropout"])
+    if "classifiers" in cfg:
+        cfg["classifiers"]["classifier"]["dropout"] = 0.0
+    return cfg
+
+
 def moe_config(tokenizer, n_notes=TRAIN_SEQ):
     """recipes/scoreperformer/moe.yaml's model: base.yaml's (dim 256,
     stacks 2/4/4 deep, 4 heads of 64 with one KV head, learned ALiBi,
@@ -431,10 +506,13 @@ def key_mask(torch, b, t, padded, lengths, g):
 
 
 def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None, hk=1):
-    """Kernel vs plain at fp32, max abs error of o and lse <= 1e-4, with
-    random valid lengths when `padded` (batch element 0 has none when it is
-    "empty"), or the given `lengths` (or (first, end) key ranges), and `hk`
-    KV heads. Returns the record of this shape (times only when `timed`)."""
+    """Kernel vs plain at fp32, with random valid lengths when `padded`
+    (batch element 0 has none when it is "empty"), or the given `lengths`
+    (or (first, end) key ranges), and `hk` KV heads: o within 1e-4 and lse
+    within 1e-4 (or 4 fp32 ulps of its value where that is more,
+    `lse_over_gate`) of the plain version run in fp64 (the fp32 plain
+    version's error is recorded beside); two kernel calls give the same
+    bits. Returns the record of this shape (times only when `timed`)."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -445,12 +523,23 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None,
     slopes = torch.rand(h, device=dev, generator=g) * 0.5
     mask = key_mask(torch, b, t, padded, lengths, g)
     o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, slopes, mask=mask, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
+    o64, lse64 = forward_fp64(fa, q, k, v, slopes, mask, causal)
     torch.cuda.synchronize()
-    err = max((o - po).abs().max().item(), (lse - plse).abs().max().item())
-    if not err <= 1e-4:
-        raise AssertionError(f"flash attention differs from its plain version by {err} at {(b, t, causal, padded)}")
-    rec = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "max_abs_err": err}
+    o_err = (o.double() - o64).abs().max().item()
+    err = max(o_err, (lse.double() - lse64).abs().max().item())
+    lse_gate = lse_over_gate(torch, lse, lse64, 1e-4)
+    where = (b, t, causal, padded, d, hk)
+    if not (o_err <= 1e-4 and lse_gate <= 1.0):
+        raise AssertionError(f"flash attention differs from its plain version at {where}: o {o_err}, "
+                             f"lse {lse_gate} of its gate")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"two flash attention calls give other bits at {where}")
+    rec = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "max_abs_err": err,
+           "lse_err_over_gate": lse_gate,
+           "max_abs_err_vs_fp32_plain": max((o - po).abs().max().item(), (lse - plse).abs().max().item()),
+           "same_bits": True}
     if timed:
         # device time by graph replay over copies of q, k, v larger than L2
         nbytes_qkv = 4 * (q.numel() + k.numel() + v.numel())
@@ -497,11 +586,50 @@ def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths=None):
     return q, k, v, slopes, key_mask(torch, b, t, padded, lengths, g), dout
 
 
+def dq_fp64(fa, args):
+    """(dq, dslopes) of the plain dQ/dslope version on fp64 copies of the
+    backward's arguments: the reference of the kernels' slope gradients. The
+    slope sum runs over b*h*t*t cancelling terms, so the fp32 plain version's
+    own rounding grows with t (`dslopes_beyond`)."""
+    q, k, v, slopes, mask, dout, lse, delta, causal = args
+    return fa.flash_attention_bwd_dq_plain(q.double(), k.double(), v.double(), slopes.double(), mask, dout.double(),
+                                           lse.double(), delta.double(), causal)
+
+
+def forward_fp64(fa, q, k, v, slopes, mask, causal):
+    """(o, lse) of the plain forward on fp64 copies of its inputs."""
+    return fa.flash_attention_plain(q.double(), k.double(), v.double(), slopes.double(), mask, causal,
+                                    return_lse=True)
+
+
+def lse_over_gate(torch, lse, lse64, tol):
+    """Largest |lse - lse64| over max(tol, 4 fp32 ulps of lse64): lse is fp32,
+    and a query row far from its keys (a padded position, up to t away) has
+    |lse| of hundreds, from the bias -slope*|i-j|, whose product and
+    subtraction round in fp32 in any kernel of this math (the Pallas one's
+    too): an fp32 ulp is 7.6e-6 at 127 and 6.1e-5 at 1000."""
+    ulp = torch.exp2(torch.floor(torch.log2(lse64.abs().clamp_min(1e-30))) - 23)
+    return ((lse.double() - lse64).abs() / torch.clamp(4 * ulp, min=tol)).max().item()
+
+
+def dslopes_beyond(got, p32, exact):
+    """The slope gradient's largest error against the fp64 plain version's,
+    beyond the fp32 plain version's own, over the fp64 one's largest value
+    (0 when no farther than the fp32 plain version). The fp32 rounding of dS
+    = P * (dP - delta), whose two terms cancel, adds up over the t*t terms,
+    each weighted by |i-j| up to t: at t = 2049 and 2050 on an H100, 4.3e-4
+    and 1.6e-3 of the largest value in the fp32 plain version, 1.15e-3 and
+    7.8e-4 in the kernel."""
+    err = (got.double() - exact).abs().max() - (p32.double() - exact).abs().max()
+    return max(err.item(), 0.0) / exact.abs().max().clamp_min(1e-30).item()
+
+
 def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, lengths=None):
     """Both backward kernels vs their plain versions on the kernel forward's
-    lse: dq, dk, dv to 1e-4 and dslopes to 1e-3 of the plain version's largest
-    value (the slope sum runs over b*h*t*t terms in another order), and two
-    calls give the same bits. Returns the records of the dK/dV and the
+    lse: dq, dk, dv to 1e-4 of the plain version's largest value, and dslopes
+    to 1e-3 of the fp64 plain version's largest value beyond the fp32 plain
+    version's own error (`dq_fp64`, `dslopes_beyond`; both errors recorded
+    beside), and two calls give the same bits. Returns the records of the dK/dV and the
     dQ/dslope kernel and of the pair at this shape; the kernels are timed by
     CUDA-graph replay when `timed`, beside one SDPA backward."""
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -516,11 +644,15 @@ def check_flash_bwd(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, len
     got = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
     again = fa.flash_attention_bwd_dkv(*args) + fa.flash_attention_bwd_dq(*args)
     want = fa.flash_attention_bwd_dkv_plain(*args) + fa.flash_attention_bwd_dq_plain(*args)
+    exact = dq_fp64(fa, args)[1]
     torch.cuda.synchronize()
-    err = {name: ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
-           for name, x, y in zip(("dk", "dv", "dq", "dslopes"), got, want)}
+    err = {name: ((x.double() - y.double()).abs().max() / y.double().abs().max().clamp_min(1e-30)).item()
+           for name, x, y in zip(("dk", "dv", "dq", "dslopes_vs_fp64", "dslopes_vs_fp32_plain"), got + got[3:],
+                                 want[:3] + (exact, want[3]))}
+    err["fp32_plain_dslopes_vs_fp64"] = ((want[3].double() - exact).abs().max() / exact.abs().max()).item()
+    err["dslopes"] = dslopes_beyond(got[3], want[3], exact)
     limits = {"dk": 1e-4, "dv": 1e-4, "dq": 1e-4, "dslopes": 1e-3}
-    bad = {n: e for n, e in err.items() if not e <= limits[n]}
+    bad = {n: e for n, e in err.items() if n in limits and not e <= limits[n]}
     where = (b, t, causal, padded, d, hk)
     if bad:
         raise AssertionError(f"flash backward differs from its plain version at {where}: {bad}")
@@ -612,14 +744,34 @@ def bf16_ulps(torch, got, want):
     return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)).max().item()
 
 
+def ulps_beyond(torch, got, ref, p32, sel):
+    """Largest (|got - ref| - e32) in bf16 ulps of max(|got|, |ref|) over the
+    elements `sel` marks, where ref is an fp64 reference and e32 the largest
+    error against it of p32, the fp32 plain version, there; an element below
+    BF16_ULP_FLOOR of ref's largest there counted at that floor."""
+    if not bool(sel.any()):
+        return 0.0
+    got, ref, p32 = got.double(), ref.double(), p32.double()
+    e32 = torch.where(sel, (p32 - ref).abs(), 0).max()
+    floor = torch.where(sel, ref.abs(), 0).max() * BF16_ULP_FLOOR
+    m = torch.maximum(torch.maximum(got.abs(), ref.abs()), floor).clamp_min(1.2e-38)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return torch.where(sel, ((got - ref).abs() - e32).clamp_min(0) / ulp, 0).max().item()
+
+
 def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, lengths=None):
     """The bf16 instances of the three flash kernels against their plain
     versions on the same bf16 q, k, v and dout (fp32 slopes, the kernel
     forward's lse, delta the bf16 row sum as the autograd Function takes it):
-    o, dk, dv and dq within one bf16 ulp (`bf16_ulps`), lse to 1e-5, dslopes
+    o, dk, dv and dq within one bf16 ulp (`bf16_ulps`; o and dq on the query
+    rows the mask keeps, and on the rows it drops within one ulp beyond the
+    fp32 plain version's error against the fp64 one, `ulps_beyond`), lse to
+    1e-5 (or 4 fp32 ulps of its value where that is more) of the fp64 plain
+    version's, dslopes
     (fp32 with fp32 slopes, a sum over b*h*t*t terms in another order) to 1e-3
-    of its largest as in `check_flash_bwd`, and two backward calls give the
-    same bits. Returns the records of the
+    of the fp64 plain version's largest value beyond the fp32 plain version's
+    own error (`dq_fp64`, `dslopes_beyond`) as in `check_flash_bwd`, and two calls, forward and
+    backward, give the same bits. Returns the records of the
     forward, dK/dV and dQ/dslope kernels at this shape, timed by CUDA-graph
     replay when `timed`, beside SDPA on bf16 (bias materialized in bf16) and
     its backward."""
@@ -628,6 +780,7 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
     q, k, v, dout = (x.bfloat16() for x in (q, k, v, dout))
     o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, slopes, mask, causal)
     po, plse = fa.flash_attention_plain(q, k, v, slopes, mask, causal, return_lse=True)
     delta = (dout * o).sum(-1).float()
     args = (q, k, v, slopes, mask, dout, lse, delta, causal)
@@ -637,18 +790,39 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     torch.cuda.synchronize()
     if o.dtype != torch.bfloat16 or any(x.dtype != torch.bfloat16 for x in got[:3]):
         raise AssertionError(f"the bf16 kernels returned {o.dtype} and {[x.dtype for x in got]}")
-    ulps = {"o": bf16_ulps(torch, o, po),
-            **{name: bf16_ulps(torch, x, y) for name, x, y in zip(("dk", "dv", "dq", "dslopes"), got, want)}}
-    lse_err = (lse - plse).abs().max().item()
-    dslopes_err = ((got[3] - want[3]).abs().max() / want[3].abs().max().clamp_min(1e-30)).item()
+    # the query rows the mask keeps: o and dq within one bf16 ulp of the
+    # plain version's; the rows it drops (padded positions, whose outputs the
+    # model zeroes and which get no gradient from it) lie up to t from their
+    # keys, where |s| reaches hundreds and its fp32 rounding (3e-5 at 500)
+    # moves P: there o and dq within one bf16 ulp beyond the fp32 plain
+    # version's own error against the fp64 one (`ulps_beyond`)
+    keep = mask[:, None, :, None]
+    ulps = {"o": bf16_ulps(torch, torch.where(keep, o, 0), torch.where(keep, po, 0)),
+            **{name: bf16_ulps(torch, x, y) for name, x, y in zip(("dk", "dv"), got, want)},
+            "dq": bf16_ulps(torch, torch.where(keep, got[2], 0), torch.where(keep, want[2], 0)),
+            "dslopes": bf16_ulps(torch, got[3], want[3])}
+    o64, lse64 = forward_fp64(fa, q, k, v, slopes, mask, causal)
+    dq64, exact = dq_fp64(fa, args)
+    f32 = (q.float(), k.float(), v.float(), slopes, mask)
+    ulps["o_dropped_rows"] = ulps_beyond(torch, o, o64, fa.flash_attention_plain(*f32, causal), ~keep)
+    ulps["dq_dropped_rows"] = ulps_beyond(torch, got[2], dq64, fa.flash_attention_bwd_dq_plain(
+        *f32, dout.float(), lse, delta, causal)[0], ~keep)
+    # lse (fp32 on both sides) to 1e-5 of the fp64 plain version's, or 4
+    # fp32 ulps of its value where that is more (`lse_over_gate`)
+    lse_err = (lse.double() - lse64).abs().max().item()
+    lse_gate = lse_over_gate(torch, lse, lse64, 1e-5)
+    lse_err_fp32_plain = (lse - plse).abs().max().item()
+    dslopes_err = dslopes_beyond(got[3], want[3], exact)
     where = (b, t, causal, padded, d, hk)
-    if not (max(v for k, v in ulps.items() if k != "dslopes") <= 1.0 and lse_err <= 1e-5 and dslopes_err <= 1e-3):
+    if not (max(v for k, v in ulps.items() if k != "dslopes") <= 1.0 and lse_gate <= 1.0 and dslopes_err <= 1e-3):
         raise AssertionError(f"bf16 flash kernels differ from their plain versions at {where}: ulps {ulps}, "
                              f"lse {lse_err}, dslopes {dslopes_err}")
-    if not all(torch.equal(x, y) for x, y in zip(got, again)):
-        raise AssertionError(f"two bf16 flash backward calls give other bits at {where}")
+    if not all(torch.equal(x, y) for x, y in zip(got + (o, lse), again + (o2, lse2))):
+        raise AssertionError(f"two bf16 flash calls give other bits at {where}")
     shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "dtype": "bf16",
-             "bf16_ulps": ulps, "lse_err": lse_err, "dslopes_err": dslopes_err}
+             "bf16_ulps": ulps, "lse_err": lse_err, "lse_err_over_gate": lse_gate,
+             "lse_err_vs_fp32_plain": lse_err_fp32_plain,
+             "dslopes_err": dslopes_err}
     fwd = {**shape, "max_abs_err": (o.float() - po.float()).abs().max().item()}
     dkv = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[:2], want[:2]))}
     dq = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[2:], want[2:]))}
@@ -703,6 +877,49 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
         rec["tf32_products"] = tc_products
         rec["bound_tc_ms"] = max(tc_products * product / TF32_OPS_PER_S, t_bytes) * 1e3
     return fwd, dkv, dq
+
+
+def check_flash_head_dims(torch, fa):
+    """The three flash kernels at the recipes' other head dims, 128
+    (scale_1024's decoder: 8 heads, one KV head) and 16 (recipes/smoke.yaml:
+    2 heads, one KV head), against their plain versions, each case twice for
+    the same bits: fp32 within `check_flash`'s and `check_flash_bwd`'s gates,
+    bf16 within one bf16 ulp (`check_flash_bf16`); t from 1 to 129 around the
+    tiles, padded tails beside an element with no valid key, keys that start
+    late, one KV head per query head (MHA). Then, timed (fp32 and bf16), the
+    shapes the scale regime's and the smoke-shaped paths give them
+    (FLASH_TIMED_SHAPES), with scale_1024's encoders (8 heads of 64, 8 KV
+    heads) beside them. Returns {"fwd", "bwd", "bf16"} records of the edge
+    cases and {"timed"}: per shape, the forward, dK/dV, dQ/dslope and pair
+    records in fp32 and the bf16 ones."""
+    fwd, bwd, bf16 = [], [], []
+    for h, d in FLASH_NEW_DIMS:
+        shape = dict(h=h, d=d)
+        for t in (1, 15, 17, 63, 65, 129):
+            for c in (False, True):
+                fwd.append(check_flash(torch, fa, 2, t, causal=c, padded=False, timed=False, **shape))
+                bwd.append(check_flash_bwd(torch, fa, 2, t, causal=c, padded=False, timed=False, **shape))
+                if t > 1:
+                    bf16.append(check_flash_bf16(torch, fa, 2, t, causal=c, padded=False, timed=False, **shape))
+        cases = [dict(b=4, t=SERVE_BUCKET, causal=c, padded="tails", lengths=[0, 3, 64, 130]) for c in (False, True)] + [
+            dict(b=3, t=200, causal=True, padded="late", lengths=[(70, 200), (5, 90), (130, 131)]),
+            dict(b=3, t=77, causal=True, padded="empty"), dict(b=2, t=77, causal=False, padded="empty"),
+            dict(b=2, t=130, causal=False, padded=True, hk=h), dict(b=2, t=77, causal=True, padded="empty", hk=h)]
+        for case in cases:
+            fwd.append(check_flash(torch, fa, timed=False, **shape, **case))
+            bwd.append(check_flash_bwd(torch, fa, timed=False, **shape, **case))
+            bf16.append(check_flash_bf16(torch, fa, timed=False, **shape, **case))
+    timed = []
+    for b, h, hk, d, t, causal, what in FLASH_TIMED_SHAPES:
+        shape = dict(h=h, d=d, hk=hk)
+        rec = {"path": what, "fwd": check_flash(torch, fa, b, t, causal=causal, padded=True, timed=True, **shape)}
+        rec["dkv"], rec["dq"], rec["pair"] = check_flash_bwd(torch, fa, b, t, causal=causal, padded=True, timed=True,
+                                                             **shape)
+        if t <= 1026:  # the bf16 model trains at 1024 notes
+            rec["bf16"] = dict(zip(("fwd", "dkv", "dq"), check_flash_bf16(torch, fa, b, t, causal=causal, padded=True,
+                                                                           timed=True, **shape)))
+        timed.append(rec)
+    return {"fwd": fwd, "bwd": bwd, "bf16": bf16, "timed": timed}
 
 
 def graph_ms(torch, fn, arg_sets, iters):
@@ -1392,6 +1609,175 @@ def options_phase(torch, tokenizer, root, work):
     return rec
 
 
+def scale_flash_train_config(tokenizer, root, out_dir, seq):
+    """The experiment config of the scale regime with the flash kernels:
+    options_phase's scale_1024 training (the recipe's batch of 8, base.yaml's
+    classifiers, zero_sharding, fp32) with `scale_flash_config`'s model, at
+    data max_seq_len `seq` over windows of SCALE_WINDOW_BARS bars a 1024
+    notes."""
+    cfg = train_config(tokenizer, root, out_dir, SCALE_TRAIN_BATCH, 2)
+    cfg["data"]["dataset"].update(max_seq_len=seq, bar_sliding_window=SCALE_WINDOW_BARS * seq // SCALE_TRAIN_SEQ,
+                                  performance_directions=os.path.join(root, "direction_classes.json"),
+                                  score_directions_dict=os.path.join(root, "score_directions.json"))
+    cfg["model"] = {"_name_": "ScorePerformer", **scale_flash_config(tokenizer, seq),
+                    "classifiers": json.loads(json.dumps(PAPER_CLASSIFIERS))}
+    cfg["trainer"].update(zero_sharding=True, bf16_compute=False, remat=False, eval_batch_size=SCALE_TRAIN_BATCH)
+    return cfg
+
+
+def scale_flash_phase(torch, tokenizer, work, smi):
+    """scripts/exp_scale_flash.py's regime through the normal entry points:
+    recipes/scoreperformer/scale_1024.yaml (285M parameters, base.yaml's
+    classifiers, zero_sharding, fp32) with `use_flash` in every stack and no
+    decoder attention dropout (`scale_flash_train_config`), built by
+    `ExperimentComponents` and trained by the `Trainer`:
+    (a) batch 8 x 1024 notes: 2 + 10 steps, each launching every flash kernel
+        SCALE_FLASH_LAUNCHES times (4 + 6 encoder layers at d = 64 with 8 KV
+        heads, 8 causal decoder layers at d = 128 with one), a profiled step;
+        then the same model with use_flash off (every attention layer's
+        flag) on the same batches, 1 + 1 steps and a profiled one; a
+        deterministic eval pass (a forward of each kernel a layer, no
+        backward); a batch-2 x SCALE_GATE_SEQ-note step on the card against
+        the port's CPU path on the same weights (dropout off: the two draw
+        other masks), loss 1e-4 and gradients 1e-3 of their largest;
+    (b) batch 8 x 2048 notes (model positions 2050, segments 2052): 2 + 2
+        flash steps, and without the kernels 1 + 1 steps (an out-of-memory
+        step is recorded as such), each with its peak memory and a profiled
+        step;
+    (e) the model held in bf16 at 1024 notes: 1 + 2 steps on the bf16
+        instances, then a batch-2 step against the same step with the plain
+        flash functions on the card (loss 1e-2 relative, gradients 5e-2
+        relative L2 over all, options_phase's gates for the bf16 flagship).
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.data import build_synthetic_dataset
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):  # host seconds of each step of the phase
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "data")
+    build_synthetic_dataset(root, n_scores=4, n_perfs_per_score=2, n_bars=SCALE_SCORE_BARS, seed=SEED, splits=True)
+    lap("dataset")
+    rec = {"phase_s": phase_s, "layers": {"score_encoder": 4, "perf_encoder": 6, "decoder": 8}, "card": smi}
+
+    def build(seq, dtype=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        comp = ExperimentComponents(scale_flash_train_config(tokenizer, root, os.path.join(work, f"run_{seq}"), seq),
+                                    device="cuda").init_components()
+        if dtype is not None:
+            comp.model.to(dtype)
+        comp.trainer._prepare()
+        return comp
+
+    def profiled(trainer, batch, step, flash):
+        prof = profile_device(torch, lambda: trainer.train_step(batch, step), ported=PORTED_TRAIN)
+        counts = {k: prof["ported"][k]["count"] for k in PORTED_TRAIN}
+        if counts != {k: flash for k in PORTED_TRAIN}:
+            raise AssertionError(f"a profiled scale_1024 step ran the flash kernels {counts} times, expected {flash}")
+        return prof
+
+    def steps(comp, seq, n_warmup, n_timed, flash, dtype="fp32"):
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, comp.trainer, comp.train_dataset,
+                                                              n_warmup, n_timed, dtype=dtype, flash=flash)
+        out = {**train_record(torch, step_ms, notes, launches, SCALE_TRAIN_BATCH, seq + 2),
+               "last_step": {k: v for k, v in values.items() if k == "loss" or k.startswith("clf")},
+               "filled_share": float(np.mean(notes)) / (SCALE_TRAIN_BATCH * seq)}
+        if not out["filled_share"] >= 0.75:  # windows are sampled; most fill their notes
+            raise AssertionError(f"the scale batches at {seq} notes hold {np.mean(notes)} valid notes")
+        return out, batch, n_warmup + n_timed
+
+    def without_flash(comp, seq):
+        """The same model and batches with the kernels off: steps, peak
+        memory, a profiled step; an out-of-memory step is recorded."""
+        set_attention(comp.model, use_flash=False)
+        torch.cuda.empty_cache()
+        try:
+            out, batch, n = steps(comp, seq, 1, 1, flash=0)
+            out["profile"] = profiled(comp.trainer, batch, n, 0)
+        except torch.cuda.OutOfMemoryError as exc:
+            out = {"out_of_memory": str(exc).splitlines()[0], "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            torch.cuda.empty_cache()
+        set_attention(comp.model, use_flash=True)
+        return out
+
+    # (a) 1024 notes
+    comp = build(SCALE_TRAIN_SEQ)
+    rec["parameters"] = sum(p.numel() for p in comp.model.parameters())
+    lap("build_1024")
+    a, batch, n = steps(comp, SCALE_TRAIN_SEQ, 2, 10, SCALE_FLASH_LAUNCHES)
+    a["profile"] = profiled(comp.trainer, batch, n, SCALE_FLASH_LAUNCHES)
+    print(f"scale_1024 with use_flash, batch {SCALE_TRAIN_BATCH} x {SCALE_TRAIN_SEQ + 2} ({smi})", json.dumps(a))
+    lap("train_1024")
+    a["without_flash"] = without_flash(comp, SCALE_TRAIN_SEQ)
+    print("scale_1024 without use_flash, the same batches", json.dumps(a["without_flash"]))
+    lap("train_1024_without_flash")
+    # a deterministic eval pass: the forward kernel in every layer, the decoder's too
+    comp.model.eval()
+    reset_counts(fa, kv, pa)
+    with torch.no_grad():
+        loss, _ = comp.trainer.loss_fn(batch, 0)
+    a["eval_pass"] = {"loss": loss.item(), "launches": all_counts(fa, kv, pa)}
+    comp.model.train()
+    check_launches("the scale_1024 eval pass", a["eval_pass"]["launches"],
+                   {k: SCALE_FLASH_LAUNCHES if k == "flash_attention_fwd" else 0 for k in a["eval_pass"]["launches"]})
+    print("scale_1024 eval pass with use_flash", json.dumps(a["eval_pass"]))
+    if not np.isfinite(a["eval_pass"]["loss"]):
+        raise AssertionError(f"the scale_1024 eval pass gave loss {a['eval_pass']['loss']}")
+    host_batch = {k: v.cpu().numpy() for k, v in batch.items()}
+    short = {k: v[:, :SCALE_GATE_SEQ] if v.ndim >= 2 else v for k, v in host_batch.items()}
+    model_config = json.loads(json.dumps(comp.model_config))
+    del comp, batch
+    torch.cuda.empty_cache()
+    lap("eval_pass")
+    gate = compare_train_step(torch, dropout_off(model_config), short, b=2)
+    a["card_vs_cpu"] = {k: gate[k] for k in ("loss_err", "grad_err", "worst", "gradients")}
+    print(f"scale_1024 with use_flash, a batch-2 x {SCALE_GATE_SEQ} step, card vs CPU", json.dumps(a["card_vs_cpu"]))
+    if not (gate["loss_err"] <= 1e-4 and gate["grad_err"] <= 1e-3):
+        raise AssertionError(f"the scale_1024 flash step on the card differs from the CPU's: {gate}")
+    rec["seq_1024"] = a
+    lap("card_vs_cpu")
+
+    # (b) 2048 notes
+    comp = build(SCALE_LONG_SEQ)
+    lap("build_2048")
+    b_rec, batch, n = steps(comp, SCALE_LONG_SEQ, 2, 2, SCALE_FLASH_LAUNCHES)
+    b_rec["profile"] = profiled(comp.trainer, batch, n, SCALE_FLASH_LAUNCHES)
+    print(f"scale_1024 with use_flash, batch {SCALE_TRAIN_BATCH} x {SCALE_LONG_SEQ + 2} ({smi})", json.dumps(b_rec))
+    del batch
+    lap("train_2048")
+    b_rec["without_flash"] = without_flash(comp, SCALE_LONG_SEQ)
+    print("scale_1024 at 2048 notes without use_flash, the same batches", json.dumps(b_rec["without_flash"]))
+    rec["seq_2048"] = b_rec
+    del comp
+    lap("train_2048_without_flash")
+
+    # (e) the model held in bf16: the bf16 instances at d = 128 (and the encoders' d = 64)
+    comp = build(SCALE_TRAIN_SEQ, torch.bfloat16)
+    e, batch, _ = steps(comp, SCALE_TRAIN_SEQ, 1, 2, SCALE_FLASH_LAUNCHES, dtype="bf16")
+    del comp, batch
+    torch.cuda.empty_cache()
+    gate = compare_train_step(torch, dropout_off(model_config), short, b=2, devices=("cuda", "cuda"),
+                              precision="bf16", reference_plain_flash=True)
+    e["kernels_vs_plain_on_card"] = {k: gate[k] for k in ("loss_rel", "global_rel_l2", "grad_rel_l2", "worst")}
+    print("scale_1024 held in bf16 with use_flash", json.dumps(e))
+    if not (gate["loss_rel"] <= 1e-2 and gate["global_rel_l2"] <= 5e-2):
+        raise AssertionError(f"the bf16 scale_1024 step's kernels differ from the plain flash functions: {gate}")
+    rec["bf16_model"] = e
+    lap("bf16_model")
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI),
     the device's busy time, its idle share of the profiled wall time, and the
@@ -1450,10 +1836,13 @@ def check_decode_profile(prof, what, expected):
                              f"write_kv_pair launch, {expected['write_kv_pair']}")
 
 
-def tensor_core_counts(path, kernels):
+def tensor_core_counts(path, kernels, head_dims=()):
     """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of the
     library at `path`, by kernel (a substring of its functions' names); fails
-    when a function of one of them has none."""
+    when a function of one of them has none, or when a kernel has no instance
+    at one of `head_dims` (the first template argument of its functions'
+    mangled names, `ILi<d>E`). Returns the counts by kernel and by kernel and
+    head dim."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
     by_function, name = {}, None
@@ -1463,13 +1852,22 @@ def tensor_core_counts(path, kernels):
             by_function[name] = 0
         elif name is not None and "HMMA" in line and "TF32" in line:
             by_function[name] += 1
-    counts = {}
+    counts, by_dim = {}, {}
     for kernel in kernels:
         functions = {f: n for f, n in by_function.items() if kernel in f}
         if not functions or not all(functions.values()):
             raise AssertionError(f"{kernel} in {path}: TF32 HMMA instructions by function {functions}")
         counts[kernel] = sum(functions.values())
-    return counts
+        dims = collections.Counter()
+        for f, n in functions.items():
+            m = re.search(re.escape(kernel) + r"\w*?ILi(\d+)E", f)
+            if m is not None:
+                dims[int(m.group(1))] += n
+        by_dim[kernel] = dict(sorted(dims.items()))
+        if any(d not in dims for d in head_dims):
+            raise AssertionError(f"{kernel} in {path}: instances with TF32 HMMA at head dims {by_dim[kernel]}, "
+                                 f"expected {list(head_dims)}")
+    return counts, by_dim
 
 
 def check_performance(tokenizer, score_ids, perf, what, all_performed=True, max_left_out=MAX_LEFT_OUT):
@@ -1550,14 +1948,15 @@ def smoke_render_score(tokenizer):
     return score, inputs, max(-(-(T - 1) // CHUNK) * CHUNK, T)
 
 
-def smoke_phase(torch, tokenizer, work, scores, inputs):
+def smoke_phase(torch, tokenizer, work, scores, inputs, root):
     """recipes/smoke.yaml's model shape on the card, its decoder 2 heads of
     16 with one KV head (random weights, use_flash off as in the recipe):
     one greedy render of an 8-bar score, and a greedy served batch of the
     first SMOKE_REQUESTS `scores` (with their render `inputs`) through a
     `RenderServer` on a port checkpoint; each gives the port's CPU path's tokens and launches
     `prefix_attend` and `write_kv_pair` once per decoder layer and step.
-    Returns the phase's record."""
+    Then the same shape with `use_flash` (`smoke_flash`, on the train phase's
+    dataset at `root`). Returns the phase's record."""
     from scoreperformer_tpu_torch.inference import RenderServer, load_model_from_checkpoint, render_performance
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
@@ -1607,30 +2006,127 @@ def smoke_phase(torch, tokenizer, work, scores, inputs):
     print("smoke-shaped served batch", json.dumps(rec["served"]))
     if not same:
         raise AssertionError("the smoke-shaped served batch's greedy tokens on the card differ from the CPU server's")
+    rec["flash"] = smoke_flash(torch, tokenizer, root, os.path.join(work, "flash"))
     return rec
 
 
-def set_softmax_bf16(model, flag):
-    """Turn every attention layer's softmax_bf16 on or off (the weights stay)."""
+def smoke_flash(torch, tokenizer, root, work):
+    """recipes/smoke.yaml's model with `use_flash` and no attention dropout
+    (`smoke_flash_config`: the flash kernels at d = 16 in all three stacks,
+    one layer each) on the card: SMOKE_TRAIN_STEPS steps at the recipe's
+    batch of 4 and 48 notes a window (8 bars) through `ExperimentComponents`
+    and the `Trainer` on the dataset at `root`, 3 launches of each kernel a
+    step; a batch-4 step against the CPU's (dropout off); the trained
+    weights as a port checkpoint rendering an 8-bar score (the encoders' 2
+    flash forwards, then the chunked decode) with the CPU's greedy tokens;
+    then the model held in bf16, 1 + 2 steps on the bf16 instances and a
+    step against the plain flash functions on the card (options_phase's
+    gates). Returns the record."""
+    from scoreperformer_tpu_torch.inference import load_model_from_checkpoint, render_performance
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import ExperimentComponents, save_checkpoint
+
+    shutil.rmtree(work, ignore_errors=True)
+    layers = 3  # one attention layer a stack
+
+    def components(dtype=None):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = train_config(tokenizer, root, os.path.join(work, "run"), SMOKE_TRAIN_BATCH, 2)
+        cfg["data"]["dataset"].update(max_seq_len=SMOKE_TRAIN_SEQ, bar_sliding_window=SMOKE_WINDOW_BARS)
+        cfg["model"] = {"_name_": "ScorePerformer", **smoke_flash_config(tokenizer, SMOKE_TRAIN_SEQ)}
+        comp = ExperimentComponents(cfg, device="cuda").init_components()
+        if dtype is not None:
+            comp.model.to(dtype)
+        comp.trainer._prepare()
+        return comp
+
+    comp = components()
+    n_warmup, n_timed = SMOKE_TRAIN_STEPS
+    step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, comp.trainer, comp.train_dataset,
+                                                          n_warmup, n_timed, flash=layers)
+    rec = {"train": {**train_record(torch, step_ms, notes, launches, SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ + 2),
+                     "last_loss": values["loss"]}}
+    host_batch = {k: v.cpu().numpy() for k, v in batch.items()}
+    model_config = json.loads(json.dumps(comp.model_config))
+    gate = compare_train_step(torch, dropout_off(model_config), host_batch)
+    rec["train"]["card_vs_cpu"] = {k: gate[k] for k in ("loss_err", "grad_err", "worst", "gradients")}
+    print("smoke-shaped train steps with use_flash", json.dumps(rec["train"]))
+    if not (gate["loss_err"] <= 1e-4 and gate["grad_err"] <= 1e-3):
+        raise AssertionError(f"the smoke-shaped flash step on the card differs from the CPU's: {gate}")
+
+    # the trained weights render an 8-bar score (positions for its notes: no
+    # parameter depends on them)
+    score, score_inputs, _ = smoke_render_score(tokenizer)
+    n_steps = -(-(len(score_inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
+    ckpt = save_checkpoint(os.path.join(work, "checkpoint"), comp.model,
+                           model_config={"_name_": "ScorePerformer", **smoke_flash_config(tokenizer, SERVE_BUCKET)})
+    tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
+    del comp, batch
+    models = {dev: load_model_from_checkpoint(ckpt, device=dev)[0] for dev in ("cuda", "cpu")}
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perf = render_performance(models["cuda"], tokenizer, score, seed=SEED, device="cuda", greedy=True)
+    torch.cuda.synchronize()
+    rec["render"] = {"bars": 8, "notes": perf.num_notes, "wall_s": time.perf_counter() - t0,
+                     "launches": all_counts(fa, kv, pa),
+                     "notes_not_performed": check_performance(tokenizer, score_inputs["score_ids"], perf,
+                                                              "smoke-shaped flash render", all_performed=False)}
+    check_launches("the smoke-shaped flash render", rec["render"]["launches"], decode_launches(n_steps, 1, 2))
+    rec["render"]["identical_to_cpu"] = torch.equal(*(greedy_tokens(torch, m, score_inputs, dev)
+                                                      for dev, m in models.items()))
+    print("smoke-shaped render with use_flash", json.dumps(rec["render"]))
+    if not rec["render"]["identical_to_cpu"]:
+        raise AssertionError("the smoke-shaped flash render's greedy tokens on the card differ from the CPU path's")
+    del models
+
+    # the model held in bf16: the bf16 instances at d = 16
+    comp = components(torch.bfloat16)
+    step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, comp.trainer, comp.train_dataset, 1, 2,
+                                                          dtype="bf16", flash=layers)
+    rec["bf16_model"] = {**train_record(torch, step_ms, notes, launches, SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ + 2),
+                         "last_loss": values["loss"]}
+    del comp, batch
+    gate = compare_train_step(torch, dropout_off(model_config), host_batch, devices=("cuda", "cuda"),
+                              precision="bf16", reference_plain_flash=True)
+    rec["bf16_model"]["kernels_vs_plain_on_card"] = {k: gate[k] for k in ("loss_rel", "global_rel_l2", "worst")}
+    print("smoke-shaped model held in bf16 with use_flash", json.dumps(rec["bf16_model"]))
+    if not (gate["loss_rel"] <= 1e-2 and gate["global_rel_l2"] <= 5e-2):
+        raise AssertionError(f"the bf16 smoke-shaped step's kernels differ from the plain flash functions: {gate}")
+    return rec
+
+
+def set_attention(model, **flags):
+    """Set flags (softmax_bf16, use_flash) on every attention layer; the
+    weights stay."""
     from scoreperformer_tpu_torch.models.attention import Attention
 
     for m in model.modules():
         if isinstance(m, Attention):
-            m.softmax_bf16 = flag
+            for name, value in flags.items():
+                setattr(m, name, value)
 
 
 def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     """recipes/scoreperformer/scale_1024.yaml's model at full width on the
-    card (random weights from SEED) through a `RenderServer` on a port
-    checkpoint: the first SCALE_REQUESTS `scores` served greedy through
+    card (random weights from SEED), with `use_flash` in every stack
+    (`scale_flash_config` with the recipe's dropout: the encoders' 10 layers
+    take the flash forward at inference, the decoder decodes from its
+    caches), through a `RenderServer` on a port checkpoint: the first
+    SCALE_REQUESTS `scores` served greedy through
     `handle_batch` with the `auto` caches (int8 at dim 1024), every response
     ok; the share of tokens on which int8 agrees with fp32 caches (not
     gated); a profiled int8 batch; then four 4-bar requests through the
     card's server and the CPU's with fp32 caches, with softmax_bf16 off
     (gated: identical tokens) and on (the share of equal tokens: bf16
-    rounds differently on the two devices). Returns the phase's record."""
+    rounds differently on the two devices); then one greedy
+    `render_performance` of an 8-bar score and a 4-bar score's greedy tokens
+    against the CPU path's (softmax_bf16 off). Returns the phase's record."""
     from scoreperformer_tpu_torch.data import synthetic_score
-    from scoreperformer_tpu_torch.inference import RenderServer
+    from scoreperformer_tpu_torch.inference import RenderServer, prepare_render_inputs, render_performance
     from scoreperformer_tpu_torch.midi import read_midi, write_midi
     from scoreperformer_tpu_torch.ops import flash_attention as fa
     from scoreperformer_tpu_torch.ops import kv_cache as kv
@@ -1643,8 +2139,9 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
         phase_s[step] = now - last[0]
         last[0] = now
 
-    cfg = scale_1024_config(tokenizer)
+    cfg = scale_flash_config(tokenizer, dropout=0.1)
     layers = cfg["perf_decoder"]["transformer"]["depth"]
+    encoder_layers = sum(cfg[key]["transformer"]["depth"] for key in ("score_encoder", "perf_encoder"))
     ckpt = save_port_checkpoint(tokenizer, cfg, work)
     lap("build_and_save_checkpoint")
     server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, cache_dtype="auto", device="cuda")
@@ -1657,7 +2154,7 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     subset = scores[:SCALE_REQUESTS]
     reqs = [{"id": i, "score_b64": base64.b64encode(write_midi(sc, None)).decode("ascii"), "greedy": True}
             for i, sc in enumerate(subset)]
-    expected = decode_launches(-(-(SERVE_BUCKET - 1) // CHUNK) * CHUNK, layers, 0)
+    expected = decode_launches(-(-(SERVE_BUCKET - 1) // CHUNK) * CHUNK, layers, encoder_layers)
     reset_counts(fa, kv, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1704,7 +2201,7 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     rec["card_vs_cpu"] = {}
     for flag in (False, True):
         for srv in (card, cpu):
-            set_softmax_bf16(srv.model, flag)
+            set_attention(srv.model, softmax_bf16=flag)
         t0 = time.perf_counter()
         on_card, on_cpu = card.render_batch(small), cpu.render_batch(small)
         rec["card_vs_cpu"][f"softmax_bf16={flag}"] = {
@@ -1716,6 +2213,31 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     if rec["card_vs_cpu"]["softmax_bf16=False"]["identical_requests"] != len(small):
         raise AssertionError("the scale_1024 model's greedy tokens on the card differ from the CPU server's")
     rec["launches"] = expected
+
+    # the flash render: render_performance on the card, launches and notes;
+    # greedy tokens of a 4-bar score against the CPU's, softmax_bf16 off
+    score, score_inputs, _ = smoke_render_score(tokenizer)
+    n_steps = -(-(len(score_inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
+    reset_counts(fa, kv, pa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perf = render_performance(card.model, tokenizer, score, seed=SEED, device="cuda", greedy=True)
+    torch.cuda.synchronize()
+    rec["render"] = {"bars": 8, "notes": perf.num_notes, "wall_s": time.perf_counter() - t0,
+                     "launches": all_counts(fa, kv, pa),
+                     "notes_not_performed": check_performance(tokenizer, score_inputs["score_ids"], perf,
+                                                              "scale_1024 flash render", all_performed=False)}
+    check_launches("the scale_1024 flash render", rec["render"]["launches"],
+                   decode_launches(n_steps, layers, encoder_layers))
+    for srv in (card, cpu):
+        set_attention(srv.model, softmax_bf16=False)
+    small_inputs = prepare_render_inputs(tokenizer, small[0]["score_midi"])
+    rec["render"]["identical_to_cpu"] = torch.equal(greedy_tokens(torch, card.model, small_inputs, "cuda"),
+                                                    greedy_tokens(torch, cpu.model, small_inputs, "cpu"))
+    print("scale_1024 render with use_flash", json.dumps(rec["render"]))
+    if not rec["render"]["identical_to_cpu"]:
+        raise AssertionError("the scale_1024 flash render's greedy tokens on the card differ from the CPU path's")
+    lap("render")
     return rec
 
 
@@ -2051,8 +2573,8 @@ def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_window
     # greedy windows, the card against the port's CPU path on the same weights
     cpu = generator("cpu")
     if gate_softmax_bf16_off:
-        set_softmax_bf16(gen.model, False)
-        set_softmax_bf16(cpu.model, False)
+        set_attention(gen.model, softmax_bf16=False)
+        set_attention(cpu.model, softmax_bf16=False)
     runs = {}
     for name, g in (("card", gen), ("cpu", cpu)):
         g.reset()
@@ -2556,12 +3078,7 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     lap("profiled_step")
 
     # a batch-4 step against the CPU's, dropout off (the two draw other masks)
-    gate_cfg = json.loads(json.dumps(model_config))
-    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
-        gate_cfg[key]["transformer"]["attention"]["dropout"] = gate_cfg[key]["transformer"]["feed_forward"]["dropout"] = 0.0
-    gate_cfg["perf_encoder"]["latent_dropout"] = [0.0] * len(gate_cfg["perf_encoder"]["latent_dropout"])
-    gate_cfg["classifiers"]["classifier"]["dropout"] = 0.0
-    gate = compare_train_step(torch, gate_cfg, host_batch)
+    gate = compare_train_step(torch, dropout_off(model_config), host_batch)
     rec["card_vs_cpu"] = {k: gate[k] for k in ("loss_err", "grad_err", "worst", "gradients")}
     print("MoE train step at batch 4, card vs CPU (aux included):", json.dumps(rec["card_vs_cpu"]))
     if not (gate["loss_err"] <= 1e-4 and gate["grad_err"] <= 1e-3):
@@ -3001,9 +3518,13 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
-    hmma = {**tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",)),
-            **tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"))}
-    print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}")
+    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims) = (
+        tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS),
+        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS))
+    hmma.update(hmma_bwd)
+    hmma_dims.update(hmma_bwd_dims)
+    print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}; "
+          f"by kernel and head dim: {json.dumps(hmma_dims)}")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -3129,6 +3650,21 @@ def main() -> int:
     for recs in [bf16_main, bf16_causal] + bf16_recs:
         for name, rec in zip(FLASH, recs):
             print(f"{name}_bf16", json.dumps(rec))
+    # the three flash kernels at head dims 128 and 16, fp32 and bf16: the
+    # edges, then the scale regime's and the smoke-shaped paths' shapes, timed
+    t0 = time.perf_counter()
+    head_dims = check_flash_head_dims(torch, fa)
+    for rec in head_dims["fwd"]:
+        print("flash_attention_fwd, head dims 16 and 128", json.dumps(rec))
+    for dkv_rec, dq_rec, _ in head_dims["bwd"]:
+        print("flash_attention_bwd_dkv, head dims 16 and 128", json.dumps(dkv_rec))
+        print("flash_attention_bwd_dq, head dims 16 and 128", json.dumps(dq_rec))
+    for recs in head_dims["bf16"]:
+        for name, rec in zip(FLASH, recs):
+            print(f"{name}_bf16, head dims 16 and 128", json.dumps(rec))
+    for rec in head_dims["timed"]:
+        print("flash kernels at a new path's shape", json.dumps(rec))
+    print(f"flash kernels at head dims 16 and 128: {time.perf_counter() - t0:.1f} s")
     # the prefix attend of the chunked decode: the served batch (timed in
     # fp32, bf16 and int8, halfway through its decode), the TPU script's
     # shape, the render's (b=1, the 32-bar score's cache), and the edges:
@@ -3318,7 +3854,7 @@ def main() -> int:
 
     # ---- the recipes' other decoder head dims: smoke.yaml's d = 16, scale_1024's d = 128 ----
     t0 = time.perf_counter()
-    smoke = smoke_phase(torch, tokenizer, os.path.join(build, "chip_smoke_smoke"), serve_scores, serve_inputs)
+    smoke = smoke_phase(torch, tokenizer, os.path.join(build, "chip_smoke_smoke"), serve_scores, serve_inputs, root)
     print(f"smoke-shaped phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     scale = scale_1024_phase(torch, tokenizer, os.path.join(build, "chip_smoke_scale_1024"), serve_scores,
@@ -3326,6 +3862,12 @@ def main() -> int:
     shutil.rmtree(os.path.join(build, "chip_smoke_scale_1024"), ignore_errors=True)  # a 1.1 GB checkpoint
     print(f"scale_1024 phase: {time.perf_counter() - t0:.1f} s")
     print("scale_1024 served", json.dumps({k: v for k, v in scale.items() if k != "profile"}))
+
+    # ---- the scale regime with the flash kernels: train at 1024 and 2048 notes, bf16 ----
+    t0 = time.perf_counter()
+    scale_flash = scale_flash_phase(torch, tokenizer, os.path.join(build, "chip_smoke_scale_flash"), smi)
+    print(f"scale flash phase: {time.perf_counter() - t0:.1f} s")
+    print("scale flash", json.dumps({k: v for k, v in scale_flash.items() if k not in ("seq_1024", "seq_2048")}))
 
     # ---- streaming: the generator window by window, flagship and scale_1024 ----
     t0 = time.perf_counter()
@@ -3380,7 +3922,15 @@ def main() -> int:
              "scale_1024_train_steps": options["scale_1024"]["launches"],
              "paper_recipe_train_steps": paper["train"]["launches"], "served_batch": served_launches,
              "smoke_render": smoke["render"]["launches"], "smoke_served": smoke["served"]["launches"],
-             "scale_1024_served": scale["int8"]["launches"], "streaming_flagship": stream_flag["launches"],
+             "smoke_flash_train_steps": smoke["flash"]["train"]["launches"],
+             "smoke_flash_render": smoke["flash"]["render"]["launches"],
+             "smoke_flash_bf16_model_train_steps": smoke["flash"]["bf16_model"]["launches"],
+             "scale_1024_served": scale["int8"]["launches"], "scale_1024_flash_render": scale["render"]["launches"],
+             "scale_flash_train_steps_1024": scale_flash["seq_1024"]["launches"],
+             "scale_flash_eval_pass_1024": scale_flash["seq_1024"]["eval_pass"]["launches"],
+             "scale_flash_train_steps_2048": scale_flash["seq_2048"]["launches"],
+             "scale_flash_bf16_model_train_steps_1024": scale_flash["bf16_model"]["launches"],
+             "streaming_flagship": stream_flag["launches"],
              "streaming_scale_1024": stream_scale["launches"],
              "performer_train_steps": performer["train"]["plain"]["launches"],
              "performer_flash_train_steps": performer["train"]["flash"]["launches"],
@@ -3413,11 +3963,13 @@ def main() -> int:
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
          **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma["flash_fwd"],
+         "tf32_hmma_by_head_dim": hmma_dims["flash_fwd"],
          "streaming_shape": {k: stream_fa[0][k] for k in bound_keys + ("bound_tc_ms", "eager_ms", "shape")}},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[name],
-         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma[kernel]}
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma[kernel],
+         "tf32_hmma_by_head_dim": hmma_dims[kernel]}
         for name, kernel, replaces, rec in (
             ("flash_attention_bwd_dkv", "flash_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
             ("flash_attention_bwd_dq", "flash_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),
@@ -3446,6 +3998,16 @@ def main() -> int:
                         **{k: r[k] for k in timed}} for r in pa_dims if "ms" in r]},
     ]
     shape_keys = ("shape", "cap", "base", "index", "causal", "max_abs_err") + timed + ("bound_by",)
+    # every flash instance at head dims 16 and 128 (and scale_1024's
+    # encoders at 64), at the shapes of the paths that launch them, timed
+    part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dkv": "dkv", "flash_attention_bwd_dq": "dq"}
+    for rec in kernels:
+        name = rec["name"].removesuffix("_bf16")
+        if name in part:
+            recs = [(r["path"], r["bf16"][part[name]] if rec["name"].endswith("_bf16") else r[part[name]])
+                    for r in head_dims["timed"] if "bf16" in r or not rec["name"].endswith("_bf16")]
+            rec["head_dim_shapes"] = [{"path": what, **{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms")
+                                                        if k in r}} for what, r in recs]
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
         if rec["name"] in performer["kernels"]:  # the Performer paths' shapes, timed

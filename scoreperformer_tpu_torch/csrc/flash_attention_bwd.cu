@@ -44,7 +44,8 @@
 // outnumbers its MMAs). Rows are d floats with their 16-byte chunks
 // XOR-swizzled by row % 8, so that both fragment reads of a tile, (row
 // lane/4, column lane%4) and (row 2*(lane%4), column lane/4), hit 32
-// distinct banks without padding.
+// distinct banks without padding; at d = 16, whose rows have 4 chunks,
+// rows are padded to 20 floats instead (`swz`).
 // - dK/dV (grid: 64-key blocks x b x KV heads): the A fragments are the
 //   block's K and V rows. The block's (head, query tile) items are every
 //   query head that reads its KV head (all h with one KV head, so the MQA
@@ -61,7 +62,9 @@
 //   have a valid key, each with 36 items; as blocks of one group, two an SM,
 //   they fill 1.2 waves, so the second runs nearly empty; two groups halve a
 //   block's items, one 160 KB block an SM (0.51 to 0.41 ms there,
-//   chip_probe_flash_bwd.py on the H100).
+//   chip_probe_flash_bwd.py on the H100). Head dims 16, 32 and 64; at 128
+//   this layout does not fit, and `flash_bwd_dkv_wide` (below) splits each
+//   item's products between the two groups.
 // - dQ/dslope (grid: 64-row blocks x b, or x b*h): with one KV head the 64
 //   rows are the h heads x 64/h positions of one batch element, as in the
 //   forward, so each K/V tile is read once for all heads; otherwise 64
@@ -70,7 +73,8 @@
 //   accumulator (the same permutation over a k-step's 8 keys). The slope
 //   gradient accumulates per row in registers; the block sums its rows in a
 //   fixed order into one part per head it holds, in a (b, h, grid.x) tensor
-//   that the caller sums. 4 warps and 112 KB a block, two blocks an SM.
+//   that the caller sums. 4 warps and 112 KB a block at d = 64, two
+//   blocks an SM; 229,376 bytes plus the key bits at d = 128, one.
 // No atomics, and every sum runs in a fixed order: two runs give the same
 // bits.
 //
@@ -118,7 +122,7 @@
 // Left for later work: `wgmma` (TF32 `wgmma` takes K-major operands only,
 // so the dV/dK and dQ products would need dO, Q and K transposed in shared
 // memory), TMA copies and warp specialisation, bf16 tiles in shared memory,
-// head dim 128.
+// more than one block an SM at d = 128.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -144,16 +148,22 @@ using tf32::split;
 template <int D>
 struct Layout {
   static constexpr int kSteps = D / 8;  // k-steps over d, n-tiles of dK, dV, dQ
-  static constexpr int kTileFloats = kTile * D;
+  // floats a staged row: d, swizzled (swz); at d = 16, whose 4 chunks a row
+  // cannot take the 8-way swizzle, d + 4, padded
+  static constexpr int kRow = D == 16 ? D + 4 : D;
+  static constexpr int kTileFloats = kTile * kRow;
   static constexpr int kFrags = kWarps * kSteps * 2 * 32;  // uint4 A fragments of one operand, hi and lo
   // the dQ block's: streamed hi [stage][operand], lo [operand], A fragments
   // [operand]
   static constexpr int kBytes = 6 * kTileFloats * 4 + 2 * kFrags * 16;
 };
 
-// offset of (row, col) in a streamed tile: 16-byte chunks swizzled by row % 8
+// offset of (row, col) in a staged tile: 16-byte chunks swizzled by row % 8;
+// at d = 16 rows padded to 20 floats, which keeps both fragment reads on 32
+// distinct banks (row lane/4 at 20*g + t4; rows 2*t4 and +1 at 40*t4 + g)
 template <int D>
 __device__ __forceinline__ int swz(int row, int col) {
+  if constexpr (D == 16) return row * Layout<D>::kRow + col;
   return row * D + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
 }
 
@@ -204,7 +214,7 @@ __device__ __forceinline__ void load_rows(float* dst0, float* dst1, const T* src
     const int r = c / (D / 4), cc = c % (D / 4);
     const T* p0 = row_ptr(src0, r);
     const T* p1 = row_ptr(src1, r);
-    const int dst = r * D + ((cc ^ (r & 7)) << 2);
+    const int dst = swz<D>(r, cc * 4);
     tf32::load4(dst0 + dst, p0 != nullptr ? p0 + cc * 4 : src0, p0 != nullptr);
     tf32::load4(dst1 + dst, p1 != nullptr ? p1 + cc * 4 : src1, p1 != nullptr);
   }
@@ -226,7 +236,7 @@ __device__ __forceinline__ void load_tiles(float* dst0, float* dst1, const T* sr
 template <int D, bool kLo = true>
 __device__ __forceinline__ void split_tile(float* hi, float* lo, float mul, int tid, int threads) {
   if (!kLo && mul == 1.f) return;
-  for (int i = tid * 4; i < kTile * D; i += threads * 4) {
+  for (int i = tid * 4; i < Layout<D>::kTileFloats; i += threads * 4) {
     float4 x = *reinterpret_cast<float4*>(hi + i);
     if (!kLo) {
       *reinterpret_cast<float4*>(hi + i) = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
@@ -310,7 +320,7 @@ constexpr int kDkvThreads = kGroups * kThreads;
 
 template <int D>
 struct DkvLayout {
-  static constexpr int kTileFloats = kTile * D;
+  static constexpr int kTileFloats = Layout<D>::kTileFloats;
   // streamed hi [stage][group][q*scale, dO], lo [group][q*scale, dO], A
   // fragments [K, V]
   static constexpr int kBytes = 6 * kGroups * kTileFloats * 4 + 2 * Layout<D>::kFrags * 16;
@@ -402,14 +412,14 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // (free until the loops start), then split into A fragments: K by group 0, V by
   // group 1 (by group 0 too if it is alone)
   float* staged = hi + 2 * kGroups * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * D, kp, vp, [&](const T* src, int r) {
+  load_rows<D, kBlockRows>(staged, staged + kBlockRows * Layout<D>::kRow, kp, vp, [&](const T* src, int r) {
     return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
   }, tid, kDkvThreads);
   tf32::cp_async_commit();
   tf32::cp_async_wait_all();
   __syncthreads();
   for (int op = group; op < 2; op += kGroups)
-    store_a_fragments<D>(op == 0 ? k_frag : v_frag, staged + op * kBlockRows * D, 1.f, w);
+    store_a_fragments<D>(op == 0 ? k_frag : v_frag, staged + op * kBlockRows * Layout<D>::kRow, 1.f, w);
   __syncthreads();  // every fragment is stored; the staged rows are read
 
   int key[2];
@@ -553,6 +563,285 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   }
 }
 
+// B fragments as load_b_rows and load_b_cols, from a tile of fp32 values
+// that is split at use (kLo), or whose values are exact in TF32 (!kLo: hi is
+// the value, lo is not written). The split gives the bits that split_tile's
+// staged hi and lo parts would.
+template <bool kLo>
+__device__ __forceinline__ void split_b(const float* x, int o0, int o1, uint32_t* b_hi, uint32_t* b_lo) {
+  if (kLo) {
+    split(x[o0], b_hi[0], b_lo[0]);
+    split(x[o1], b_hi[1], b_lo[1]);
+  } else {
+    b_hi[0] = __float_as_uint(x[o0]), b_hi[1] = __float_as_uint(x[o1]);
+  }
+}
+
+template <int D, bool kLo>
+__device__ __forceinline__ void load_b_rows_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  split_b<kLo>(x, swz<D>(n * 8 + g, kk * 8 + t4), swz<D>(n * 8 + g, kk * 8 + t4 + 4), b_hi, b_lo);
+}
+
+template <int D, bool kLo>
+__device__ __forceinline__ void load_b_cols_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const int r = kk * 8 + 2 * t4;
+  split_b<kLo>(x, swz<D>(r, n * 8 + g), swz<D>(r + 1, n * 8 + g), b_hi, b_lo);
+}
+
+// dK/dV at head dim 128. The layout of flash_bwd_dkv would need 327,680
+// bytes of shared memory a block (two warp groups' double-buffered tiles of
+// q*scale and dO with their lo parts, 196,608, and K's and V's split A
+// fragments, 131,072) against the 232,448 a block can have, and each warp
+// would hold two m16 x 128 accumulators, dK's and dV's: 128 registers a
+// thread before S, dP and the fragments. Here the two warp groups split the
+// four products of a (head, query tile) item between them instead of the
+// items: warp w of group 0 computes S^T = K.(q*scale)^T for its 16 keys,
+// P^T, and dV += P^T.dO; warp w of group 1 computes dP^T = V.dO^T for the
+// same keys, takes P^T from warp w through shared memory (one named barrier
+// a pair: 2 KB a warp), and computes dS^T and dK += dS^T.(q*scale). Each
+// warp holds one 64-register accumulator; no product is computed twice and
+// no sum joins across warps. The tiles of q*scale and dO stay fp32 and are
+// split into hi and lo at each B-fragment load (their lo tiles would not
+// fit), so an element is split by the 4 warps that read it where
+// flash_bwd_dkv splits it once. Shared memory: K's and V's fragments
+// 131,072 bytes, two stages of the q*scale and dO tiles 65,536, the P
+// exchange 8,192: 204,800 a block, one block an SM. Everything else (the
+// grid of 64-key blocks x b x KV heads, the items, the masked blocks and
+// tiles, rows with no valid key) is flash_bwd_dkv's.
+template <int D, typename T, bool kExactQ>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+    flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ slopes,
+                       const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dk, T* __restrict__ dv, int h, int hk, int tq, int tk,
+                       int causal, float scale) {
+  constexpr bool kExact = sizeof(T) == 2;  // bf16 k, v and dO: no lo parts
+  constexpr int kSteps = Layout<D>::kSteps;
+  constexpr int TF = Layout<D>::kTileFloats;
+  constexpr int kAll = 2 * kThreads;
+  extern __shared__ __align__(16) float smem[];
+  float* tiles = smem;  // [stage][q*scale, dO][TF]
+  uint4* k_frag = reinterpret_cast<uint4*>(smem + 4 * TF);
+  uint4* v_frag = k_frag + Layout<D>::kFrags;
+  float* p_x = reinterpret_cast<float*>(v_frag + Layout<D>::kFrags);  // [warp][n][e][lane]
+  __shared__ float lse_s[kTile], delta_s[kTile];
+  __shared__ int limit_s[kTile];
+  __shared__ int warp_first[2 * kWarps];
+
+  const int tid = threadIdx.x;
+  const int role = tid / kThreads;  // 0: S, P, dV; 1: dP, dS, dK
+  const int w = (tid % kThreads) / 32;  // the warp's slice of 16 keys
+  const int lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bkv = blockIdx.y;  // batch * hk + KV head
+  const int b = bkv / hk;
+  const int kv_head = bkv % hk;
+  const int k0 = blockIdx.x * kBlockRows;
+  const uint8_t* mp = mask + (size_t)b * tk;
+  const T* kp = k + (size_t)bkv * tk * D;
+  const T* vp = v + (size_t)bkv * tk * D;
+
+  const bool block_has_valid =
+      __syncthreads_or(tid < kBlockRows && k0 + tid < tk && mp[k0 + tid] != 0);
+  const int first_valid = first_valid_key(mp, tk, nullptr, warp_first);
+  const bool every_row_valid = causal ? first_valid == 0 : first_valid < tk;
+  if (!block_has_valid && every_row_valid) {  // P = 0 on every key of the block
+    const int rows = min(kBlockRows, tk - k0);
+    const size_t off = ((size_t)bkv * tk + k0) * D;
+    for (int i = tid * 2; i < rows * D; i += kAll * 2) {
+      tf32::store2(dk + off + i, 0.f, 0.f);
+      tf32::store2(dv + off + i, 0.f, 0.f);
+    }
+    return;
+  }
+
+  const int head_begin = hk == 1 ? 0 : kv_head;
+  const int n_q_tiles = (tq + kTile - 1) / kTile;
+  const int n_items = (hk == 1 ? h : 1) * n_q_tiles;  // (head, query tile) pairs
+  auto visits = [&](int item) {  // as in flash_bwd_dkv
+    if (!causal) return true;
+    const int q0 = (item % n_q_tiles) * kTile;
+    const int q_last = min(q0 + kTile, tq) - 1;
+    if (q_last >= k0) return true;
+    return q0 < first_valid && jax_masked_row_keys(min(q_last, first_valid - 1), tq, tk) > k0;
+  };
+  auto next_item = [&](int item) {
+    while (item < n_items && !visits(item)) ++item;
+    return item;
+  };
+  auto tile = [&](int stage, int op) { return tiles + (stage * 2 + op) * TF; };
+  auto load = [&](int item, int stage) {
+    const size_t bh = (size_t)b * h + head_begin + item / n_q_tiles;
+    load_tiles<D>(tile(stage, 0), tile(stage, 1), q + bh * tq * D, dout + bh * tq * D,
+                  (item % n_q_tiles) * kTile, tq, tid, kAll);
+  };
+
+  // the block's 64 keys of K and V, staged in the tiles (free until the loop
+  // starts), then split into A fragments: K by group 0, V by group 1
+  load_rows<D, kBlockRows>(tiles, tiles + kBlockRows * Layout<D>::kRow, kp, vp, [&](const T* src, int r) {
+    return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
+  }, tid, kAll);
+  tf32::cp_async_commit();
+  tf32::cp_async_wait_all();
+  __syncthreads();
+  store_a_fragments<D>(role == 0 ? k_frag : v_frag, tiles + role * kBlockRows * Layout<D>::kRow, 1.f, w);
+  __syncthreads();  // every fragment is stored; the staged rows are read
+
+  int item = next_item(0);
+  if (item < n_items) load(item, 0);
+  tf32::cp_async_commit();
+
+  int key[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + w * kRowsPerWarp + g + 8 * i;
+    key_ok[i] = key[i] < tk && mp[key[i]] != 0;
+  }
+  float acc[kSteps][4];  // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* px = p_x + w * (kTileN * 4 * 32);
+
+  int stage = 0;
+  while (item < n_items) {
+    tf32::cp_async_wait_all();
+    __syncthreads();  // this tile has landed; every warp is done with the last one and with px
+    const int nxt = next_item(item + 1);
+    if (nxt < n_items) load(nxt, stage ^ 1);
+    tf32::cp_async_commit();
+    const int head = head_begin + item / n_q_tiles;
+    const int q0 = (item % n_q_tiles) * kTile;
+    float* qs = tile(stage, 0);  // q, scaled in place below
+    const float* os = tile(stage, 1);  // dO
+    if (scale != 1.f)
+      for (int i = tid * 4; i < TF; i += kAll * 4) {
+        float4 x = *reinterpret_cast<float4*>(qs + i);
+        *reinterpret_cast<float4*>(qs + i) = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+      }
+    if (tid < kTile) {
+      const int qi = q0 + tid;
+      const size_t row = ((size_t)b * h + head) * tq + qi;
+      lse_s[tid] = qi < tq ? lse[row] : 0.f;
+      delta_s[tid] = qi < tq ? delta[row] : 0.f;
+      limit_s[tid] = key_limit(qi, tq, tk, causal);
+    }
+    __syncthreads();
+
+    // group 0: S^T = K.(q*scale)^T; group 1: dP^T = V.dO^T. Rows are this
+    // warp's keys, columns the tile's queries
+    float x[kTileN][4];
+#pragma unroll
+    for (int n = 0; n < kTileN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+    if (role == 0) {
+#pragma unroll 1
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+        load_a(k_frag, w, kk, kSteps, a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < kTileN; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          load_b_rows_at_use<D, !kExactQ>(qs, n, kk, b_hi, b_lo);
+          mma_split<!kExact, !kExactQ>(x[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+        load_a(v_frag, w, kk, kSteps, a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < kTileN; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          load_b_rows_at_use<D, !kExact>(os, n, kk, b_hi, b_lo);
+          mma_split<!kExact, !kExact>(x[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }
+
+    // element e of x is key g + 8*(e>>1), query 8n + 2*t4 + (e&1)
+    if (role == 0) {
+      // P^T in place, handed to warp w of group 1
+      const float slope = slopes[head];
+#pragma unroll
+      for (int n = 0; n < kTileN; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int jq = n * 8 + 2 * t4 + c;
+          const int qi = q0 + jq;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 2 * i + c;
+            const int kj = key[i];
+            float s = x[n][e] - slope * fabsf((float)(kj - qi));
+            s = (key_ok[i] && (!causal || kj <= qi)) ? s : kMaskValue;
+            x[n][e] = kj < limit_s[jq] ? expf(s - lse_s[jq]) : 0.f;
+            px[(n * 4 + e) * 32 + lane] = x[n][e];
+          }
+        }
+      }
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + w), "r"(64) : "memory");
+    } else {
+      // dS^T = P^T * (dP^T - delta), once warp w of group 0 has put P^T
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "r"(64) : "memory");
+#pragma unroll
+      for (int n = 0; n < kTileN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = px[(n * 4 + e) * 32 + lane] * (x[n][e] - delta_s[n * 8 + 2 * t4 + (e & 1)]);
+    }
+
+    // group 0: dV += P^T.dO; group 1: dK += dS^T.(q*scale); A straight from
+    // the accumulator, a k-step's 8 queries in the order 0, 2, 4, 6, 1, 3, 5, 7
+#pragma unroll
+    for (int kk = 0; kk < kTileN; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      split_acc(x[kk], a_hi, a_lo);
+      if (role == 0) {
+#pragma unroll
+        for (int n = 0; n < kSteps; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          load_b_cols_at_use<D, !kExact>(os, n, kk, b_hi, b_lo);
+          mma_split<true, !kExact>(acc[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kSteps; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          load_b_cols_at_use<D, !kExactQ>(qs, n, kk, b_hi, b_lo);
+          mma_split<true, !kExactQ>(acc[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }
+    item = nxt;
+    stage ^= 1;
+  }
+
+  T* out = role == 0 ? dv : dk;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= tk) continue;
+    const size_t off = ((size_t)bkv * tk + key[i]) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) tf32::store2(out + off + n * 8, acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+template <int D>
+struct DkvWideLayout {
+  // the q*scale and dO tiles [stage][op], K's and V's A fragments, the P
+  // exchange [warp][n][e][lane]
+  static constexpr int kBytes = 4 * Layout<D>::kTileFloats * 4 + 2 * Layout<D>::kFrags * 16 +
+                                kWarps * kTileN * 4 * 32 * 4;
+};
+
 // Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
 // == h (one KV head), else (blocks of 64 positions, b * h).
 template <int D, typename T, bool kExactQ>
@@ -626,7 +915,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // tiles (free until the loop starts), then split into A fragments
   const size_t row_base = (size_t)b * h;
   float* staged = hi + 2 * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * D, q, dout, [&](const T* src, int r) {
+  load_rows<D, kBlockRows>(staged, staged + kBlockRows * L::kRow, q, dout, [&](const T* src, int r) {
     const int pos = q0 + r % positions;
     return pos < tq ? src + ((row_base + head0 + r / positions) * tq + pos) * D : nullptr;
   }, tid, kThreads);
@@ -634,7 +923,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   tf32::cp_async_wait_all();
   __syncthreads();
   store_a_fragments<D>(q_frag, staged, scale, warp);
-  store_a_fragments<D>(o_frag, staged + kBlockRows * D, 1.f, warp);
+  store_a_fragments<D>(o_frag, staged + kBlockRows * L::kRow, 1.f, warp);
 
   float acc[kSteps][4];
 #pragma unroll
@@ -771,6 +1060,19 @@ int launch_dkv(const T* q, const T* k, const T* v, const float* slopes, const ui
 }
 
 template <int D, typename T, bool kExactQ>
+int launch_dkv_wide(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
+                    const T* dout, const float* lse, const float* delta, T* dk, T* dv, int b, int h,
+                    int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  static const int granted = grant_smem(flash_bwd_dkv_wide<D, T, kExactQ>);
+  const size_t smem = DkvWideLayout<D>::kBytes;
+  if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
+  const dim3 grid((tk + kBlockRows - 1) / kBlockRows, b * hk);
+  flash_bwd_dkv_wide<D, T, kExactQ><<<grid, 2 * kThreads, smem, stream>>>(
+      q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk, tq, tk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, typename T, bool kExactQ>
 int launch_dq(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
               const T* dout, const float* lse, const float* delta, T* dq, float* dslope_part, int b,
               int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
@@ -804,7 +1106,10 @@ int dispatch(const T* q, const T* k, const T* v, const float* slopes, const uint
   auto run = [&](auto dim, auto exact) {
     constexpr int D = decltype(dim)::value;
     constexpr bool E = decltype(exact)::value;
-    if constexpr (kDkv)
+    if constexpr (kDkv && D == 128)
+      return launch_dkv_wide<D, T, E>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk,
+                                      tq, tk, causal, scale, s);
+    else if constexpr (kDkv)
       return launch_dkv<D, T, E>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq,
                                  tk, causal, scale, s);
     else
@@ -818,10 +1123,14 @@ int dispatch(const T* q, const T* k, const T* v, const float* slopes, const uint
     return run(dim, std::false_type{});
   };
   switch (d) {
+    case 16:
+      return at(std::integral_constant<int, 16>{});
     case 32:
       return at(std::integral_constant<int, 32>{});
     case 64:
       return at(std::integral_constant<int, 64>{});
+    case 128:
+      return at(std::integral_constant<int, 128>{});
     default:
       return (int)cudaErrorInvalidValue;
   }

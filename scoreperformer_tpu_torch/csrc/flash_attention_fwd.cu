@@ -60,7 +60,14 @@
 // -slope*|i-j|, masked scores are -1e30, l is clamped at 1e-30, causal
 // tiles past the block's last row are skipped. Keys past t take no part (no
 // padding by the caller), and with one KV head every query head reads KV
-// head 0. Head dims 32 and 64.
+// head 0.
+//
+// Head dims 16, 32, 64 and 128, one template. The staged rows of d+4 floats
+// keep both B-fragment reads on 32 distinct banks at every one of them
+// (d = 16: 80-byte rows, each still a whole number of 16-byte cp.async
+// pieces). At d = 128 a block's shared memory is 133,120 bytes (four K/V
+// tiles of 16,896 and q's split fragments, 65,536) plus the key bits, so
+// one block an SM, and its accumulator is 64 registers a thread.
 //
 // A query row with no valid key gets what the JAX wrapper gives it: that
 // wrapper pads keys to whole blocks of bk = max(128, min(256, t_k)) with
@@ -77,11 +84,12 @@
 // q as it is split; o is written in bf16 (rounded to nearest even), lse in
 // fp32. A bf16 value is exact in TF32, so P.V takes two TF32 products (P's hi
 // and lo against V), and Q.K^T one when q*scale is exact too: scale a power
-// of two, as at d = 64 (`kExactQ`).
+// of two, as at d = 16 and 64 (`kExactQ`); at d = 32 and 128 it takes two.
 //
 // Left for later work: `wgmma` (it takes TF32 operands K-major only, so V
 // would have to be transposed in shared memory), TMA copies and warp
-// specialisation, bf16 tiles in shared memory, head dim 128.
+// specialisation, bf16 tiles in shared memory, more than one block an SM at
+// d = 128 (q's fragments in registers, or a narrower tile).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -412,10 +420,14 @@ int dispatch(const T* q, const T* k, const T* v, const float* slopes, const uint
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   switch (d) {
+    case 16:
+      return launch_d<16>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     case 32:
       return launch_d<32>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     case 64:
       return launch_d<64>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+    case 128:
+      return launch_d<128>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

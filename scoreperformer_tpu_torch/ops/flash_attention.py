@@ -31,8 +31,8 @@ import torch
 
 from ._build import kernel
 
-NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64)
+NEG_INF = -1.0000000150474662e30  # -1e30 in fp32, so that fp64 references subtract it exactly as the kernels do
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 BLOCK_ROWS = 64  # (head, position) rows per block of the dQ kernel
 
 
@@ -72,6 +72,12 @@ def jax_masked_row_keys(tq: int, tk: int, causal: bool, device=None) -> torch.Te
     return torch.clamp((q_end + bk - 1) // bk, max=n_kb) * bk
 
 
+def _acc(x):
+    """x in the plain versions' arithmetic type: fp32, or fp64 for fp64
+    inputs (a reference for the kernels' long sums, in chip_smoke.py)."""
+    return x.double() if x.dtype == torch.float64 else x.float()
+
+
 def _valid(b, tq, tk, mask, causal, device):
     i = torch.arange(tq, device=device)[:, None]
     j = torch.arange(tk, device=device)[None, :]
@@ -87,9 +93,10 @@ def _scores(q, k, slopes, mask, causal, scale):
     """Masked scores (b, h, tq, tk) and the distances |i-j| (tq, tk)."""
     b, _, tq, _ = q.shape
     tk = k.shape[2]
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)  # hk=1 broadcasts
+    s = (_acc(q) * scale) @ _acc(k).transpose(-1, -2)  # hk=1 broadcasts
     valid, dist = _valid(b, tq, tk, mask, causal, q.device)
-    s = s - slopes.float()[None, :, None, None] * dist
+    dist = dist.to(s.dtype)
+    s = s - _acc(slopes)[None, :, None, None] * dist
     return torch.where(valid, s, NEG_INF), dist
 
 
@@ -107,9 +114,9 @@ def flash_attention_plain(q, k, v, slopes, mask=None, causal=True, scale=None, r
     none_valid = m == NEG_INF
     if bool(none_valid.any()):
         keys = jax_masked_row_keys(tq, tk, causal, q.device)[:, None]
-        p = torch.where(none_valid, (torch.arange(tk, device=q.device)[None, :] < keys).float(), p)
-        l = torch.where(none_valid, keys.float(), l)
-    out = ((p @ v.float()) / l).to(q.dtype)
+        p = torch.where(none_valid, (torch.arange(tk, device=q.device)[None, :] < keys).to(p.dtype), p)
+        l = torch.where(none_valid, keys.to(l.dtype), l)
+    out = ((p @ _acc(v)) / l).to(q.dtype)
     if return_lse:
         return out, (m + torch.log(l))[..., 0]
     return out
@@ -124,7 +131,7 @@ def _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
         tq, tk = s.shape[-2:]
         keys = jax_masked_row_keys(tq, tk, True, q.device)
         p = torch.where(torch.arange(tk, device=q.device)[None, :] < keys[:, None], p, 0.0)
-    ds = p * (dout.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    ds = p * (_acc(dout) @ _acc(v).transpose(-1, -2) - delta[..., None])
     return p, ds, dist
 
 
@@ -143,8 +150,8 @@ def padded_key_dslopes(lse, delta, tq: int, tk: int, causal: bool) -> Optional[t
     keys = jax_masked_row_keys(tq, tk, causal, dev)[:, None]
     j = tk + torch.arange(n_pad, device=dev)[None, :]
     dist = torch.where(j < keys, (j - torch.arange(tq, device=dev)[:, None]).abs(), 0).sum(-1).float()
-    p = torch.exp(NEG_INF - lse.float())
-    return (p * delta.float() * dist).sum(dim=(0, 2))
+    p = torch.exp(NEG_INF - _acc(lse))
+    return (p * _acc(delta) * dist.to(p.dtype)).sum(dim=(0, 2))
 
 
 def _sum_kv_heads(x, hk):
@@ -156,8 +163,8 @@ def flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causa
     when there is one KV head."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     p, ds, _ = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
-    dv = p.transpose(-1, -2) @ dout.float()
-    dk = ds.transpose(-1, -2) @ (q.float() * scale)
+    dv = p.transpose(-1, -2) @ _acc(dout)
+    dk = ds.transpose(-1, -2) @ (_acc(q) * scale)
     hk = k.shape[1]
     return _sum_kv_heads(dk, hk).to(k.dtype), _sum_kv_heads(dv, hk).to(v.dtype)
 
@@ -167,7 +174,7 @@ def flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal
     over the batch."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     _, ds, dist = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
-    dq = (ds @ k.float()) * scale
+    dq = (ds @ _acc(k)) * scale
     dslopes = (ds * -dist).sum(dim=(0, 2, 3))
     padded = padded_key_dslopes(lse, delta, q.shape[2], k.shape[2], causal)
     if padded is not None:

@@ -43,10 +43,12 @@ def bf16_ulp(x):
     return np.exp2(e - 7)
 
 
-def assert_within_one_ulp(got, want, name):
+def assert_within_one_ulp(got, want, name, floor=0.0):
+    """Each element within one bf16 ulp of max(|got|, |want|); with `floor`,
+    an element below that share of want's largest counted at the floor."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     err = np.abs(got - want)
-    ulp = bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    ulp = bf16_ulp(np.maximum(np.maximum(np.abs(got), np.abs(want)), floor * np.abs(want).max()))
     worst = np.unravel_index(np.argmax(err / ulp), err.shape)
     assert (err <= ulp).all(), f"{name}: {got[worst]} vs {want[worst]} at {worst}, {err[worst] / ulp[worst]} ulp"
 
@@ -56,6 +58,17 @@ def tbf16(x):
 
 
 # ---- the flash functions on bf16 operands: one bf16 ulp, lse 1e-5 ----
+#
+# At d = 128 an element that cancels to near zero (a padded query row's dq:
+# 5e-6 against a largest of 2.8) differs between the two fp32 summation
+# orders by more than its own ulp, so there an element below 2^-10 of its
+# tensor's largest is held at that floor's ulp, as chip_smoke.py's
+# BF16_ULP_FLOOR holds the kernels on the card; the other cases keep every
+# element's own ulp.
+
+
+def ulp_floor(d):
+    return 2.0**-10 if d == 128 else 0.0
 
 
 @pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES)
@@ -74,7 +87,7 @@ def test_flash_bf16_plain_matches_pallas_kernel(b, h, t, d, hk, causal, padded):
     )
     assert got_o.dtype == torch.bfloat16 and want_o.dtype == jnp.bfloat16
     assert got_lse.dtype == torch.float32 and want_lse.dtype == jnp.float32
-    assert_within_one_ulp(got_o.float().numpy(), np.asarray(want_o.astype(jnp.float32)), "o")
+    assert_within_one_ulp(got_o.float().numpy(), np.asarray(want_o.astype(jnp.float32)), "o", ulp_floor(d))
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-5)
 
 
@@ -97,7 +110,7 @@ def test_flash_bf16_backward_matches_pallas_kernels(b, h, t, d, hk, causal, padd
     out.backward(tbf16(dout))
     for name, w, g in zip(("dq", "dk", "dv", "dslopes"), want, args):
         assert g.grad.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
-        assert_within_one_ulp(g.grad.float().numpy(), np.asarray(w.astype(jnp.float32)), name)
+        assert_within_one_ulp(g.grad.float().numpy(), np.asarray(w.astype(jnp.float32)), name, ulp_floor(d))
 
 
 def test_flash_bf16_delta_is_the_jax_wrappers():

@@ -86,6 +86,11 @@ FLASH_CASES = [
     (3, 3, 9, 32, 1, True, False),
     (2, 2, 37, 16, 1, False, "empty"),
     (2, 2, 300, 8, 1, True, "empty"),
+    # scale_1024's decoder head dim: MQA causal and padded, MHA, an element
+    # with no valid key
+    (2, 2, 130, 128, 1, True, True),
+    (1, 2, 37, 128, 2, False, False),
+    (2, 2, 40, 128, 1, False, "empty"),
 ]
 
 
@@ -173,6 +178,34 @@ def test_flash_backward_plain_matches_autograd(b, h, t, d, hk, causal, padded):
     for name, g, a in zip(("dq", "dk", "dv", "dslopes"), got, args):
         atol = 1e-5 * t if name == "dslopes" else 1e-5
         np.testing.assert_allclose(g.numpy(), a.grad.numpy(), atol=atol, rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FLASH_CASES)
+def test_flash_plain_keeps_fp64_inputs_in_fp64(b, h, t, d, hk, causal, padded):
+    """On fp64 inputs the plain versions compute in fp64 (chip_smoke.py's
+    reference for the kernels' slope gradients, whose fp32 sums over t*t
+    cancelling terms round by up to 1.6e-3 of their largest at t = 2050), with
+    masked scores at the kernels' fp32 -1e30, so that rows with no valid key
+    take the fp32 lse and get P = 1 as the kernels do. Forward and backward
+    agree with the fp32 versions to fp32 rounding (1e-5 of each tensor's
+    largest value, dslopes 1e-5 * t as above)."""
+    q, k, v, slopes, mask = flash_inputs(b, h, t, d, hk, padded)
+    dout = rand(7, b, h, t, d)
+    m = torch.from_numpy(mask)
+    f32 = [torch.from_numpy(a) for a in (q, k, v, slopes, dout)]
+    f64 = [a.double() for a in f32]
+    o32, lse32 = tflash.flash_attention_plain(*f32[:4], mask=m, causal=causal, return_lse=True)
+    o64, lse64 = tflash.flash_attention_plain(*f64[:4], mask=m, causal=causal, return_lse=True)
+    assert o64.dtype == lse64.dtype == torch.float64
+    np.testing.assert_allclose(o64.numpy(), o32.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lse64.numpy(), lse32.numpy(), atol=1e-5, rtol=1e-5)
+    delta = (f32[4] * o32).sum(-1)
+    got32 = tflash.flash_attention_bwd_plain(*f32[:4], m, f32[4], lse32, delta, causal)
+    got64 = tflash.flash_attention_bwd_plain(*f64[:4], m, f64[4], lse32.double(), delta.double(), causal)
+    for name, x, y in zip(("dq", "dk", "dv", "dslopes"), got64, got32):
+        assert x.dtype == torch.float64 and torch.isfinite(x).all(), name
+        scale = max(1.0, float(y.abs().max())) * (t if name == "dslopes" else 1)
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5 * scale, rtol=1e-5, err_msg=name)
 
 
 # ---- the forward kernel's split-TF32 arithmetic, emulated on the CPU ----

@@ -191,3 +191,65 @@ def test_chip_smoke_moe_config_is_the_recipe(tokenizer, chip_smoke):
     recipe = injected_model("scoreperformer/moe.yaml", tokenizer)
     assert chip_smoke.moe_config(tokenizer) == strip(recipe)
     assert chip_smoke.moe_train_config(tokenizer, "root", "out", 128, 2)["model"]["classifiers"] == recipe["classifiers"]
+
+
+def test_chip_smoke_flash_configs_are_the_recipes_with_use_flash(tokenizer, chip_smoke):
+    """chip_smoke.py's scale regime with the flash kernels is scale_1024.yaml's
+    model with `use_flash` in each stack's attention node, the decoder's
+    attention dropout set, and positions and segments for the sequence
+    length; its smoke-shaped one is recipes/smoke.yaml's with `use_flash` and
+    no attention dropout in the node all three stacks share (segments for
+    its 48 notes, as smoke_config sets them). Every flash
+    layer's head dim is one the kernels take."""
+    from scoreperformer_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS as FLASH_HEAD_DIMS
+
+    recipe = strip(injected_model("scoreperformer/scale_1024.yaml", tokenizer))
+    for seq, dropout in ((1024, 0.0), (2048, 0.0), (1024, 0.1)):
+        cfg = chip_smoke.scale_flash_config(tokenizer, seq, dropout)
+        want = json_copy(recipe)
+        for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+            want[key]["transformer"]["attention"]["use_flash"] = True
+            want[key]["max_seq_len"] = seq + 2
+        want["perf_decoder"]["transformer"]["attention"]["dropout"] = dropout
+        want["perf_encoder"]["max_segments"] = seq + 4
+        assert cfg == want
+    smoke = chip_smoke.smoke_flash_config(tokenizer, 48)
+    want = strip(injected_model("smoke.yaml", tokenizer))
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        want[key]["transformer"]["attention"].update(use_flash=True, dropout=0.0)
+    want["perf_encoder"]["max_segments"] = 48 + 4  # smoke_config's segments for its notes
+    assert smoke == want
+    cfg = build_scoreperformer_config(chip_smoke.scale_flash_config(tokenizer))
+    with torch.device("meta"):
+        model = ScorePerformerModel(cfg, device="meta")
+    flash = {(m.heads, m.dim_head, m.kv_heads, m.causal) for m in model.modules()
+             if isinstance(m, Attention) and m.use_flash}
+    assert flash == {(8, 64, 8, False), (8, 128, 1, True)}
+    assert all(d in FLASH_HEAD_DIMS for _, d, _, _ in flash)
+
+
+def json_copy(x):
+    import json
+
+    return json.loads(json.dumps(x))
+
+
+@pytest.mark.parametrize("seq", [1024, 2048])
+def test_a_scale_flash_recipe_over_scale_1024_yaml_is_chip_smokes_config(tokenizer, chip_smoke, tmp_path, seq):
+    """The README's way to train the scale regime with the flash kernels: a
+    recipe whose `base:` is scale_1024.yaml, with `use_flash: true` in each
+    stack's attention node (the decoder's with `dropout: 0.0`) and, at 2048
+    notes, the positions and segments, gives `scale_flash_config`'s model."""
+    lines = [f"base: {ROOT / 'recipes' / 'scoreperformer' / 'scale_1024.yaml'}", "data:", "  dataset:",
+             f"    max_seq_len: {seq}", "model:"]
+    for key in ("score_encoder", "perf_encoder", "perf_decoder"):
+        lines += [f"  {key}:", f"    max_seq_len: {seq + 2}", "    transformer:", "      attention:",
+                  "        use_flash: true"]
+        if key == "perf_decoder":
+            lines.append("        dropout: 0.0")
+        if key == "perf_encoder":
+            lines.append(f"    max_segments: {seq + 4}")
+    (tmp_path / "scale_flash.yaml").write_text("\n".join(lines) + "\n")
+    model = load_experiment_config(tmp_path, "scale_flash.yaml")["model"]
+    got = strip(inject_data_config(model, SimpleNamespace(tokenizer=tokenizer)))
+    assert got == chip_smoke.scale_flash_config(tokenizer, seq)

@@ -3401,6 +3401,11 @@ def parallel_phase(torch, tokenizer, smi, inputs):
                                  "check_restore": os.path.join(work, "data2_zero", "sharded")}, 2),
         "data2_model2": run("data2_model2", {**flag, "trainer": {**flag["trainer"], "mesh_data": 2, "mesh_model": 2},
                                              "profile": True}, 4),
+        # sequence parallelism: the encoders' 258 positions split over the
+        # model axis, the decoder's 257 do not (JAX's no-op rule)
+        "data2_model2_sp": run("data2_model2_sp", {**flag, "trainer": {**flag["trainer"], "mesh_data": 2,
+                                                                       "mesh_model": 2, "sequence_parallel": True},
+                                                   "profile": True}, 4),
         "moe_expert2": run("moe_expert2", {**moe, "trainer": {**moe["trainer"], "mesh_expert": 2}, "profile": True}, 2),
     }
     # each collective of the ranks' backend on CUDA tensors, its result read
@@ -3481,6 +3486,165 @@ def parallel_phase(torch, tokenizer, smi, inputs):
     kernels["prefix_attend"] = [check_prefix_attend(torch, pa, SMOKE_REQUESTS, SERVE_BUCKET, SERVE_BUCKET // 2, True)]
     rec["kernels"] = kernels
     lap("kernels")
+    return rec
+
+
+PIPE_MICROBATCHES = 4  # M of the GPipe runs: 2 stages over the decoder trunk's 4 units
+# the train step's adamw without clipping: a stage holds part of the parameters, so no rank sees the global norm
+PIPE_OPTIMIZATION = dict(lr=2e-4, optimizer="adamw", optimizer_params={"weight_decay": 1e-6})
+PIPE_RUNS = {"data2_pipe2": {"data": 2, "pipe": 2}, "data2_pipe2_model2_sp": {"data": 2, "pipe": 2, "model": 2}}
+
+
+def trunk_inputs(torch, tokenizer):
+    """The flagship decoder trunk's config and weights (the model at full
+    width from SEED, `use_flash`) and its input, mask and AdaNorm style rows
+    from the flagship's forward at the train step's batch (128 x 258: 257
+    causal decoder positions), taken by a hook on the trunk."""
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    comp = ExperimentComponents(train_config(tokenizer, os.path.join(build, "chip_smoke_train", "data"),
+                                             os.path.join(build, "chip_smoke_pipeline", "flagship"), TRAIN_BATCH, 2),
+                                device="cpu")
+    comp.build_datasets(), comp.build_collator(), comp.build_model(), comp.build_trainer()
+    host = next(iter(comp.trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0)))
+    model = comp.model.to("cuda").eval()
+    trunk, seen = model.decoder.transformer, {}
+
+    def grab(module, args, kwargs):
+        seen.update(x=args[0], mask=kwargs.get("mask"), style=kwargs.get("style_embeddings"))
+
+    hook = trunk.register_forward_pre_hook(grab, with_kwargs=True)
+    with torch.no_grad():
+        model(**{k: torch.as_tensor(np.asarray(v)).to("cuda") for k, v in host.items()})
+    hook.remove()
+    inputs = {k: v.detach().cpu().clone() for k, v in seen.items()}
+    state = {k: v.detach().cpu().clone() for k, v in trunk.state_dict().items()}
+    config = trunk.config
+    del model, comp
+    torch.cuda.empty_cache()
+    return config, state, inputs
+
+
+def trunk_gates(one, got, what, rel=1e-4, abs_tol=1e-5):
+    """A pipelined run held to the one-process trunk: the first loss within
+    `rel` relative, every gradient (parameters, x, style rows) within
+    abs_tol + rel x its largest value, the second step's loss below the
+    first. Returns the errors."""
+    grads = dict(one["grads"], x=one["x_grad"], style=one["style_grad"])
+    mine = dict(got["grads"], x=got["x_grad"], style=got["style_grad"])
+    if set(grads) != set(mine):
+        raise AssertionError(f"{what}: the pipelined step reaches other tensors than the one-process step")
+    errs = {"loss_rel_err": abs(got["losses"][0] - one["losses"][0]) / abs(one["losses"][0])}
+    worst = max(((mine[n] - w).abs().max().item() / (abs_tol + rel * w.abs().max().item()), n)
+                for n, w in grads.items())
+    errs.update(grad_err_over_gate=worst[0], grad_worst=worst[1],
+                grad_max_abs_err=max((mine[n] - w).abs().max().item() for n, w in grads.items()))
+    if not (errs["loss_rel_err"] <= rel and worst[0] <= 1.0):
+        raise AssertionError(f"{what}: the pipelined trunk differs from the one-process trunk: {errs}")
+    if not got["losses"][1] < got["losses"][0]:
+        raise AssertionError(f"{what}: the second step's loss {got['losses'][1]} is not below the first "
+                             f"{got['losses'][0]}")
+    return errs
+
+
+def pipeline_phase(torch, tokenizer, smi):
+    """GPipe over a `pipe` axis (`scoreperformer_tpu_torch.parallel.pipeline`)
+    with the flagship decoder trunk at full width (dim 256, 4 units, 4
+    heads of 64, one KV head, learned ALiBi, GLU-swish, AdaNorm style,
+    `use_flash`) on its inputs at the train step's batch (128 x 257 causal
+    positions): 2 adamw steps with ZeRO over `data` on JAX's dry-run loss
+    (the final norm, then (h**2).sum()) at data 2 x pipe 2 (M 4) and data 2
+    x pipe 2 x model 2 with sequence parallelism (the decoder's 257
+    positions do not split over model 2: JAX's no-op rule, so the stack
+    runs as without it), one launch of 8 ranks sharing the card over gloo
+    (4 idle in the first run). Gates: the loss and every gradient (the
+    trunk's, the final norm's, x's, the style rows') within 1e-4 relative
+    (1e-5 absolute) of the one-process trunk on the card, the second
+    step's loss below the first, and exactly 2 units x M = 8 launches of
+    each flash kernel a step on every rank (bubble ticks are skipped).
+    Then one more step with the collectives timed, the flash kernels at a
+    microbatch's shape (b 16, h 4 and h 2, t 257 causal) against their
+    plain versions, and `python -m scoreperformer_tpu_torch.parallel.dryrun
+    --ranks 8` on the card (its four OK lines). Returns the phase's record."""
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.parallel.launch import launch
+    from scoreperformer_tpu_torch.parallel.workers import pipeline_runs_worker, run_trunk_one_process
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    config, state, inputs = trunk_inputs(torch, tokenizer)
+    lap("trunk_inputs")
+    base = {"config": config, "state_dict": state, "x": inputs["x"], "mask": inputs["mask"],
+            "style": inputs["style"], "microbatches": PIPE_MICROBATCHES, "steps": 2, "inputs_grad": True,
+            "optimization": PIPE_OPTIMIZATION, "zero_sharding": True, "profile": True, "device": "cuda"}
+    one = run_trunk_one_process(base, device="cuda")
+    torch.cuda.empty_cache()
+    lap("one_process")
+    paths = []
+    for name, mesh in PIPE_RUNS.items():
+        paths.append(os.path.join(work, f"{name}.pt"))
+        torch.save({**base, "mesh": mesh, "sequence_parallel": "model" in mesh}, paths[-1])
+    ranks = max(int(np.prod(list(m.values()))) for m in PIPE_RUNS.values())
+    got = launch(pipeline_runs_worker, ranks, (paths,), backend="gloo", device="cuda")
+    lap("pipelined_runs")
+    stages = 2
+    bubble = (stages - 1) / (PIPE_MICROBATCHES + stages - 1)
+    units = config.depth // stages
+    want = {k: units * PIPE_MICROBATCHES for k in FLASH}
+    rec = {"card": smi, "microbatches": PIPE_MICROBATCHES, "stages": stages, "bubble_share": bubble,
+           "trunk": {"dim": config.dim, "depth": config.depth, "heads": config.heads,
+                     "x": list(inputs["x"].shape), "style": list(inputs["style"].shape)},
+           "one_process": {"losses": one["losses"], "step_ms": one["step_ms"], "peak_gb": one["peak_gb"]},
+           "phase_s": phase_s, "runs": {}}
+    for i, (name, mesh) in enumerate(PIPE_RUNS.items()):
+        members = [r[i] for r in got if r[i] is not None]
+        errs = trunk_gates(one, members[0], name)
+        for r in members:
+            if any(step != want for step in r["launches"]):
+                raise AssertionError(f"{name} rank {r['rank']}: flash launches {r['launches']}, expected {want} "
+                                     "a step")
+        rec["runs"][name] = {
+            "mesh": mesh, "ranks": len(members), **errs, "losses": members[0]["losses"],
+            "step_ms": [r["step_ms"] for r in members], "peak_gb": [r["peak_gb"] for r in members],
+            "profiled_step": [r["profiled_step"] for r in members], "launches_a_step": members[0]["launches"][0]}
+        print(f"pipeline {name} ({smi}): bubble share {bubble:.3f} (S={stages}, M={PIPE_MICROBATCHES}); "
+              + "; ".join(f"rank {r['rank']} {r['coords']}: step ms {[round(t, 1) for t in r['step_ms']]}, "
+                          f"collective share {r['profiled_step']['collective_share']:.3f} of "
+                          f"{r['profiled_step']['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB" for r in members),
+              flush=True)
+    print(f"pipeline one process ({smi}): step ms {[round(t, 1) for t in one['step_ms']]}, "
+          f"peak {one['peak_gb']:.2f} GB", flush=True)
+
+    # ---- the kernels at a microbatch's shape (4 heads a stage; 2 a rank with model 2) ----
+    rows = TRAIN_BATCH // 2 // PIPE_MICROBATCHES
+    kernels = {"flash_attention_fwd": [check_flash(torch, fa, rows, TRAIN_SEQ + 1, True, False, True, h=h)
+                                       for h in (4, 2)]}
+    bwd = [check_flash_bwd(torch, fa, rows, TRAIN_SEQ + 1, True, False, True, h=h) for h in (4, 2)]
+    kernels.update(flash_attention_bwd_dkv=[b[0] for b in bwd], flash_attention_bwd_dq=[b[1] for b in bwd],
+                   flash_attention_bwd_pair=[b[2] for b in bwd])
+    rec["kernels"] = kernels
+    lap("kernels")
+
+    # ---- the dry run's four parts, on the card ----
+    out = subprocess.run([sys.executable, "-m", "scoreperformer_tpu_torch.parallel.dryrun", "--ranks", "8"],
+                         capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    oks = [line for line in out.stdout.splitlines() if line.startswith("dryrun ") and " OK" in line]
+    lap("dryrun")
+    if out.returncode != 0 or len(oks) != 4:
+        raise AssertionError(f"parallel.dryrun --ranks 8 failed (rc {out.returncode}):\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    for line in oks:
+        print(f"{line} ({smi})", flush=True)
+    rec["dryrun"] = {"ok_lines": oks, "s": phase_s["dryrun"]}
     return rec
 
 
@@ -3914,6 +4078,17 @@ def main() -> int:
           f"{parallel['ranks_a_card']} rank(s) a card"
           + ("; a world-size-1 nccl group ran a step and each collective" if "nccl_world1" in parallel else ""))
     print("parallel", json.dumps({k: v for k, v in parallel.items() if k != "kernels"}))
+    sp, no_sp = parallel["steps"]["data2_model2_sp"], parallel["steps"]["data2_model2"]
+    print(f"sequence parallel ({smi}): data 2 x model 2 peak GB a rank {[round(g, 2) for g in sp['peak_gb']]} "
+          f"with it, {[round(g, 2) for g in no_sp['peak_gb']]} without; second-step ms "
+          f"{[round(r[-1], 1) for r in sp['step_ms']]} against {[round(r[-1], 1) for r in no_sp['step_ms']]}; "
+          f"gradient error {sp['grad_err']:.3g} against {no_sp['grad_err']:.3g}", flush=True)
+
+    # ---- GPipe over a pipe axis: the flagship decoder trunk; the dry run ----
+    t0 = time.perf_counter()
+    pipeline = pipeline_phase(torch, tokenizer, smi)
+    print(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+    print("pipeline", json.dumps({k: v for k, v in pipeline.items() if k != "kernels"}))
 
     launches = renders["greedy"][1]
     paths = {"render_greedy": launches, "train_steps": train_launches,
@@ -3943,7 +4118,9 @@ def main() -> int:
              **{f"moe_unmask_{name}": run["launches"] for name, run in moe["variants"]["runs"].items()},
              "parallel_render_from_gathered_checkpoint": parallel["checkpoints"]["render_launches"],
              **{f"parallel_{name}_train_steps_a_rank": {**{k: 0 for k in launches}, **run["launches_a_rank"]}
-                for name, run in parallel["steps"].items()}}
+                for name, run in parallel["steps"].items()},
+             **{f"pipeline_{name}_step_a_rank": {**{k: 0 for k in launches}, **run["launches_a_step"]}
+                for name, run in pipeline["runs"].items()}}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timed = ("ms", "plain_ms", "bound_ms", "library_ms", "eager_ms")
     kernels = [
@@ -4019,6 +4196,9 @@ def main() -> int:
         if rec["name"] in parallel["kernels"]:  # the model axis's shape; moe.yaml's served batch
             rec["parallel_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms") if k in r}
                                       for r in parallel["kernels"][rec["name"]] if "ms" in r]
+        if rec["name"] in pipeline["kernels"]:  # a pipeline microbatch's shape, 4 and 2 heads
+            rec["pipeline_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms") if k in r}
+                                      for r in pipeline["kernels"][rec["name"]] if "ms" in r]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -14,7 +14,11 @@ query heads' rows of `to_q` and columns of `to_out`, and its KV heads' rows
 of `to_k`/`to_v`, or all of them when there are fewer KV heads than ranks
 (their gradient is then summed over the axis). The input passes through
 copy-to-group and one reduce-from-group sums the ranks' `to_out` outputs.
-Only the training and eval forward run sharded; a cache raises.
+With `sequence_parallel` the input is the rank's slice of the sequence: an
+all-gather takes the place of copy-to-group (attention, ALiBi and the
+flash kernels see the whole sequence) and a reduce-scatter that of
+reduce-from-group. Only the training and eval forward run sharded; a
+cache raises.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ from torch import nn
 from ..ops.flash_attention import flash_attention_alibi
 from ..ops.kv_cache import write_kv_pair
 from ..ops.prefix_attend import combine_lse, prefix_attend
-from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.collectives import (copy_to_group, gather_seq_to_group, reduce_from_group, reduce_scatter_seq,
+                                    seq_block)
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .dropout import Dropout
 from .layers import ALiBiPositionalBias, Linear, linear
@@ -230,16 +235,19 @@ class Attention(nn.Module):
         attn_mask: Optional[torch.Tensor] = None,
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_index: Optional[torch.Tensor] = None,
+        sequence_parallel: bool = False,
     ) -> torch.Tensor:
         """Without a cache: full attention over `x` (or cross-attention over
         `context`). With a cache: the keys/values of `x` are written IN PLACE
         at slot `cache_index % cap` (a ring) and the queries attend over the
-        whole buffer, masked to the written positions."""
+        whole buffer, masked to the written positions. With
+        `sequence_parallel` (a model-sharded layer), `x` and the output are
+        this rank's slice of the sequence; `mask` covers the whole one."""
         sharded = self.head_range is not None
         if sharded:
             if cache is not None:
                 raise NotImplementedError("a model axis shards the training and eval forward, not a cached decode")
-            x = copy_to_group(x, MODEL_AXIS)
+            x = (gather_seq_to_group if sequence_parallel else copy_to_group)(x, MODEL_AXIS)
             context = None if context is None else copy_to_group(context, MODEL_AXIS)
         if cache is not None and "fk" in cache:
             if context is not None:
@@ -276,11 +284,7 @@ class Attention(nn.Module):
                 causal=self.causal, scale=scale,
             )
             out = self.to_out(out.transpose(1, 2).reshape(b, n, h * d))
-            if sharded:
-                out = reduce_from_group(out, MODEL_AXIS)
-            if mask is not None:
-                out = out * mask[..., None]
-            return out
+            return self._close(out, mask, sharded, sequence_parallel)
 
         has_cache = cache is not None
         if has_cache:
@@ -345,8 +349,14 @@ class Attention(nn.Module):
             attn = self.attn_dropout(torch.softmax(dots.float(), dim=-1).to(dots.dtype))
         out = (attn @ v_h).transpose(1, 2).reshape(b, n, h * d)
         out = self.to_out(out)
+        return self._close(out, None if has_cache else mask, sharded, sequence_parallel)
+
+    @staticmethod
+    def _close(out, mask, sharded, sequence_parallel):
+        """The ranks' partial outputs summed (each keeping its slice of the
+        sequence with `sequence_parallel`), padded positions zeroed."""
         if sharded:
-            out = reduce_from_group(out, MODEL_AXIS)
-        if mask is not None and not has_cache:
-            out = out * mask[..., None]
+            out = (reduce_scatter_seq if sequence_parallel else reduce_from_group)(out, MODEL_AXIS)
+        if mask is not None:
+            out = out * (seq_block(mask, MODEL_AXIS) if sequence_parallel else mask)[..., None]
         return out

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import copy_to_group, reduce_from_group
+from ..parallel.collectives import copy_to_group, gather_seq_to_group, reduce_from_group, reduce_scatter_seq
 from ..parallel.mesh import MODEL_AXIS
 from .dropout import Dropout
 
@@ -48,19 +48,32 @@ class Linear(nn.Linear):
         return linear(x, self.weight, self.bias)
 
 
+def _group_params(sequence_parallel: bool, *ps: Optional[torch.Tensor]):
+    """The parameters of a norm that runs on a rank's slice of the sequence
+    (their gradient summed over the model axis), or as they are."""
+    if not sequence_parallel:
+        return ps
+    return tuple(None if p is None else copy_to_group(p, MODEL_AXIS) for p in ps)
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm computed in fp32, written in the promoted type of its
-    input and parameters (flax's LayerNorm)."""
+    input and parameters (flax's LayerNorm). With `sequence_parallel` it
+    runs on this rank's slice of the sequence and its parameters' gradient
+    is summed over the model axis."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
-        out = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
+    def forward(self, x: torch.Tensor, sequence_parallel: bool = False) -> torch.Tensor:
+        w, b = _group_params(sequence_parallel, self.weight, self.bias)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        out = F.layer_norm(x.float(), self.normalized_shape, w.float(), b.float(), self.eps)
         return out.to(dt)
 
 
 class AdaptiveLayerNorm(nn.Module):
     """LayerNorm without affine + Linear(cond -> 2*dim) giving per-position
-    gamma/beta. `linear` is the JAX package's `to_gamma_beta`."""
+    gamma/beta. `linear` is the JAX package's `to_gamma_beta`. With
+    `sequence_parallel` as `LayerNorm`'s (the condition's rows are the
+    slice's)."""
 
     def __init__(self, dim: int, condition_dim: int, eps: float = 1e-5):
         super().__init__()
@@ -69,13 +82,15 @@ class AdaptiveLayerNorm(nn.Module):
         with torch.no_grad():  # gamma = 1, beta = 0 at start
             self.linear.bias.copy_(torch.cat([torch.ones(dim), torch.zeros(dim)]))
 
-    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None,
+                sequence_parallel: bool = False) -> torch.Tensor:
         normed = F.layer_norm(x, (self.dim,), eps=self.eps)
         if condition is None:
             return normed
         if condition.ndim == 2:
             condition = condition[:, None]
-        gamma, beta = self.linear(condition).chunk(2, dim=-1)
+        gamma, beta = linear(condition, *_group_params(sequence_parallel, self.linear.weight,
+                                                       self.linear.bias)).chunk(2, dim=-1)
         return gamma * normed + beta
 
 
@@ -100,7 +115,9 @@ class FeedForward(nn.Module):
     On a model axis (`parallel/shard.py` sets `model_sharded`), proj_in holds
     this rank's columns (of both GLU halves) and proj_out the matching rows:
     the input passes through copy-to-group, and one reduce-from-group sums
-    the partial outputs before proj_out's bias."""
+    the partial outputs before proj_out's bias. With `sequence_parallel`
+    the input is this rank's slice of the sequence: an all-gather takes the
+    place of copy-to-group and a reduce-scatter that of reduce-from-group."""
 
     def __init__(self, dim: int, mult: int = 4, glu: bool = False, swish: bool = False,
                  post_act_ln: bool = False, dropout: float = 0.0, no_bias: bool = True):
@@ -121,13 +138,18 @@ class FeedForward(nn.Module):
         self.inner, self.post_act_ln = inner, post_act_ln
         self.model_sharded = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sequence_parallel: bool = False) -> torch.Tensor:
         if not self.model_sharded:
             return self.ff(x)
         proj_in, norm, drop, proj_out = self.ff
-        h = drop(norm(proj_in(copy_to_group(x, MODEL_AXIS))))
-        y = reduce_from_group(linear(h, proj_out.weight), MODEL_AXIS)
-        return y if proj_out.bias is None else y + proj_out.bias.to(y.dtype)
+        gather, reduce = (gather_seq_to_group, reduce_scatter_seq) if sequence_parallel else \
+            (copy_to_group, reduce_from_group)
+        h = drop(norm(proj_in(gather(x, MODEL_AXIS))))
+        y = reduce(linear(h, proj_out.weight), MODEL_AXIS)
+        if proj_out.bias is None:
+            return y
+        (bias,) = _group_params(sequence_parallel, proj_out.bias)
+        return y + bias.to(y.dtype)
 
 
 class AbsolutePositionalEmbedding(nn.Module):

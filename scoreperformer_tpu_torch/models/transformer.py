@@ -7,6 +7,20 @@ Counterpart of scoreperformer_tpu/models/transformer.py. Layer `i` lives at
 (counted by feed-forward ordinal, per stack) is a `moe.MoEFeedForward`; the
 stack hands each MoE layer's (aux loss, drop rate) to the caller's
 `moe_stats` list.
+
+Sequence parallelism (JAX's `shard_seq_activations` after every residual
+add, scoreperformer_tpu/models/transformer.py:267): on a mesh with
+`sequence_parallel` set, whose model axis splits every block of the stack,
+the residual stream lives split over the sequence on the model ranks. The
+stack's input enters it (`scatter_seq`), the norms, residual adds and the
+AdaNorm style rows run on the rank's slice (the norms' parameters and a
+style vector take their gradient summed over the slices), each block
+gathers the whole
+sequence and hands back its slice (`models/attention.py`,
+`models/layers.py`), and the output leaves it (`gather_seq`). As JAX's
+constraint, it is a no-op where the sequence does not divide the model
+axis (a data rank always holds a whole block of the batch here); the
+values are those without it, only memory changes.
 """
 from __future__ import annotations
 
@@ -17,6 +31,8 @@ import torch
 from torch import nn
 
 from ..configs import ModuleConfig
+from ..parallel.collectives import copy_to_group, gather_seq, scatter_seq
+from ..parallel.mesh import MODEL_AXIS, current
 from .attention import Attention, init_kv_cache
 from .layers import AdaptiveLayerNorm, FeedForward, LayerNorm
 from .moe import MoEFeedForward
@@ -134,10 +150,23 @@ class TransformerStack(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.final_norm = make_norm() if (cfg.pre_norm and cfg.final_norm) else None
 
-    def _apply_norm(self, norm, x, style_embeddings):
+    def _apply_norm(self, norm, x, style_embeddings, sequence_parallel=False):
         if self.config.use_adanorm:
-            return norm(x, condition=style_embeddings)
-        return norm(x)
+            return norm(x, condition=style_embeddings, sequence_parallel=sequence_parallel)
+        return norm(x, sequence_parallel=sequence_parallel)
+
+    def _sequence_parallel(self, x: torch.Tensor, caches) -> bool:
+        """The residual stream splits over the model axis: the active mesh
+        asks for it, the model axis splits every block and the sequence
+        divides it; never with caches."""
+        mesh = current()
+        if mesh is None or not mesh.sequence_parallel or caches is not None:
+            return False
+        n = mesh.size(MODEL_AXIS)
+        if n <= 1 or x.shape[1] % n:
+            return False
+        return all(block.head_range is not None if isinstance(block, Attention)
+                   else isinstance(block, FeedForward) and block.model_sharded for _, block in self.layers)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device="cpu") -> List[Any]:
         """Per-self-attention-layer static KV caches."""
@@ -171,18 +200,24 @@ class TransformerStack(nn.Module):
         has_cache = caches is not None
         # with a cache, `mask` covers the cache buffer (keys); queries are x
         attn_in_mask = None if has_cache else mask
+        sp = self._sequence_parallel(x, caches)
+        if sp:
+            x = scatter_seq(x, MODEL_AXIS)
+            if style_embeddings is not None:  # rows go with their positions; a vector's gradient sums over the slices
+                style_embeddings = (scatter_seq if style_embeddings.ndim == 3 else copy_to_group)(style_embeddings,
+                                                                                                 MODEL_AXIS)
 
         for ind, (layer_type, (norms, block)) in enumerate(zip(self.layer_types, self.layers)):
             residual = x
             if cfg.pre_norm:
-                x = self._apply_norm(norms[0], x, style_embeddings)
+                x = self._apply_norm(norms[0], x, style_embeddings, sp)
             if layer_type == "a":
                 out = block(
                     x, mask=mask, attn_mask=attn_mask,
-                    cache=caches[ind] if has_cache else None, cache_index=cache_index,
+                    cache=caches[ind] if has_cache else None, cache_index=cache_index, sequence_parallel=sp,
                 )
             elif layer_type == "c":
-                out = block(x, context=context, mask=attn_in_mask, context_mask=context_mask)
+                out = block(x, context=context, mask=attn_in_mask, context_mask=context_mask, sequence_parallel=sp)
             elif isinstance(block, MoEFeedForward):
                 ff_mask = mask if not has_cache and mask is not None and mask.shape[:2] == x.shape[:2] else None
                 if moe_stats is None:
@@ -191,11 +226,11 @@ class TransformerStack(nn.Module):
                     out, aux, drop = block(x, mask=ff_mask, with_stats=True)
                     moe_stats.append((aux, drop))
             else:
-                out = block(x)
+                out = block(x, sequence_parallel=sp)
             x = out + residual
             if not cfg.pre_norm:
-                x = self._apply_norm(norms[0], x, style_embeddings)
+                x = self._apply_norm(norms[0], x, style_embeddings, sp)
 
         if self.final_norm is not None:
-            x = self._apply_norm(self.final_norm, x, style_embeddings)
-        return x
+            x = self._apply_norm(self.final_norm, x, style_embeddings, sp)
+        return gather_seq(x, MODEL_AXIS) if sp else x

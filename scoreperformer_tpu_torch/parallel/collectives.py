@@ -18,6 +18,25 @@ The autograd pairs (Megatron's f and g):
 - `gather_rows`: the ranks' rows concatenated, with a backward that sums
   the gathered gradient over the ranks and keeps the rank's rows (each
   rank holds part of a loss over all the rows).
+
+Sequence parallelism (Megatron-SP; `models/transformer.py`) splits the
+residual stream over the model axis on the sequence (dim 1):
+- `scatter_seq`: the rank's slice forward, all-gather backward (a stack's
+  replicated input enters the split stream); `gather_seq` the reverse (the
+  stream leaves it: all-gather forward, the rank's slice backward);
+- `gather_seq_to_group`: all-gather forward, reduce-scatter backward (in
+  place of `copy_to_group` before a column-split projection);
+- `reduce_scatter_seq`: reduce-scatter forward, all-gather backward (in
+  place of `reduce_from_group` after a row-split projection).
+
+The pipeline (`parallel/pipeline.py`) moves a stage's activations with
+`pipe_shift`, the counterpart of `lax.ppermute(y, "pipe", [(i, i+1)])`
+built on `all_to_all_single` (every pipe rank joins it, sending to one
+neighbour at most), and replicates the last stage's outputs with
+`replicate_last_stage`, the masked psum: an autograd pair whose backward
+keeps the last rank's own gradient (zeros elsewhere), so a loss that every
+pipe rank computes from the replicated output counts once. The schedule's
+own autograd Function runs `pipe_shift` backward as the reverse hop.
 """
 from __future__ import annotations
 
@@ -97,6 +116,39 @@ def all_gather_list(x: torch.Tensor, axis: str) -> List[torch.Tensor]:
     return [x] if n == 1 else _all_gather_list(x, group, n)
 
 
+def _reduce_scatter_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the ranks of `x`, this rank's block of it on `dim`."""
+    xt = x.detach().movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    _run(lambda: reduce_scatter(out, xt, group=group), xt)
+    return out.movedim(0, dim)
+
+
+def _block(x: torch.Tensor, n: int, index: int, dim: int) -> torch.Tensor:
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size).contiguous()
+
+
+def pipe_shift(x: Optional[torch.Tensor], group, n: int, index: int, step: int, send: bool, receive: bool,
+               like: torch.Tensor) -> Optional[torch.Tensor]:
+    """One hop along a pipe axis of n ranks: this rank (at `index`) sends
+    `x` to rank index + step when `send`, and returns what rank index -
+    step sent when `receive` (a tensor shaped as `like`), else None. Every
+    rank of the axis calls it together (`all_to_all_single`, empty blocks
+    where nothing moves)."""
+    numel = like.numel()
+    out_sizes, in_sizes = [0] * n, [0] * n
+    if send:
+        in_sizes[index + step] = numel
+    if receive:
+        out_sizes[index - step] = numel
+    src = x.detach().reshape(-1).contiguous() if send else like.new_empty(0)
+    out = like.new_empty(numel if receive else 0)
+    _run(lambda: dist.all_to_all_single(out, src, out_sizes, in_sizes, group=group), like)
+    return out.view_as(like) if receive else None
+
+
 # The autograd pairs take their group in the forward: a backward may run on
 # autograd's device thread, which does not see the active mesh.
 
@@ -132,6 +184,93 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, grad):
         total = _all_reduce(grad.contiguous(), ctx.group)
         return total[ctx.index * ctx.rows:(ctx.index + 1) * ctx.rows], None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, index):
+        ctx.group, ctx.n = group, n
+        return _block(x, n, index, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(_all_gather_list(grad, ctx.group, ctx.n), dim=1), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, index):
+        ctx.n, ctx.index = n, index
+        return torch.cat(_all_gather_list(x, group, n), dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _block(grad, ctx.n, ctx.index, 1), None, None, None
+
+
+class _GatherSeqToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return torch.cat(_all_gather_list(x, group, n), dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_dim(grad, ctx.group, ctx.n, 1), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter_dim(x, group, n, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(_all_gather_list(grad, ctx.group, ctx.n), dim=1), None, None
+
+
+class _ReplicateLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, last):
+        ctx.last = last
+        return _all_reduce(x if last else torch.zeros_like(x), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.last else torch.zeros_like(grad)), None, None
+
+
+def scatter_seq(x: torch.Tensor, axis: str) -> torch.Tensor:
+    group, n = _group(axis)
+    return x if n == 1 else _ScatterSeq.apply(x, group, n, current().index(axis))
+
+
+def gather_seq(x: torch.Tensor, axis: str) -> torch.Tensor:
+    group, n = _group(axis)
+    return x if n == 1 else _GatherSeq.apply(x, group, n, current().index(axis))
+
+
+def gather_seq_to_group(x: torch.Tensor, axis: str) -> torch.Tensor:
+    group, n = _group(axis)
+    return x if n == 1 else _GatherSeqToGroup.apply(x, group, n)
+
+
+def reduce_scatter_seq(x: torch.Tensor, axis: str) -> torch.Tensor:
+    group, n = _group(axis)
+    return x if n == 1 else _ReduceScatterSeq.apply(x, group, n)
+
+
+def seq_block(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """This rank's slice of `x` (no gradient to pass: a mask) on the sequence."""
+    _, n = _group(axis)
+    return x if n == 1 else _block(x, n, current().index(axis), 1)
+
+
+def replicate_last_stage(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The last rank's `x` on every rank of the axis (the masked psum)."""
+    group, n = _group(axis)
+    return x if n == 1 else _ReplicateLastStage.apply(x, group, current().index(axis) == n - 1)
 
 
 def copy_to_group(x: torch.Tensor, axis: str) -> torch.Tensor:

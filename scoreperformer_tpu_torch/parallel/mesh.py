@@ -1,8 +1,11 @@
-"""The process mesh: data x model x expert ranks, one process per device.
+"""The process mesh: data x model x expert ranks (or data x pipe x model),
+one process per device.
 
 Counterpart of scoreperformer_tpu/parallel/mesh.py. Rank r sits at the
 (data, model, expert) coordinate that `make_mesh` gives device r there
-(`np.arange(world).reshape(data, model, expert)`); each axis is a set of
+(`np.arange(world).reshape(data, model, expert)`), or, on a pipeline mesh,
+at the (data, pipe, model) one of `make_pipeline_mesh`
+(scoreperformer_tpu/parallel/pipeline.py:49); each axis is a set of
 `torch.distributed` sub-groups, one for every line of ranks along it.
 - The batch splits over `data` only: ranks on one data coordinate hold the
   same rows, as `P(DATA_AXIS)` replicates them over `model` and `expert`.
@@ -12,6 +15,10 @@ Counterpart of scoreperformer_tpu/parallel/mesh.py. Rank r sits at the
   (`EXPERT_PARTITION_RULES`).
 - ZeRO-1 splits each optimizer-state buffer over `data` on the dimension
   `zero_split_dim` picks, a copy of JAX's `_zero_spec`.
+- `pipe` splits a trunk's depth units into stages (`parallel/pipeline.py`).
+- `sequence_parallel` (set by the trainer, as JAX's trainer installs its
+  activation sharding) splits each `TransformerStack`'s residual stream over
+  `model` on the sequence (`models/transformer.py`).
 
 The trainer activates its mesh around each step (`ProcessMesh.activate`);
 the model's loss terms, dropout and sharded layers read it through
@@ -32,7 +39,9 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, MODEL_AXIS, EXPERT_AXIS)
+PIPELINE_AXES = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS)
 
 _current: ContextVar[Optional["ProcessMesh"]] = ContextVar("process_mesh", default=None)
 
@@ -45,6 +54,11 @@ def current() -> Optional["ProcessMesh"]:
 def mesh_layout(data: int, model: int = 1, expert: int = 1) -> np.ndarray:
     """(data, model, expert) array of ranks: the rank at each coordinate."""
     return np.arange(data * model * expert).reshape(data, model, expert)
+
+
+def pipeline_layout(pipe: int, data: int = 1, model: int = 1) -> np.ndarray:
+    """(data, pipe, model) array of ranks: JAX's `make_pipeline_mesh` order."""
+    return np.arange(data * pipe * model).reshape(data, pipe, model)
 
 
 def default_data_axis(world: int, model: int, expert: int, batch_size: int,
@@ -128,28 +142,35 @@ def rank_device(device="cuda") -> torch.device:
 
 
 class ProcessMesh:
-    """The (data, model, expert) mesh over the first data*model*expert
-    ranks of the default process group; with no group, a one-rank mesh.
-    Every rank of the group must build it (making sub-groups is collective);
-    a rank past the mesh is not a `member` and takes no part."""
+    """The (data, model, expert) mesh, or with `pipe` > 1 the (data, pipe,
+    model) one, over the first ranks of the default process group; with no
+    group, a one-rank mesh. Every rank of the group must build it (making
+    sub-groups is collective); a rank past the mesh is not a `member` and
+    takes no part."""
 
-    def __init__(self, data: int = 1, model: int = 1, expert: int = 1):
-        self.shape: Dict[str, int] = {DATA_AXIS: int(data), MODEL_AXIS: int(model), EXPERT_AXIS: int(expert)}
+    def __init__(self, data: int = 1, model: int = 1, expert: int = 1, pipe: int = 1):
+        self.shape: Dict[str, int] = {DATA_AXIS: int(data), MODEL_AXIS: int(model), EXPERT_AXIS: int(expert),
+                                      PIPE_AXIS: int(pipe)}
+        if pipe > 1 and expert > 1:
+            raise ValueError("a pipeline mesh is (data, pipe, model): it has no expert axis")
+        self.axes = PIPELINE_AXES if pipe > 1 else AXES
+        layout = pipeline_layout(pipe, data, model) if pipe > 1 else mesh_layout(data, model, expert)
         world = dist.get_world_size() if dist.is_initialized() else 1
         self.rank = dist.get_rank() if dist.is_initialized() else 0
-        n = data * model * expert
+        n = layout.size
         if n > world:
-            raise ValueError(f"mesh {data}x{model}x{expert} needs {n} ranks; the process group has {world}")
+            raise ValueError(f"mesh {'x'.join(str(self.shape[a]) for a in self.axes)} needs {n} ranks; "
+                             f"the process group has {world}")
         self.member = self.rank < n
-        layout = mesh_layout(data, model, expert)
-        self.coords: Dict[str, int] = {a: 0 for a in AXES}
+        self.coords: Dict[str, int] = {a: 0 for a in self.shape}
         if self.member:
-            d, m, e = (int(i[0]) for i in np.nonzero(layout == self.rank))
-            self.coords = {DATA_AXIS: d, MODEL_AXIS: m, EXPERT_AXIS: e}
+            self.coords.update(zip(self.axes, (int(i[0]) for i in np.nonzero(layout == self.rank))))
+        # the residual stream split over `model` on the sequence (the trainer's `sequence_parallel`)
+        self.sequence_parallel = False
         # the mesh's ranks, for barriers that the ranks past it take no part in
         self._members = dist.new_group(list(range(n))) if dist.is_initialized() and n < world else None
-        self.groups: Dict[str, Optional[dist.ProcessGroup]] = {a: None for a in AXES}
-        for i, axis in enumerate(AXES):
+        self.groups: Dict[str, Optional[dist.ProcessGroup]] = {a: None for a in self.shape}
+        for i, axis in enumerate(self.axes):
             if self.shape[axis] == 1:
                 continue
             lines = np.moveaxis(layout, i, -1).reshape(-1, self.shape[axis])
@@ -161,7 +182,7 @@ class ProcessMesh:
 
     @property
     def world(self) -> int:
-        return self.shape[DATA_AXIS] * self.shape[MODEL_AXIS] * self.shape[EXPERT_AXIS]
+        return math.prod(self.shape.values())
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
@@ -193,3 +214,9 @@ class ProcessMesh:
             yield self
         finally:
             _current.reset(token)
+
+
+def make_pipeline_mesh(pipe: int, data: int = 1, model: int = 1) -> ProcessMesh:
+    """The (data, pipe[, model]) mesh of JAX's `make_pipeline_mesh`: the
+    batch over `data`, a trunk's depth over `pipe`, its layers over `model`."""
+    return ProcessMesh(data=data, model=model, pipe=pipe)

@@ -112,7 +112,7 @@ def save_checkpoint(
                        "opt_state": optimizer.state_dict() if optimizer is not None else None,
                        "zero_split": {} if optimizer is None else
                        {n: d for n, d in zip(optimizer.names, optimizer.split) if d is not None}})
-        index = {"mesh": dict(mesh.shape) if mesh is not None else {a: 1 for a in AXES},
+        index = {"mesh": {a: mesh.size(a) if mesh is not None else 1 for a in AXES},
                  "specs": {k: [v.axis, v.dim, v.halves] for k, v in specs.items()}}
         jobs.append(lambda: torch.save(shard, os.path.join(directory, "shards", f"rank_{rank:05d}.pt")))
         if main:

@@ -24,7 +24,17 @@ place:
   are taken over all of them at once, and adafactor factors nothing;
 - the `plateau` schedule: a constant lr whose updates are multiplied by
   `plateau_scale`, which the trainer sets from `PlateauController` once an
-  epoch (the JAX package's PlateauScaleState leaf).
+  epoch (the JAX package's PlateauScaleState leaf);
+- optax's dtype and mask options: `mu_dtype` (adam, adamw, lion),
+  `accumulator_dtype` (sgd) and `dtype_momentum` (adafactor) keep that
+  moment in the dtype a recipe names ("bfloat16", ...), as optax casts it
+  after each update (the update itself uses the uncast moment, and the
+  decay times the stored moment is taken in fp32 with the decay rounded to
+  the moment's dtype, as XLA computes it); `mask` (adamw, lamb, lion) and
+  `weight_decay_mask` (adafactor) limit weight decay to the parameters
+  whose flax path (`convert.jax_param_paths`, the `paths` argument) a tree
+  of booleans, or a prefix of one, marks True, or that a callable of the
+  {path: parameter} tree marks; `nesterov` (adam, adamw).
 The learning-rate schedules (constant, per-epoch exponential staircase,
 cosine) are optax's.
 
@@ -37,12 +47,20 @@ adafactor's per-parameter squares over the slices, and all-gathers the
 updated parameters. adafactor's factored row and column moments (and that
 parameter's update) stay whole on every rank: the values are the same, only
 memory differs.
+
+A parameter that a model or expert axis splits (`shard_axes`: its axis, the
+axis's size and the dimension it splits) is updated as optax updates the
+whole one: the norms, the trust ratio and adafactor's RMS terms sum their
+squares over the axis, and adafactor factors it by the whole parameter's
+dims, its row and column means (and the rows' mean) summed over the axis
+where the split dimension is the one they reduce.
 """
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,17 +85,51 @@ class OptimizerConfig(ModuleConfig):
 
 # optax's defaults per optimizer
 _DEFAULTS = {
-    "adam": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0),
-    "adamw": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, weight_decay=1e-4),
-    "sgd": dict(momentum=None, nesterov=False),
-    "lamb": dict(b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0),
-    "lion": dict(b1=0.9, b2=0.99, weight_decay=1e-3),
+    "adam": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None, nesterov=False),
+    "adamw": dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, mu_dtype=None, weight_decay=1e-4, mask=None,
+                  nesterov=False),
+    "sgd": dict(momentum=None, nesterov=False, accumulator_dtype=None),
+    "lamb": dict(b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0, mask=None),
+    "lion": dict(b1=0.9, b2=0.99, mu_dtype=None, weight_decay=1e-3, mask=None),
     "adafactor": dict(min_dim_size_to_factor=128, decay_rate=0.8, decay_offset=0, multiply_by_parameter_scale=True,
-                      clipping_threshold=1.0, momentum=None, weight_decay_rate=None, eps=1e-30, factored=True),
+                      clipping_threshold=1.0, momentum=None, dtype_momentum="float32", weight_decay_rate=None,
+                      eps=1e-30, factored=True, weight_decay_mask=None),
 }
 OPTIMIZERS = tuple(_DEFAULTS)
-# optax options that take another dtype or a mask tree: not ported
-_NOT_PORTED_PARAMS = ("mu_dtype", "mask", "dtype_momentum", "weight_decay_mask", "accumulator_dtype")
+
+
+def _dtype(name: Any) -> Optional[torch.dtype]:
+    """A moment's dtype from a recipe's name ("bfloat16", "float32", ...)
+    or a torch dtype; None keeps the parameter's."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"{name!r} is not a floating dtype name")
+    return dtype
+
+
+def _mask_value(mask: Any, path: Tuple[str, ...]) -> bool:
+    """The value a tree of booleans (or a prefix of one) gives the parameter
+    at flax `path`, as optax's `masked` reads a mask tree."""
+    node = mask
+    for depth, key in enumerate(path):
+        if not isinstance(node, Mapping):
+            break
+        if key not in node:
+            raise KeyError(f"the mask has no entry {key!r} at {'/'.join(path[:depth]) or 'its root'}")
+        node = node[key]
+    if isinstance(node, Mapping):
+        raise ValueError(f"the mask goes deeper than the parameter {'/'.join(path)}")
+    return bool(node)
+
+
+def _decayed(decay: float, moments: List[torch.Tensor]) -> List[torch.Tensor]:
+    """decay x each stored moment of a dtype other than fp32, as XLA takes
+    optax's `decay * moment`: the decay rounded to the moment's dtype, the
+    product in fp32."""
+    d = float(torch.tensor(decay, dtype=moments[0].dtype)) if moments else decay
+    return [m.float() * d for m in moments]
 
 
 class PlateauController:
@@ -205,17 +257,14 @@ class Optimizer:
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], config: OptimizerConfig,
                  steps_per_epoch: int = 1, transposed: Iterable[str] = (), zero: Optional[Tuple[int, int]] = None,
-                 shard_axes: Optional[Dict[str, Tuple[str, int]]] = None):
+                 shard_axes: Optional[Dict[str, Tuple[str, int, int]]] = None,
+                 paths: Optional[Dict[str, Tuple[str, ...]]] = None):
         name = config.optimizer.lower()
         if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {name}; available: {OPTIMIZERS}")
         params = dict(config.optimizer_params or {})
         if "betas" in params:  # torch -> optax parameter names
             params["b1"], params["b2"] = params.pop("betas")
-        given = [k for k in _NOT_PORTED_PARAMS if params.get(k) not in (None, False)]
-        if given:
-            raise NotImplementedError(f"{name}: optax options {given} are not ported")
-        params = {k: v for k, v in params.items() if k not in _NOT_PORTED_PARAMS}
         unknown = set(params) - set(_DEFAULTS[name])
         if unknown:
             raise TypeError(f"{name} takes no parameters {sorted(unknown)}")
@@ -231,21 +280,29 @@ class Optimizer:
                 self.params.append(p)
         transposed = set(transposed)
         self.transposed = [n in transposed for n in self.names]
+        self.paths = [tuple((paths or {}).get(n) or n.split(".")) for n in self.names]
+        mask = self.hp.get("mask", self.hp.get("weight_decay_mask"))
+        if self.flat and mask is not None and not isinstance(mask, bool):
+            raise ValueError(f"{name}: flat_updates flattens the parameters into one vector, which a mask tree "
+                             "cannot address")
+        self.decays = self._decay_mask(mask)
+        self.moment_dtype = _dtype(self.hp.get("mu_dtype", self.hp.get("accumulator_dtype",
+                                                                       self.hp.get("dtype_momentum"))))
         self.accum_steps = max(1, int(config.grad_accum_steps or 1))
         self._full = list(self.params)
         self.zero = zero if zero is not None and zero[0] > 1 else None
         self.numel = [p.numel() for p in self._full]
-        self.factored_dims = [None] * len(self._full)
-        if name == "adafactor" and not self.flat:
-            self.factored_dims = [self._factored_dims(p, t) for p, t in zip(self._full, self.transposed)]
-        self.split: List[Optional[int]] = [None] * len(self._full)  # ZeRO's dim of each parameter
-        # the mesh axis (model or expert) and its size of each parameter the model splits
+        # the mesh axis (model or expert), its size and the split dim of each parameter the model splits
         shards = [(shard_axes or {}).get(n) for n in self.names]
         self.shard_axes = [None if a is None else a[0] for a in shards]
+        self.shard_dims = [None if a is None else a[2] for a in shards]
         self.numel = [k * (1 if a is None else a[1]) for k, a in zip(self.numel, shards)]
-        if any(a is not None and d is not None for a, d in zip(self.shard_axes, self.factored_dims)):
-            raise NotImplementedError("adafactor's factored moments of a parameter split over a model or "
-                                      "expert axis are not ported")
+        whole = [tuple(s * (a[1] if a is not None and i == a[2] else 1) for i, s in enumerate(p.shape))
+                 for p, a in zip(self._full, shards)]
+        self.factored_dims = [None] * len(self._full)
+        if name == "adafactor" and not self.flat:
+            self.factored_dims = [self._factored_dims(shape, t) for shape, t in zip(whole, self.transposed)]
+        self.split: List[Optional[int]] = [None] * len(self._full)  # ZeRO's dim of each parameter
         if self.zero is not None:
             n, index = self.zero
             for i, p in enumerate(self.full):
@@ -253,13 +310,13 @@ class Optimizer:
                     self.split[i] = zero_split_dim(tuple(p.shape), n)
             self.params = [p if dim is None else p.detach().narrow(dim, index * (p.shape[dim] // n), p.shape[dim] // n)
                            for p, dim in zip(self.full, self.split)]
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        zeros = lambda dtype=None: [torch.zeros_like(p, dtype=dtype) for p in self.params]  # noqa: E731
         self.count = 0  # applied updates: the moments' and schedule's count inside apply_if_finite
-        self.mu = zeros() if name in ("adam", "adamw", "lamb", "lion") else None
+        self.mu = zeros(self.moment_dtype) if name in ("adam", "adamw", "lamb", "lion") else None
         self.nu = zeros() if name in ("adam", "adamw", "lamb") else None
-        self.trace = zeros() if name == "sgd" and self.hp["momentum"] is not None else None
-        if name == "adafactor" and self.hp["momentum"] is not None:
-            self.trace = zeros()
+        self.trace = None
+        if name in ("sgd", "adafactor") and self.hp["momentum"] is not None:
+            self.trace = zeros(self.moment_dtype)
         self.v_row = self.v_col = self.v = None
         if name == "adafactor":
             self.v_row, self.v_col, self.v = [], [], []
@@ -276,12 +333,12 @@ class Optimizer:
         self.mini_step = 0
         self.skipped = 0  # updates skipped for non-finite gradients
 
-    def _factored_dims(self, p: torch.Tensor, transposed: bool) -> Optional[Tuple[int, int]]:
-        """optax's `_factored_dims` on the JAX layout of `p`: (d1, d0), the
-        second largest and the largest dim (stable argsort), as dims of the
-        port's tensor; None when the second largest is below
-        `min_dim_size_to_factor` or `factored` is off."""
-        shape = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
+    def _factored_dims(self, shape: Tuple[int, ...], transposed: bool) -> Optional[Tuple[int, int]]:
+        """optax's `_factored_dims` on the JAX layout of a (whole) parameter
+        of the port's `shape`: (d1, d0), the second largest and the largest
+        dim (stable argsort), as dims of the port's tensor; None when the
+        second largest is below `min_dim_size_to_factor` or `factored` is off."""
+        shape = tuple(shape)[::-1] if transposed else tuple(shape)
         if not self.hp["factored"] or len(shape) < 2:
             return None
         order = np.argsort(shape)
@@ -291,6 +348,47 @@ class Optimizer:
         if transposed:
             d1, d0 = len(shape) - 1 - d1, len(shape) - 1 - d0
         return d1, d0
+
+    def _decay_mask(self, mask) -> List[bool]:
+        """Which parameters take weight decay: all without a mask."""
+        if mask is None:
+            return [True] * len(self.names)
+        if callable(mask):
+            tree: Dict = {}
+            for path, p in zip(self.paths, self.params):
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = p
+            mask = mask(tree)
+        return [_mask_value(mask, path) for path in self.paths]
+
+    def _add_decayed_weights(self, updates: List[torch.Tensor], weight_decay: float) -> None:
+        """optax.add_decayed_weights(weight_decay, mask), in place."""
+        idx = [i for i, keep in enumerate(self.decays) if keep]
+        if weight_decay and idx:
+            torch._foreach_add_([updates[i] for i in idx], [self.params[i] for i in idx], alpha=weight_decay)
+
+    def _update_moment(self, name: str, grads: List[torch.Tensor], decay: float) -> List[torch.Tensor]:
+        """optax's first-moment update (1 - decay) g + decay m of the state
+        buffers `name`; returns the new moment (fp32), stored in the
+        moment's dtype."""
+        moments = getattr(self, name)
+        if self.moment_dtype in (None, torch.float32):
+            torch._foreach_mul_(moments, decay)
+            torch._foreach_add_(moments, grads, alpha=1 - decay)
+            return moments
+        new = torch._foreach_add(_decayed(decay, moments), grads, alpha=1 - decay)
+        setattr(self, name, [m.to(self.moment_dtype) for m in new])
+        return new
+
+    def _mean(self, i: int, x: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+        """The mean of x over `dim` of parameter i, whose whole size there
+        is `whole`: summed over the model or expert axis when that axis
+        splits this dim."""
+        if self.shard_dims[i] != dim:
+            return x.mean(dim=dim)
+        return all_reduce(x.sum(dim=dim), self.shard_axes[i]) / whole
 
     # ---- reductions over a block: one parameter, or all of them with `flat_updates` ----
 
@@ -396,19 +494,27 @@ class Optimizer:
         updates = grads
         if self.trace is not None:
             m = self.hp["momentum"]
-            torch._foreach_mul_(self.trace, m)
-            torch._foreach_add_(self.trace, grads)
-            updates = torch._foreach_add(grads, self.trace, alpha=m) if self.hp["nesterov"] else self.trace
+            if self.moment_dtype in (None, torch.float32):
+                torch._foreach_mul_(self.trace, m)
+                torch._foreach_add_(self.trace, grads)
+                trace = self.trace
+            else:  # optax.trace: g + decay * t, stored in accumulator_dtype
+                trace = [g + t for g, t in zip(grads, _decayed(m, self.trace))]
+                self.trace = [t.to(self.moment_dtype) for t in trace]
+            updates = torch._foreach_add(grads, trace, alpha=m) if self.hp["nesterov"] else trace
         return torch._foreach_mul(updates, -lr)
 
     def _scale_by_adam(self, grads):
         b1, b2, eps, eps_root = self.hp["b1"], self.hp["b2"], self.hp["eps"], self.hp["eps_root"]
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        mu = self._update_moment("mu", grads, b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(grads, grads), alpha=1 - b2)
         t = self.count + 1
-        mu_hat = torch._foreach_div(self.mu, _bias_correction(b1, t))
+        if self.hp.get("nesterov"):  # b1 * bias_correction(mu, t + 1) + (1 - b1) * bias_correction(g, t)
+            c1, c0 = _bias_correction(b1, t + 1), _bias_correction(b1, t)
+            mu_hat = [b1 * (m / c1) + (1 - b1) * (g / c0) for m, g in zip(mu, grads)]
+        else:
+            mu_hat = torch._foreach_div(mu, _bias_correction(b1, t))
         nu_hat = torch._foreach_div(self.nu, _bias_correction(b2, t))
         if eps_root:
             torch._foreach_add_(nu_hat, eps_root)
@@ -421,16 +527,14 @@ class Optimizer:
 
     def _adamw(self, grads, lr):
         updates = self._scale_by_adam(grads)
-        if self.hp["weight_decay"]:
-            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        self._add_decayed_weights(updates, self.hp["weight_decay"])
         return torch._foreach_mul(updates, -lr)
 
     def _lamb(self, grads, lr):
         """scale_by_adam, add_decayed_weights, scale_by_trust_ratio: each
         block's update times |param| / |update|, 1 where either is 0."""
         updates = self._scale_by_adam(grads)
-        if self.hp["weight_decay"]:
-            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        self._add_decayed_weights(updates, self.hp["weight_decay"])
         p_norms = [torch.sqrt(s) for s in self._block_sums(self.params)]
         u_norms = [torch.sqrt(s) for s in self._block_sums(updates)]
         ratios = [torch.where((pn == 0) | (un == 0), 1.0, pn / un) for pn, un in zip(p_norms, u_norms)]
@@ -440,10 +544,13 @@ class Optimizer:
     def _lion(self, grads, lr):
         """sign((1-b1) g + b1 mu), then mu = (1-b2) g + b2 mu; weight decay."""
         b1, b2 = self.hp["b1"], self.hp["b2"]
-        updates = [torch.sign((1.0 - b1) * g + b1 * m) for g, m in zip(grads, self.mu)]
-        self.mu = [(1.0 - b2) * g + b2 * m for g, m in zip(grads, self.mu)]
-        if self.hp["weight_decay"]:
-            torch._foreach_add_(updates, self.params, alpha=self.hp["weight_decay"])
+        if self.moment_dtype in (None, torch.float32):
+            updates = [torch.sign((1.0 - b1) * g + b1 * m) for g, m in zip(grads, self.mu)]
+            self.mu = [(1.0 - b2) * g + b2 * m for g, m in zip(grads, self.mu)]
+        else:  # mu_dtype: the decays times the stored moment as XLA takes them
+            updates = [torch.sign((1.0 - b1) * g + m) for g, m in zip(grads, _decayed(b1, self.mu))]
+            self._update_moment("mu", grads, b2)
+        self._add_decayed_weights(updates, self.hp["weight_decay"])
         return torch._foreach_mul(updates, -lr)
 
     def _adafactor(self, grads, lr):
@@ -461,10 +568,16 @@ class Optimizer:
                 updates.append(g * self.v[i] ** -0.5)
                 continue
             d1, d0 = dims
-            self.v_row[i] = decay * self.v_row[i] + keep * g2.mean(dim=d0)
-            self.v_col[i] = decay * self.v_col[i] + keep * g2.mean(dim=d1)
+            n0, n1 = (g.shape[d] * (self.numel[i] // g.numel()) if self.shard_dims[i] == d else g.shape[d]
+                      for d in (d0, d1))
+            self.v_row[i] = decay * self.v_row[i] + keep * self._mean(i, g2, d0, n0)
+            self.v_col[i] = decay * self.v_col[i] + keep * self._mean(i, g2, d1, n1)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (self.v_row[i] / self.v_row[i].mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            if self.shard_dims[i] == d1:  # the rows' mean over the whole d1
+                row_mean = all_reduce(self.v_row[i].sum(dim=reduced_d1), self.shard_axes[i]) / n1
+            else:
+                row_mean = self.v_row[i].mean(dim=reduced_d1)
+            row_factor = (self.v_row[i] / row_mean.unsqueeze(reduced_d1)) ** -0.5
             col_factor = self.v_col[i] ** -0.5
             updates.append(g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1))
         if hp["clipping_threshold"] is not None:
@@ -475,12 +588,10 @@ class Optimizer:
         if hp["multiply_by_parameter_scale"]:
             scales = [torch.clamp(rms, min=1e-3) for rms in self._block_rms(self.params)]
             updates = torch._foreach_mul(updates, scales)
-        if self.trace is not None:  # optax.ema, not debiased
-            m = hp["momentum"]
-            self.trace = [(1.0 - m) * u + m * tr for u, tr in zip(updates, self.trace)]
-            updates = [tr.clone() for tr in self.trace]
+        if self.trace is not None:  # optax.ema, not debiased, stored in dtype_momentum
+            updates = [u.clone() for u in self._update_moment("trace", updates, hp["momentum"])]
         if hp["weight_decay_rate"] is not None:
-            torch._foreach_add_(updates, self.params, alpha=hp["weight_decay_rate"])
+            self._add_decayed_weights(updates, hp["weight_decay_rate"])
         return torch._foreach_neg(updates)
 
     def zero_grad(self) -> None:

@@ -49,6 +49,11 @@ axis by default as the JAX trainer picks it):
   over the whole parameters, so every rank takes the same branch;
 - `zero_sharding` splits the optimizer's state over `data` (ZeRO-1,
   `training/optimizers.py`);
+- `sequence_parallel` with `mesh_model` > 1 splits each stack's residual
+  stream over `model` on the sequence (`models/transformer.py`), set on
+  the mesh at the start and cleared at the end of `train()`, as the JAX
+  trainer installs and clears its activation sharding; the values are
+  those without it, only memory changes;
 - rank 0 logs, writes TensorBoard and writes non-sharded checkpoints
   (gathered into the one-device layout); with `sharded_checkpoint` every
   rank writes its blocks; `async_checkpoint` writes on a background thread;
@@ -57,7 +62,6 @@ A model with MoE layers adds their summed aux loss to the train step's loss
 and logs it as `loss/moe_aux`, with their mean drop rate as `stats/moe_drop`
 (not in the loss); eval logs both beside a loss without the aux, as the JAX
 trainer's steps do.
-`sequence_parallel` on a model axis raises (`_NOT_PORTED`).
 """
 from __future__ import annotations
 
@@ -154,8 +158,8 @@ class TrainerConfig(ModuleConfig):
     # the JAX trainer's device options: the process mesh (mesh_data None =
     # every rank the model and expert axes leave, limited by the batch
     # sizes), the multihost start (tcp://coordinator_address, else
-    # torchrun's environment), ZeRO-1 over the data axis; sequence
-    # parallelism is a no-op on one model rank and raises on more
+    # torchrun's environment), ZeRO-1 over the data axis, sequence
+    # parallelism on the model axis (a no-op on one model rank)
     mesh_data: Optional[int] = None
     mesh_model: int = 1
     mesh_expert: int = 1
@@ -178,13 +182,6 @@ class TrainerConfig(ModuleConfig):
     profile_dir: Optional[str] = None
     profile_start_step: int = 10
     profile_num_steps: int = 5
-
-
-# options not ported yet, with what they need and the slice that ports them
-_NOT_PORTED = {
-    "sequence_parallel": (lambda c: c.sequence_parallel and c.mesh_model > 1,
-                          "sequence parallelism on a model axis, ported with GPipe in the next multi-device slice"),
-}
 
 
 class Accumulator:
@@ -236,12 +233,10 @@ class Trainer:
         model_config: Optional[Dict] = None,
         input_fn: Callable = scoreperformer_model_inputs,
     ):
-        for name, (is_set, needs) in _NOT_PORTED.items():
-            if is_set(config):
-                raise NotImplementedError(f"trainer option {name}: {needs}")
         self.model = model
         self.device = next(model.parameters()).device
         self.mesh = self._make_mesh(config)
+        self.mesh.sequence_parallel = config.sequence_parallel and config.mesh_model > 1
         self.specs = {}
         if self.mesh.size(MODEL_AXIS) > 1 or self.mesh.size(EXPERT_AXIS) > 1:
             self.specs = shard_model(model, self.mesh)
@@ -302,16 +297,18 @@ class Trainer:
     def setup_optimizer(self):
         from ..convert import jax_param_paths
 
-        try:  # adafactor factors in the JAX layout; a model with no JAX tree keeps the port's
-            transposed = [n for n, (_, t) in jax_param_paths(self.model).items() if t]
+        try:  # adafactor factors in the JAX layout, masks name flax paths; a model with no JAX tree keeps the port's
+            flax = jax_param_paths(self.model)
         except KeyError:
-            transposed = []
+            flax = {}
+        transposed = [n for n, (_, t) in flax.items() if t]
         zero = None
         if self.config.zero_sharding:
             zero = (self.mesh.size(DATA_AXIS), self.mesh.index(DATA_AXIS))
-        shard_axes = {n: (s.axis, self.mesh.size(s.axis)) for n, s in self.specs.items()}
+        shard_axes = {n: (s.axis, self.mesh.size(s.axis), s.dim) for n, s in self.specs.items()}
         self.optimizer = Optimizer(self.model.named_parameters(), self.config.optimization,
-                                   self.steps_per_epoch or 1, transposed, zero=zero, shard_axes=shard_axes)
+                                   self.steps_per_epoch or 1, transposed, zero=zero, shard_axes=shard_axes,
+                                   paths={n: path for n, (path, _) in flax.items()})
         self._plateau = PlateauController.from_config(self.config.optimization)
         if self.config.finetune_layers:  # the JAX trainer's freeze_mask over flax paths
             trainable = from_jax_tree(self.model, freeze_mask(jax_tree(self.model), self.config.finetune_layers))
@@ -592,6 +589,7 @@ class Trainer:
             if config.async_checkpoint:  # every queued write on disk before train() returns
                 wait_for_async_saves()
             self.callback_handler.on_train_end(config, self.state, self.control)
+            self.mesh.sequence_parallel = False  # as the JAX trainer clears its activation sharding
         return self.state
 
     def _maybe_log_save_evaluate(self, accumulator: Accumulator, prefix: str = "train_step"):

@@ -97,8 +97,17 @@ def test_trainer_config_defaults_are_jax_s():
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="sequence_parallel.*next multi-device slice"):
+    """Every option of the JAX trainer is ported: sequence parallelism on a
+    model axis is refused only for want of ranks (its values:
+    tests/test_torch_sequence_parallel.py). What JAX refuses is refused: an
+    MoE trunk has no pipeline depth unit (NotImplementedError, as JAX)."""
+    from scoreperformer_tpu_torch.models.transformer import FeedForwardConfig, TransformerConfig
+    from scoreperformer_tpu_torch.parallel.pipeline import make_unit_module
+
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         Trainer(torch.nn.Linear(1, 1), TrainerConfig(output_dir=str(tmp_path), mesh_model=2, sequence_parallel=True))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        make_unit_module(TransformerConfig(feed_forward=FeedForwardConfig(num_experts=4)))
 
 
 def test_launch_and_the_workers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):

@@ -147,3 +147,83 @@ def autograd_pairs_worker(rank: int, world: int) -> Dict[str, List[float]]:
         thread.join()
         out[name] = x.grad.tolist()
     return out
+
+
+def split_optimizer_worker(rank: int, world: int, cfg: Dict, params: Dict[str, np.ndarray],
+                           grads: List[Dict[str, np.ndarray]], splits: Dict[str, Any],
+                           transposed: List[str]) -> Dict[str, Any]:
+    """Each parameter of `splits` ({name: Shard}) split over its axis of a
+    (model 2 x expert 2) mesh, as `parallel/shard.py` splits a layer; the
+    others whole. Returns this rank's blocks after the updates of the
+    given gradients (each rank's block of the same whole gradients) and
+    which parameters adafactor factors."""
+    from scoreperformer_tpu_torch.parallel.mesh import ProcessMesh
+    from scoreperformer_tpu_torch.training.optimizers import Optimizer, OptimizerConfig
+
+    mesh = ProcessMesh(model=2, expert=2)
+
+    def block(name, value):
+        spec = splits.get(name)
+        value = torch.from_numpy(value.copy())
+        return value if spec is None else spec.take(value, mesh.size(spec.axis), mesh.index(spec.axis)).clone()
+
+    with mesh.activate():
+        tparams = {k: torch.nn.Parameter(block(k, v)) for k, v in params.items()}
+        shard_axes = {k: (s.axis, mesh.size(s.axis), s.dim) for k, s in splits.items()}
+        opt = Optimizer(tparams.items(), OptimizerConfig.from_dict(cfg), transposed=transposed, shard_axes=shard_axes)
+        for g in grads:
+            for k, p in tparams.items():
+                p.grad = block(k, g[k])
+            opt.step()
+    return {"coords": dict(mesh.coords), "params": {k: p.detach().numpy().copy() for k, p in tparams.items()},
+            "factored": {k: d is not None for k, d in zip(opt.names, opt.factored_dims)}}
+
+
+def replay_and_log_sequence_parallel(trainer, payload) -> None:
+    """`train_worker`'s setup: `replay_first_step`, and every stack call
+    appends "<sequence length> <1 if sequence-parallel else 0>" to the
+    payload's "sp_log" file."""
+    from scoreperformer_tpu_torch.models.transformer import TransformerStack
+
+    replay_first_step(trainer, payload)
+    decide, path = TransformerStack._sequence_parallel, payload["sp_log"]
+
+    def logged(self, x, caches):
+        engaged = decide(self, x, caches)
+        with open(path, "a") as f:
+            f.write(f"{x.shape[1]} {int(engaged)}\n")
+        return engaged
+
+    TransformerStack._sequence_parallel = logged
+
+
+def sequence_parallel_stack_worker(rank: int, world: int, cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """Each case's stack (its "config" built from "seed", in train mode
+    under the dropout generator of "seed") split over a model axis of
+    `world`, without and with sequence parallelism: the output, whole
+    parameter gradients and the gradients of x and style, each time."""
+    from scoreperformer_tpu_torch.models.dropout import dropout_generator
+    from scoreperformer_tpu_torch.models.transformer import TransformerStack
+    from scoreperformer_tpu_torch.parallel.mesh import ProcessMesh
+    from scoreperformer_tpu_torch.parallel.shard import gather_state_dict, shard_model
+
+    mesh = ProcessMesh(model=world)
+    out = []
+    for case in cases:
+        runs = {}
+        for sp in (False, True):
+            torch.manual_seed(case["seed"])
+            stack = TransformerStack(case["config"]).train()
+            specs = shard_model(stack, mesh)
+            mesh.sequence_parallel = sp
+            x = case["x"].clone().requires_grad_(True)
+            style = None if case.get("style") is None else case["style"].clone().requires_grad_(True)
+            with mesh.activate(), dropout_generator(torch.Generator().manual_seed(case["seed"])):
+                engaged = stack._sequence_parallel(x, None)
+                h = stack(x, mask=case.get("mask"), context=case.get("context"), style_embeddings=style)
+                (h * case["weights"]).sum().backward()
+                grads = gather_state_dict({k: p.grad for k, p in stack.named_parameters()}, specs)
+            runs[sp] = {"engaged": engaged, "out": h.detach(), "grads": grads, "x_grad": x.grad,
+                        "style_grad": None if style is None else style.grad}
+        out.append(runs)
+    return out

@@ -272,11 +272,12 @@ def test_one_device_options_train_and_multi_device_ones_raise(data_root, tmp_pat
     assert [np.isfinite(log["train_step/loss"]) for log in logs if "train_step/loss" in log] == [True, True]
     model = torch.nn.Linear(1, 1)
     # a mesh axis of 2 needs a second process (tests/test_torch_parallel.py
-    # trains on several); sequence parallelism on a model axis is not ported
+    # trains on several), sequence parallelism on a model axis too
+    # (tests/test_torch_sequence_parallel.py)
     for option in ("mesh_data", "mesh_model", "mesh_expert"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             Trainer(model, TrainerConfig(output_dir=str(tmp_path / "x"), **{option: 2}))
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         Trainer(model, TrainerConfig(output_dir=str(tmp_path / "x"), mesh_model=2, sequence_parallel=True))
 
 

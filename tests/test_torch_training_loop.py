@@ -101,14 +101,24 @@ def test_optimizer_matches_optax(case):
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    """Every optax optimizer the JAX package names is ported (held to optax in
-    tests/test_torch_optimizers.py); its dtype and mask-tree options are not,
-    and raise, and an unknown optimizer or parameter is refused."""
+    """Every optax optimizer the JAX package names is ported, with its dtype
+    and mask-tree options (held to optax in tests/test_torch_optimizers.py);
+    what optax would refuse is refused: a dtype that is not a floating one,
+    a mask tree that misses a parameter's key or goes deeper than the
+    parameter, a mask tree over `flat_updates`' one vector, an unknown
+    optimizer or parameter."""
     params = [("w", torch.nn.Parameter(torch.zeros(2)))]
-    for name, option in (("adamw", "mu_dtype"), ("lamb", "mask"), ("lion", "mu_dtype"),
-                         ("adafactor", "weight_decay_mask"), ("adafactor", "dtype_momentum")):
-        with pytest.raises(NotImplementedError):
-            toptim.Optimizer(params, toptim.OptimizerConfig(optimizer=name, optimizer_params={option: "bfloat16"}))
+    for name, option, value, error in (("adamw", "mu_dtype", "int8", ValueError),
+                                       ("lion", "mu_dtype", "half precision", ValueError),
+                                       ("sgd", "accumulator_dtype", "bool", ValueError),
+                                       ("adafactor", "dtype_momentum", "int32", ValueError),
+                                       ("lamb", "mask", {"v": True}, KeyError),
+                                       ("adafactor", "weight_decay_mask", {"w": {"x": True}}, ValueError)):
+        with pytest.raises(error):
+            toptim.Optimizer(params, toptim.OptimizerConfig(optimizer=name, optimizer_params={option: value}))
+    with pytest.raises(ValueError, match="flat_updates"):
+        toptim.Optimizer(params, toptim.OptimizerConfig(optimizer="adamw", optimizer_params={"mask": {"w": True}},
+                                                        flat_updates=True))
     with pytest.raises(ValueError):
         toptim.Optimizer(params, toptim.OptimizerConfig(optimizer="adagrad"))
     with pytest.raises(TypeError):

@@ -16,9 +16,10 @@ checkout. It
    the same function (the yardstick; the port never calls it) by CUDA-graph
    replay, with the eager time beside (the two backward kernels also as a
    pair against one SDPA backward; the row writes also beside `copy_` and
-   `index_copy_`); checks that every flash kernel, forward
-   and backward, holds TF32 tensor-core instructions in its SASS
-   (`cuobjdump -sass`), in an instance at each head dim the wrapper takes
+   `index_copy_`); checks that the flash forward and the fp32
+   backward hold TF32 tensor-core instructions in their SASS
+   (`cuobjdump -sass`), and the bf16 backward bf16 warpgroup MMAs (HGMMA)
+   and no TF32 ones, in an instance at each head dim the wrapper takes
    (16, 32, 64, 128), and that two calls of `prefix_attend` and of each
    flash kernel give the same bits; holds the three flash kernels at head
    dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
@@ -161,6 +162,14 @@ OPTIMIZATION = dict(lr=2e-4, optimizer="adamw", optimizer_params={"weight_decay"
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# bf16 passes over the (query, key) pairs of the bf16 backward kernels
+# (csrc/flash_attention_bwd_bf16.cu): dK/dV S, dP and three each for dV and
+# dK; dQ/dslope S, dP and three for dQ
+BF16_BWD_PASSES = {"dkv": 8, "dq": 5}
+# the words of a SASS line of each tensor-core instruction the kernels take
+TF32_HMMA = ("HMMA", "TF32")  # split-TF32 mma.sync
+BF16_HGMMA = ("HGMMA", "BF16")  # bf16 wgmma
 L2_BYTES = 50e6  # H100 L2: timed inputs cycle through copies that exceed it
 CHUNK = 16  # the chunked decode's chunk, as the render and the server use it
 DECODER_LAYERS = 4
@@ -774,7 +783,8 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     backward, give the same bits. Returns the records of the
     forward, dK/dV and dQ/dslope kernels at this shape, timed by CUDA-graph
     replay when `timed`, beside SDPA on bf16 (bias materialized in bf16) and
-    its backward."""
+    its backward, the backward pair's time over SDPA's backward beside
+    (`pair_over_library`)."""
     import torch.nn.functional as F
 
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -853,29 +863,40 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     library, library_timing = sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal)
     dkv["library_ms"] = dq["library_ms"] = library
     dkv["library_timing"] = dq["library_timing"] = library_timing
+    pair_over_library = (dkv["ms"] + dq["ms"]) / library
+    dkv["pair_over_library"] = dq["pair_over_library"] = pair_over_library
+    print(f"bf16 backward pair at {(b, h, hk, d, t, causal, padded)}: {dkv['ms'] + dq['ms']:.4f} ms "
+          f"(dK/dV {dkv['ms']:.4f}, dQ/dslope {dq['ms']:.4f}), SDPA's backward {library:.4f} ms, "
+          f"ratio {pair_over_library:.3f}")
     # bounds: bf16 operands (2 bytes an element), fp32 lse, delta, slopes and
-    # slope parts; fp32 arithmetic, as the Pallas kernels upcast; the
-    # tensor-core floor counts the TF32 products this design takes, with the
-    # q*scale operand exact when scale is a power of two
+    # slope parts; fp32 arithmetic, as the Pallas kernels upcast. The
+    # tensor-core floor counts the products each design takes: the forward's
+    # TF32 products (the q*scale operand exact when scale is a power of two)
+    # at 495 TFLOP/s, the backward's bf16 passes (BF16_BWD_PASSES) at 989.
+    # The backward's operations are those bf16 passes, so its bound is that
+    # floor (the fp32 operations at 67 TFLOP/s beside, `bound_fp32_ms`)
     pairs = ok.expand(b, 1, t, t).sum().item()
     product = 2 * d * h * pairs  # one d-long product over every (query, key) pair and head
     exact_q = math.frexp(d**-0.5)[0] == 0.5
     bf16, f32 = 2, 4
     parts = math.prod(fa.dq_slope_parts(b, h, hk, t))
-    for rec, products, tc_products, nbytes in (
-        (fwd, 2, (1 if exact_q else 2) + 2,
+    for rec, products, (tc_key, tc_products, tc_rate), nbytes in (
+        (fwd, 2, ("tf32_products", (1 if exact_q else 2) + 2, TF32_OPS_PER_S),
          bf16 * (2 * q.numel() + k.numel() + v.numel()) + f32 * (lse.numel() + h) + mask.numel()),
-        (dkv, 4, (1 if exact_q else 2) + 1 + 2 + (2 if exact_q else 3),
+        (dkv, 4, ("bf16_passes", BF16_BWD_PASSES["dkv"], BF16_OPS_PER_S),
          bf16 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) + f32 * (2 * lse.numel() + h) + mask.numel()),
-        (dq, 3, (1 if exact_q else 2) + 1 + 2,
+        (dq, 3, ("bf16_passes", BF16_BWD_PASSES["dq"], BF16_OPS_PER_S),
          bf16 * (3 * q.numel() + k.numel() + v.numel()) + f32 * (2 * lse.numel() + h + parts) + mask.numel()),
     ):
         ops = products * product
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S
+        if tc_key == "bf16_passes":
+            rec["bound_fp32_ms"] = max(t_ops, t_bytes) * 1e3
+            t_ops = tc_products * product / tc_rate
         rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
         rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        rec["tf32_products"] = tc_products
-        rec["bound_tc_ms"] = max(tc_products * product / TF32_OPS_PER_S, t_bytes) * 1e3
+        rec[tc_key] = tc_products
+        rec["bound_tc_ms"] = max(tc_products * product / tc_rate, t_bytes) * 1e3
     return fwd, dkv, dq
 
 
@@ -1491,7 +1512,7 @@ def options_phase(torch, tokenizer, root, work):
         if counts != {k: 10 for k in PORTED_TRAIN}:
             raise AssertionError(f"the profiled {name} step ran the flash kernels {counts} times, expected 10 of each")
         kernels = {k for n in PORTED_TRAIN for k in prof["ported"][n]["kernels"]}
-        if any(("bfloat16" in k) != (precision == "bf16") for k in kernels):
+        if any(bf16_instance(k) != (precision == "bf16") for k in kernels):
             raise AssertionError(f"the profiled {name} step ran the flash kernels {sorted(kernels)}")
         host_batch = next(trainer._iter_batches(comp.train_dataset, TRAIN_BATCH, True, 0))
         model_config = comp.model_config
@@ -1763,7 +1784,8 @@ def scale_flash_phase(torch, tokenizer, work, smi):
 
     # (e) the model held in bf16: the bf16 instances at d = 128 (and the encoders' d = 64)
     comp = build(SCALE_TRAIN_SEQ, torch.bfloat16)
-    e, batch, _ = steps(comp, SCALE_TRAIN_SEQ, 1, 2, SCALE_FLASH_LAUNCHES, dtype="bf16")
+    e, batch, n = steps(comp, SCALE_TRAIN_SEQ, 1, 2, SCALE_FLASH_LAUNCHES, dtype="bf16")
+    e["profile"] = profiled(comp.trainer, batch, n, SCALE_FLASH_LAUNCHES)
     del comp, batch
     torch.cuda.empty_cache()
     gate = compare_train_step(torch, dropout_off(model_config), short, b=2, devices=("cuda", "cuda"),
@@ -1822,6 +1844,14 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
     }
 
 
+def bf16_instance(kernel):
+    """Whether a profiled flash kernel's name is a bf16 instance: the
+    forward's (`flash_fwd<64, __nv_bfloat16, ...>`) or the bf16 backward's
+    (`flash_bwd_dkv_bf16<64>`, `flash_bwd_dq_bf16<64>`, whose arguments are
+    tensor maps)."""
+    return "bfloat16" in kernel or "_bf16<" in kernel
+
+
 def check_decode_profile(prof, what, expected):
     """The profile holds `expected["prefix_attend"]` prefix_attend kernels,
     one a launch, and no merge kernel, and one row-write kernel a
@@ -1836,27 +1866,35 @@ def check_decode_profile(prof, what, expected):
                              f"write_kv_pair launch, {expected['write_kv_pair']}")
 
 
-def tensor_core_counts(path, kernels, head_dims=()):
-    """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of the
-    library at `path`, by kernel (a substring of its functions' names); fails
-    when a function of one of them has none, or when a kernel has no instance
-    at one of `head_dims` (the first template argument of its functions'
-    mangled names, `ILi<d>E`). Returns the counts by kernel and by kernel and
-    head dim."""
+def tensor_core_counts(path, kernels, head_dims=(), instruction=TF32_HMMA, forbidden=None):
+    """The tensor-core instructions of one kind (`instruction`, the words of
+    its SASS lines: TF32 HMMA, or BF16 HGMMA for the bf16 backward) in the
+    SASS of the library at `path`, by kernel (a substring of its functions'
+    names); fails when a function of one of them has none, or has any
+    `forbidden` instruction (no TF32 HMMA in the bf16 backward), or when a
+    kernel has no instance at one of `head_dims` (the first template
+    argument of its functions' mangled names, `ILi<d>E`). Returns the counts
+    by kernel and by kernel and head dim."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
-    by_function, name = {}, None
+    by_function, other, name = {}, collections.Counter(), None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             by_function[name] = 0
-        elif name is not None and "HMMA" in line and "TF32" in line:
+        elif name is not None and all(w in line for w in instruction):
             by_function[name] += 1
+        elif name is not None and forbidden is not None and all(w in line for w in forbidden):
+            other[name] += 1
+    what = " ".join(reversed(instruction))
     counts, by_dim = {}, {}
     for kernel in kernels:
         functions = {f: n for f, n in by_function.items() if kernel in f}
         if not functions or not all(functions.values()):
-            raise AssertionError(f"{kernel} in {path}: TF32 HMMA instructions by function {functions}")
+            raise AssertionError(f"{kernel} in {path}: {what} instructions by function {functions}")
+        if any(other[f] for f in functions):
+            raise AssertionError(f"{kernel} in {path}: {' '.join(reversed(forbidden))} instructions by function "
+                                 f"{ {f: other[f] for f in functions} }")
         counts[kernel] = sum(functions.values())
         dims = collections.Counter()
         for f, n in functions.items():
@@ -1865,7 +1903,7 @@ def tensor_core_counts(path, kernels, head_dims=()):
                 dims[int(m.group(1))] += n
         by_dim[kernel] = dict(sorted(dims.items()))
         if any(d not in dims for d in head_dims):
-            raise AssertionError(f"{kernel} in {path}: instances with TF32 HMMA at head dims {by_dim[kernel]}, "
+            raise AssertionError(f"{kernel} in {path}: instances with {what} at head dims {by_dim[kernel]}, "
                                  f"expected {list(head_dims)}")
     return counts, by_dim
 
@@ -2089,6 +2127,11 @@ def smoke_flash(torch, tokenizer, root, work):
                                                           dtype="bf16", flash=layers)
     rec["bf16_model"] = {**train_record(torch, step_ms, notes, launches, SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ + 2),
                          "last_loss": values["loss"]}
+    # one more step profiled: the backward kernels' share of the device time
+    prof = profile_device(torch, lambda: comp.trainer.train_step(batch, 3), ported=PORTED_TRAIN)
+    if {k: prof["ported"][k]["count"] for k in PORTED_TRAIN} != {k: layers for k in PORTED_TRAIN}:
+        raise AssertionError(f"the profiled bf16 smoke-shaped step ran the flash kernels {prof['ported']}")
+    rec["bf16_model"]["profile"] = prof
     del comp, batch
     gate = compare_train_step(torch, dropout_off(model_config), host_batch, devices=("cuda", "cuda"),
                               precision="bf16", reference_plain_flash=True)
@@ -3682,13 +3725,17 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
-    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims) = (
+    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims), (hgmma, hgmma_dims) = (
         tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS),
-        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS))
+        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS),
+        tensor_core_counts(libs["flash_attention_bwd_bf16"], ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"),
+                           fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
     hmma.update(hmma_bwd)
     hmma_dims.update(hmma_bwd_dims)
     print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}; "
           f"by kernel and head dim: {json.dumps(hmma_dims)}")
+    print(f"bf16 warpgroup instructions (HGMMA) in the bf16 backward's SASS, and no TF32 HMMA, by kernel: "
+          f"{json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -4157,15 +4204,18 @@ def main() -> int:
         # steps launch the fp32 instances)
         {"name": f"{name}_bf16", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": options["bf16_model"]["launches"][f"{name}_bf16"],
-         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "tf32_products", "bf16_ulps", "library_timing")
-            if k in rec}, "shape": rec["shape"], "dtype": "bf16", "tf32_hmma_in_sass": hmma[kernel]}
-        for name, kernel, source, replaces, rec in (
-            ("flash_attention_fwd", "flash_fwd", "flash_attention_fwd.cu",
-             "scoreperformer_tpu/ops/flash_attention.py:49", bf16_main[0]),
-            ("flash_attention_bwd_dkv", "flash_bwd_dkv", "flash_attention_bwd.cu",
-             "scoreperformer_tpu/ops/flash_attention.py:135", bf16_main[1]),
-            ("flash_attention_bwd_dq", "flash_bwd_dq", "flash_attention_bwd.cu",
-             "scoreperformer_tpu/ops/flash_attention.py:192", bf16_main[2]),
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "bound_fp32_ms", "tf32_products", "bf16_passes",
+                                             "pair_over_library", "bf16_ulps", "library_timing") if k in rec},
+         "shape": rec["shape"], "dtype": "bf16", **sass}
+        for name, source, replaces, rec, sass in (
+            ("flash_attention_fwd", "flash_attention_fwd.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
+             bf16_main[0], {"tf32_hmma_in_sass": hmma["flash_fwd"]}),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd_bf16.cu", "scoreperformer_tpu/ops/flash_attention.py:135",
+             bf16_main[1], {"bf16_hgmma_in_sass": hgmma["flash_bwd_dkv_bf16"],
+                            "bf16_hgmma_by_head_dim": hgmma_dims["flash_bwd_dkv_bf16"]}),
+            ("flash_attention_bwd_dq", "flash_attention_bwd_bf16.cu", "scoreperformer_tpu/ops/flash_attention.py:192",
+             bf16_main[2], {"bf16_hgmma_in_sass": hgmma["flash_bwd_dq_bf16"],
+                            "bf16_hgmma_by_head_dim": hgmma_dims["flash_bwd_dq_bf16"]}),
         )
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",
@@ -4183,8 +4233,9 @@ def main() -> int:
         if name in part:
             recs = [(r["path"], r["bf16"][part[name]] if rec["name"].endswith("_bf16") else r[part[name]])
                     for r in head_dims["timed"] if "bf16" in r or not rec["name"].endswith("_bf16")]
-            rec["head_dim_shapes"] = [{"path": what, **{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms")
-                                                        if k in r}} for what, r in recs]
+            rec["head_dim_shapes"] = [{"path": what, **{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms",
+                                                                                     "pair_over_library") if k in r}}
+                                      for what, r in recs]
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
         if rec["name"] in performer["kernels"]:  # the Performer paths' shapes, timed

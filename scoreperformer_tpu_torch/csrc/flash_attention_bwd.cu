@@ -1,7 +1,7 @@
-// Flash-attention backward with ALiBi generated in the kernel, fp32 or bf16
-// in and out (fp32 arithmetic either way), every product on the tensor cores
-// in split TF32: dK/dV and dQ/dslope, P recomputed from the forward's
-// logsumexp.
+// Flash-attention backward with ALiBi generated in the kernel, fp32 in and
+// out, every product on the tensor cores in split TF32: dK/dV and dQ/dslope,
+// P recomputed from the forward's logsumexp. The bf16 instances are
+// csrc/flash_attention_bwd_bf16.cu's (bf16 `wgmma`).
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
 // and ::_flash_bwd_dq_kernel, the two Pallas kernels that
@@ -109,20 +109,9 @@
 // (ops/flash_attention.py::padded_key_dslopes). Keys and query rows past t
 // take no part.
 //
-// bf16 operands (a model held in bf16): q, k, v and dO may be bf16, as the Pallas
-// kernels upcast their blocks; lse and delta stay fp32 (delta holds the
-// bf16 row sums the caller computes, as the JAX wrapper does in the
-// residuals' dtype). Tiles are widened to fp32 as they land in shared memory
-// (8-byte loads in place of cp.async); dK, dV and dQ are summed in fp32 and
-// written in bf16, rounded to nearest even; the slope parts stay fp32. A
-// bf16 value is exact in TF32, so it needs no lo part: dP = dO.V^T takes one
-// TF32 product, P^T.dO, dS^T.q and dS.K two, and S = (q*scale).K^T one when
-// scale is a power of two (`kExactQ`), else two.
-//
 // Left for later work: `wgmma` (TF32 `wgmma` takes K-major operands only,
 // so the dV/dK and dQ products would need dO, Q and K transposed in shared
-// memory), TMA copies and warp specialisation, bf16 tiles in shared memory,
-// more than one block an SM at d = 128.
+// memory), TMA copies and warp specialisation.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -202,18 +191,18 @@ __device__ __forceinline__ int first_valid_key(const uint8_t* mp, int tk, uint32
   return f;
 }
 
-// `rows` rows of two (rows, D) matrices into shared fp32 tiles (cp.async
-// for fp32, widened loads for bf16), swizzled: row r of each from
+// `rows` rows of two (rows, D) matrices into shared fp32 tiles (cp.async),
+// swizzled: row r of each from
 // row_ptr(src, r), zeros where that is null; thread `tid` of `threads` takes
 // every threads-th 4-element chunk
-template <int D, int kRows, typename T, typename RowPtr>
-__device__ __forceinline__ void load_rows(float* dst0, float* dst1, const T* src0, const T* src1,
+template <int D, int kRows, typename RowPtr>
+__device__ __forceinline__ void load_rows(float* dst0, float* dst1, const float* src0, const float* src1,
                                           RowPtr row_ptr, int tid, int threads) {
   constexpr int kChunks = kRows * D / 4;
   for (int c = tid; c < kChunks; c += threads) {
     const int r = c / (D / 4), cc = c % (D / 4);
-    const T* p0 = row_ptr(src0, r);
-    const T* p1 = row_ptr(src1, r);
+    const float* p0 = row_ptr(src0, r);
+    const float* p1 = row_ptr(src1, r);
     const int dst = swz<D>(r, cc * 4);
     tf32::load4(dst0 + dst, p0 != nullptr ? p0 + cc * 4 : src0, p0 != nullptr);
     tf32::load4(dst1 + dst, p1 != nullptr ? p1 + cc * 4 : src1, p1 != nullptr);
@@ -222,26 +211,19 @@ __device__ __forceinline__ void load_rows(float* dst0, float* dst1, const T* src
 
 // rows [r0, r0 + 32) of two (rows, D) matrices into stage tiles (zeros past
 // `nrows`)
-template <int D, typename T>
-__device__ __forceinline__ void load_tiles(float* dst0, float* dst1, const T* src0, const T* src1,
+template <int D>
+__device__ __forceinline__ void load_tiles(float* dst0, float* dst1, const float* src0, const float* src1,
                                            int r0, int nrows, int tid, int threads) {
-  load_rows<D, kTile>(dst0, dst1, src0, src1, [&](const T* src, int r) {
+  load_rows<D, kTile>(dst0, dst1, src0, src1, [&](const float* src, int r) {
     return r0 + r < nrows ? src + (size_t)(r0 + r) * D : nullptr;
   }, tid, threads);
 }
 
-// a landed tile, times `mul`, into its TF32 hi part (in place) and lo part;
-// with !kLo the tile times `mul` is exact in TF32: hi is that product and
-// lo is not written
-template <int D, bool kLo = true>
+// a landed tile, times `mul`, into its TF32 hi part (in place) and lo part
+template <int D>
 __device__ __forceinline__ void split_tile(float* hi, float* lo, float mul, int tid, int threads) {
-  if (!kLo && mul == 1.f) return;
   for (int i = tid * 4; i < Layout<D>::kTileFloats; i += threads * 4) {
     float4 x = *reinterpret_cast<float4*>(hi + i);
-    if (!kLo) {
-      *reinterpret_cast<float4*>(hi + i) = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
-      continue;
-    }
     uint32_t h[4], l[4];
     split(x.x * mul, h[0], l[0]);
     split(x.y * mul, h[1], l[1]);
@@ -331,17 +313,14 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kThreads) : "memory");
 }
 
-// T: float or bf16. kExactQ: q*scale is exact in TF32 (bf16 q, scale a power
-// of two).
-template <int D, typename T, bool kExactQ>
+template <int D>
 __global__ void __launch_bounds__(kDkvThreads, 1)
-    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ slopes,
-                  const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+    flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ slopes,
+                  const uint8_t* __restrict__ mask, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  T* __restrict__ dk, T* __restrict__ dv, int h, int hk, int tq, int tk,
+                  float* __restrict__ dk, float* __restrict__ dv, int h, int hk, int tq, int tk,
                   int causal, float scale) {
-  constexpr bool kExact = sizeof(T) == 2;  // bf16 k, v and dO: no lo parts
   constexpr int kSteps = Layout<D>::kSteps;
   constexpr int TF = Layout<D>::kTileFloats;
   extern __shared__ __align__(16) float smem[];
@@ -364,8 +343,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int kv_head = bkv % hk;
   const int k0 = blockIdx.x * kBlockRows;
   const uint8_t* mp = mask + (size_t)b * tk;
-  const T* kp = k + (size_t)bkv * tk * D;
-  const T* vp = v + (size_t)bkv * tk * D;
+  const float* kp = k + (size_t)bkv * tk * D;
+  const float* vp = v + (size_t)bkv * tk * D;
 
   const bool block_has_valid =
       __syncthreads_or(tid < kBlockRows && k0 + tid < tk && mp[k0 + tid] != 0);
@@ -412,7 +391,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   // (free until the loops start), then split into A fragments: K by group 0, V by
   // group 1 (by group 0 too if it is alone)
   float* staged = hi + 2 * kGroups * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * Layout<D>::kRow, kp, vp, [&](const T* src, int r) {
+  load_rows<D, kBlockRows>(staged, staged + kBlockRows * Layout<D>::kRow, kp, vp, [&](const float* src, int r) {
     return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
   }, tid, kDkvThreads);
   tf32::cp_async_commit();
@@ -448,8 +427,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     const int q0 = (item % n_q_tiles) * kTile;
     float* qh = tile(stage, 0);  // q * scale
     float* oh = tile(stage, 1);  // dO
-    split_tile<D, !kExactQ>(qh, ql, scale, gtid, kThreads);
-    split_tile<D, !kExact>(oh, ol, 1.f, gtid, kThreads);
+    split_tile<D>(qh, ql, scale, gtid, kThreads);
+    split_tile<D>(oh, ol, 1.f, gtid, kThreads);
     if (gtid < kTile) {
       const int qi = q0 + gtid;
       const size_t row = ((size_t)b * h + head) * tq + qi;
@@ -476,9 +455,9 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       for (int n = 0; n < kTileN; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b_rows<D>(qh, ql, n, kk, b_hi, b_lo);
-        mma_split<!kExact, !kExactQ>(s[n], ka_hi, ka_lo, b_hi, b_lo);
+        mma_split(s[n], ka_hi, ka_lo, b_hi, b_lo);
         load_b_rows<D>(oh, ol, n, kk, b_hi, b_lo);
-        mma_split<!kExact, !kExact>(dp[n], va_hi, va_lo, b_hi, b_lo);
+        mma_split(dp[n], va_hi, va_lo, b_hi, b_lo);
       }
     }
 
@@ -515,9 +494,9 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       for (int n = 0; n < kSteps; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b_cols<D>(oh, ol, n, kk, b_hi, b_lo);
-        mma_split<true, !kExact>(acc_dv[n], p_hi, p_lo, b_hi, b_lo);
+        mma_split(acc_dv[n], p_hi, p_lo, b_hi, b_lo);
         load_b_cols<D>(qh, ql, n, kk, b_hi, b_lo);
-        mma_split<true, !kExactQ>(acc_dk[n], ds_hi, ds_lo, b_hi, b_lo);
+        mma_split(acc_dk[n], ds_hi, ds_lo, b_hi, b_lo);
       }
     }
     item = nxt;
@@ -564,30 +543,24 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 }
 
 // B fragments as load_b_rows and load_b_cols, from a tile of fp32 values
-// that is split at use (kLo), or whose values are exact in TF32 (!kLo: hi is
-// the value, lo is not written). The split gives the bits that split_tile's
-// staged hi and lo parts would.
-template <bool kLo>
+// that is split at use. The split gives the bits that split_tile's staged hi
+// and lo parts would.
 __device__ __forceinline__ void split_b(const float* x, int o0, int o1, uint32_t* b_hi, uint32_t* b_lo) {
-  if (kLo) {
-    split(x[o0], b_hi[0], b_lo[0]);
-    split(x[o1], b_hi[1], b_lo[1]);
-  } else {
-    b_hi[0] = __float_as_uint(x[o0]), b_hi[1] = __float_as_uint(x[o1]);
-  }
+  split(x[o0], b_hi[0], b_lo[0]);
+  split(x[o1], b_hi[1], b_lo[1]);
 }
 
-template <int D, bool kLo>
+template <int D>
 __device__ __forceinline__ void load_b_rows_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
   const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  split_b<kLo>(x, swz<D>(n * 8 + g, kk * 8 + t4), swz<D>(n * 8 + g, kk * 8 + t4 + 4), b_hi, b_lo);
+  split_b(x, swz<D>(n * 8 + g, kk * 8 + t4), swz<D>(n * 8 + g, kk * 8 + t4 + 4), b_hi, b_lo);
 }
 
-template <int D, bool kLo>
+template <int D>
 __device__ __forceinline__ void load_b_cols_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
   const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
   const int r = kk * 8 + 2 * t4;
-  split_b<kLo>(x, swz<D>(r, n * 8 + g), swz<D>(r + 1, n * 8 + g), b_hi, b_lo);
+  split_b(x, swz<D>(r, n * 8 + g), swz<D>(r + 1, n * 8 + g), b_hi, b_lo);
 }
 
 // dK/dV at head dim 128. The layout of flash_bwd_dkv would need 327,680
@@ -610,15 +583,14 @@ __device__ __forceinline__ void load_b_cols_at_use(const float* x, int n, int kk
 // exchange 8,192: 204,800 a block, one block an SM. Everything else (the
 // grid of 64-key blocks x b x KV heads, the items, the masked blocks and
 // tiles, rows with no valid key) is flash_bwd_dkv's.
-template <int D, typename T, bool kExactQ>
+template <int D>
 __global__ void __launch_bounds__(2 * kThreads, 1)
-    flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ slopes,
-                       const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+    flash_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ slopes,
+                       const uint8_t* __restrict__ mask, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       T* __restrict__ dk, T* __restrict__ dv, int h, int hk, int tq, int tk,
+                       float* __restrict__ dk, float* __restrict__ dv, int h, int hk, int tq, int tk,
                        int causal, float scale) {
-  constexpr bool kExact = sizeof(T) == 2;  // bf16 k, v and dO: no lo parts
   constexpr int kSteps = Layout<D>::kSteps;
   constexpr int TF = Layout<D>::kTileFloats;
   constexpr int kAll = 2 * kThreads;
@@ -641,8 +613,8 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
   const int kv_head = bkv % hk;
   const int k0 = blockIdx.x * kBlockRows;
   const uint8_t* mp = mask + (size_t)b * tk;
-  const T* kp = k + (size_t)bkv * tk * D;
-  const T* vp = v + (size_t)bkv * tk * D;
+  const float* kp = k + (size_t)bkv * tk * D;
+  const float* vp = v + (size_t)bkv * tk * D;
 
   const bool block_has_valid =
       __syncthreads_or(tid < kBlockRows && k0 + tid < tk && mp[k0 + tid] != 0);
@@ -681,7 +653,7 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 
   // the block's 64 keys of K and V, staged in the tiles (free until the loop
   // starts), then split into A fragments: K by group 0, V by group 1
-  load_rows<D, kBlockRows>(tiles, tiles + kBlockRows * Layout<D>::kRow, kp, vp, [&](const T* src, int r) {
+  load_rows<D, kBlockRows>(tiles, tiles + kBlockRows * Layout<D>::kRow, kp, vp, [&](const float* src, int r) {
     return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
   }, tid, kAll);
   tf32::cp_async_commit();
@@ -748,8 +720,8 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 #pragma unroll
         for (int n = 0; n < kTileN; ++n) {
           uint32_t b_hi[2], b_lo[2];
-          load_b_rows_at_use<D, !kExactQ>(qs, n, kk, b_hi, b_lo);
-          mma_split<!kExact, !kExactQ>(x[n], a_hi, a_lo, b_hi, b_lo);
+          load_b_rows_at_use<D>(qs, n, kk, b_hi, b_lo);
+          mma_split(x[n], a_hi, a_lo, b_hi, b_lo);
         }
       }
     } else {
@@ -760,8 +732,8 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 #pragma unroll
         for (int n = 0; n < kTileN; ++n) {
           uint32_t b_hi[2], b_lo[2];
-          load_b_rows_at_use<D, !kExact>(os, n, kk, b_hi, b_lo);
-          mma_split<!kExact, !kExact>(x[n], a_hi, a_lo, b_hi, b_lo);
+          load_b_rows_at_use<D>(os, n, kk, b_hi, b_lo);
+          mma_split(x[n], a_hi, a_lo, b_hi, b_lo);
         }
       }
     }
@@ -808,15 +780,15 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
 #pragma unroll
         for (int n = 0; n < kSteps; ++n) {
           uint32_t b_hi[2], b_lo[2];
-          load_b_cols_at_use<D, !kExact>(os, n, kk, b_hi, b_lo);
-          mma_split<true, !kExact>(acc[n], a_hi, a_lo, b_hi, b_lo);
+          load_b_cols_at_use<D>(os, n, kk, b_hi, b_lo);
+          mma_split(acc[n], a_hi, a_lo, b_hi, b_lo);
         }
       } else {
 #pragma unroll
         for (int n = 0; n < kSteps; ++n) {
           uint32_t b_hi[2], b_lo[2];
-          load_b_cols_at_use<D, !kExactQ>(qs, n, kk, b_hi, b_lo);
-          mma_split<true, !kExactQ>(acc[n], a_hi, a_lo, b_hi, b_lo);
+          load_b_cols_at_use<D>(qs, n, kk, b_hi, b_lo);
+          mma_split(acc[n], a_hi, a_lo, b_hi, b_lo);
         }
       }
     }
@@ -824,7 +796,7 @@ __global__ void __launch_bounds__(2 * kThreads, 1)
     stage ^= 1;
   }
 
-  T* out = role == 0 ? dv : dk;
+  float* out = role == 0 ? dv : dk;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= tk) continue;
@@ -844,16 +816,15 @@ struct DkvWideLayout {
 
 // Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
 // == h (one KV head), else (blocks of 64 positions, b * h).
-template <int D, typename T, bool kExactQ>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ slopes,
-                 const uint8_t* __restrict__ mask, const T* __restrict__ dout,
+    flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ slopes,
+                 const uint8_t* __restrict__ mask, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dq, float* __restrict__ dslope_part, int h, int hk, int tq,
+                 float* __restrict__ dq, float* __restrict__ dslope_part, int h, int hk, int tq,
                  int tk, int causal, float scale, int heads_per_block) {
   using L = Layout<D>;
-  constexpr bool kExact = sizeof(T) == 2;  // bf16 k, v and dO: no lo parts
   constexpr int kSteps = L::kSteps;
   constexpr int TF = L::kTileFloats;
   extern __shared__ __align__(16) float smem[];
@@ -873,8 +844,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int head0 = heads_per_block == 1 ? blockIdx.y % h : 0;
   const int q0 = blockIdx.x * positions;
   const size_t kv_off = ((size_t)b * hk + (hk == 1 ? 0 : head0)) * tk * D;
-  const T* kp = k + kv_off;
-  const T* vp = v + kv_off;
+  const float* kp = k + kv_off;
+  const float* vp = v + kv_off;
   const uint8_t* mp = mask + (size_t)b * tk;
 
   // this thread's rows: g and g + 8 of the warp's 16
@@ -915,7 +886,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // tiles (free until the loop starts), then split into A fragments
   const size_t row_base = (size_t)b * h;
   float* staged = hi + 2 * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * L::kRow, q, dout, [&](const T* src, int r) {
+  load_rows<D, kBlockRows>(staged, staged + kBlockRows * L::kRow, q, dout, [&](const float* src, int r) {
     const int pos = q0 + r % positions;
     return pos < tq ? src + ((row_base + head0 + r / positions) * tq + pos) * D : nullptr;
   }, tid, kThreads);
@@ -943,8 +914,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float* vh = kh + TF;
     const float* kl = lo;
     const float* vl = lo + TF;
-    split_tile<D, !kExact>(hi + (2 * stage) * TF, lo, 1.f, tid, kThreads);
-    split_tile<D, !kExact>(hi + (2 * stage + 1) * TF, lo + TF, 1.f, tid, kThreads);
+    split_tile<D>(hi + (2 * stage) * TF, lo, 1.f, tid, kThreads);
+    split_tile<D>(hi + (2 * stage + 1) * TF, lo + TF, 1.f, tid, kThreads);
     __syncthreads();
     const int k0 = tile * kTile;
 
@@ -963,9 +934,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int n = 0; n < kTileN; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b_rows<D>(kh, kl, n, kk, b_hi, b_lo);
-        mma_split<!kExactQ, !kExact>(s[n], qa_hi, qa_lo, b_hi, b_lo);
+        mma_split(s[n], qa_hi, qa_lo, b_hi, b_lo);
         load_b_rows<D>(vh, vl, n, kk, b_hi, b_lo);
-        mma_split<!kExact, !kExact>(dp[n], oa_hi, oa_lo, b_hi, b_lo);
+        mma_split(dp[n], oa_hi, oa_lo, b_hi, b_lo);
       }
     }
 
@@ -998,7 +969,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int n = 0; n < kSteps; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b_cols<D>(kh, kl, n, kk, b_hi, b_lo);
-        mma_split<true, !kExact>(acc[n], ds_hi, ds_lo, b_hi, b_lo);
+        mma_split(acc[n], ds_hi, ds_lo, b_hi, b_lo);
       }
     }
     tile = nxt;
@@ -1008,7 +979,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row_pos[i] >= tq) continue;
-    T* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
+    float* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) tf32::store2(op + n * 8, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
   }
@@ -1045,92 +1016,75 @@ int grant_smem(Kernel kernel) {
   return dynamic;
 }
 
-template <int D, typename T, bool kExactQ>
-int launch_dkv(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
-               const T* dout, const float* lse, const float* delta, T* dk, T* dv, int b, int h,
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
+               const float* dout, const float* lse, const float* delta, float* dk, float* dv, int b, int h,
                int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dkv<D, T, kExactQ>);
+  static const int granted = grant_smem(flash_bwd_dkv<D>);
   const size_t smem = DkvLayout<D>::kBytes;
   if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
   const dim3 grid((tk + kBlockRows - 1) / kBlockRows, b * hk);
-  flash_bwd_dkv<D, T, kExactQ><<<grid, kDkvThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse,
-                                                                    delta, dk, dv, h, hk, tq, tk,
-                                                                    causal, scale);
+  flash_bwd_dkv<D><<<grid, kDkvThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk, tq,
+                                                        tk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T, bool kExactQ>
-int launch_dkv_wide(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
-                    const T* dout, const float* lse, const float* delta, T* dk, T* dv, int b, int h,
+template <int D>
+int launch_dkv_wide(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
+                    const float* dout, const float* lse, const float* delta, float* dk, float* dv, int b, int h,
                     int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dkv_wide<D, T, kExactQ>);
+  static const int granted = grant_smem(flash_bwd_dkv_wide<D>);
   const size_t smem = DkvWideLayout<D>::kBytes;
   if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
   const dim3 grid((tk + kBlockRows - 1) / kBlockRows, b * hk);
-  flash_bwd_dkv_wide<D, T, kExactQ><<<grid, 2 * kThreads, smem, stream>>>(
-      q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk, tq, tk, causal, scale);
+  flash_bwd_dkv_wide<D><<<grid, 2 * kThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk,
+                                                              tq, tk, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T, bool kExactQ>
-int launch_dq(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
-              const T* dout, const float* lse, const float* delta, T* dq, float* dslope_part, int b,
+template <int D>
+int launch_dq(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
+              const float* dout, const float* lse, const float* delta, float* dq, float* dslope_part, int b,
               int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dq<D, T, kExactQ>);
+  static const int granted = grant_smem(flash_bwd_dq<D>);
   const size_t smem = Layout<D>::kBytes + sizeof(uint32_t) * ((tk + kTile - 1) / kTile);
   if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kBlockRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
   const int positions = kBlockRows / heads_per_block;
   const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
-  flash_bwd_dq<D, T, kExactQ><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse,
-                                                                delta, dq, dslope_part, h, hk, tq,
-                                                                tk, causal, scale, heads_per_block);
+  flash_bwd_dq<D><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, h, hk,
+                                                    tq, tk, causal, scale, heads_per_block);
   return (int)cudaGetLastError();
 }
 
-// scale is a power of two (a bf16 q times it is exact in TF32)
-bool power_of_two(float scale) {
-  int e = 0;
-  return scale > 0.f && frexpf(scale, &e) == 0.5f;
-}
-
-// launch_dkv (kDkv) or launch_dq at head dim d, with the exact-q variant for
-// bf16 and a power-of-two scale; out0/out1: dk/dv or dq/dslope parts
-template <bool kDkv, typename T, typename Out1>
-int dispatch(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask,
-             const T* dout, const float* lse, const float* delta, T* out0, Out1* out1, int b,
-             int h, int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
+// launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope
+// parts
+template <bool kDkv, typename Out1>
+int dispatch(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
+             const float* dout, const float* lse, const float* delta, float* out0, Out1* out1, int b, int h,
+             int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto dim, auto exact) {
+  auto run = [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    constexpr bool E = decltype(exact)::value;
     if constexpr (kDkv && D == 128)
-      return launch_dkv_wide<D, T, E>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk,
-                                      tq, tk, causal, scale, s);
+      return launch_dkv_wide<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal,
+                                scale, s);
     else if constexpr (kDkv)
-      return launch_dkv<D, T, E>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq,
-                                 tk, causal, scale, s);
+      return launch_dkv<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
     else
-      return launch_dq<D, T, E>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq,
-                                tk, causal, scale, s);
-  };
-  auto at = [&](auto dim) {
-    if constexpr (sizeof(T) == 2) {
-      if (power_of_two(scale)) return run(dim, std::true_type{});
-    }
-    return run(dim, std::false_type{});
+      return launch_dq<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
   };
   switch (d) {
     case 16:
-      return at(std::integral_constant<int, 16>{});
+      return run(std::integral_constant<int, 16>{});
     case 32:
-      return at(std::integral_constant<int, 32>{});
+      return run(std::integral_constant<int, 32>{});
     case 64:
-      return at(std::integral_constant<int, 64>{});
+      return run(std::integral_constant<int, 64>{});
     case 128:
-      return at(std::integral_constant<int, 128>{});
+      return run(std::integral_constant<int, 128>{});
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1153,19 +1107,6 @@ extern "C" int sp_flash_attention_bwd_dkv(const float* q, const float* k, const 
                         causal, scale, stream);
 }
 
-// As above with bf16 q, k, v, dout, dk and dv; slopes, lse and delta stay
-// fp32.
-extern "C" int sp_flash_attention_bwd_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                               const __nv_bfloat16* v, const float* slopes,
-                                               const uint8_t* mask, const __nv_bfloat16* dout,
-                                               const float* lse, const float* delta,
-                                               __nv_bfloat16* dk, __nv_bfloat16* dv, int b, int h,
-                                               int hk, int tq, int tk, int d, int causal,
-                                               float scale, void* stream) {
-  return dispatch<true>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d,
-                        causal, scale, stream);
-}
-
 // As above; dq: (b, h, tq, d); dslope_part: (b, h, blocks), each block's
 // part of sum dS * (-|i-j|) for each head it holds, for the caller to sum
 // over b and blocks. A block holds 64 (head, position) rows: with hk = 1 and
@@ -1177,18 +1118,6 @@ extern "C" int sp_flash_attention_bwd_dq(const float* q, const float* k, const f
                                          float* dq, float* dslope_part, int b, int h, int hk,
                                          int tq, int tk, int d, int causal, float scale,
                                          void* stream) {
-  return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq,
-                         tk, d, causal, scale, stream);
-}
-
-// As above with bf16 q, k, v, dout and dq; dslope_part stays fp32.
-extern "C" int sp_flash_attention_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                              const __nv_bfloat16* v, const float* slopes,
-                                              const uint8_t* mask, const __nv_bfloat16* dout,
-                                              const float* lse, const float* delta,
-                                              __nv_bfloat16* dq, float* dslope_part, int b, int h,
-                                              int hk, int tq, int tk, int d, int causal,
-                                              float scale, void* stream) {
   return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq,
                          tk, d, causal, scale, stream);
 }

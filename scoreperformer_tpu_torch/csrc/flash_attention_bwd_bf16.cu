@@ -1,0 +1,868 @@
+// Flash-attention backward on bf16 operands, with ALiBi generated in the
+// kernel, on Hopper's warpgroup MMA (`wgmma`): dK/dV and dQ/dslope, P
+// recomputed from the forward's logsumexp, every sum fp32-accurate.
+//
+// Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
+// (:135) and ::_flash_bwd_dq_kernel (:192), the two Pallas kernels that
+// `_flash_attention_bwd` launches inside the `jax.custom_vjp` of
+// `flash_attention_alibi`, for a model held in bf16 (q, k, v and dO bf16;
+// lse and delta fp32; dK, dV, dQ written in bf16, the slope parts in fp32).
+// The fp32 instances are csrc/flash_attention_bwd.cu's.
+//
+// The math, per (batch, head), with s = scale*(q.k) - slope*|i-j| masked to
+// -1e30 and P = exp(s - lse):
+//   dP = dO.V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (computed
+//   outside, in bf16, as the JAX wrapper takes it);
+//   dV = P^T.dO,  dK = scale * dS^T.q,  dQ = scale * dS.K,
+//   dslope = sum dS * (-|i-j|).
+//
+// Numerics: those of the Pallas kernels, which upcast their blocks and take
+// fp32 products at "highest". A bf16 times a bf16 is exact in fp32, so S =
+// Q.K^T and dP = dO.V^T are single bf16 products (scale applied to S in
+// fp32 afterwards, as `_recompute_p` does). P and dS are fp32: each is split
+// into three bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
+// - mid), whose sum is x exactly down to bf16's subnormals (wgmma.cuh's
+// split3), so P^T.dO, dS^T.q and dS.K take three bf16 products each against
+// the same B tile. The tensor cores truncate the fp32 sums they accumulate
+// (a long chain in one accumulator drifts toward zero), so each tile's
+// products (64 rows of the summed dimension, 12 wgmmas) start from zero and
+// join the running sums by rounded fp32 adds: the dK/dV sums run over h*t
+// query rows a key with one KV head, dQ's over t keys. Bias, mask, exp and
+// dS stay in fp32 registers. No atomics, and every sum runs in a fixed
+// order: two calls give the same bits.
+//
+// Bound on the H100. dK/dV takes 8 bf16 passes over the (query, key) pairs
+// of each head (S, dP, 3 for dV, 3 for dK), dQ/dslope 5 (S, dP, 3 for dQ),
+// each pass 2*d operations a pair: at 989 TFLOP/s (bf16 dense) 13 passes of
+// 2*d*h*pairs. The bytes (q, k, v, dO in bf16 read once, lse and delta,
+// dK, dV, dQ written once, 3.35 TB/s) are a few tens of MB: at the train
+// shapes the operations bound both kernels (chip_smoke.py's `bound_tc_ms`:
+// 0.044 + 0.028 ms at b 8, h 8, one KV head, d 128, t 1025 causal).
+//
+// Design. Every operand is a 64-row bf16 tile in shared memory, swizzled as
+// wgmma reads it (wgmma.cuh), copied by TMA from a 3-d tensor map (rows
+// past t land as zeros) and completing on an mbarrier. The streamed tiles
+// are double-buffered: thread 0 issues the copy after next as soon as every
+// warp has released that stage on its own mbarrier, so no warp waits for
+// another between tiles. lse and delta come into registers, a thread's 16
+// query columns (dK/dV) or 2 rows (dQ), and P and dS in a tile whose 64 x
+// 64 pairs are all valid and below every row's key limit take a path with
+// no mask.
+// - dK/dV (grid: 64-key blocks x b x KV heads; 256 threads): the block's K
+//   and V tiles stay; its (head, query tile of 64) items are every query
+//   head that reads its KV head (all h with one KV head, so the MQA head sum
+//   stays in the block) times the query tiles; q, dO, lse and delta stream.
+//   Two warpgroups share the 64 keys and split each item's work: warpgroup
+//   0 computes S^T = K.q^T (shared-memory operands), P^T in its accumulator,
+//   hands P^T to warpgroup 1 through shared memory (a named barrier), and
+//   takes dV += P^T.dO; warpgroup 1 computes dP^T = V.dO^T, dS^T = P^T *
+//   (dP^T - delta), and dK += dS^T.q. P^T and dS^T go from the accumulator
+//   straight into register-sourced wgmmas whose B is the q or dO tile read
+//   MN-major through the transpose bit. Each warpgroup holds one running sum
+//   and one tile sum of 64 x d fp32: 4 passes a warpgroup, no product
+//   computed twice, no sum joined across warpgroups. With one KV head and
+//   too few blocks to give every SM four, a cluster of 2, 4 or 8 CTAs
+//   shares a block's keys and splits its query heads; the CTAs' sums join
+//   in rank order through distributed shared memory.
+// - dQ/dslope (grid: 64-row blocks x b, or x b*h; 128 threads): with one KV
+//   head the 64 rows are the h heads x 64/h positions of one batch element,
+//   so each K/V tile is read once for all heads; otherwise 64 positions of
+//   one head. q and dO stay; K and V stream in tiles of 64 keys. S = q.K^T
+//   and dP = dO.V^T (shared-memory operands), dS in registers, dQ += dS.K
+//   with K read MN-major. The slope gradient accumulates per row in
+//   registers; the block sums its rows in a fixed order into one part per
+//   head it holds, in a (b, h, grid.x) tensor that the caller sums
+//   (ops/flash_attention.py::dq_slope_parts).
+//
+// What bounds them now (clock64 phase counters and one-edit variants of a
+// tile's steps on the H100, at the train shapes): each warpgroup runs its
+// tile's steps in sequence (product, wait, exp and mask, split, products,
+// wait), so the tensor cores idle while P is computed, and warpgroup 1 waits
+// for warpgroup 0's P; one dK/dV block an SM (registers), two dQ blocks.
+// Causal dK/dV blocks of late keys finish early while early ones walk every
+// query tile; a dQ block's set-up (barriers, the mask's words, the first
+// copies) is a large share of its life at the encoders' padded shapes.
+//
+// Masked tiles and rows with no valid key: as csrc/flash_attention_bwd.cu's
+// header says, with tiles of 64. dQ skips a key tile whose keys are all
+// masked unless the block holds a row with no valid key; a dK/dV block whose
+// 64 keys are all masked writes zeros and returns where every query row of
+// its element has a valid key; with `causal`, a query tile that ends before
+// the block's first key is skipped unless it holds a row with no valid key
+// that reaches those keys. Rows with no valid key (lse = -1e30) put P = 1 on
+// the keys below `jax_masked_row_keys`, and the dQ kernel adds the slope
+// gradient's part from the keys the JAX wrapper pads past t (for the fp32
+// kernels the caller adds it).
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "wgmma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using wg::Tile;
+using wg::smem_addr;
+
+constexpr int kRows = 64;  // keys of a dK/dV block, rows of a dQ block, rows of every tile
+constexpr int kWG = 128;   // threads of a warpgroup
+constexpr float kMaskValue = -1e30f;
+
+// Keys (up to t) that the causal JAX kernels visit for a query row with no
+// valid key.
+__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
+  const int bk = max(128, min(256, tk));
+  const int n_kb = (tk + bk - 1) / bk;
+  const int bq = max(8, min(256, tq));
+  const int q_end = (qi / bq + 1) * bq;
+  return min(tk, min(n_kb, (q_end + bk - 1) / bk) * bk);
+}
+
+// keys [0, limit) can have P != 0 for query row qi (0 past t)
+__device__ __forceinline__ int key_limit(int qi, int tq, int tk, int causal) {
+  return qi >= tq ? 0 : causal ? jax_masked_row_keys(qi, tq, tk) : tk;
+}
+
+// The slope gradient's part from the keys the JAX wrapper pads past t, up to
+// its key blocks' end (as ops/flash_attention.py::padded_key_dslopes): v is
+// 0 there, so dS = -P * delta with P = exp(-1e30 - lse), 1 on a row with no
+// valid key and 0 on every other; dS * (-|i-j|) sums to P * delta * the
+// row's distances to the padded keys it visits (all of them, or with
+// `causal` those below its query block's end).
+__device__ __forceinline__ float padded_keys_dslope(int qi, float lse, float delta, int tq, int tk, int causal) {
+  const float p = expf(kMaskValue - lse);
+  if (qi >= tq || p == 0.f) return 0.f;
+  const int bk = max(128, min(256, tk));
+  int end = (tk + bk - 1) / bk * bk;
+  if (causal) {
+    const int bq = max(8, min(256, tq));
+    end = min(end, ((qi / bq + 1) * bq + bk - 1) / bk * bk);
+  }
+  float dist = 0.f;  // a sum of integers, exact
+  for (int j = tk; j < end; ++j) dist += fabsf((float)(j - qi));
+  return p * delta * dist;
+}
+
+// The element's first valid key (INT_MAX if none), found by every warp over
+// its share of 32-key words, four words' bytes in flight at once; `bits`, if
+// given, receives the words. Ends with a block barrier.
+__device__ __forceinline__ int first_valid_key(const uint8_t* mp, int tk, uint32_t* bits, int* warp_first) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  int first = INT_MAX;
+  for (int w0 = warp; w0 * 32 < tk; w0 += 4 * warps) {
+    uint8_t m[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = (w0 + u * warps) * 32 + lane;
+      m[u] = j < tk ? mp[j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int w = w0 + u * warps;
+      const uint32_t word = __ballot_sync(0xffffffffu, m[u] != 0);
+      if (w * 32 >= tk) break;
+      if (bits != nullptr && lane == 0) bits[w] = word;
+      if (word != 0) first = min(first, w * 32 + __ffs(word) - 1);
+    }
+  }
+  if (lane == 0) warp_first[warp] = first;
+  __syncthreads();
+  int f = warp_first[0];
+  for (int w = 1; w < warps; ++w) f = min(f, warp_first[w]);
+  return f;
+}
+
+// both halves of a cluster barrier: every thread of every CTA of the
+// cluster has arrived, and their shared-memory writes are visible
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at shared address `addr` of the cluster's CTA `rank`
+__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// the query column (0-15) of a thread's dK/dV accumulator element e: query
+// 8*(e>>2) + 2*t4 + (e&1)
+__host__ __device__ constexpr int column(int e) { return ((e >> 2) << 1) | (e & 1); }
+
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// the block's shared memory, from a 1024-byte aligned base
+template <int D>
+struct DkvSmem {
+  static constexpr int kTile = Tile<D>::kBytes;
+  static constexpr int kK = 0, kV = kTile;
+  static constexpr int kQ = 2 * kTile;  // [stage][q, dO] tiles
+  static constexpr int kX = 6 * kTile;  // P^T handed over: [stage][element][thread of the warpgroup] fp32
+  static constexpr int kBars = kX + 2 * kRows * kRows * 4;  // mbarriers: K and V, full[stage], empty[stage]
+  static constexpr int kWarpFirst = kBars + 5 * 8;
+  static constexpr int kBytes = kWarpFirst + 8 * 4 + 1024;  // and the alignment's slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(2 * kWG, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                       const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
+                       const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int h, int hk, int tq, int tk, int causal, float scale) {
+  using S = DkvSmem<D>;
+  constexpr int kThreads = 2 * kWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  int* warp_first = reinterpret_cast<int*>(smem + S::kWarpFirst);
+  const uint32_t bar_kv = base + S::kBars;
+  const uint32_t full = bar_kv + 8, empty = bar_kv + 24;  // [stage] at + 8 * stage
+
+  const int tid = threadIdx.x;
+  const int role = tid / kWG;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int wtid = tid % kWG;
+  const int w = wtid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int bkv = blockIdx.y;  // batch * hk + KV head
+  const int b = bkv / hk;
+  const int kv_head = bkv % hk;
+  const int k0 = blockIdx.x * kRows;
+  const uint8_t* mp = mask + (size_t)b * tk;
+
+  const bool block_has_valid = __syncthreads_or(tid < kRows && k0 + tid < tk && mp[k0 + tid] != 0);
+  const bool all_valid = __syncthreads_and(tid >= kRows || (k0 + tid < tk && mp[k0 + tid] != 0));
+  const int first_valid = first_valid_key(mp, tk, nullptr, warp_first);
+  const bool every_row_valid = causal ? first_valid == 0 : first_valid < tk;
+  if (!block_has_valid && every_row_valid) {  // P = 0 on every key of the block
+    const int rows = min(kRows, tk - k0);
+    const size_t off = ((size_t)bkv * tk + k0) * D;
+    for (int i = tid * 2; blockIdx.z == 0 && i < rows * D; i += kThreads * 2) {
+      store2(dk + off + i, 0.f, 0.f);
+      store2(dv + off + i, 0.f, 0.f);
+    }
+    return;  // the cluster's every CTA, before any cluster barrier
+  }
+
+  // the items: (query head, query tile) pairs, every query head that reads
+  // this KV head (all h with one KV head) times the query tiles, in order
+  struct Item {
+    int head, tile;  // head: past the first, head_begin
+  };
+  // with one KV head the cluster's gridDim.z CTAs split the query heads,
+  // CTA z taking heads z*h/gridDim.z on
+  const int n_heads = hk == 1 ? h / gridDim.z : 1;
+  const int head_begin = hk == 1 ? blockIdx.z * n_heads : kv_head;
+  const int n_q_tiles = (tq + kRows - 1) / kRows;
+  // with `causal`, a query tile that ends before k0 reaches these keys only
+  // through rows with no valid key (those before first_valid)
+  auto visits = [&](int tile) {
+    if (!causal) return true;
+    const int q0 = tile * kRows;
+    const int q_last = min(q0 + kRows, tq) - 1;
+    if (q_last >= k0) return true;
+    return q0 < first_valid && jax_masked_row_keys(min(q_last, first_valid - 1), tq, tk) > k0;
+  };
+  // the first visited item from `it` on (it.head == n_heads: none)
+  auto next_item = [&](Item it) {
+    while (it.head < n_heads && !visits(it.tile))
+      if (++it.tile == n_q_tiles) it = Item{it.head + 1, 0};
+    return it;
+  };
+  auto after = [&](Item it) {  // the next visited item past `it`
+    return next_item(it.tile + 1 == n_q_tiles ? Item{it.head + 1, 0} : Item{it.head, it.tile + 1});
+  };
+  // the item's q and dO tiles into stage `stage` (thread 0)
+  auto issue = [&](Item item, int stage) {
+    const int slab = b * h + head_begin + item.head;
+    const int q0 = item.tile * kRows;
+    const uint32_t qt = base + S::kQ + stage * 2 * S::kTile;
+    wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
+    wg::tma_tile<D>(qt, &tm_q, q0, slab, full + 8 * stage);
+    wg::tma_tile<D>(qt + S::kTile, &tm_o, q0, slab, full + 8 * stage);
+  };
+
+  Item item = next_item(Item{0, 0});
+  if (tid == 0) {
+    wg::mbar_init(bar_kv, 1);
+    for (int st = 0; st < 2; ++st) {
+      wg::mbar_init(full + 8 * st, 1);
+      wg::mbar_init(empty + 8 * st, 2 * kWG / 32);  // every warp releases a stage
+    }
+    wg::mbar_init_fence();
+    // the block's 64 keys of K and V, then the first two items
+    wg::mbar_expect_tx(bar_kv, 2 * S::kTile);
+    wg::tma_tile<D>(base + S::kK, &tm_k, k0, bkv, bar_kv);
+    wg::tma_tile<D>(base + S::kV, &tm_v, k0, bkv, bar_kv);
+    if (item.head < n_heads) {
+      issue(item, 0);
+      const Item second = after(item);
+      if (second.head < n_heads) issue(second, 1);
+    }
+  }
+  __syncthreads();  // the barriers are initialized
+
+  int key[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + w * 16 + g + 8 * i;
+    key_ok[i] = key[i] < tk && mp[key[i]] != 0;
+  }
+  float acc[D / 2];  // dV (warpgroup 0) or dK / scale (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  wg::mbar_wait(bar_kv, 0);
+
+  for (int j = 0; item.head < n_heads; ++j) {
+    const int stage = j & 1;
+    const Item nxt = after(item);
+    const int head = head_begin + item.head;
+    const int q0 = item.tile * kRows;
+    const uint32_t qt = base + S::kQ + stage * 2 * S::kTile;
+    const uint32_t ot = qt + S::kTile;
+    float* xchg = reinterpret_cast<float*>(smem + S::kX) + stage * kRows * kRows;
+    // lse (warpgroup 0) or delta (warpgroup 1) of this thread's 16 query
+    // columns, 8*(c>>1) + 2*t4 + (c&1), in flight during the first product
+    float row_v[16];
+    {
+      const float* src = (role == 0 ? lse : delta) + ((size_t)b * h + head) * tq + q0;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const int jq = 8 * (c >> 1) + 2 * t4 + (c & 1);
+        row_v[c] = q0 + jq < tq ? src[jq] : 0.f;
+      }
+    }
+    wg::mbar_wait(full + 8 * stage, (j >> 1) & 1);
+
+    // S^T = K.q^T (warpgroup 0) or dP^T = V.dO^T (warpgroup 1): rows are
+    // the block's keys, columns the item's queries. The first wgmma of a
+    // product ignores what its accumulator holds, so no accumulator is
+    // zeroed.
+    float x[32];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (warpgroup 1)
+    {
+      const uint32_t a = base + (role == 0 ? S::kK : S::kV);
+      const uint32_t bt = role == 0 ? qt : ot;
+      wg::hold(x);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wg::mma_ss_n64<0>(x, wg::desc_k<D>(a, kk), wg::desc_k<D>(bt, kk), kk > 0);
+      wg::commit();
+    }
+    // the item after next into the other stage, once every warp has
+    // released it (thread 0; the first two came before the loop)
+    if (tid == 0 && j >= 1 && nxt.head < n_heads) {
+      wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
+      issue(nxt, stage ^ 1);
+    }
+    wg::wait_all();
+    wg::hold(x);
+
+    // element e of x: key row g + 8*((e>>1)&1) of warp w, query 8*(e>>2) +
+    // 2*t4 + (e&1) (row_v[column(e)]); kq[i] - c is key row i's distance to the
+    // query of column offset c = 8*(e>>2) + (e&1)
+    if (role == 0) {
+      const float slope = slopes[head];
+      const float kq[2] = {(float)(key[0] - q0 - 2 * t4), (float)(key[1] - q0 - 2 * t4)};
+      if (all_valid && q0 + kRows <= tq && (!causal || q0 >= k0 + kRows - 1)) {
+        // every (key, query) pair of the item is valid and below every
+        // row's key limit: no mask
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int c = 8 * (e >> 2) + (e & 1);
+          x[e] = expf(x[e] * scale - slope * fabsf(kq[(e >> 1) & 1] - (float)c) - row_v[column(e)]);
+        }
+      } else if (every_row_valid) {
+        // a key past a row's limit lies past its diagonal: the mask zeroes
+        // P there; rows past t get P = 0
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + (e & 1);
+          const int qi = q0 + c + 2 * t4;
+          float s = x[e] * scale - slope * fabsf(kq[i] - (float)c);
+          s = (key_ok[i] && (!causal || key[i] <= qi)) ? s : kMaskValue;
+          const float p = expf(s - row_v[column(e)]);
+          x[e] = qi < tq ? p : 0.f;
+        }
+      } else {
+        // rows with no valid key: P = 1 up to their key limit
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + (e & 1);
+          const int qi = q0 + c + 2 * t4;
+          float s = x[e] * scale - slope * fabsf(kq[i] - (float)c);
+          s = (key_ok[i] && (!causal || key[i] <= qi)) ? s : kMaskValue;
+          const float p = expf(s - row_v[column(e)]);
+          x[e] = key[i] < key_limit(qi, tq, tk, causal) ? p : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xchg[e * kWG + wtid] = x[e];
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + stage), "n"(kThreads) : "memory");
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + stage), "n"(kThreads) : "memory");
+#pragma unroll
+      for (int e = 0; e < 32; ++e) x[e] = xchg[e * kWG + wtid] * (x[e] - row_v[column(e)]);
+    }
+
+    // dV += P^T.dO (warpgroup 0) or dK += dS^T.q (warpgroup 1): A from the
+    // accumulator in three bf16 terms, the tile's products from zero
+    {
+      uint32_t a[4][3][4];
+      wg::split_a(x, a);
+      const uint32_t bt = role == 0 ? ot : qt;
+      float tile_sum[D / 2];
+      wg::hold(a);
+      wg::hold(tile_sum);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int term = 2; term >= 0; --term)
+          wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(bt, kk), kk > 0 || term < 2);
+      wg::commit();
+      wg::wait_all();
+      wg::hold(tile_sum);
+      wg::hold(a);
+      if (lane == 0) wg::mbar_arrive(empty + 8 * stage);  // this warp is done with the stage
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile_sum[i];
+    }
+    item = nxt;
+  }
+
+  // element 4j + 2i + c of acc: key row g + 8i of warp w, column 8j + 2t4 + c
+  bf16* out = role == 0 ? dv : dk;
+  const float mul = role == 0 ? 1.f : scale;
+  if (gridDim.z == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= tk) continue;
+      bf16* op = out + ((size_t)bkv * tk + key[i]) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
+    }
+    return;
+  }
+  // the cluster's sums join in rank order through distributed shared
+  // memory: each CTA puts its sums in the tiles' space ([role][element]
+  // [thread]), then writes every gridDim.z-th pair of each thread's
+  // elements, summed over the CTAs 0, 1, ...
+  __syncthreads();  // every warp is done with the tiles
+  float* part = reinterpret_cast<float*>(smem + S::kK);
+  static_assert(2 * (D / 2) * kWG * 4 <= 6 * S::kTile, "no room");
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) part[(role * (D / 2) + e) * kWG + wtid] = acc[e];
+  cluster_sync();
+  const uint32_t mine = smem_addr(part + role * (D / 2) * kWG + wtid);
+  for (int pr = blockIdx.z; pr < D / 4; pr += gridDim.z) {  // pair pr: elements 2pr, 2pr + 1
+    const int i = pr & 1, j = pr >> 1;
+    float x = 0.f, y = 0.f;
+    for (int r = 0; r < (int)gridDim.z; ++r) {
+      x += ld_cluster(mine + (2 * pr) * kWG * 4, r);
+      y += ld_cluster(mine + (2 * pr + 1) * kWG * 4, r);
+    }
+    if (key[i] < tk) store2(out + ((size_t)bkv * tk + key[i]) * D + 8 * j + 2 * t4, x * mul, y * mul);
+  }
+  cluster_sync();  // no CTA leaves while another reads its shared memory
+}
+
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = Tile<D>::kBytes;
+  static constexpr int kQ = 0, kO = kTile;
+  static constexpr int kK = 2 * kTile;  // [stage][K, V] tiles
+  static constexpr int kSlopeRows = 6 * kTile;  // [64 rows][4 lanes] fp32
+  static constexpr int kBars = kSlopeRows + kRows * 4 * 4;  // mbarriers: q and dO, full[stage], empty[stage]
+  static constexpr int kWarpFirst = kBars + 5 * 8;
+  static constexpr int kBits = kWarpFirst + 4 * 4;  // [32-key words]
+  static int bytes(int tk) { return kBits + 4 * ((tk + 31) / 32) + 1024; }  // and the alignment's slack
+};
+
+// Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
+// == h (one KV head), else (blocks of 64 positions, b * h). tm_q and tm_o
+// take boxes of (positions, heads_per_block) rows, so a block's 64 rows
+// come in one copy of each.
+template <int D>
+__global__ void __launch_bounds__(kWG, 2)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                      const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+                      float* __restrict__ dslope_part, int h, int hk, int tq, int tk, int causal, float scale,
+                      int heads_per_block) {
+  using S = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* slope_rows = reinterpret_cast<float*>(smem + S::kSlopeRows);
+  int* warp_first = reinterpret_cast<int*>(smem + S::kWarpFirst);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + S::kBits);
+  const uint32_t bar_qo = base + S::kBars;
+  const uint32_t full = bar_qo + 8, empty = bar_qo + 24;  // [stage] at + 8 * stage
+
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int positions = kRows / heads_per_block;
+  const int b = heads_per_block == 1 ? blockIdx.y / h : blockIdx.y;
+  const int head0 = heads_per_block == 1 ? blockIdx.y % h : 0;
+  const int q0 = blockIdx.x * positions;
+  const int kv_slab = b * hk + (hk == 1 ? 0 : head0);
+  const uint8_t* mp = mask + (size_t)b * tk;
+  const size_t row_base = (size_t)b * h;
+
+  // the block's 64 rows of q and dO, and key tile 0 before the mask is
+  // read: the walk over the key tiles starts there whatever the mask (a tile
+  // whose keys are all masked gives P = 0 on every row with a valid key)
+  if (tid == 0) {
+    wg::mbar_init(bar_qo, 1);
+    for (int st = 0; st < 2; ++st) {
+      wg::mbar_init(full + 8 * st, 1);
+      wg::mbar_init(empty + 8 * st, kWG / 32);  // every warp releases a stage
+    }
+    wg::mbar_init_fence();
+    wg::mbar_expect_tx(bar_qo, 2 * S::kTile);
+    wg::tma_tile<D>(base + S::kQ, &tm_q, q0, b * h + head0, bar_qo);
+    wg::tma_tile<D>(base + S::kO, &tm_o, q0, b * h + head0, bar_qo);
+    wg::mbar_expect_tx(full, 2 * S::kTile);
+    wg::tma_tile<D>(base + S::kK, &tm_k, 0, kv_slab, full);
+    wg::tma_tile<D>(base + S::kK + S::kTile, &tm_v, 0, kv_slab, full);
+  }
+
+  // this thread's rows: g and g + 8 of the warp's 16
+  int row_head[2], row_pos[2], row_limit[2];
+  float row_slope[2], row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w * 16 + g + 8 * i;
+    row_head[i] = head0 + r / positions;
+    row_pos[i] = q0 + r % positions;
+    row_slope[i] = slopes[row_head[i]];
+    row_limit[i] = key_limit(row_pos[i], tq, tk, causal);
+    const size_t row = (row_base + row_head[i]) * tq + row_pos[i];
+    row_lse[i] = row_pos[i] < tq ? lse[row] : 0.f;
+    row_delta[i] = row_pos[i] < tq ? delta[row] : 0.f;
+  }
+
+  const int words = (tk + 31) / 32;
+  const int all_tiles = (tk + kRows - 1) / kRows;
+  const int first_valid = first_valid_key(mp, tk, bits, warp_first);  // and the barriers' initialization
+  // a row of this block has no valid key: its first row's, if any
+  const bool has_empty_row = first_valid >= tk || (causal && first_valid > q0);
+  const int last_pos = min(tq, q0 + positions) - 1;
+  int end = causal ? min(all_tiles, last_pos / kRows + 1) : all_tiles;
+  if (causal && has_empty_row) end = max(end, (jax_masked_row_keys(last_pos, tq, tk) + kRows - 1) / kRows);
+  auto word = [&](int i) { return i < words ? bits[i] : 0u; };
+  auto next_tile = [&](int tile) {
+    while (tile < end && !has_empty_row && (word(2 * tile) | word(2 * tile + 1)) == 0) ++tile;
+    return tile;
+  };
+  // the key tile's K and V into stage `stage` (thread 0)
+  auto issue = [&](int tile, int stage) {
+    const uint32_t kt = base + S::kK + stage * 2 * S::kTile;
+    wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
+    wg::tma_tile<D>(kt, &tm_k, tile * kRows, kv_slab, full + 8 * stage);
+    wg::tma_tile<D>(kt + S::kTile, &tm_v, tile * kRows, kv_slab, full + 8 * stage);
+  };
+
+  int tile = 0;  // end >= 1: every block has a key tile to walk
+  if (tid == 0) {
+    const int second = next_tile(1);
+    if (second < end) issue(second, 1);
+  }
+
+  float acc[D / 2];  // dQ / scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float dslope[2] = {0.f, 0.f};
+  // full tiles below every row need no mask
+  const bool rows_plain = !has_empty_row && last_pos + 1 == q0 + positions;
+  wg::mbar_wait(bar_qo, 0);
+
+  for (int j = 0; tile < end; ++j) {
+    const int stage = j & 1;
+    const int nxt = next_tile(tile + 1);
+    const int k0 = tile * kRows;
+    const uint32_t kt = base + S::kK + stage * 2 * S::kTile;
+    const uint32_t vt = kt + S::kTile;
+    wg::mbar_wait(full + 8 * stage, (j >> 1) & 1);
+
+    // S = q.K^T and dP = dO.V^T (no accumulator is zeroed: the first wgmma
+    // of a product ignores it)
+    float s[32], dp[32];
+    wg::hold(s);
+    wg::hold(dp);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss_n64<0>(s, wg::desc_k<D>(base + S::kQ, kk), wg::desc_k<D>(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::mma_ss_n64<0>(dp, wg::desc_k<D>(base + S::kO, kk), wg::desc_k<D>(vt, kk), kk > 0);
+    wg::commit();
+    // the tile after next into the other stage, once every warp has
+    // released it (thread 0; the first two came before the loop)
+    if (tid == 0 && j >= 1 && nxt < end) {
+      wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
+      issue(nxt, stage ^ 1);
+    }
+    wg::wait_all();
+    wg::hold(s);
+    wg::hold(dp);
+
+    // dS in place of dP: element e is row g + 8*((e>>1)&1) of warp w, key
+    // k0 + 8*(e>>2) + 2*t4 + (e&1); kd[i] + c is the key of column offset c
+    // = 8*(e>>2) + (e&1) less row i's position
+    const uint32_t valid_lo = word(2 * tile), valid_hi = word(2 * tile + 1);
+    const float kd[2] = {(float)(k0 + 2 * t4 - row_pos[0]), (float)(k0 + 2 * t4 - row_pos[1])};
+    if (rows_plain && (valid_lo & valid_hi) == 0xffffffffu && (!causal || k0 + kRows - 1 <= q0)) {
+      // every (row, key) pair of the tile is valid and below every row's
+      // key limit: no mask
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const float dist = fabsf(kd[i] + (float)(8 * (e >> 2) + (e & 1)));
+        const float p = expf(s[e] * scale - row_slope[i] * dist - row_lse[i]);
+        dp[e] = p * (dp[e] - row_delta[i]);
+        dslope[i] = fmaf(dp[e], -dist, dslope[i]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const int jj = 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const int kj = k0 + jj;
+        const bool valid = (((jj < 32 ? valid_lo : valid_hi) >> (jj & 31)) & 1u) != 0;
+        const float dist = fabsf(kd[i] + (float)(8 * (e >> 2) + (e & 1)));
+        float x = s[e] * scale - row_slope[i] * dist;
+        x = (valid && (!causal || kj <= row_pos[i])) ? x : kMaskValue;
+        const float p = expf(x - row_lse[i]);
+        dp[e] = (kj < row_limit[i] ? p : 0.f) * (dp[e] - row_delta[i]);
+        dslope[i] = fmaf(dp[e], -dist, dslope[i]);
+      }
+    }
+
+    // dQ += dS.K: A from the accumulator in three bf16 terms, the tile's
+    // products from zero
+    uint32_t a[4][3][4];
+    wg::split_a(dp, a);
+    float tile_sum[D / 2];
+    wg::hold(a);
+    wg::hold(tile_sum);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int term = 2; term >= 0; --term)
+        wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(kt, kk), kk > 0 || term < 2);
+    wg::commit();
+    wg::wait_all();
+    wg::hold(tile_sum);
+    wg::hold(a);
+    if (lane == 0) wg::mbar_arrive(empty + 8 * stage);  // this warp is done with the stage
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += tile_sum[i];
+    tile = nxt;
+  }
+
+  // element 4j + 2i + c of acc: row g + 8i of warp w, column 8j + 2t4 + c
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row_pos[i] >= tq) continue;
+    bf16* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+  }
+
+  // the slope gradient, with the padded keys' part (once a row): each
+  // head's rows of the block in a fixed order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (t4 == 0) dslope[i] += padded_keys_dslope(row_pos[i], row_lse[i], row_delta[i], tq, tk, causal);
+    slope_rows[(w * 16 + g + 8 * i) * 4 + t4] = dslope[i];
+  }
+  __syncthreads();
+  if (tid < heads_per_block) {
+    float total = 0.f;
+    for (int r = tid * positions; r < (tid + 1) * positions; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) total += slope_rows[r * 4 + c];
+    dslope_part[(row_base + head0 + tid) * gridDim.x + blockIdx.x] = total;
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda by the runtime (the library
+// links only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// `map` over a (slabs, rows, D) bf16 tensor at `ptr`, in boxes of box_rows
+// rows of box_slabs slabs and 64 columns at most, swizzled as wg::Tile<D>
+template <int D>
+bool tile_map(CUtensorMap* map, const bf16* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = Tile<D>::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : Tile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Grants `kernel` the device's dynamic shared memory and the largest
+// shared-memory carveout, once; returns the bytes granted.
+template <typename Kernel>
+int grant_smem(Kernel kernel) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  return limit;
+}
+
+template <int D>
+int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
+               const bf16* dout, const float* lse, const float* delta, bf16* dk, bf16* dv, int b, int h, int hk,
+               int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  static const int granted = grant_smem(flash_bwd_dkv_bf16<D>);
+  const int smem = DkvSmem<D>::kBytes;
+  if (smem > granted) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!(tile_map<D>(&tm_q, q, tq, b * h, kRows, 1) && tile_map<D>(&tm_o, dout, tq, b * h, kRows, 1) &&
+        tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (tk + kRows - 1) / kRows * b * hk;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // with one KV head a block walks every query head's tiles, so at long t
+  // the busiest blocks set the time while blocks of late keys finish early:
+  // split the heads over a cluster until there are 4 CTAs an SM
+  int split = 1;
+  while (hk == 1 && split < 8 && h % (2 * split) == 0 && blocks * split < 4 * sms) split *= 2;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((tk + kRows - 1) / kRows, b * hk, split);
+  config.blockDim = dim3(2 * kWG);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv_bf16<D>, tm_q, tm_k, tm_v, tm_o, slopes, mask, lse,
+                                             delta, dk, dv, h, hk, tq, tk, causal, scale);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
+              const bf16* dout, const float* lse, const float* delta, bf16* dq, float* dslope_part, int b, int h,
+              int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  static const int granted = grant_smem(flash_bwd_dq_bf16<D>);
+  const int smem = DqSmem<D>::bytes(tk);
+  if (smem > granted) return (int)cudaErrorInvalidValue;
+  const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
+  const int heads_per_block = mqa ? h : 1;
+  const int positions = kRows / heads_per_block;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!(tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
+        tile_map<D>(&tm_o, dout, tq, b * h, positions, heads_per_block) &&
+        tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
+  flash_bwd_dq_bf16<D><<<grid, kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta, dq, dslope_part,
+                                                    h, hk, tq, tk, causal, scale, heads_per_block);
+  return (int)cudaGetLastError();
+}
+
+// launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope parts
+template <bool kDkv, typename Out1>
+int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
+             const bf16* dout, const float* lse, const float* delta, bf16* out0, Out1* out1, int b, int h, int hk,
+             int tq, int tk, int d, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    if constexpr (kDkv)
+      return launch_dkv<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
+    else
+      return launch_dq<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
+  };
+  switch (d) {
+    case 16:
+      return run(std::integral_constant<int, 16>{});
+    case 32:
+      return run(std::integral_constant<int, 32>{});
+    case 64:
+      return run(std::integral_constant<int, 64>{});
+    case 128:
+      return run(std::integral_constant<int, 128>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, dout: (b, h, tq, d) bf16; k, v: (b, hk, tk, d) bf16 with hk in {1, h};
+// slopes: (h,) fp32; mask: (b, tk) bytes, nonzero = valid key; lse, delta:
+// (b, h, tq) fp32; dk, dv: (b, hk, tk, d) bf16, written whole (with hk = 1,
+// summed over the h query heads). Contiguous and 16-byte aligned. Returns
+// the CUDA error code of the launch.
+extern "C" int sp_flash_attention_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                               const uint8_t* mask, const bf16* dout, const float* lse,
+                                               const float* delta, bf16* dk, bf16* dv, int b, int h, int hk, int tq,
+                                               int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<true>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale, stream);
+}
+
+// As above; dq: (b, h, tq, d) bf16; dslope_part: (b, h, blocks) fp32, each
+// block's part of sum dS * (-|i-j|) for each head it holds, for the caller
+// to sum over b and blocks. A block holds 64 (head, position) rows: with
+// hk = 1 and h dividing 64, all h heads at 64/h positions (blocks =
+// ceil(tq / (64/h))), else 64 positions of one head (blocks = ceil(tq / 64)).
+extern "C" int sp_flash_attention_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                              const uint8_t* mask, const bf16* dout, const float* lse,
+                                              const float* delta, bf16* dq, float* dslope_part, int b, int h, int hk,
+                                              int tq, int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
+                         scale, stream);
+}

@@ -14,9 +14,10 @@
 // a3 (g+8, t4+4); B (8x8) b0 (k t4, n g), b1 (k t4+4, n g); C (16x8)
 // c0 (g, 2t4), c1 (g, 2t4+1), c2 (g+8, 2t4), c3 (g+8, 2t4+1).
 //
-// bf16 operands: the kernels load bf16 q, k, v and dO, convert them to fp32
-// as they land in shared memory and compute in fp32, as the Pallas kernels
-// upcast their blocks. A bf16 value (8 significant bits) is exact in TF32
+// bf16 operands: the forward kernel loads bf16 q, k and v, converts them to
+// fp32 as they land in shared memory and computes in fp32, as the Pallas
+// kernel upcasts its blocks (the bf16 backward is flash_attention_bwd_bf16.cu,
+// on bf16 `wgmma`). A bf16 value (8 significant bits) is exact in TF32
 // (11), so its lo part is zero and the products with it are left out
 // (`mma_split`'s flags); so is q*scale's when scale is a power of two.
 #pragma once

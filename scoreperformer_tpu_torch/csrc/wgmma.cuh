@@ -1,0 +1,232 @@
+// Hopper warpgroup MMA (`wgmma`) on bf16 tiles in shared memory, filled by
+// TMA, for the bf16 flash-attention backward (flash_attention_bwd_bf16.cu).
+//
+// A tile is 64 rows of d bf16 values, swizzled as `wgmma` reads it: rows of
+// 32 bytes (d = 16), 64 (d = 32) or 128 (d = 64), each 16-byte chunk XORed
+// by address bits 7 and up (32-, 64- or 128-byte swizzle); at d = 128 two
+// such 64 x 128-byte blocks, columns 0-63 and 64-127. The same bytes serve as
+// a K-major operand (rows are M or N, K runs along d: S = Q.K^T and dP =
+// dO.V^T) and as an MN-major B operand through the transpose bit (K runs
+// along the rows, N along d: P^T.dO, dS^T.Q and dS.K), which bf16 allows.
+// Every tile starts on a 1024-byte boundary, so the descriptors need no base
+// offset.
+//
+// Fragments (per warp w of the warpgroup, g = lane/4, t4 = lane%4): the
+// fp32 accumulator of m64nNk16 holds d[4j + 2i + c] = (row 16w + g + 8i,
+// column 8j + 2t4 + c); the A registers of an m64k16 step kk hold the bf16
+// pairs (row 16w + g + 8(r&1), columns 16kk + 8(r>>1) + 2t4, +1), r = 0..3,
+// so accumulator elements 8kk + 2r and +1 are A register r of step kk.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the bytes of a 64-row tile of head dim D, and its shared-memory operands
+template <int D>
+struct Tile {
+  static constexpr int kRows = 64;
+  static constexpr int kRowBytes = D >= 64 ? 128 : 2 * D;  // a row within one swizzled block
+  static constexpr int kBlockBytes = kRows * kRowBytes;
+  static constexpr int kBytes = kRows * D * 2;
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;  // 128B, 64B, 32B swizzle
+};
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)layout << 62);
+}
+
+// the tile at `tile` as a K-major operand (K along d), k-step kk (16 columns)
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = Tile<D>;
+  constexpr int kStepsPerBlock = L::kRowBytes / 32;
+  return desc(tile + (kk / kStepsPerBlock) * L::kBlockBytes + (kk % kStepsPerBlock) * 32, 16, 8 * L::kRowBytes,
+              L::kLayout);
+}
+
+// the tile at `tile` as an MN-major B operand (K along the rows, N along
+// d), k-step kk (16 rows); at d = 128 the second 64 columns lie one block on
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using L = Tile<D>;
+  return desc(tile + kk * 16 * L::kRowBytes, L::kBlockBytes, 8 * L::kRowBytes, L::kLayout);
+}
+
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps registers that an asynchronous wgmma reads or writes where they are
+// across this point (before wgmma::fence, after wait_all)
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void hold(uint32_t (&a)[N][M][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][j][r])::"memory");
+}
+
+// ---- TMA copies and mbarriers ----
+//
+// A tile comes by TMA (`cp.async.bulk.tensor`) from a 3-d tensor map over
+// (d, rows, slabs) with boxes of (min(d, 64), rows, slabs) and the tile's
+// swizzle, which writes the layout above; rows past the tensor's end land as
+// zeros. The copy completes on an mbarrier that expects the tile's bytes.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// the initialized barriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// the tile at (row, slab) of `map` into shared memory at `dst`, completing
+// on `bar`: one copy a 128-byte column block
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const void* map, int row, int slab, uint32_t bar) {
+#pragma unroll
+  for (int blk = 0; blk < (D > 64 ? D / 64 : 1); ++blk)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+        "%4}], [%5];\n" ::"r"(dst + blk * Tile<D>::kBlockBytes),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(blk * 64), "r"(row), "r"(slab), "r"(bar)
+        : "memory");
+}
+
+// d (64 x 64) = A (64 x 16, shared) . B (16 x 64, shared), plus d when accumulate
+template <int kTransB>
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 16) = A (64 x 16, registers) . B (16 x 16, shared), plus d when accumulate
+template <int kTransB>
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 32) = A (64 x 16, registers) . B (16 x 32, shared), plus d when accumulate
+template <int kTransB>
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 64) = A (64 x 16, registers) . B (16 x 64, shared), plus d when accumulate
+template <int kTransB>
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 128) = A (64 x 16, registers) . B (16 x 128, shared), plus d when accumulate
+template <int kTransB>
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+}
+
+
+// d (64 x N) = a (registers) . B, plus d when accumulate, for N = 16, 32, 64, 128
+template <int N, int kTransB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  if constexpr (N == 16) mma_rs_n16<kTransB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 32) mma_rs_n32<kTransB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 64) mma_rs_n64<kTransB>(d, a, desc_b, accumulate);
+  else mma_rs_n128<kTransB>(d, a, desc_b, accumulate);
+}
+
+// x and y as three bf16 pairs whose sums are x and y exactly (down to bf16's
+// subnormals): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
+// the low half of each word is x's term
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(rx - mf.x, ry - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the 64 x 64 fp32 accumulator x as A operands of four k-steps, three bf16
+// terms each: a[kk][term][r], term 0 hi, 1 mid, 2 lo
+__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
+}
+
+}  // namespace wg

@@ -40,6 +40,8 @@ ENTRY_POINTS = {
     "flash_attention_bwd": {
         "sp_flash_attention_bwd_dkv": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq": _FLASH_BWD_ARGS,
+    },
+    "flash_attention_bwd_bf16": {
         "sp_flash_attention_bwd_dkv_bf16": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq_bf16": _FLASH_BWD_ARGS,
     },

@@ -3,14 +3,17 @@
 Counterpart of scoreperformer_tpu/ops/flash_attention.py. On CUDA tensors
 `flash_attention_alibi` launches the hand-written forward kernel of
 `csrc/flash_attention_fwd.cu` and, for the gradient, the dK/dV and dQ/dslope
-kernels of `csrc/flash_attention_bwd.cu`, inside one `torch.autograd.Function`;
-none of them materializes the (h, t, t) bias or score tensors. On CPU tensors
-the same Function runs `flash_attention_plain` and `flash_attention_bwd_plain`,
-the same functions in plain PyTorch. All keep the TPU kernels' numerics: q is
-scaled before the dot, the bias is -slope*|i-j|, masked scores are -1e30, the
-softmax sum is clamped at 1e-30, P is recomputed from the saved logsumexp, all
-in fp32 (the kernels take every product on the tensor cores in split TF32,
-three TF32 products each, within about 2^-21 of fp32).
+kernels of `csrc/flash_attention_bwd.cu` (fp32 operands) or
+`csrc/flash_attention_bwd_bf16.cu` (bf16 operands), inside one
+`torch.autograd.Function`; none of them materializes the (h, t, t) bias or
+score tensors. On CPU tensors the same Function runs `flash_attention_plain`
+and `flash_attention_bwd_plain`, the same functions in plain PyTorch. All keep
+the TPU kernels' numerics: q is scaled before the dot, the bias is
+-slope*|i-j|, masked scores are -1e30, the softmax sum is clamped at 1e-30, P
+is recomputed from the saved logsumexp, all in fp32 (the fp32 kernels take
+every product on the tensor cores in split TF32, three TF32 products each,
+within about 2^-21 of fp32; the bf16 backward takes S and dP as single bf16
+`wgmma` products, exact in fp32, and P and dS in three bf16 terms each).
 
 q, k, v and the output gradient may be bf16 (a model held in bf16 gives
 them), as the Pallas kernels take them: the arithmetic stays fp32, the output is written in q's
@@ -40,7 +43,8 @@ def dq_slope_parts(b: int, h: int, hk: int, tq: int):
     """Shape (b, h, blocks) of the dQ kernel's slope-gradient parts: one per
     head a block holds. With one KV head and h dividing 64 a block holds all
     h heads at 64/h positions, else 64 positions of one head
-    (csrc/flash_attention_bwd.cu::launch_dq)."""
+    (`launch_dq` of csrc/flash_attention_bwd.cu and of
+    csrc/flash_attention_bwd_bf16.cu)."""
     positions = BLOCK_ROWS // h if hk == 1 and h > 1 and BLOCK_ROWS % h == 0 else BLOCK_ROWS
     return (b, h, -(-tq // positions))
 
@@ -237,6 +241,12 @@ def _symbol(symbol, dtype):
     return symbol + "_bf16" if dtype == torch.bfloat16 else symbol
 
 
+def _bwd_library(dtype):
+    """The backward kernels' library: split-TF32 `mma.sync` for fp32
+    operands, bf16 `wgmma` for bf16 ones."""
+    return "flash_attention_bwd_bf16" if dtype == torch.bfloat16 else "flash_attention_bwd"
+
+
 def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     """(out, lse): the forward kernel on CUDA tensors, its plain version on CPU
     tensors."""
@@ -276,7 +286,7 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
     scale = scale if scale is not None else d**-0.5
-    _raise_on(name, kernel("flash_attention_bwd", _symbol(symbol, q.dtype))(
+    _raise_on(name, kernel(_bwd_library(q.dtype), _symbol(symbol, q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, h, hk, tq, tk, d, int(causal), float(scale),
@@ -299,7 +309,9 @@ def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True
 def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
     """(dq, dslopes) by the dQ/dslope kernel on CUDA tensors (its plain version
     on CPU tensors). The kernel writes one part of the slope gradient per
-    (batch, head, query tile); a torch sum reduces them in a fixed order."""
+    (batch, head, query tile); a torch sum reduces them in a fixed order. The
+    bf16 kernel adds the JAX wrapper's padded keys' part itself; for the fp32
+    one, `padded_key_dslopes` adds it here."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     b, h, tq, _ = q.shape
@@ -309,7 +321,7 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
     _count(flash_attention_bwd_dq, q.dtype)
     dslopes = parts.sum(dim=(0, 2))
-    padded = padded_key_dslopes(lse, delta, tq, k.shape[2], causal)
+    padded = None if q.dtype == torch.bfloat16 else padded_key_dslopes(lse, delta, tq, k.shape[2], causal)
     if padded is not None:
         dslopes = dslopes + padded
     return dq, dslopes.to(slopes.dtype)

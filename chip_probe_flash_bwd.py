@@ -40,7 +40,7 @@ def variants(cu, cuh):
                    "while (tile < end) {", "while (false && tile < end) {")
     return {
         "base": (cu, cuh),
-        "one_mma": (cu, edit(cuh, "  if (kALo) mma(t, a_lo, b_hi);\n  if (kBLo) mma(t, a_hi, b_lo);\n", "")),
+        "one_mma": (cu, edit(cuh, "  mma(t, a_lo, b_hi);\n  mma(t, a_hi, b_lo);\n", "")),
         "no_loop": (no_loop, cuh),
         "one_group": (edit(cu, "constexpr int kGroups = 2;", "constexpr int kGroups = 1;"), cuh),
     }

@@ -16,10 +16,11 @@ checkout. It
    the same function (the yardstick; the port never calls it) by CUDA-graph
    replay, with the eager time beside (the two backward kernels also as a
    pair against one SDPA backward; the row writes also beside `copy_` and
-   `index_copy_`); checks that the flash forward and the fp32
+   `index_copy_`); checks that the fp32 flash forward and the fp32
    backward hold TF32 tensor-core instructions in their SASS
-   (`cuobjdump -sass`), and the bf16 backward bf16 warpgroup MMAs (HGMMA)
-   and no TF32 ones, in an instance at each head dim the wrapper takes
+   (`cuobjdump -sass`), and the bf16 forward and backward bf16 warpgroup
+   MMAs (HGMMA) and no TF32 ones, in an instance at each head dim the
+   wrapper takes
    (16, 32, 64, 128), and that two calls of `prefix_attend` and of each
    flash kernel give the same bits; holds the three flash kernels at head
    dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
@@ -163,9 +164,11 @@ BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
-# bf16 passes over the (query, key) pairs of the bf16 backward kernels
-# (csrc/flash_attention_bwd_bf16.cu): dK/dV S, dP and three each for dV and
-# dK; dQ/dslope S, dP and three for dQ
+# bf16 passes over the (query, key) pairs of the bf16 forward
+# (csrc/flash_attention_fwd_bf16.cu): S and three for P.V; and of the bf16
+# backward kernels (csrc/flash_attention_bwd_bf16.cu): dK/dV S, dP and three
+# each for dV and dK; dQ/dslope S, dP and three for dQ
+BF16_FWD_PASSES = 4
 BF16_BWD_PASSES = {"dkv": 8, "dq": 5}
 # the words of a SASS line of each tensor-core instruction the kernels take
 TF32_HMMA = ("HMMA", "TF32")  # split-TF32 mma.sync
@@ -783,8 +786,9 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     backward, give the same bits. Returns the records of the
     forward, dK/dV and dQ/dslope kernels at this shape, timed by CUDA-graph
     replay when `timed`, beside SDPA on bf16 (bias materialized in bf16) and
-    its backward, the backward pair's time over SDPA's backward beside
-    (`pair_over_library`)."""
+    its backward, the forward's time over SDPA's forward (`over_library`)
+    and the backward pair's over SDPA's backward (`pair_over_library`)
+    beside."""
     import torch.nn.functional as F
 
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -860,6 +864,9 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     fwd["library_ms"] = graph_ms(
         torch, lambda qc, kc, vc: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=bias), sdpa, iters=50)
     del sdpa, bias
+    fwd["over_library"] = fwd["ms"] / fwd["library_ms"]
+    print(f"bf16 forward at {(b, h, hk, d, t, causal, padded)}: {fwd['ms']:.4f} ms, SDPA's bf16 forward "
+          f"{fwd['library_ms']:.4f} ms, ratio {fwd['over_library']:.3f}")
     library, library_timing = sdpa_backward_ms(torch, q, k, v, dout, slopes, mask, causal)
     dkv["library_ms"] = dq["library_ms"] = library
     dkv["library_timing"] = dq["library_timing"] = library_timing
@@ -870,18 +877,16 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
           f"ratio {pair_over_library:.3f}")
     # bounds: bf16 operands (2 bytes an element), fp32 lse, delta, slopes and
     # slope parts; fp32 arithmetic, as the Pallas kernels upcast. The
-    # tensor-core floor counts the products each design takes: the forward's
-    # TF32 products (the q*scale operand exact when scale is a power of two)
-    # at 495 TFLOP/s, the backward's bf16 passes (BF16_BWD_PASSES) at 989.
-    # The backward's operations are those bf16 passes, so its bound is that
-    # floor (the fp32 operations at 67 TFLOP/s beside, `bound_fp32_ms`)
+    # tensor-core floor counts the bf16 passes each kernel takes
+    # (BF16_FWD_PASSES, BF16_BWD_PASSES) at 989 TFLOP/s; those passes are
+    # its operations, so its bound is that floor (the fp32 operations at 67
+    # TFLOP/s beside, `bound_fp32_ms`)
     pairs = ok.expand(b, 1, t, t).sum().item()
     product = 2 * d * h * pairs  # one d-long product over every (query, key) pair and head
-    exact_q = math.frexp(d**-0.5)[0] == 0.5
     bf16, f32 = 2, 4
     parts = math.prod(fa.dq_slope_parts(b, h, hk, t))
     for rec, products, (tc_key, tc_products, tc_rate), nbytes in (
-        (fwd, 2, ("tf32_products", (1 if exact_q else 2) + 2, TF32_OPS_PER_S),
+        (fwd, 2, ("bf16_passes", BF16_FWD_PASSES, BF16_OPS_PER_S),
          bf16 * (2 * q.numel() + k.numel() + v.numel()) + f32 * (lse.numel() + h) + mask.numel()),
         (dkv, 4, ("bf16_passes", BF16_BWD_PASSES["dkv"], BF16_OPS_PER_S),
          bf16 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) + f32 * (2 * lse.numel() + h) + mask.numel()),
@@ -1845,11 +1850,10 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10):
 
 
 def bf16_instance(kernel):
-    """Whether a profiled flash kernel's name is a bf16 instance: the
-    forward's (`flash_fwd<64, __nv_bfloat16, ...>`) or the bf16 backward's
-    (`flash_bwd_dkv_bf16<64>`, `flash_bwd_dq_bf16<64>`, whose arguments are
-    tensor maps)."""
-    return "bfloat16" in kernel or "_bf16<" in kernel
+    """Whether a profiled flash kernel's name is a bf16 instance:
+    `flash_fwd_bf16<64>`, `flash_bwd_dkv_bf16<64>` or `flash_bwd_dq_bf16<64>`
+    (the fp32 ones are `flash_fwd<64>`, `flash_bwd_dkv<64>`, ...)."""
+    return "_bf16<" in kernel
 
 
 def check_decode_profile(prof, what, expected):
@@ -3723,19 +3727,25 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {sorted(str(p) for p in libs.values())}")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "C7518" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
-    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims), (hgmma, hgmma_dims) = (
+    # the fp32 forward's library holds only the fp32 flash_fwd instances
+    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
         tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS),
         tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS),
+        tensor_core_counts(libs["flash_attention_fwd_bf16"], ("flash_fwd_bf16",), fa.KERNEL_HEAD_DIMS,
+                           instruction=BF16_HGMMA, forbidden=TF32_HMMA),
         tensor_core_counts(libs["flash_attention_bwd_bf16"], ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"),
                            fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
     hmma.update(hmma_bwd)
     hmma_dims.update(hmma_bwd_dims)
+    hgmma.update(hgmma_bwd)
+    hgmma_dims.update(hgmma_bwd_dims)
     print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}; "
           f"by kernel and head dim: {json.dumps(hmma_dims)}")
-    print(f"bf16 warpgroup instructions (HGMMA) in the bf16 backward's SASS, and no TF32 HMMA, by kernel: "
-          f"{json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
+    print(f"bf16 warpgroup instructions (HGMMA) in the bf16 forward's and backward's SASS, and no TF32 HMMA, "
+          f"by kernel: {json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
+    print(f"build and SASS checks: {time.perf_counter() - t0:.1f} s")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -3751,6 +3761,7 @@ def main() -> int:
         raise AssertionError(f"the served scores' longest has {max(serve_lens)} notes, not in the {SERVE_BUCKET} bucket")
 
     # ---- kernels against their plain versions ----
+    t_kernels = time.perf_counter()
     # write_kv and write_kv_pair (every case both ways, timed at the
     # render's step, the served batch's step and a 2 MB write): the render's
     # fresh buffers; the served batch's, fp32 rows into fp32 (fp32 and int8
@@ -3928,6 +3939,7 @@ def main() -> int:
     print("prefix_attend split sweep", json.dumps(prefix_split_sweep(torch, pa)))
     print("prefix_attend split sweep, scale_1024's shape",
           json.dumps(prefix_split_sweep(torch, pa, b=64, cap=1024, base=512, d=128, h=8)))
+    print(f"kernel checks: {time.perf_counter() - t_kernels:.1f} s")
 
     # ---- the main path: the flagship renders the score on the card ----
     cfg = flagship_config(tokenizer, T)
@@ -4204,12 +4216,13 @@ def main() -> int:
         # steps launch the fp32 instances)
         {"name": f"{name}_bf16", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": options["bf16_model"]["launches"][f"{name}_bf16"],
-         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "bound_fp32_ms", "tf32_products", "bf16_passes",
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "bound_fp32_ms", "bf16_passes", "over_library",
                                              "pair_over_library", "bf16_ulps", "library_timing") if k in rec},
          "shape": rec["shape"], "dtype": "bf16", **sass}
         for name, source, replaces, rec, sass in (
-            ("flash_attention_fwd", "flash_attention_fwd.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
-             bf16_main[0], {"tf32_hmma_in_sass": hmma["flash_fwd"]}),
+            ("flash_attention_fwd", "flash_attention_fwd_bf16.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
+             bf16_main[0], {"bf16_hgmma_in_sass": hgmma["flash_fwd_bf16"],
+                            "bf16_hgmma_by_head_dim": hgmma_dims["flash_fwd_bf16"]}),
             ("flash_attention_bwd_dkv", "flash_attention_bwd_bf16.cu", "scoreperformer_tpu/ops/flash_attention.py:135",
              bf16_main[1], {"bf16_hgmma_in_sass": hgmma["flash_bwd_dkv_bf16"],
                             "bf16_hgmma_by_head_dim": hgmma_dims["flash_bwd_dkv_bf16"]}),
@@ -4233,8 +4246,8 @@ def main() -> int:
         if name in part:
             recs = [(r["path"], r["bf16"][part[name]] if rec["name"].endswith("_bf16") else r[part[name]])
                     for r in head_dims["timed"] if "bf16" in r or not rec["name"].endswith("_bf16")]
-            rec["head_dim_shapes"] = [{"path": what, **{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms",
-                                                                                     "pair_over_library") if k in r}}
+            rec["head_dim_shapes"] = [{"path": what, **{k: r[k] for k in shape_keys + (
+                "kv_heads", "bound_tc_ms", "over_library", "pair_over_library") if k in r}}
                                       for what, r in recs]
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}

@@ -106,27 +106,18 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using wg::Tile;
+using wg::first_valid_key;
+using wg::grant_smem;
+using wg::jax_masked_row_keys;
+using wg::key_limit;
 using wg::smem_addr;
+using wg::store2;
+using wg::Tile;
+using wg::tile_map;
 
 constexpr int kRows = 64;  // keys of a dK/dV block, rows of a dQ block, rows of every tile
 constexpr int kWG = 128;   // threads of a warpgroup
 constexpr float kMaskValue = -1e30f;
-
-// Keys (up to t) that the causal JAX kernels visit for a query row with no
-// valid key.
-__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
-  const int bk = max(128, min(256, tk));
-  const int n_kb = (tk + bk - 1) / bk;
-  const int bq = max(8, min(256, tq));
-  const int q_end = (qi / bq + 1) * bq;
-  return min(tk, min(n_kb, (q_end + bk - 1) / bk) * bk);
-}
-
-// keys [0, limit) can have P != 0 for query row qi (0 past t)
-__device__ __forceinline__ int key_limit(int qi, int tq, int tk, int causal) {
-  return qi >= tq ? 0 : causal ? jax_masked_row_keys(qi, tq, tk) : tk;
-}
 
 // The slope gradient's part from the keys the JAX wrapper pads past t, up to
 // its key blocks' end (as ops/flash_attention.py::padded_key_dslopes): v is
@@ -148,35 +139,6 @@ __device__ __forceinline__ float padded_keys_dslope(int qi, float lse, float del
   return p * delta * dist;
 }
 
-// The element's first valid key (INT_MAX if none), found by every warp over
-// its share of 32-key words, four words' bytes in flight at once; `bits`, if
-// given, receives the words. Ends with a block barrier.
-__device__ __forceinline__ int first_valid_key(const uint8_t* mp, int tk, uint32_t* bits, int* warp_first) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  int first = INT_MAX;
-  for (int w0 = warp; w0 * 32 < tk; w0 += 4 * warps) {
-    uint8_t m[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = (w0 + u * warps) * 32 + lane;
-      m[u] = j < tk ? mp[j] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int w = w0 + u * warps;
-      const uint32_t word = __ballot_sync(0xffffffffu, m[u] != 0);
-      if (w * 32 >= tk) break;
-      if (bits != nullptr && lane == 0) bits[w] = word;
-      if (word != 0) first = min(first, w * 32 + __ffs(word) - 1);
-    }
-  }
-  if (lane == 0) warp_first[warp] = first;
-  __syncthreads();
-  int f = warp_first[0];
-  for (int w = 1; w < warps; ++w) f = min(f, warp_first[w]);
-  return f;
-}
-
 // both halves of a cluster barrier: every thread of every CTA of the
 // cluster has arrived, and their shared-memory writes are visible
 __device__ __forceinline__ void cluster_sync() {
@@ -195,10 +157,6 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
 // the query column (0-15) of a thread's dK/dV accumulator element e: query
 // 8*(e>>2) + 2*t4 + (e&1)
 __host__ __device__ constexpr int column(int e) { return ((e >> 2) << 1) | (e & 1); }
-
-__device__ __forceinline__ void store2(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
 
 // the block's shared memory, from a 1024-byte aligned base
 template <int D>
@@ -701,57 +659,6 @@ __global__ void __launch_bounds__(kWG, 2)
       for (int c = 0; c < 4; ++c) total += slope_rows[r * 4 + c];
     dslope_part[(row_base + head0 + tid) * gridDim.x + blockIdx.x] = total;
   }
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda by the runtime (the library
-// links only the runtime)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                                             &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// `map` over a (slabs, rows, D) bf16 tensor at `ptr`, in boxes of box_rows
-// rows of box_slabs slabs and 64 columns at most, swizzled as wg::Tile<D>
-template <int D>
-bool tile_map(CUtensorMap* map, const bf16* ptr, int rows, int slabs, int box_rows, int box_slabs) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = Tile<D>::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : Tile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Grants `kernel` the device's dynamic shared memory and the largest
-// shared-memory carveout, once; returns the bytes granted.
-template <typename Kernel>
-int grant_smem(Kernel kernel) {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  return limit;
 }
 
 template <int D>

@@ -1,9 +1,10 @@
-// Flash-attention forward with ALiBi generated in the kernel, fp32 or bf16 in
-// and out (fp32 arithmetic either way), its products on the tensor cores in
-// split TF32.
+// Flash-attention forward with ALiBi generated in the kernel, fp32 in and
+// out, its products on the tensor cores in split TF32.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_kernel, the
-// Pallas forward that `_flash_forward` launches for `flash_attention_alibi`.
+// Pallas forward that `_flash_forward` launches for `flash_attention_alibi`,
+// on fp32 operands; the bf16 instances are csrc/flash_attention_fwd_bf16.cu's
+// (bf16 `wgmma`).
 //
 // Bounds on the H100. The work is 4*d fp32 operations per (query row, key)
 // pair and head (q.k and p.v, a multiply and an add each) over a few MB of
@@ -78,18 +79,10 @@
 // holds such a row visits every key tile, and with `causal` runs on to that
 // row's last key.
 //
-// bf16 operands (a model held in bf16): q, k and v may be bf16, as the Pallas
-// kernel takes q's dtype and upcasts its blocks. K and V tiles are widened
-// to fp32 as they land in shared memory (8-byte loads in place of cp.async),
-// q as it is split; o is written in bf16 (rounded to nearest even), lse in
-// fp32. A bf16 value is exact in TF32, so P.V takes two TF32 products (P's hi
-// and lo against V), and Q.K^T one when q*scale is exact too: scale a power
-// of two, as at d = 16 and 64 (`kExactQ`); at d = 32 and 128 it takes two.
-//
 // Left for later work: `wgmma` (it takes TF32 operands K-major only, so V
 // would have to be transposed in shared memory), TMA copies and warp
-// specialisation, bf16 tiles in shared memory, more than one block an SM at
-// d = 128 (q's fragments in registers, or a narrower tile).
+// specialisation, more than one block an SM at d = 128 (q's fragments in
+// registers, or a narrower tile).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -132,17 +125,14 @@ __device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk, int c
 
 // Grid: (query tiles of 64 / heads_per_block positions, b) when
 // heads_per_block == h (one KV head), else (query tiles of 64, b * h).
-// T: float or bf16. kExactQ: q*scale is exact in TF32 (bf16 q, scale a power
-// of two), so Q.K^T takes one TF32 product.
-template <int D, typename T, bool kExactQ>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ slopes,
-              const uint8_t* __restrict__ mask, T* __restrict__ out,
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ slopes,
+              const uint8_t* __restrict__ mask, float* __restrict__ out,
               float* __restrict__ lse, int h, int hk, int tq, int tk, int causal, float scale,
               int heads_per_block) {
   using L = Layout<D>;
-  constexpr bool kExactKV = sizeof(T) == 2;  // bf16 k and v: no lo parts
   constexpr int kStride = L::kStride;
   constexpr int kSteps = D / 8;          // k-steps of Q.K^T, n-tiles of P.V
   constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of Q.K^T, k-steps of P.V
@@ -163,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
   const int head0 = heads_per_block == 1 ? blockIdx.y % h : 0;
   const int q0 = blockIdx.x * positions;
   const size_t kv_off = ((size_t)b * hk + (hk == 1 ? 0 : head0)) * tk * D;
-  const T* kp = k + kv_off;
-  const T* vp = v + kv_off;
+  const float* kp = k + kv_off;
+  const float* vp = v + kv_off;
   const uint8_t* mp = mask + (size_t)b * tk;
 
   // this thread's two rows: g and g + 8 of the warp's 16
@@ -232,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
       const int i = e & 1;
       const int col = kk * 8 + t4 + 4 * (e >> 1);
       const float x = row_pos[i] < tq
-                          ? tf32::to_float(q[(((size_t)b * h + row_head[i]) * tq + row_pos[i]) * D + col]) * scale
+                          ? q[(((size_t)b * h + row_head[i]) * tq + row_pos[i]) * D + col] * scale
                           : 0.f;
       split(x, hi[e], lo[e]);
     }
@@ -277,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t b_hi[2], b_lo[2];
         split(kr[0], b_hi[0], b_lo[0]);
         split(kr[4], b_hi[1], b_lo[1]);
-        mma_split<!kExactQ, !kExactKV>(s[n], q_hi, q_lo, b_hi, b_lo);
+        mma_split(s[n], q_hi, q_lo, b_hi, b_lo);
       }
     }
 
@@ -337,7 +327,7 @@ __global__ void __launch_bounds__(kThreads)
         uint32_t b_hi[2], b_lo[2];
         split(vr[n * 8], b_hi[0], b_lo[0]);
         split(vr[kStride + n * 8], b_hi[1], b_lo[1]);
-        mma_split<true, !kExactKV>(acc[n], p_hi, p_lo, b_hi, b_lo);
+        mma_split(acc[n], p_hi, p_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // this buffer is refilled next iteration
@@ -357,14 +347,14 @@ __global__ void __launch_bounds__(kThreads)
     const float lc = m[i] == kMaskValue ? (float)jax_masked_row_keys(qi, tq, tk, causal)
                                         : fmaxf(l[i], 1e-30f);
     const size_t row = ((size_t)b * h + row_head[i]) * tq + qi;
-    T* op = out + row * D + 2 * t4;
+    float* op = out + row * D + 2 * t4;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) tf32::store2(op + n * 8, acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
     if (lse != nullptr && t4 == 0) lse[row] = m[i] + logf(lc);
   }
 }
 
-template <int D, typename T, bool kExactQ>
+template <int D>
 int max_dynamic_smem() {
   // the device's opt-in limit less the static part, granted to the kernel once
   static const int bytes = [] {
@@ -372,62 +362,42 @@ int max_dynamic_smem() {
     cudaFuncAttributes attr = {};
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaFuncGetAttributes(&attr, flash_fwd<D, T, kExactQ>);
+    cudaFuncGetAttributes(&attr, flash_fwd<D>);
     const int dynamic = limit - (int)attr.sharedSizeBytes;
-    cudaFuncSetAttribute(flash_fwd<D, T, kExactQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+    cudaFuncSetAttribute(flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
     return dynamic;
   }();
   return bytes;
 }
 
-template <int D, typename T, bool kExactQ>
-int launch(const T* q, const T* k, const T* v, const float* slopes,
-           const uint8_t* mask, T* out, float* lse, int b, int h, int hk, int tq, int tk,
-           int causal, float scale, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask, float* out,
+           float* lse, int b, int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
   const int all_tiles = (tk + kBlockK - 1) / kBlockK;
   const size_t smem = Layout<D>::kTileBytes + sizeof(uint32_t) * all_tiles;
-  if (smem > (size_t)max_dynamic_smem<D, T, kExactQ>()) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)max_dynamic_smem<D>()) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kBlockRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
   const int positions = kBlockRows / heads_per_block;
   const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
-  flash_fwd<D, T, kExactQ><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, out, lse, h, hk,
-                                                             tq, tk, causal, scale, heads_per_block);
+  flash_fwd<D><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, out, lse, h, hk, tq, tk, causal, scale,
+                                                 heads_per_block);
   return (int)cudaGetLastError();
 }
 
-// scale is a power of two (a bf16 q times it is exact in TF32)
-bool power_of_two(float scale) {
-  int e = 0;
-  return scale > 0.f && frexpf(scale, &e) == 0.5f;
-}
-
-template <int D, typename T>
-int launch_d(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask, T* out,
-             float* lse, int b, int h, int hk, int tq, int tk, int causal, float scale,
-             cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {
-    if (power_of_two(scale))
-      return launch<D, T, true>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
-  }
-  return launch<D, T, false>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
-}
-
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, const float* slopes, const uint8_t* mask, T* out,
-             float* lse, int b, int h, int hk, int tq, int tk, int d, int causal, float scale,
-             void* stream) {
+int dispatch(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask, float* out,
+             float* lse, int b, int h, int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return launch_d<16>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+      return launch<16>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     case 32:
-      return launch_d<32>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+      return launch<32>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     case 64:
-      return launch_d<64>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+      return launch<64>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     case 128:
-      return launch_d<128>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+      return launch<128>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -446,11 +416,3 @@ extern "C" int sp_flash_attention_fwd(const float* q, const float* k, const floa
   return dispatch(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
 }
 
-// As above with bf16 q, k, v and out; slopes and lse stay fp32.
-extern "C" int sp_flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                           const __nv_bfloat16* v, const float* slopes,
-                                           const uint8_t* mask, __nv_bfloat16* out, float* lse, int b,
-                                           int h, int hk, int tq, int tk, int d, int causal,
-                                           float scale, void* stream) {
-  return dispatch(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
-}

@@ -14,15 +14,11 @@
 // a3 (g+8, t4+4); B (8x8) b0 (k t4, n g), b1 (k t4+4, n g); C (16x8)
 // c0 (g, 2t4), c1 (g, 2t4+1), c2 (g+8, 2t4), c3 (g+8, 2t4+1).
 //
-// bf16 operands: the forward kernel loads bf16 q, k and v, converts them to
-// fp32 as they land in shared memory and computes in fp32, as the Pallas
-// kernel upcasts its blocks (the bf16 backward is flash_attention_bwd_bf16.cu,
-// on bf16 `wgmma`). A bf16 value (8 significant bits) is exact in TF32
-// (11), so its lo part is zero and the products with it are left out
-// (`mma_split`'s flags); so is q*scale's when scale is a power of two.
+// These are the fp32 kernels' helpers; the bf16 kernels are
+// flash_attention_fwd_bf16.cu and flash_attention_bwd_bf16.cu, on bf16
+// `wgmma` (wgmma.cuh).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,14 +48,12 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t*
 }
 
 // c += a.b in split TF32: the three products of this k-step start from zero,
-// the small ones first, and join c by rounded fp32 adds. kALo (kBLo) false:
-// a's (b's) lo part is zero, and its product is left out.
-template <bool kALo = true, bool kBLo = true>
+// the small ones first, and join c by rounded fp32 adds.
 __device__ __forceinline__ void mma_split(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
                                           const uint32_t* b_hi, const uint32_t* b_lo) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  if (kALo) mma(t, a_lo, b_hi);
-  if (kBLo) mma(t, a_hi, b_lo);
+  mma(t, a_lo, b_hi);
+  mma(t, a_hi, b_lo);
   mma(t, a_hi, b_hi);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += t[e];
@@ -75,26 +69,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const float* gmem, bool i
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
-// 4 elements from global to shared memory as fp32; zeros when !in. fp32
-// goes by cp.async; bf16 is loaded (8 bytes), widened and stored.
+// 4 fp32 elements from global to shared memory by cp.async; zeros when !in
 __device__ __forceinline__ void load4(float* smem, const float* gmem, bool in) { cp_async16(smem, gmem, in); }
 
-__device__ __forceinline__ void load4(float* smem, const __nv_bfloat16* gmem, bool in) {
-  uint2 raw = make_uint2(0u, 0u);
-  if (in) raw = *reinterpret_cast<const uint2*>(gmem);
-  *reinterpret_cast<float4*>(smem) = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                                                 __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// two adjacent elements (an even index), rounded to nearest even for bf16
+// two adjacent elements (an even index)
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // all but the newest group have landed

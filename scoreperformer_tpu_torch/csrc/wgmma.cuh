@@ -1,5 +1,8 @@
 // Hopper warpgroup MMA (`wgmma`) on bf16 tiles in shared memory, filled by
-// TMA, for the bf16 flash-attention backward (flash_attention_bwd_bf16.cu).
+// TMA, for the bf16 flash-attention forward (flash_attention_fwd_bf16.cu) and
+// backward (flash_attention_bwd_bf16.cu), and the pieces both share: the
+// tensor maps, the key mask's words and the JAX wrapper's keys for a query
+// row with no valid key.
 //
 // A tile is 64 rows of d bf16 values, swizzled as `wgmma` reads it: rows of
 // 32 bytes (d = 16), 64 (d = 32) or 128 (d = 64), each 16-byte chunk XORed
@@ -18,7 +21,10 @@
 // so accumulator elements 8kk + 2r and +1 are A register r of step kk.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace wg {
@@ -106,6 +112,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "@!p bra WAIT;\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// the tensor map's descriptor into the TMA unit's cache ahead of its first copy
+__device__ __forceinline__ void prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // the tile at (row, slab) of `map` into shared memory at `dst`, completing
@@ -227,6 +238,118 @@ __device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][3
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
+}
+
+
+// ---- shared by the bf16 flash kernels ----
+
+// Keys the JAX wrapper averages v over for a query row with no valid key,
+// the keys it pads past t included: every key of its key blocks of
+// bk = max(128, min(256, t)), or with `causal` those up to the end of the
+// row's query block of bq = max(8, min(256, t_q)) rows
+// (ops/flash_attention.py::jax_masked_row_keys).
+__device__ __forceinline__ int masked_row_keys(int qi, int tq, int tk, int causal) {
+  const int bk = max(128, min(256, tk));
+  const int n_kb = (tk + bk - 1) / bk;
+  if (!causal) return n_kb * bk;
+  const int bq = max(8, min(256, tq));
+  const int q_end = (qi / bq + 1) * bq;
+  return min(n_kb, (q_end + bk - 1) / bk) * bk;
+}
+
+// Keys (up to t) that the causal JAX kernels visit for a query row with no
+// valid key.
+__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
+  return min(tk, masked_row_keys(qi, tq, tk, 1));
+}
+
+// keys [0, limit) can have P != 0 for query row qi (0 past t)
+__device__ __forceinline__ int key_limit(int qi, int tq, int tk, int causal) {
+  return qi >= tq ? 0 : causal ? jax_masked_row_keys(qi, tq, tk) : tk;
+}
+
+// The element's first valid key (INT_MAX if none), found by every warp over
+// its share of 32-key words, four words' bytes in flight at once; `bits`, if
+// given, receives the words. Ends with a block barrier.
+__device__ __forceinline__ int first_valid_key(const uint8_t* mp, int tk, uint32_t* bits, int* warp_first) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  int first = INT_MAX;
+  for (int w0 = warp; w0 * 32 < tk; w0 += 4 * warps) {
+    uint8_t m[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = (w0 + u * warps) * 32 + lane;
+      m[u] = j < tk ? mp[j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int w = w0 + u * warps;
+      const uint32_t word = __ballot_sync(0xffffffffu, m[u] != 0);
+      if (w * 32 >= tk) break;
+      if (bits != nullptr && lane == 0) bits[w] = word;
+      if (word != 0) first = min(first, w * 32 + __ffs(word) - 1);
+    }
+  }
+  if (lane == 0) warp_first[warp] = first;
+  __syncthreads();
+  int f = warp_first[0];
+  for (int w = 1; w < warps; ++w) f = min(f, warp_first[w]);
+  return f;
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda by the runtime (the library
+// links only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// `map` over a (slabs, rows, D) bf16 tensor at `ptr`, in boxes of box_rows
+// rows of box_slabs slabs and 64 columns at most, swizzled as Tile<D>
+template <int D>
+bool tile_map(CUtensorMap* map, const __nv_bfloat16* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = Tile<D>::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : Tile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Grants `kernel` the device's dynamic shared memory and the largest
+// shared-memory carveout, once; returns the bytes granted.
+template <typename Kernel>
+int grant_smem(Kernel kernel) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  return limit;
 }
 
 }  // namespace wg

@@ -208,20 +208,29 @@ class MMDTupleTransformer(TupleTransformerModule):
         idx = segments.long().clamp(0, S - 1)[..., None].expand(-1, -1, latents.shape[-1])
         return torch.gather(latents, 1, idx)
 
-    def _forward_latents(self, out, mask3, mode, head, latent_dropout, segments=None, generator=None):
+    def _forward_latents(self, out, mask3, mode, head, latent_dropout, segments=None, generator=None,
+                         latents=None):
         """(latents, latents_mask, embeddings, drop_mask) of one level
-        (mmd_transformer.py:304-386); the drop mask is (b, t, 1)."""
+        (mmd_transformer.py:304-386); the drop mask is (b, t, 1). Given
+        `latents`, the level takes them in place of the encoded ones: every
+        latent counts at the mean level, a nonzero one at the others."""
         b, t = out.shape[:2]
-        if mode == AggregateModes.MEAN:
-            agg = out.sum(dim=1, keepdim=True) / mask3.sum(dim=1, keepdim=True)
-            latents_mask = torch.ones(b, 1, dtype=torch.bool, device=out.device)
-        elif mode in SEGMENT_MODES:
-            agg = self._aggregate(out, segments)
-            latents_mask = (agg != 0.0).any(dim=-1)
+        if latents is not None:
+            if mode == AggregateModes.MEAN:
+                latents_mask = torch.ones(b, latents.shape[1], dtype=torch.bool, device=out.device)
+            else:
+                latents_mask = (latents != 0.0).any(dim=-1)
         else:
-            agg = out
-            latents_mask = mask3[..., 0]
-        latents = head(agg) * latents_mask[..., None]
+            if mode == AggregateModes.MEAN:
+                agg = out.sum(dim=1, keepdim=True) / mask3.sum(dim=1, keepdim=True)
+                latents_mask = torch.ones(b, 1, dtype=torch.bool, device=out.device)
+            elif mode in SEGMENT_MODES:
+                agg = self._aggregate(out, segments)
+                latents_mask = (agg != 0.0).any(dim=-1)
+            else:
+                agg = out
+                latents_mask = mask3[..., 0]
+            latents = head(agg) * latents_mask[..., None]
         if mode != AggregateModes.MEAN and self.training and latent_dropout > 0.0:
             drop = uniform(latents_mask.shape, generator, out.device) < latent_dropout
             drop_mask = (drop & latents_mask)[..., None]
@@ -240,20 +249,25 @@ class MMDTupleTransformer(TupleTransformerModule):
     def forward(self, x, mask=None, x_extra=None, bars=None, beats=None, onsets=None,
                 deadpan_mask=None, compute_loss: bool = False,
                 latent_generator: Optional[torch.Generator] = None,
-                sampler: Optional[MMDSampler] = None, moe_stats: Optional[list] = None) -> MMDTupleTransformerOutput:
+                sampler: Optional[MMDSampler] = None, moe_stats: Optional[list] = None,
+                latents=None, mask_bars: bool = False) -> MMDTupleTransformerOutput:
         """With `compute_loss`, `sampler` gives each level's MMD samples (by
         default drawn from torch's global generator); latent dropout in
         `module.train()` mode draws from `latent_generator`; MoE layers append
-        their (aux loss, drop rate) to `moe_stats`."""
+        their (aux loss, drop rate) to `moe_stats`. `latents` (one tensor for
+        a single level, else one a level) replace the encoded latents;
+        `mask_bars` hides the bar ids from the transformer, as the
+        isolated-bar level always does."""
         cfg = self.config
         if cfg.deadpan_zero_latent and compute_loss and deadpan_mask is None:
             raise ValueError("deadpan_zero_latent needs deadpan_mask")
         x_input, attn_mask = x, None
-        if self.modes[0] == AggregateModes.ISOLATED_BAR_MEAN:
-            # bar ids are hidden, and attention is block-diagonal per non-pad bar
+        if self.modes[0] == AggregateModes.ISOLATED_BAR_MEAN or mask_bars:
             bar_col = x[..., 0]
             x_input = x.clone()
             x_input[..., 0] = torch.where(bar_col > self.eos_token_id, self.mask_token_id, bar_col)
+        if self.modes[0] == AggregateModes.ISOLATED_BAR_MEAN:
+            # bar ids are hidden, and attention is block-diagonal per non-pad bar
             valid = bars > self.pad_token_id
             attn_mask = (bars[:, :, None] == bars[:, None, :]) & valid[:, :, None] & valid[:, None, :]
             attn_mask = attn_mask[:, None]
@@ -274,10 +288,11 @@ class MMDTupleTransformer(TupleTransformerModule):
         all_latents, all_embeddings, drop_masks = [], [], []
         hidden = out
         prior_drop_mask = None
-        for mode, head, latent_dropout in zip(self.modes, self.vae_head.values(), self.dropouts):
+        for i, (mode, head, latent_dropout) in enumerate(zip(self.modes, self.vae_head.values(), self.dropouts)):
             latents_i, latents_mask_i, embeddings_i, drop_mask_i = self._forward_latents(
                 hidden, mask3, mode, head, latent_dropout,
                 segments=self._segments(mode, bars, beats, onsets), generator=latent_generator,
+                latents=None if latents is None else latents if self.single else latents[i],
             )
             if self.training and cfg.inclusive_latent_dropout and not self.single:
                 # lower levels drop wherever a parent level dropped

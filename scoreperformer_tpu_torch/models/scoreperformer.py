@@ -36,7 +36,7 @@ from .mmd import (
     mmd_sampler as mmd_sampler_for,
 )
 from .moe import moe_summary
-from .tuple_transformer import EmbeddingModes, TupleTransformerConfig, TupleTransformerModule
+from .tuple_transformer import EmbeddingModes, TupleTransformerConfig, TupleTransformerModule, TupleTransformerOutput
 
 IGNORE_INDEX = -100
 
@@ -106,9 +106,14 @@ def shift_for_lm(mode, perf, labels, masked_perf, context, style, mask, context_
 
 @dataclass
 class ScorePerformerOutput:
+    """`logits` and `reg_values` are also `perf_decoder`'s (the JAX output
+    keeps them there only); `score_encoder` holds the score encoder's hidden
+    state."""
     logits: Dict[str, torch.Tensor]
     loss: Optional[torch.Tensor] = None
     losses: Dict[str, torch.Tensor] = field(default_factory=dict)
+    perf_decoder: Optional[TupleTransformerOutput] = None
+    score_encoder: Optional[TupleTransformerOutput] = None
     perf_encoder: Optional[MMDTupleTransformerOutput] = None
     classifiers: Optional[MultiHeadEmbeddingClassifierOutput] = None
     reg_values: Optional[Dict[str, torch.Tensor]] = None
@@ -190,9 +195,12 @@ class ScorePerformerModel(nn.Module):
                          bars=None, beats=None, onsets=None, deadpan_mask=None,
                          compute_loss: bool = False, latent_generator=None,
                          mmd_sampler: Optional[MMDSampler] = None, moe_stats: Optional[list] = None):
-        score_emb = perf_emb = perf_enc_out = None
+        """(score_emb, perf_emb, score_enc_out, perf_enc_out), as the JAX
+        model's (model.py:244-278)."""
+        score_emb = perf_emb = score_enc_out = perf_enc_out = None
         if self.score_encoder is not None:
-            score_emb = self.score_encoder(score, mask=score_mask, moe_stats=moe_stats)
+            score_enc_out = self.score_encoder(score, mask=score_mask, moe_stats=moe_stats, return_embeddings=True)
+            score_emb = score_enc_out.hidden_state
         if self.perf_encoder is not None:
             perf_enc_out = self.perf_encoder(
                 perf, mask=perf_mask, bars=bars, beats=beats, onsets=onsets, deadpan_mask=deadpan_mask,
@@ -200,7 +208,7 @@ class ScorePerformerModel(nn.Module):
                 moe_stats=moe_stats,
             )
             perf_emb = perf_enc_out.embeddings
-        return score_emb, perf_emb, perf_enc_out
+        return score_emb, perf_emb, score_enc_out, perf_enc_out
 
     def forward(self, perf, perf_mask=None, score=None, score_mask=None, noisy_perf=None,
                 noisy_perf_mask=None, masked_perf=None, labels=None, bars=None, beats=None,
@@ -225,7 +233,7 @@ class ScorePerformerModel(nn.Module):
                                           perf.device)
         context_is_cat = self.decoder.config.context_emb_mode == EmbeddingModes.CONCAT
         with dropout_generator(generators.get("dropout")):
-            score_emb, perf_emb, perf_enc_out = self.forward_encoders(
+            score_emb, perf_emb, score_enc_out, perf_enc_out = self.forward_encoders(
                 perf=noisy_perf if noisy_perf is not None else perf,
                 perf_mask=noisy_perf_mask if noisy_perf_mask is not None else perf_mask,
                 score=score, score_mask=score_mask, bars=bars, beats=beats, onsets=onsets,
@@ -269,16 +277,19 @@ class ScorePerformerModel(nn.Module):
         if clf_out is not None and clf_out.loss is not None:
             loss = clf_out.loss if loss is None else loss + clf_out.loss
             losses.update(clf_out.losses)
-        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_encoder=perf_enc_out,
-                                    classifiers=clf_out, reg_values=reg_values, **moe_summary(moe_stats))
+        dec_out = TupleTransformerOutput(hidden_state=hidden, logits=logits, reg_values=reg_values)
+        return ScorePerformerOutput(logits=logits, loss=loss, losses=losses, perf_decoder=dec_out,
+                                    score_encoder=score_enc_out, perf_encoder=perf_enc_out, classifiers=clf_out,
+                                    reg_values=reg_values, **moe_summary(moe_stats))
 
     def encode_embeddings(self, perf, perf_mask=None, score=None, score_mask=None,
                           bars=None, beats=None, onsets=None):
         """Encoder pass only: (score_emb, style_emb, perf_encoder output)."""
-        return self.forward_encoders(
+        score_emb, style_emb, _, perf_enc_out = self.forward_encoders(
             perf=perf, perf_mask=perf_mask, score=score, score_mask=score_mask,
             bars=bars, beats=beats, onsets=onsets,
         )
+        return score_emb, style_emb, perf_enc_out
 
     def decode_step(self, seq_tokens, masked_tokens=None, style_embeddings=None, context=None,
                     caches=None, cache_index=None, mask=None):

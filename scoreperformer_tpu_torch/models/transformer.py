@@ -188,12 +188,15 @@ class TransformerStack(nn.Module):
         caches: Optional[List[Any]] = None,
         cache_index: Optional[torch.Tensor] = None,
         moe_stats: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
-    ) -> torch.Tensor:
-        """With `caches`, each self-attention layer updates its cache in place.
-        With `moe_stats` (a list), each MoE layer appends its (aux loss, drop
-        rate) to it. MoE routing takes `mask` as its padding mask only
-        without caches and when it covers x's tokens (with a cache, `mask`
-        covers the cache's keys): otherwise every token routes."""
+        return_hiddens: bool = False,
+    ):
+        """The output, or with `return_hiddens` (output, hiddens): the input
+        of every self-attention layer and the output, as the JAX stack's
+        hiddens. With `caches`, each self-attention layer updates its cache in
+        place. With `moe_stats` (a list), each MoE layer appends its (aux
+        loss, drop rate) to it. MoE routing takes `mask` as its padding mask
+        only without caches and when it covers x's tokens (with a cache,
+        `mask` covers the cache's keys): otherwise every token routes."""
         cfg = self.config
         if cfg.cross_attend != (context is not None):
             raise ValueError("context must be passed iff cross_attend is set")
@@ -207,7 +210,10 @@ class TransformerStack(nn.Module):
                 style_embeddings = (scatter_seq if style_embeddings.ndim == 3 else copy_to_group)(style_embeddings,
                                                                                                  MODEL_AXIS)
 
+        hiddens = []
         for ind, (layer_type, (norms, block)) in enumerate(zip(self.layer_types, self.layers)):
+            if layer_type == "a" and return_hiddens:
+                hiddens.append(x)
             residual = x
             if cfg.pre_norm:
                 x = self._apply_norm(norms[0], x, style_embeddings, sp)
@@ -233,4 +239,9 @@ class TransformerStack(nn.Module):
 
         if self.final_norm is not None:
             x = self._apply_norm(self.final_norm, x, style_embeddings, sp)
-        return gather_seq(x, MODEL_AXIS) if sp else x
+        if not return_hiddens:
+            return gather_seq(x, MODEL_AXIS) if sp else x
+        hiddens.append(x)
+        if sp:
+            hiddens = [gather_seq(hid, MODEL_AXIS) for hid in hiddens]
+        return hiddens[-1], hiddens

@@ -36,6 +36,17 @@ class EmbeddingModes:
 
 
 @dataclass
+class TupleTransformerOutput:
+    """What `TupleTransformerModule.forward` returns when asked for more than
+    the hidden state (the JAX module's output)."""
+    hidden_state: torch.Tensor
+    logits: Optional[Dict[str, torch.Tensor]] = None
+    reg_values: Optional[Dict[str, torch.Tensor]] = None
+    caches: Optional[List[Any]] = None
+    hiddens: Optional[List[torch.Tensor]] = None
+
+
+@dataclass
 class TupleTransformerConfig(ModuleConfig):
     dim: int = 512
     max_seq_len: int = 1024
@@ -131,9 +142,17 @@ class TupleTransformerModule(nn.Module):
         caches: Optional[List[Any]] = None,
         cache_index: Optional[torch.Tensor] = None,
         moe_stats: Optional[list] = None,
-    ) -> torch.Tensor:
+        return_embeddings: Optional[bool] = None,
+        return_hiddens: bool = False,
+        logits_keys: Optional[List[str]] = None,
+    ) -> Union[torch.Tensor, TupleTransformerOutput]:
         """The hidden states; `apply_lm_head` turns them into logits. MoE
-        layers append their (aux loss, drop rate) to `moe_stats`, a list."""
+        layers append their (aux loss, drop rate) to `moe_stats`, a list.
+        Given any of `return_embeddings`, `return_hiddens` or `logits_keys`,
+        a `TupleTransformerOutput`, as the JAX module returns: the hidden
+        state; unless `return_embeddings`, the heads' logits and regression
+        values (of `logits_keys` only, when given); the caches, updated in
+        place; with `return_hiddens`, the stack's hiddens."""
         cfg = self.config
         if x_extra is not None and not isinstance(x_extra, (list, tuple)):
             x_extra = [x_extra]
@@ -159,10 +178,21 @@ class TupleTransformerModule(nn.Module):
         if self.project_emb is not None:
             h = self.project_emb(h)
 
-        return self.transformer(
+        out = self.transformer(
             h, mask=mask, context=context, context_mask=context_mask, attn_mask=attn_mask,
             style_embeddings=style_embeddings, caches=caches, cache_index=cache_index, moe_stats=moe_stats,
+            return_hiddens=return_hiddens,
         )
+        if return_embeddings is None and not return_hiddens and logits_keys is None:
+            return out
+        hidden, hiddens = out if return_hiddens else (out, None)
+        logits = reg_values = None
+        if not return_embeddings:
+            if self.lm_head is not None:
+                logits = self.apply_lm_head(hidden, keys=logits_keys)
+            reg_values = self.apply_regression_head(hidden, keys=logits_keys)
+        return TupleTransformerOutput(hidden_state=hidden, logits=logits, reg_values=reg_values, caches=caches,
+                                      hiddens=hiddens)
 
     def apply_lm_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
         """Per-stream logits, keyed in the order of `num_tokens` (of `keys`

@@ -33,10 +33,8 @@ _FLASH_BWD_ARGS = [_P] * 10 + [_I] * 7 + [_F, _P]
 # C signatures of each library's entry points: {library: {symbol: argtypes}}
 ENTRY_POINTS = {
     "kv_cache": {"sp_write_kv": [_P, _P, _P, _P, _I, _P, _I64, _I64, _I64, _I, _I, _P]},
-    "flash_attention_fwd": {
-        "sp_flash_attention_fwd": _FLASH_FWD_ARGS,
-        "sp_flash_attention_fwd_bf16": _FLASH_FWD_ARGS,
-    },
+    "flash_attention_fwd": {"sp_flash_attention_fwd": _FLASH_FWD_ARGS},
+    "flash_attention_fwd_bf16": {"sp_flash_attention_fwd_bf16": _FLASH_FWD_ARGS},
     "flash_attention_bwd": {
         "sp_flash_attention_bwd_dkv": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq": _FLASH_BWD_ARGS,

@@ -1,18 +1,19 @@
 """Flash attention with ALiBi generated inside the kernels, forward and backward.
 
 Counterpart of scoreperformer_tpu/ops/flash_attention.py. On CUDA tensors
-`flash_attention_alibi` launches the hand-written forward kernel of
-`csrc/flash_attention_fwd.cu` and, for the gradient, the dK/dV and dQ/dslope
-kernels of `csrc/flash_attention_bwd.cu` (fp32 operands) or
-`csrc/flash_attention_bwd_bf16.cu` (bf16 operands), inside one
-`torch.autograd.Function`; none of them materializes the (h, t, t) bias or
-score tensors. On CPU tensors the same Function runs `flash_attention_plain`
+`flash_attention_alibi` launches the hand-written forward kernel and, for the
+gradient, the dK/dV and dQ/dslope kernels, inside one
+`torch.autograd.Function`: those of `csrc/flash_attention_fwd.cu` and
+`csrc/flash_attention_bwd.cu` for fp32 operands, of
+`csrc/flash_attention_fwd_bf16.cu` and `csrc/flash_attention_bwd_bf16.cu`
+for bf16 ones; none of them materializes the (h, t, t) bias or score
+tensors. On CPU tensors the same Function runs `flash_attention_plain`
 and `flash_attention_bwd_plain`, the same functions in plain PyTorch. All keep
 the TPU kernels' numerics: q is scaled before the dot, the bias is
 -slope*|i-j|, masked scores are -1e30, the softmax sum is clamped at 1e-30, P
 is recomputed from the saved logsumexp, all in fp32 (the fp32 kernels take
 every product on the tensor cores in split TF32, three TF32 products each,
-within about 2^-21 of fp32; the bf16 backward takes S and dP as single bf16
+within about 2^-21 of fp32; the bf16 kernels take S and dP as single bf16
 `wgmma` products, exact in fp32, and P and dS in three bf16 terms each).
 
 q, k, v and the output gradient may be bf16 (a model held in bf16 gives
@@ -237,14 +238,10 @@ def _count(fn, dtype):
         fn.launches += 1
 
 
-def _symbol(symbol, dtype):
-    return symbol + "_bf16" if dtype == torch.bfloat16 else symbol
-
-
-def _bwd_library(dtype):
-    """The backward kernels' library: split-TF32 `mma.sync` for fp32
-    operands, bf16 `wgmma` for bf16 ones."""
-    return "flash_attention_bwd_bf16" if dtype == torch.bfloat16 else "flash_attention_bwd"
+def _for_dtype(name, dtype):
+    """The library or entry point `name` of the fp32 kernels (split-TF32
+    `mma.sync`), or its `_bf16` sibling (bf16 `wgmma`) for bf16 operands."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
 
 
 def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
@@ -264,7 +261,8 @@ def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     scale = scale if scale is not None else d**-0.5
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    _raise_on("flash_attention", kernel("flash_attention_fwd", _symbol("sp_flash_attention_fwd", q.dtype))(
+    launch = kernel(_for_dtype("flash_attention_fwd", q.dtype), _for_dtype("sp_flash_attention_fwd", q.dtype))
+    _raise_on("flash_attention", launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, hk, tq, tk, d, int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -286,7 +284,7 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
     scale = scale if scale is not None else d**-0.5
-    _raise_on(name, kernel(_bwd_library(q.dtype), _symbol(symbol, q.dtype))(
+    _raise_on(name, kernel(_for_dtype("flash_attention_bwd", q.dtype), _for_dtype(symbol, q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, h, hk, tq, tk, d, int(causal), float(scale),

@@ -33,9 +33,13 @@ def top_a(logits: torch.Tensor, min_p_pow: float = 2.0, min_p_ratio: float = 0.0
     return logits.masked_fill(probs < limit, NEG_INF)
 
 
-def top_k(logits: torch.Tensor, thres: float = 0.9, k: Optional[int] = None) -> torch.Tensor:
+def top_k(logits: torch.Tensor, thres: float = 0.9, k: Optional[int] = None, method: Optional[str] = None,
+          recall: float = 1.0) -> torch.Tensor:
     """Keep every logit at or above the k-th largest (ties included), with
-    k = ceil((1 - thres) * V) unless given."""
+    k = ceil((1 - thres) * V) unless given. `method` and `recall` choose how
+    the JAX filter finds the k-th value on a TPU (sort, `lax.top_k`, or
+    `approx_max_k` at that recall target); every one of them keeps what the
+    exact filter keeps here, which meets any recall target."""
     if k is None:
         k = math.ceil((1 - thres) * logits.shape[-1])
     k = max(1, min(int(k), logits.shape[-1]))

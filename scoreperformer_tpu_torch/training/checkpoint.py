@@ -84,15 +84,16 @@ def save_checkpoint(
     optimizer=None,
     trainer_state: Optional[Dict] = None,
     model_config: Optional[Dict] = None,
+    extra_meta: Optional[Dict] = None,
     use_async: bool = False,
     sharded: bool = False,
     mesh=None,
     specs: Optional[Dict] = None,
 ) -> str:
     """Write a checkpoint directory, replacing one that exists; returns its
-    path. On a mesh of several ranks every rank calls it: the gathers are
-    collective, and rank 0 writes the directory (every rank its own shard
-    file when `sharded`)."""
+    path. `extra_meta`'s keys join the meta file's. On a mesh of several
+    ranks every rank calls it: the gathers are collective, and rank 0 writes
+    the directory (every rank its own shard file when `sharded`)."""
     directory = os.path.abspath(directory)
     wait_for_async_saves()
     multi = mesh is not None and mesh.world > 1
@@ -105,6 +106,8 @@ def save_checkpoint(
         meta["trainer_state"] = trainer_state
     if model_config is not None:
         meta["model_config"] = model_config
+    if extra_meta:
+        meta.update(extra_meta)
     jobs: List[Callable[[], None]] = []
     if sharded:
         rank = mesh.rank if mesh is not None else 0

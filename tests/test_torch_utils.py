@@ -2,13 +2,13 @@
 `TupleTokenEmbeddingHead` and `fixed_positional_embedding`, against the JAX
 package's, on the CPU.
 
-The copies are the JAX files verbatim under a one-line origin header;
+The copies are the JAX files verbatim under a one-line origin header
+(tests/test_torch_copies.py holds every copy of the port to its source);
 `cut_midi` and the pianoroll give the JAX functions' results on a synthetic
 score, both plots draw (matplotlib's Agg backend), and `midi_to_audio`
 raises the same ImportError without note_seq. The two modules equal flax's
 to 1e-5, the head's input gradient too.
 """
-from pathlib import Path
 
 import matplotlib
 import numpy as np
@@ -30,15 +30,7 @@ from scoreperformer_tpu_torch.models.layers import fixed_positional_embedding
 from scoreperformer_tpu_torch.tokenizers import SPMupleWindow, TokenizerConfig
 from scoreperformer_tpu_torch.utils import playback, plots
 
-ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(atol=1e-5, rtol=1e-5)
-
-
-@pytest.mark.parametrize("name", ["plots", "playback"])
-def test_the_copies_are_verbatim(name):
-    port = (ROOT / "scoreperformer_tpu_torch" / "utils" / f"{name}.py").read_text().splitlines(keepends=True)
-    assert port[0] == f"# Verbatim copy of scoreperformer_tpu/utils/{name}.py; the port imports nothing of the JAX package.\n"
-    assert "".join(port[1:]) == (ROOT / "scoreperformer_tpu" / "utils" / f"{name}.py").read_text()
 
 
 @pytest.fixture(scope="module")

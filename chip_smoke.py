@@ -16,11 +16,11 @@ checkout. It
    the same function (the yardstick; the port never calls it) by CUDA-graph
    replay, with the eager time beside (the two backward kernels also as a
    pair against one SDPA backward; the row writes also beside `copy_` and
-   `index_copy_`); checks that the fp32 flash forward and the fp32
-   backward hold TF32 tensor-core instructions in their SASS
-   (`cuobjdump -sass`), and the bf16 forward and backward bf16 warpgroup
-   MMAs (HGMMA) and no TF32 ones, in an instance at each head dim the
-   wrapper takes
+   `index_copy_`); checks that the fp32 flash forward holds TF32
+   tensor-core instructions (HMMA) in its SASS (`cuobjdump -sass`), the
+   fp32 backward TF32 warpgroup MMAs (HGMMA) and no TF32 HMMA, and the
+   bf16 forward and backward bf16 HGMMA and no TF32 HMMA, in an instance
+   at each head dim the wrapper takes
    (16, 32, 64, 128), and that two calls of `prefix_attend` and of each
    flash kernel give the same bits; holds the three flash kernels at head
    dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
@@ -171,7 +171,8 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 BF16_FWD_PASSES = 4
 BF16_BWD_PASSES = {"dkv": 8, "dq": 5}
 # the words of a SASS line of each tensor-core instruction the kernels take
-TF32_HMMA = ("HMMA", "TF32")  # split-TF32 mma.sync
+TF32_HMMA = ("HMMA", "TF32")  # split-TF32 mma.sync (the fp32 forward)
+TF32_HGMMA = ("HGMMA", "TF32")  # split-TF32 wgmma (the fp32 backward)
 BF16_HGMMA = ("HGMMA", "BF16")  # bf16 wgmma
 L2_BYTES = 50e6  # H100 L2: timed inputs cycle through copies that exceed it
 CHUNK = 16  # the chunked decode's chunk, as the render and the server use it
@@ -1872,10 +1873,11 @@ def check_decode_profile(prof, what, expected):
 
 def tensor_core_counts(path, kernels, head_dims=(), instruction=TF32_HMMA, forbidden=None):
     """The tensor-core instructions of one kind (`instruction`, the words of
-    its SASS lines: TF32 HMMA, or BF16 HGMMA for the bf16 backward) in the
-    SASS of the library at `path`, by kernel (a substring of its functions'
-    names); fails when a function of one of them has none, or has any
-    `forbidden` instruction (no TF32 HMMA in the bf16 backward), or when a
+    its SASS lines: TF32 HMMA, TF32 HGMMA for the fp32 backward, BF16 HGMMA
+    for the bf16 kernels) in the SASS of the library at `path`, by kernel (a
+    substring of its functions' names); fails when a function of one of
+    them has none, or has any `forbidden` instruction (no TF32 HMMA in the
+    `wgmma` kernels), or when a
     kernel has no instance at one of `head_dims` (the first template
     argument of its functions' mangled names, `ILi<d>E`). Returns the counts
     by kernel and by kernel and head dim."""
@@ -3730,19 +3732,20 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line or "C7518" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
     # the fp32 forward's library holds only the fp32 flash_fwd instances
-    (hmma, hmma_dims), (hmma_bwd, hmma_bwd_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
+    (hmma, hmma_dims), (tf32_gmma, tf32_gmma_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
         tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS),
-        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS),
+        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS,
+                           instruction=TF32_HGMMA, forbidden=TF32_HMMA),
         tensor_core_counts(libs["flash_attention_fwd_bf16"], ("flash_fwd_bf16",), fa.KERNEL_HEAD_DIMS,
                            instruction=BF16_HGMMA, forbidden=TF32_HMMA),
         tensor_core_counts(libs["flash_attention_bwd_bf16"], ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"),
                            fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
-    hmma.update(hmma_bwd)
-    hmma_dims.update(hmma_bwd_dims)
     hgmma.update(hgmma_bwd)
     hgmma_dims.update(hgmma_bwd_dims)
-    print(f"TF32 tensor-core instructions (HMMA) in the SASS, by kernel: {json.dumps(hmma)}; "
+    print(f"TF32 tensor-core instructions (HMMA) in the fp32 forward's SASS, by kernel: {json.dumps(hmma)}; "
           f"by kernel and head dim: {json.dumps(hmma_dims)}")
+    print(f"TF32 warpgroup instructions (HGMMA) in the fp32 backward's SASS, and no TF32 HMMA, by kernel: "
+          f"{json.dumps(tf32_gmma)}; by kernel and head dim: {json.dumps(tf32_gmma_dims)}")
     print(f"bf16 warpgroup instructions (HGMMA) in the bf16 forward's and backward's SASS, and no TF32 HMMA, "
           f"by kernel: {json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
     print(f"build and SASS checks: {time.perf_counter() - t0:.1f} s")
@@ -4204,8 +4207,8 @@ def main() -> int:
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[name],
-         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma[kernel],
-         "tf32_hmma_by_head_dim": hmma_dims[kernel]}
+         **{k: rec[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hgmma_in_sass": tf32_gmma[kernel],
+         "tf32_hgmma_by_head_dim": tf32_gmma_dims[kernel]}
         for name, kernel, replaces, rec in (
             ("flash_attention_bwd_dkv", "flash_bwd_dkv", "scoreperformer_tpu/ops/flash_attention.py:135", bwd_main[0]),
             ("flash_attention_bwd_dq", "flash_bwd_dq", "scoreperformer_tpu/ops/flash_attention.py:192", bwd_main[1]),

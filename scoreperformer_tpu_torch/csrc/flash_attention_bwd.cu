@@ -1,1077 +1,775 @@
 // Flash-attention backward with ALiBi generated in the kernel, fp32 in and
-// out, every product on the tensor cores in split TF32: dK/dV and dQ/dslope,
-// P recomputed from the forward's logsumexp. The bf16 instances are
-// csrc/flash_attention_bwd_bf16.cu's (bf16 `wgmma`).
+// out, on Hopper's warpgroup MMA (`wgmma`) in split TF32: dK/dV and
+// dQ/dslope, P recomputed from the forward's logsumexp, every sum
+// fp32-accurate. The bf16 instances are csrc/flash_attention_bwd_bf16.cu's.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
-// and ::_flash_bwd_dq_kernel, the two Pallas kernels that
-// `_flash_attention_bwd` launches inside the `jax.custom_vjp` of
-// `flash_attention_alibi`.
+// (:135) and ::_flash_bwd_dq_kernel (:192), the two Pallas kernels that
+// `_flash_attention_bwd` launches (`pl.pallas_call` at :397 and :423) inside
+// the `jax.custom_vjp` of `flash_attention_alibi`.
 //
 // The math, per (batch, head), with s = (q*scale).k - slope*|i-j| masked to
 // -1e30 and P = exp(s - lse):
 //   dP = dO.V^T,  dS = P * (dP - delta),  delta = rowsum(dO * O) (computed
 //   outside, as the JAX code does);
 //   dV = P^T.dO,  dK = dS^T.(q*scale),  dQ = scale * dS.K,
-//   dslope = sum dS * (-|i-j|).
+//   dslope = sum dS * (-|i-j|), with the part of the keys the JAX wrapper
+//   pads past t (wg::padded_keys_dslope).
 //
-// Bounds on the H100. dK/dV does four d-long products per (query, key) pair
-// and head (S, dP, dV, dK: 8*d operations), dQ/dslope three (S, dP, dQ:
-// 6*d), over a few tens of MB, so both are bound by operations: at the
-// training shapes (b=128, h=4, t=258, d=64, one KV head, padded keys)
-// 0.124 and 0.093 ms at fp32's 67 TFLOP/s. On the TF32 tensor cores (495
-// TFLOP/s) the floor is three products a product, 3 * operations / 495
-// TFLOP/s (`bound_tc_ms` in chip_smoke.py): 0.050 and 0.038 ms there.
+// Numerics: those of the Pallas kernels at "highest". Every product is
+// three TF32 `wgmma` products, hi.hi + hi.lo + lo.hi, with x = hi + lo, hi =
+// tf32(x) and lo = tf32(x - hi) rounded to nearest (tf32_mma.cuh's `split`):
+// S^T, dP^T, dV and dK in dK/dV, S, dP and dQ in dQ/dslope. The tensor cores
+// truncate the fp32 sums they accumulate (a long chain in one accumulator
+// drifts toward zero), so each product's chain starts from zero on a tile of
+// at most 64 of its summed dimension and the tiles join the running sums by
+// rounded fp32 adds: S and dP, whose errors P and dS = P * (dP - delta) turn
+// into the slope gradient's, take one k-step (8 of d, three wgmmas) a tile
+// (split_ss_sum); dV and dK an item's queries, dQ a key tile. Bias, mask,
+// exp, dS and the slope sum stay in fp32 registers. No atomics, and every
+// sum runs in a fixed order: two calls give the same bits.
 //
-// Precision. As in the forward (csrc/tf32_mma.cuh): each operand is split
-// into hi + lo TF32 parts, three products a product, and each k-step's three
-// products start from zero and join the running sums by rounded fp32 adds,
-// since the tensor cores truncate the sums they accumulate (the dK/dV sums
-// run over h * t query rows a key, the slope sums over every pair). The
-// softmax side (bias, mask, exp, dS) stays in fp32 in the accumulator
-// registers.
+// Bound on the H100. dK/dV takes four d-long products a (query, key) pair
+// and head (8*d operations), dQ/dslope three (6*d); in split TF32 each is
+// three tensor-core products, so at 495 TFLOP/s the floor is 3 x operations
+// (chip_smoke.py's `bound_tc_ms`: 0.050 + 0.038 ms at the flagship's
+// padded encoders, 0.26 + 0.20 ms at d = 128, t 1026). The bytes (q, k, v,
+// dO, lse and delta read once, dK, dV, dQ written once) are tens of MB: the
+// operations bound both kernels. Three things stand between them and that
+// floor, and the design answers each:
+// - TF32 wgmma reads shared-memory operands K-major only (bf16's transpose
+//   bit does not exist for TF32), while dV = P^T.dO, dK = dS^T.q and
+//   dQ = dS.K sum over the rows of dO, q and K. Those three are written,
+//   split, in a transposed copy (wg::F32Tile, wg::split_transpose) by the pass
+//   that splits a landed tile anyway, and P^T, dS^T and dS go from the
+//   accumulator straight into register A fragments, a k-step's 8 columns in
+//   the order 0, 2, 4, 6, 1, 3, 5, 7 (wg::acc_a) with the transposed copy's
+//   columns in the same order: P and dS never pass through shared memory
+//   as B.
+// - Split operands double a tile's bytes and the transposed copies double
+//   them again: at d = 128 K's and V's hi and lo alone take 128 KB, so a
+//   dK/dV item there has 16 queries, not 64 (DkvSmem), and dQ streams keys
+//   in tiles of 32 beside one warpgroup's rows (64 keys beside two
+//   warpgroups' rows, sharing each key tile, at d <= 64).
+// - Both operands of S^T, dP^T, S and dP come from shared memory: at N = 64
+//   a TF32 wgmma reads as many bytes as the SM's shared memory delivers in
+//   its tensor time, and at N = 16 or 32 more, so those products are bound
+//   by shared-memory bandwidth, not the tensor cores.
 //
-// Design. Both kernels have one shape: 64 rows of one operand pair, 16 a
-// warp (one m16 tile of `mma.sync.m16n8k8`), kept as split A fragments in
-// shared memory where each lane reads its own 16 bytes at a time; the other
-// pair streams through shared memory in tiles of 32 rows, copied with
-// `cp.async` 16 bytes a lane, double-buffered (the next tile is in flight
-// while this one is computed). The 64 rows are staged the same way, whole
-// rows a copy, and split into fragments from shared memory, so that no lane
-// waits on device memory once an element. When a tile has landed, its warps split
-// it once: hi in place, lo beside it, so no warp repeats the cvt/subtract/cvt
-// of an element it reads (the forward's note: its operand splitting
-// outnumbers its MMAs). Rows are d floats with their 16-byte chunks
-// XOR-swizzled by row % 8, so that both fragment reads of a tile, (row
-// lane/4, column lane%4) and (row 2*(lane%4), column lane/4), hit 32
-// distinct banks without padding; at d = 16, whose rows have 4 chunks,
-// rows are padded to 20 floats instead (`swz`).
-// - dK/dV (grid: 64-key blocks x b x KV heads): the A fragments are the
-//   block's K and V rows. The block's (head, query tile) items are every
-//   query head that reads its KV head (all h with one KV head, so the MQA
-//   head sum stays in the block) times the query tiles of 32; Q*scale, dO,
-//   lse and delta stream. Each warp computes S^T = K.(Q*scale)^T and
-//   dP^T = V.dO^T for its 16 keys, then P^T and dS^T in registers, and
-//   feeds them straight from the accumulator into dV += P^T.dO and
-//   dK += dS^T.(Q*scale): a k-step's 8 queries are taken in the order 0, 2,
-//   4, 6, 1, 3, 5, 7 in both operands, so P and dS never pass through shared
-//   memory. The block has two groups of 4 warps on the same 64 keys and
-//   fragments: group j takes the items of parity j, with tiles and barriers
-//   of its own, and the groups' sums join at the end (group 0's plus group
-//   1's). At the encoders' padded shape only about 320 of the 640 blocks
-//   have a valid key, each with 36 items; as blocks of one group, two an SM,
-//   they fill 1.2 waves, so the second runs nearly empty; two groups halve a
-//   block's items, one 160 KB block an SM (0.51 to 0.41 ms there,
-//   chip_probe_flash_bwd.py on the H100). Head dims 16, 32 and 64; at 128
-//   this layout does not fit, and `flash_bwd_dkv_wide` (below) splits each
-//   item's products between the two groups.
-// - dQ/dslope (grid: 64-row blocks x b, or x b*h): with one KV head the 64
-//   rows are the h heads x 64/h positions of one batch element, as in the
-//   forward, so each K/V tile is read once for all heads; otherwise 64
-//   positions of one head. The A fragments are Q*scale and dO; K and V
-//   stream. S = Q.K^T and dP = dO.V^T, dS in registers, dQ += dS.K from the
-//   accumulator (the same permutation over a k-step's 8 keys). The slope
-//   gradient accumulates per row in registers; the block sums its rows in a
-//   fixed order into one part per head it holds, in a (b, h, grid.x) tensor
-//   that the caller sums. 4 warps and 112 KB a block at d = 64, two
-//   blocks an SM; 229,376 bytes plus the key bits at d = 128, one.
-// No atomics, and every sum runs in a fixed order: two runs give the same
-// bits.
+// Design. Every operand is an F32Tile in shared memory, swizzled as wgmma
+// reads it, copied by TMA from a 3-d tensor map (rows past t land as zeros)
+// onto an mbarrier, then split in place (hi where x was, lo beside, and the
+// transposed hi and lo where a product needs them) by every thread, and made
+// visible to wgmma (fence.proxy.async). Once a tile's S-side products have
+// read its natural hi and lo, thread 0 copies the next tile over them (an
+// mbarrier that every warp arrives on), so the copy runs under the dV/dK or
+// dQ products; the split of the next tile waits for those.
+// - dK/dV (grid: 64-key blocks x b x KV heads; 256 threads): the block's K
+//   and V tiles stay; its (head, query tile) items are every query head that
+//   reads its KV head (all h with one KV head, so the MQA head sum stays in
+//   the block) times the query tiles, and q*scale and dO stream. Warpgroup 0
+//   computes S^T = K.(q*scale)^T, P^T, hands P^T to warpgroup 1 through
+//   shared memory (a named barrier) and takes dV += P^T.dO; warpgroup 1
+//   computes dP^T = V.dO^T, dS^T = P^T * (dP^T - delta) and dK +=
+//   dS^T.(q*scale). With one KV head and too few blocks to give every SM
+//   four, a cluster of 2, 4 or 8 CTAs shares a block's keys and splits its
+//   query heads; the CTAs' sums join in rank order through distributed
+//   shared memory, as in the bf16 kernel.
+// - dQ/dslope (grid: 64-row blocks x b, or x b*h; one or two per CTA, a
+//   warpgroup each): with one KV head the 64 rows are the h heads x 64/h
+//   positions of one batch element, so each K/V tile is read once for all
+//   heads; otherwise 64 positions of one head. q*scale and dO stay; K and V
+//   stream. S = (q*scale).K^T and dP = dO.V^T, dS in registers, dQ += dS.K
+//   from K's transposed copy. The slope gradient accumulates per row in
+//   registers, with the padded keys' part; each block sums its rows in a
+//   fixed order into one part per head it holds, in a (b, h, blocks) tensor
+//   that the caller sums (ops/flash_attention.py::dq_slope_parts).
 //
-// What bounds them now (chip_probe_flash_bwd.py on the H100, at the train
-// shapes): the three dependent MMAs of each product (with one TF32 MMA in
-// place of three, dK/dV takes 35-38% less time, dQ 16-22%) and the
-// shared-memory traffic of the B fragments, hi and lo, 8 loads a fragment.
-// The dQ kernel's set-up and write-back alone (no tile loop) take 0.11-0.12
-// of its 0.26-0.30 ms: 2,176 blocks, each copying 64 rows of q and dO, two
-// an SM. Registers (nvcc
-// -Xptxas=-v, sm_90a): dK/dV 255 at d=64 with 24 bytes spilled, 232 at
-// d=32; dQ/dslope 230 and 158; no other spills.
-//
-// Masked tiles. dQ skips a key tile whose keys are all masked unless the
-// block holds a row with no valid key: for a row with a valid key, a masked
-// key's P = exp(-1e30 - lse) is exactly 0, so is its dS. dK/dV: a block
-// whose 64 keys are all masked writes zeros and returns, but only where
-// every query row of its element has a valid key (first valid key 0 with
-// `causal`; any valid key without); otherwise rows with no valid key put
-// P = 1 on masked keys. With `causal`, a query tile that ends before the
-// block's first key is skipped unless it holds a row with no valid key that
-// reaches those keys.
-//
-// Rows with no valid key. Their lse is -1e30, so P = exp(-1e30 - lse) = 1 on
-// every key the JAX kernels visit for them: all t keys, or with `causal` the
-// keys below `jax_masked_row_keys` (the key blocks up to the end of the
-// row's query block, past the diagonal). Each (row, key) element takes that
-// limit, so P does not depend on which tiles a block visits; the tile bounds
-// only have to reach it. Rows with a valid key get P = 0 past their
-// diagonal from the mask. The keys that the JAX wrapper pads past t add only
-// to the slope gradient; the caller adds that part
-// (ops/flash_attention.py::padded_key_dslopes). Keys and query rows past t
-// take no part.
-//
-// Left for later work: `wgmma` (TF32 `wgmma` takes K-major operands only,
-// so the dV/dK and dQ products would need dO, Q and K transposed in shared
-// memory), TMA copies and warp specialisation.
+// Masked tiles and rows with no valid key, as in the bf16 kernels. dQ skips
+// a key tile whose keys are all masked unless the CTA holds a row with no
+// valid key: for a row with a valid key, a masked key's P = exp(-1e30 - lse)
+// is exactly 0, so is its dS. A dK/dV block whose 64 keys are all masked
+// writes zeros and returns where every query row of its element has a valid
+// key; with `causal`, a query tile that ends before the block's first key is
+// skipped unless it holds a row with no valid key that reaches those keys.
+// Rows with no valid key (lse = -1e30) put P = 1 on every key the JAX kernels
+// visit for them, the keys below `jax_masked_row_keys` (key_limit): each
+// (row, key) element takes that limit, so P does not depend on which tiles a
+// block visits; the tile bounds only have to reach it. Keys and query rows
+// past t take no part.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <limits.h>
-#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-#include "tf32_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;  // a dQ block, a dK/dV warp group
-constexpr int kRowsPerWarp = 16;                    // one m16 tile
-constexpr int kBlockRows = kWarps * kRowsPerWarp;  // rows of the A operands a block
-constexpr int kTile = 32;                          // rows of a streamed tile
-constexpr int kTileN = kTile / 8;                  // its n-tiles, and k-steps of the last product
+using wg::cluster_sync;
+using wg::F32Tile;
+using wg::first_valid_key;
+using wg::grant_smem;
+using wg::jax_masked_row_keys;
+using wg::key_limit;
+using wg::ld_cluster;
+using wg::padded_keys_dslope;
+using wg::smem_addr;
+using wg::tile_map_f32;
+using tf32::store2;
+
+constexpr int kRows = 64;  // keys of a dK/dV block, rows of a dQ warpgroup, M of every product
+constexpr int kWG = 128;   // threads of a warpgroup
 constexpr float kMaskValue = -1e30f;
 
-using tf32::mma_split;
-using tf32::split;
+// d (64 x N) = A.B over k-step ks in split TF32, three products from zero,
+// A and B from shared memory (hi at a and b, lo one tile on)
+template <int N, class A, class B>
+__device__ __forceinline__ void split_ss(float (&d)[N / 2], uint32_t a, uint32_t b, int ks) {
+  wg::tf32_ss<N>(d, A::desc_k(a + A::kBytes, ks), B::desc_k(b, ks), 0);  // lo.hi
+  wg::tf32_ss<N>(d, A::desc_k(a, ks), B::desc_k(b + B::kBytes, ks), 1);  // hi.lo
+  wg::tf32_ss<N>(d, A::desc_k(a, ks), B::desc_k(b, ks), 1);              // hi.hi
+}
 
+// d[p] (64 x N) = A_p.B_p summed over kSteps k-steps in split TF32, for
+// kProducts products (A_p at a[p], B_p at b[p]): each k-step's three
+// products from zero into one of two temporaries, joined to d[p] by a
+// rounded fp32 add while the next k-step's run, the products' k-steps in
+// turn. The sums over d meet a model's logits, where a chain of truncating
+// tensor-core adds biases S and dP enough to move the slope gradient.
+template <int N, class A, class B, int kSteps, int kProducts>
+__device__ __forceinline__ void split_ss_sum(float (&d)[kProducts][N / 2], const uint32_t (&a)[kProducts],
+                                             const uint32_t (&b)[kProducts]) {
+  constexpr int G = kSteps * kProducts;
+  float t[2][N / 2];
+#pragma unroll
+  for (int g = 0; g <= G; ++g) {
+    if (g < G) {
+      wg::hold(t[g & 1]);
+      wg::fence();
+      split_ss<N, A, B>(t[g & 1], a[g % kProducts], b[g % kProducts], g / kProducts);
+      wg::commit();
+    }
+    if (g > 0) {  // join group g - 1, group g still running
+      if (g < G)
+        wg::wait<1>();
+      else
+        wg::wait<0>();
+      float(&x)[N / 2] = t[(g - 1) & 1];
+      float(&y)[N / 2] = d[(g - 1) % kProducts];
+      wg::hold(x);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) y[i] = g - 1 < kProducts ? x[i] : y[i] + x[i];
+    }
+  }
+}
+
+// d (64 x N) += a.B over k-step kk in split TF32, a in registers (a[0] hi,
+// a[1] lo), B from shared memory; from zero when `first`
+template <int N, class B>
+__device__ __forceinline__ void split_rs(float (&d)[N / 2], const uint32_t (&a)[2][4], uint32_t b, int kk,
+                                         bool first) {
+  wg::tf32_rs<N>(d, a[1], B::desc_k(b, kk), !first);         // lo.hi
+  wg::tf32_rs<N>(d, a[0], B::desc_k(b + B::kBytes, kk), 1);  // hi.lo
+  wg::tf32_rs<N>(d, a[0], B::desc_k(b, kk), 1);              // hi.hi
+}
+
+// the query column (0 to Q/4 - 1 of a thread's own) of dK/dV accumulator
+// element e: query 8*(e>>2) + 2*t4 + (e&1)
+__host__ __device__ constexpr int column(int e) { return ((e >> 2) << 1) | (e & 1); }
+
+// The block's shared memory, from a 1024-byte aligned base. An item has Q
+// query rows: 64, or 16 at d = 128, where K's and V's hi and lo take 128 KB.
 template <int D>
-struct Layout {
-  static constexpr int kSteps = D / 8;  // k-steps over d, n-tiles of dK, dV, dQ
-  // floats a staged row: d, swizzled (swz); at d = 16, whose 4 chunks a row
-  // cannot take the 8-way swizzle, d + 4, padded
-  static constexpr int kRow = D == 16 ? D + 4 : D;
-  static constexpr int kTileFloats = kTile * kRow;
-  static constexpr int kFrags = kWarps * kSteps * 2 * 32;  // uint4 A fragments of one operand, hi and lo
-  // the dQ block's: streamed hi [stage][operand], lo [operand], A fragments
-  // [operand]
-  static constexpr int kBytes = 6 * kTileFloats * 4 + 2 * kFrags * 16;
+struct DkvSmem {
+  static constexpr int Q = D == 128 ? 16 : 64;
+  using KT = F32Tile<kRows, D>;  // K and V: the block's keys
+  using QT = F32Tile<Q, D>;      // q*scale and dO: an item's queries
+  using TT = F32Tile<D, Q>;      // their transposes, the B of dK and dV
+  // each operand's hi, then its lo
+  static constexpr int kK = 0, kV = 2 * KT::kBytes;
+  static constexpr int kQ = 4 * KT::kBytes, kO = kQ + 2 * QT::kBytes;
+  static constexpr int kQT = kO + 2 * QT::kBytes, kOT = kQT + 2 * TT::kBytes;
+  static constexpr int kX = kOT + 2 * TT::kBytes;  // P^T handed over: [element][thread of the warpgroup] fp32
+  static constexpr int kBars = kX + kRows * Q * 4;  // mbarriers: K and V, the item's tiles, their natural tiles free
+  static constexpr int kWarpFirst = kBars + 3 * 8;
+  static constexpr int kBytes = kWarpFirst + 8 * 4 + 1024;  // and the alignment's slack
 };
 
-// offset of (row, col) in a staged tile: 16-byte chunks swizzled by row % 8;
-// at d = 16 rows padded to 20 floats, which keeps both fragment reads on 32
-// distinct banks (row lane/4 at 20*g + t4; rows 2*t4 and +1 at 40*t4 + g)
 template <int D>
-__device__ __forceinline__ int swz(int row, int col) {
-  if constexpr (D == 16) return row * Layout<D>::kRow + col;
-  return row * D + ((((col >> 2) ^ (row & 7))) << 2) + (col & 3);
-}
-
-// Keys (up to t) that the causal JAX kernels visit for a query row with no
-// valid key.
-__device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
-  const int bk = max(128, min(256, tk));
-  const int n_kb = (tk + bk - 1) / bk;
-  const int bq = max(8, min(256, tq));
-  const int q_end = (qi / bq + 1) * bq;
-  return min(tk, min(n_kb, (q_end + bk - 1) / bk) * bk);
-}
-
-// keys [0, limit) can have P != 0 for query row qi (0 past t)
-__device__ __forceinline__ int key_limit(int qi, int tq, int tk, int causal) {
-  return qi >= tq ? 0 : causal ? jax_masked_row_keys(qi, tq, tk) : tk;
-}
-
-// The element's first valid key (INT_MAX if none), found by every warp over
-// its share of 32-key words; `bits`, if given, receives the words. Ends
-// with a block barrier.
-__device__ __forceinline__ int first_valid_key(const uint8_t* mp, int tk, uint32_t* bits,
-                                               int* warp_first) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  int first = INT_MAX;
-  for (int w = warp; w * 32 < tk; w += warps) {
-    const int j = w * 32 + lane;
-    const uint32_t word = __ballot_sync(0xffffffffu, j < tk && mp[j] != 0);
-    if (bits != nullptr && lane == 0) bits[w] = word;
-    if (word != 0 && first == INT_MAX) first = w * 32 + __ffs(word) - 1;
-  }
-  if (lane == 0) warp_first[warp] = first;
-  __syncthreads();
-  int f = warp_first[0];
-  for (int w = 1; w < warps; ++w) f = min(f, warp_first[w]);
-  return f;
-}
-
-// `rows` rows of two (rows, D) matrices into shared fp32 tiles (cp.async),
-// swizzled: row r of each from
-// row_ptr(src, r), zeros where that is null; thread `tid` of `threads` takes
-// every threads-th 4-element chunk
-template <int D, int kRows, typename RowPtr>
-__device__ __forceinline__ void load_rows(float* dst0, float* dst1, const float* src0, const float* src1,
-                                          RowPtr row_ptr, int tid, int threads) {
-  constexpr int kChunks = kRows * D / 4;
-  for (int c = tid; c < kChunks; c += threads) {
-    const int r = c / (D / 4), cc = c % (D / 4);
-    const float* p0 = row_ptr(src0, r);
-    const float* p1 = row_ptr(src1, r);
-    const int dst = swz<D>(r, cc * 4);
-    tf32::load4(dst0 + dst, p0 != nullptr ? p0 + cc * 4 : src0, p0 != nullptr);
-    tf32::load4(dst1 + dst, p1 != nullptr ? p1 + cc * 4 : src1, p1 != nullptr);
-  }
-}
-
-// rows [r0, r0 + 32) of two (rows, D) matrices into stage tiles (zeros past
-// `nrows`)
-template <int D>
-__device__ __forceinline__ void load_tiles(float* dst0, float* dst1, const float* src0, const float* src1,
-                                           int r0, int nrows, int tid, int threads) {
-  load_rows<D, kTile>(dst0, dst1, src0, src1, [&](const float* src, int r) {
-    return r0 + r < nrows ? src + (size_t)(r0 + r) * D : nullptr;
-  }, tid, threads);
-}
-
-// a landed tile, times `mul`, into its TF32 hi part (in place) and lo part
-template <int D>
-__device__ __forceinline__ void split_tile(float* hi, float* lo, float mul, int tid, int threads) {
-  for (int i = tid * 4; i < Layout<D>::kTileFloats; i += threads * 4) {
-    float4 x = *reinterpret_cast<float4*>(hi + i);
-    uint32_t h[4], l[4];
-    split(x.x * mul, h[0], l[0]);
-    split(x.y * mul, h[1], l[1]);
-    split(x.z * mul, h[2], l[2]);
-    split(x.w * mul, h[3], l[3]);
-    *reinterpret_cast<uint4*>(hi + i) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + i) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-// The block's 64 rows of one operand, landed (swizzled) in `x`, times `mul`,
-// as the split A fragments of the 16 rows of warp slice w, in each lane's
-// order: element e of k-step kk is (row g + 8*(e&1), column 8kk + t4 +
-// 4*(e>>1)) of the slice.
-template <int D>
-__device__ __forceinline__ void store_a_fragments(uint4* frag, const float* x, float mul, int w) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      split(x[swz<D>(w * kRowsPerWarp + g + 8 * (e & 1), kk * 8 + t4 + 4 * (e >> 1))] * mul, hi[e], lo[e]);
-    frag[((w * (D / 8) + kk) * 2 + 0) * 32 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    frag[((w * (D / 8) + kk) * 2 + 1) * 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  }
-}
-
-__device__ __forceinline__ void load_a(const uint4* frag, int w, int kk, int steps, uint32_t* hi,
-                                       uint32_t* lo) {
-  const int lane = threadIdx.x % 32;
-  const uint4 h = frag[((w * steps + kk) * 2 + 0) * 32 + lane];
-  const uint4 l = frag[((w * steps + kk) * 2 + 1) * 32 + lane];
-  hi[0] = h.x, hi[1] = h.y, hi[2] = h.z, hi[3] = h.w;
-  lo[0] = l.x, lo[1] = l.y, lo[2] = l.z, lo[3] = l.w;
-}
-
-// B fragment (k = column 8kk + t4 and +4, n = row 8n + g) of a streamed tile:
-// the operand of S^T, dP^T (dK/dV) and S, dP (dQ)
-template <int D>
-__device__ __forceinline__ void load_b_rows(const float* hi, const float* lo, int n, int kk,
-                                            uint32_t* b_hi, uint32_t* b_lo) {
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int o0 = swz<D>(n * 8 + g, kk * 8 + t4), o1 = swz<D>(n * 8 + g, kk * 8 + t4 + 4);
-  b_hi[0] = __float_as_uint(hi[o0]), b_hi[1] = __float_as_uint(hi[o1]);
-  b_lo[0] = __float_as_uint(lo[o0]), b_lo[1] = __float_as_uint(lo[o1]);
-}
-
-// B fragment (k = rows 8kk + 2*t4 and +1, n = column 8n + g): the operand of
-// dV, dK (dK/dV) and dQ, in the permuted order of the accumulator's columns
-template <int D>
-__device__ __forceinline__ void load_b_cols(const float* hi, const float* lo, int n, int kk,
-                                            uint32_t* b_hi, uint32_t* b_lo) {
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int r = kk * 8 + 2 * t4;
-  const int o0 = swz<D>(r, n * 8 + g), o1 = swz<D>(r + 1, n * 8 + g);
-  b_hi[0] = __float_as_uint(hi[o0]), b_hi[1] = __float_as_uint(hi[o1]);
-  b_lo[0] = __float_as_uint(lo[o0]), b_lo[1] = __float_as_uint(lo[o1]);
-}
-
-// an accumulator n-tile as split A fragments over its 8 columns, taken in
-// the order 0, 2, 4, 6, 1, 3, 5, 7
-__device__ __forceinline__ void split_acc(const float* c, uint32_t* hi, uint32_t* lo) {
-  split(c[0], hi[0], lo[0]);  // (g, column 2*t4)
-  split(c[2], hi[1], lo[1]);  // (g + 8, column 2*t4)
-  split(c[1], hi[2], lo[2]);  // (g, column 2*t4 + 1)
-  split(c[3], hi[3], lo[3]);  // (g + 8, column 2*t4 + 1)
-}
-
-// Groups of 4 warps share a block's 64 keys: group j takes the (head, query
-// tile) items j, j + kGroups, ... with barriers of its own, and the groups'
-// sums join in a fixed order at the end.
-constexpr int kGroups = 2;
-constexpr int kDkvThreads = kGroups * kThreads;
-
-template <int D>
-struct DkvLayout {
-  static constexpr int kTileFloats = Layout<D>::kTileFloats;
-  // streamed hi [stage][group][q*scale, dO], lo [group][q*scale, dO], A
-  // fragments [K, V]
-  static constexpr int kBytes = 6 * kGroups * kTileFloats * 4 + 2 * Layout<D>::kFrags * 16;
-};
-
-// barrier of warp group `group` alone (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kThreads) : "memory");
-}
-
-template <int D>
-__global__ void __launch_bounds__(kDkvThreads, 1)
-    flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ slopes,
-                  const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int h, int hk, int tq, int tk,
-                  int causal, float scale) {
-  constexpr int kSteps = Layout<D>::kSteps;
-  constexpr int TF = Layout<D>::kTileFloats;
-  extern __shared__ __align__(16) float smem[];
-  float* hi = smem;                         // [stage][group][q*scale, dO][TF]
-  float* lo = smem + 4 * kGroups * TF;      // [group][q*scale, dO][TF]
-  uint4* k_frag = reinterpret_cast<uint4*>(smem + 6 * kGroups * TF);
-  uint4* v_frag = k_frag + Layout<D>::kFrags;
-  __shared__ float lse_s[kGroups][kTile], delta_s[kGroups][kTile];
-  __shared__ int limit_s[kGroups][kTile];
-  __shared__ int warp_first[kGroups * kWarps];
+__global__ void __launch_bounds__(2 * kWG, 1)
+    flash_bwd_dkv(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                  const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int h, int hk, int tq, int tk, int causal, float scale) {
+  using S = DkvSmem<D>;
+  using KT = typename S::KT;
+  using QT = typename S::QT;
+  using TT = typename S::TT;
+  constexpr int Q = S::Q;
+  constexpr int kThreads = 2 * kWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  int* warp_first = reinterpret_cast<int*>(smem + S::kWarpFirst);
+  const uint32_t bar_kv = base + S::kBars, full = bar_kv + 8, nat_free = bar_kv + 16;
 
   const int tid = threadIdx.x;
-  const int group = tid / kThreads;
-  const int gtid = tid % kThreads;  // thread of the group
-  const int w = gtid / 32;          // the warp's slice of 16 keys
-  const int lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
+  const int role = tid / kWG;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int wtid = tid % kWG;
+  const int w = wtid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int bkv = blockIdx.y;  // batch * hk + KV head
   const int b = bkv / hk;
   const int kv_head = bkv % hk;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int k0 = blockIdx.x * kRows;
   const uint8_t* mp = mask + (size_t)b * tk;
-  const float* kp = k + (size_t)bkv * tk * D;
-  const float* vp = v + (size_t)bkv * tk * D;
 
-  const bool block_has_valid =
-      __syncthreads_or(tid < kBlockRows && k0 + tid < tk && mp[k0 + tid] != 0);
+  const bool block_has_valid = __syncthreads_or(tid < kRows && k0 + tid < tk && mp[k0 + tid] != 0);
+  const bool all_valid = __syncthreads_and(tid >= kRows || (k0 + tid < tk && mp[k0 + tid] != 0));
   const int first_valid = first_valid_key(mp, tk, nullptr, warp_first);
   const bool every_row_valid = causal ? first_valid == 0 : first_valid < tk;
   if (!block_has_valid && every_row_valid) {  // P = 0 on every key of the block
-    const int rows = min(kBlockRows, tk - k0);
+    const int rows = min(kRows, tk - k0);
     const size_t off = ((size_t)bkv * tk + k0) * D;
-    for (int i = tid * 2; i < rows * D; i += kDkvThreads * 2) {
-      tf32::store2(dk + off + i, 0.f, 0.f);
-      tf32::store2(dv + off + i, 0.f, 0.f);
+    for (int i = tid * 2; blockIdx.z == 0 && i < rows * D; i += kThreads * 2) {
+      store2(dk + off + i, 0.f, 0.f);
+      store2(dv + off + i, 0.f, 0.f);
     }
-    return;
+    return;  // the cluster's every CTA, before any cluster barrier
   }
 
-  const int head_begin = hk == 1 ? 0 : kv_head;
-  const int n_q_tiles = (tq + kTile - 1) / kTile;
-  const int n_items = (hk == 1 ? h : 1) * n_q_tiles;  // (head, query tile) pairs
+  // the items: (query head, query tile) pairs, every query head that reads
+  // this KV head (all h with one KV head) times the query tiles, in order
+  struct Item {
+    int head, tile;  // head: past the first, head_begin
+  };
+  // with one KV head the cluster's gridDim.z CTAs split the query heads,
+  // CTA z taking heads z*h/gridDim.z on
+  const int n_heads = hk == 1 ? h / gridDim.z : 1;
+  const int head_begin = hk == 1 ? blockIdx.z * n_heads : kv_head;
+  const int n_q_tiles = (tq + Q - 1) / Q;
   // with `causal`, a query tile that ends before k0 reaches these keys only
   // through rows with no valid key (those before first_valid)
-  auto visits = [&](int item) {
+  auto visits = [&](int tile) {
     if (!causal) return true;
-    const int q0 = (item % n_q_tiles) * kTile;
-    const int q_last = min(q0 + kTile, tq) - 1;
+    const int q0 = tile * Q;
+    const int q_last = min(q0 + Q, tq) - 1;
     if (q_last >= k0) return true;
     return q0 < first_valid && jax_masked_row_keys(min(q_last, first_valid - 1), tq, tk) > k0;
   };
-  // this group's next visited item from `item` on
-  auto next_item = [&](int item) {
-    item += (group - item % kGroups + kGroups) % kGroups;
-    while (item < n_items && !visits(item)) item += kGroups;
-    return item;
+  // the first visited item from `it` on (it.head == n_heads: none)
+  auto next_item = [&](Item it) {
+    while (it.head < n_heads && !visits(it.tile))
+      if (++it.tile == n_q_tiles) it = Item{it.head + 1, 0};
+    return it;
   };
-  auto tile = [&](int stage, int op) { return hi + ((stage * kGroups + group) * 2 + op) * TF; };
-  auto load = [&](int item, int stage) {
-    const size_t bh = (size_t)b * h + head_begin + item / n_q_tiles;
-    load_tiles<D>(tile(stage, 0), tile(stage, 1), q + bh * tq * D, dout + bh * tq * D,
-                  (item % n_q_tiles) * kTile, tq, gtid, kThreads);
+  auto after = [&](Item it) {  // the next visited item past `it`
+    return next_item(it.tile + 1 == n_q_tiles ? Item{it.head + 1, 0} : Item{it.head, it.tile + 1});
+  };
+  // the item's q and dO tiles over their natural hi (thread 0)
+  auto issue = [&](Item item) {
+    const int slab = b * h + head_begin + item.head;
+    wg::mbar_expect_tx(full, 2 * QT::kBytes);
+    wg::tma_tile_f32<QT, D>(base + S::kQ, &tm_q, item.tile * Q, slab, full);
+    wg::tma_tile_f32<QT, D>(base + S::kO, &tm_o, item.tile * Q, slab, full);
   };
 
-  int item = next_item(0);
-  if (item < n_items) load(item, 0);
-  // the block's 64 keys of K and V, staged from the second stage's tiles on
-  // (free until the loops start), then split into A fragments: K by group 0, V by
-  // group 1 (by group 0 too if it is alone)
-  float* staged = hi + 2 * kGroups * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * Layout<D>::kRow, kp, vp, [&](const float* src, int r) {
-    return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
-  }, tid, kDkvThreads);
-  tf32::cp_async_commit();
-  tf32::cp_async_wait_all();
-  __syncthreads();
-  for (int op = group; op < 2; op += kGroups)
-    store_a_fragments<D>(op == 0 ? k_frag : v_frag, staged + op * kBlockRows * Layout<D>::kRow, 1.f, w);
-  __syncthreads();  // every fragment is stored; the staged rows are read
+  Item item = next_item(Item{0, 0});
+  if (tid == 0) {
+    wg::mbar_init(bar_kv, 1);
+    wg::mbar_init(full, 1);
+    wg::mbar_init(nat_free, kThreads / 32);  // every warp releases an item's natural tiles
+    wg::mbar_init_fence();
+    wg::mbar_expect_tx(bar_kv, 2 * KT::kBytes);
+    wg::tma_tile_f32<KT, D>(base + S::kK, &tm_k, k0, bkv, bar_kv);
+    wg::tma_tile_f32<KT, D>(base + S::kV, &tm_v, k0, bkv, bar_kv);
+    if (item.head < n_heads) issue(item);
+  }
+  __syncthreads();  // the barriers are initialized
 
   int key[2];
   bool key_ok[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    key[i] = k0 + w * kRowsPerWarp + g + 8 * i;
+    key[i] = k0 + w * 16 + g + 8 * i;
     key_ok[i] = key[i] < tk && mp[key[i]] != 0;
   }
-  float acc_dk[kSteps][4], acc_dv[kSteps][4];
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // the block's keys, split once
+  wg::mbar_wait(bar_kv, 0);
+  wg::split_tile<KT, kThreads>(smem + S::kK, smem + S::kK + KT::kBytes, 1.f, tid);
+  wg::split_tile<KT, kThreads>(smem + S::kV, smem + S::kV + KT::kBytes, 1.f, tid);
 
-  float* ql = lo + (group * 2 + 0) * TF;
-  float* ol = lo + (group * 2 + 1) * TF;
-  int stage = 0;
-  while (item < n_items) {
-    tf32::cp_async_wait_all();
-    group_sync(group);  // this tile has landed; the group's warps are done with the last one
-    const int nxt = next_item(item + 1);
-    if (nxt < n_items) load(nxt, stage ^ 1);
-    tf32::cp_async_commit();
-    const int head = head_begin + item / n_q_tiles;
-    const int q0 = (item % n_q_tiles) * kTile;
-    float* qh = tile(stage, 0);  // q * scale
-    float* oh = tile(stage, 1);  // dO
-    split_tile<D>(qh, ql, scale, gtid, kThreads);
-    split_tile<D>(oh, ol, 1.f, gtid, kThreads);
-    if (gtid < kTile) {
-      const int qi = q0 + gtid;
-      const size_t row = ((size_t)b * h + head) * tq + qi;
-      lse_s[group][gtid] = qi < tq ? lse[row] : 0.f;
-      delta_s[group][gtid] = qi < tq ? delta[row] : 0.f;
-      limit_s[group][gtid] = key_limit(qi, tq, tk, causal);
-    }
-    group_sync(group);
-    const float slope = slopes[head];
-
-    // S^T = K.(q*scale)^T and dP^T = V.dO^T: rows are this warp's keys,
-    // columns the tile's queries
-    float s[kTileN][4], dp[kTileN][4];
+  for (int j = 0; item.head < n_heads; ++j) {
+    const Item nxt = after(item);
+    const int head = head_begin + item.head;
+    const int q0 = item.tile * Q;
+    // lse (warpgroup 0) or delta (warpgroup 1) of this thread's Q/4 query
+    // columns, 8*(c>>1) + 2*t4 + (c&1)
+    float row_v[Q / 4];
+    {
+      const float* src = (role == 0 ? lse : delta) + ((size_t)b * h + head) * tq + q0;
 #pragma unroll
-    for (int n = 0; n < kTileN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 1  // each k-step computes its own swizzled offsets: fewer registers, fewer spills
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t ka_hi[4], ka_lo[4], va_hi[4], va_lo[4];
-      load_a(k_frag, w, kk, kSteps, ka_hi, ka_lo);
-      load_a(v_frag, w, kk, kSteps, va_hi, va_lo);
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        load_b_rows<D>(qh, ql, n, kk, b_hi, b_lo);
-        mma_split(s[n], ka_hi, ka_lo, b_hi, b_lo);
-        load_b_rows<D>(oh, ol, n, kk, b_hi, b_lo);
-        mma_split(dp[n], va_hi, va_lo, b_hi, b_lo);
+      for (int c = 0; c < Q / 4; ++c) {
+        const int jq = 8 * (c >> 1) + 2 * t4 + (c & 1);
+        row_v[c] = q0 + jq < tq ? src[jq] : 0.f;
       }
     }
+    __syncthreads();  // every warp is done with the last item's transposed tiles
+    wg::mbar_wait(full, j & 1);
+    wg::split_transpose<QT, TT, kThreads>(smem + S::kQ, smem + S::kQ + QT::kBytes, smem + S::kQT,
+                                          smem + S::kQT + TT::kBytes, scale, tid);
+    wg::split_transpose<QT, TT, kThreads>(smem + S::kO, smem + S::kO + QT::kBytes, smem + S::kOT,
+                                          smem + S::kOT + TT::kBytes, 1.f, tid);
+    wg::fence_proxy_async();
+    __syncthreads();
 
-    // P^T and dS^T in place: element e is key g + 8*(e>>1), query 8n + 2*t4 + (e&1)
+    // S^T = K.(q*scale)^T (warpgroup 0) or dP^T = V.dO^T (warpgroup 1):
+    // rows are the block's keys, columns the item's queries
+    float x[1][Q / 2];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (warpgroup 1)
+    {
+      const uint32_t a[1] = {base + (role == 0 ? S::kK : S::kV)};
+      const uint32_t bt[1] = {base + (role == 0 ? S::kQ : S::kO)};
+      split_ss_sum<Q, KT, QT, D / 8, 1>(x, a, bt);
+    }
+    // the next item over the natural tiles, once every warp has read them
+    // (thread 0)
+    if (lane == 0) wg::mbar_arrive(nat_free);
+    if (tid == 0 && nxt.head < n_heads) {
+      wg::mbar_wait(nat_free, j & 1);
+      issue(nxt);
+    }
+
+    // element e of x: key row g + 8*((e>>1)&1) of warp w, query 8*(e>>2) +
+    // 2*t4 + (e&1) (row_v[column(e)]); kq[i] - c is key row i's distance to
+    // the query of column offset c = 8*(e>>2) + (e&1)
+    float* xchg = reinterpret_cast<float*>(smem + S::kX);
+    if (role == 0) {
+      const float slope = slopes[head];
+      const float kq[2] = {(float)(key[0] - q0 - 2 * t4), (float)(key[1] - q0 - 2 * t4)};
+      if (all_valid && q0 + Q <= tq && (!causal || q0 >= k0 + kRows - 1)) {
+        // every (key, query) pair of the item is valid and below every
+        // row's key limit: no mask
 #pragma unroll
-    for (int n = 0; n < kTileN; ++n) {
+        for (int e = 0; e < Q / 2; ++e) {
+          const int c = 8 * (e >> 2) + (e & 1);
+          x[0][e] = expf(x[0][e] - slope * fabsf(kq[(e >> 1) & 1] - (float)c) - row_v[column(e)]);
+        }
+      } else if (every_row_valid) {
+        // a key past a row's limit lies past its diagonal: the mask zeroes
+        // P there; rows past t get P = 0
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int jq = n * 8 + 2 * t4 + c;
-        const int qi = q0 + jq;
-        const float lse_q = lse_s[group][jq], delta_q = delta_s[group][jq];
-        const int limit = limit_s[group][jq];
+        for (int e = 0; e < Q / 2; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + (e & 1);
+          const int qi = q0 + c + 2 * t4;
+          float s = x[0][e] - slope * fabsf(kq[i] - (float)c);
+          s = (key_ok[i] && (!causal || key[i] <= qi)) ? s : kMaskValue;
+          const float p = expf(s - row_v[column(e)]);
+          x[0][e] = qi < tq ? p : 0.f;
+        }
+      } else {
+        // rows with no valid key: P = 1 up to their key limit
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 2 * i + c;
-          const int kj = key[i];
-          const float dist = fabsf((float)(kj - qi));
-          float x = s[n][e] - slope * dist;
-          x = (key_ok[i] && (!causal || kj <= qi)) ? x : kMaskValue;
-          const float p = kj < limit ? expf(x - lse_q) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - delta_q);
+        for (int e = 0; e < Q / 2; ++e) {
+          const int i = (e >> 1) & 1;
+          const int c = 8 * (e >> 2) + (e & 1);
+          const int qi = q0 + c + 2 * t4;
+          float s = x[0][e] - slope * fabsf(kq[i] - (float)c);
+          s = (key_ok[i] && (!causal || key[i] <= qi)) ? s : kMaskValue;
+          const float p = expf(s - row_v[column(e)]);
+          x[0][e] = key[i] < key_limit(qi, tq, tk, causal) ? p : 0.f;
         }
       }
+#pragma unroll
+      for (int e = 0; e < Q / 2; ++e) xchg[e * kWG + wtid] = x[0][e];
+      asm volatile("bar.arrive 1, %0;\n" ::"n"(kThreads) : "memory");
+    } else {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+#pragma unroll
+      for (int e = 0; e < Q / 2; ++e) x[0][e] = xchg[e * kWG + wtid] * (x[0][e] - row_v[column(e)]);
     }
 
-    // dV += P^T.dO and dK += dS^T.(q*scale), A straight from the accumulator
+    // dV += P^T.dO (warpgroup 0) or dK += dS^T.(q*scale) (warpgroup 1): A
+    // from the accumulator, B the transposed tile, the item's products from
+    // zero
+    {
+      uint32_t a[Q / 8][2][4];
+      wg::acc_a<Q / 8>(x[0], a);
+      const uint32_t bt = base + (role == 0 ? S::kOT : S::kQT);
+      float tile_sum[D / 2];
+      wg::hold(a);
+      wg::hold(tile_sum);
+      wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < kTileN; ++kk) {
-      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-      split_acc(s[kk], p_hi, p_lo);
-      split_acc(dp[kk], ds_hi, ds_lo);
+      for (int kk = 0; kk < Q / 8; ++kk) split_rs<D, TT>(tile_sum, a[kk], bt, kk, kk == 0);
+      wg::commit();
+      wg::wait_all();
+      wg::hold(tile_sum);
+      wg::hold(a);
 #pragma unroll
-      for (int n = 0; n < kSteps; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        load_b_cols<D>(oh, ol, n, kk, b_hi, b_lo);
-        mma_split(acc_dv[n], p_hi, p_lo, b_hi, b_lo);
-        load_b_cols<D>(qh, ql, n, kk, b_hi, b_lo);
-        mma_split(acc_dk[n], ds_hi, ds_lo, b_hi, b_lo);
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] += tile_sum[i];
     }
     item = nxt;
-    stage ^= 1;
   }
 
-  // the other groups' sums join group 0's (group 0 + group 1 + ..., in that
-  // order), through the tiles, free once every group is done
-  static_assert(2 * kSteps * 4 * kThreads * (kGroups - 1) <= 4 * kGroups * TF, "no room");
-  // group j's sum of (dK or dV, n, e) for this lane of slice w
-  auto part = [&](int j, int op, int n, int e) -> float& {
-    return hi[((((j - 1) * 2 + op) * kWarps + w) * kSteps + n) * 128 + e * 32 + lane];
-  };
-  __syncthreads();
-  if (group > 0) {
+  // element 4j + 2i + c of acc: key row g + 8i of warp w, column 8j + 2t4 + c
+  float* out = role == 0 ? dv : dk;
+  if (gridDim.z == 1) {
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n)
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= tk) continue;
+      float* op = out + ((size_t)bkv * tk + key[i]) * D + 2 * t4;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part(group, 0, n, e) = acc_dk[n][e];
-        part(group, 1, n, e) = acc_dv[n][e];
-      }
-  }
-  __syncthreads();
-  if (group > 0) return;
-  for (int j = 1; j < kGroups; ++j)
-#pragma unroll
-    for (int n = 0; n < kSteps; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc_dk[n][e] += part(j, 0, n, e);
-        acc_dv[n][e] += part(j, 1, n, e);
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= tk) continue;
-    const size_t off = ((size_t)bkv * tk + key[i]) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < kSteps; ++n) {
-      tf32::store2(dk + off + n * 8, acc_dk[n][2 * i], acc_dk[n][2 * i + 1]);
-      tf32::store2(dv + off + n * 8, acc_dv[n][2 * i], acc_dv[n][2 * i + 1]);
-    }
-  }
-}
-
-// B fragments as load_b_rows and load_b_cols, from a tile of fp32 values
-// that is split at use. The split gives the bits that split_tile's staged hi
-// and lo parts would.
-__device__ __forceinline__ void split_b(const float* x, int o0, int o1, uint32_t* b_hi, uint32_t* b_lo) {
-  split(x[o0], b_hi[0], b_lo[0]);
-  split(x[o1], b_hi[1], b_lo[1]);
-}
-
-template <int D>
-__device__ __forceinline__ void load_b_rows_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  split_b(x, swz<D>(n * 8 + g, kk * 8 + t4), swz<D>(n * 8 + g, kk * 8 + t4 + 4), b_hi, b_lo);
-}
-
-template <int D>
-__device__ __forceinline__ void load_b_cols_at_use(const float* x, int n, int kk, uint32_t* b_hi, uint32_t* b_lo) {
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int r = kk * 8 + 2 * t4;
-  split_b(x, swz<D>(r, n * 8 + g), swz<D>(r + 1, n * 8 + g), b_hi, b_lo);
-}
-
-// dK/dV at head dim 128. The layout of flash_bwd_dkv would need 327,680
-// bytes of shared memory a block (two warp groups' double-buffered tiles of
-// q*scale and dO with their lo parts, 196,608, and K's and V's split A
-// fragments, 131,072) against the 232,448 a block can have, and each warp
-// would hold two m16 x 128 accumulators, dK's and dV's: 128 registers a
-// thread before S, dP and the fragments. Here the two warp groups split the
-// four products of a (head, query tile) item between them instead of the
-// items: warp w of group 0 computes S^T = K.(q*scale)^T for its 16 keys,
-// P^T, and dV += P^T.dO; warp w of group 1 computes dP^T = V.dO^T for the
-// same keys, takes P^T from warp w through shared memory (one named barrier
-// a pair: 2 KB a warp), and computes dS^T and dK += dS^T.(q*scale). Each
-// warp holds one 64-register accumulator; no product is computed twice and
-// no sum joins across warps. The tiles of q*scale and dO stay fp32 and are
-// split into hi and lo at each B-fragment load (their lo tiles would not
-// fit), so an element is split by the 4 warps that read it where
-// flash_bwd_dkv splits it once. Shared memory: K's and V's fragments
-// 131,072 bytes, two stages of the q*scale and dO tiles 65,536, the P
-// exchange 8,192: 204,800 a block, one block an SM. Everything else (the
-// grid of 64-key blocks x b x KV heads, the items, the masked blocks and
-// tiles, rows with no valid key) is flash_bwd_dkv's.
-template <int D>
-__global__ void __launch_bounds__(2 * kThreads, 1)
-    flash_bwd_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ slopes,
-                       const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dk, float* __restrict__ dv, int h, int hk, int tq, int tk,
-                       int causal, float scale) {
-  constexpr int kSteps = Layout<D>::kSteps;
-  constexpr int TF = Layout<D>::kTileFloats;
-  constexpr int kAll = 2 * kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* tiles = smem;  // [stage][q*scale, dO][TF]
-  uint4* k_frag = reinterpret_cast<uint4*>(smem + 4 * TF);
-  uint4* v_frag = k_frag + Layout<D>::kFrags;
-  float* p_x = reinterpret_cast<float*>(v_frag + Layout<D>::kFrags);  // [warp][n][e][lane]
-  __shared__ float lse_s[kTile], delta_s[kTile];
-  __shared__ int limit_s[kTile];
-  __shared__ int warp_first[2 * kWarps];
-
-  const int tid = threadIdx.x;
-  const int role = tid / kThreads;  // 0: S, P, dV; 1: dP, dS, dK
-  const int w = (tid % kThreads) / 32;  // the warp's slice of 16 keys
-  const int lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bkv = blockIdx.y;  // batch * hk + KV head
-  const int b = bkv / hk;
-  const int kv_head = bkv % hk;
-  const int k0 = blockIdx.x * kBlockRows;
-  const uint8_t* mp = mask + (size_t)b * tk;
-  const float* kp = k + (size_t)bkv * tk * D;
-  const float* vp = v + (size_t)bkv * tk * D;
-
-  const bool block_has_valid =
-      __syncthreads_or(tid < kBlockRows && k0 + tid < tk && mp[k0 + tid] != 0);
-  const int first_valid = first_valid_key(mp, tk, nullptr, warp_first);
-  const bool every_row_valid = causal ? first_valid == 0 : first_valid < tk;
-  if (!block_has_valid && every_row_valid) {  // P = 0 on every key of the block
-    const int rows = min(kBlockRows, tk - k0);
-    const size_t off = ((size_t)bkv * tk + k0) * D;
-    for (int i = tid * 2; i < rows * D; i += kAll * 2) {
-      tf32::store2(dk + off + i, 0.f, 0.f);
-      tf32::store2(dv + off + i, 0.f, 0.f);
+      for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
     return;
   }
-
-  const int head_begin = hk == 1 ? 0 : kv_head;
-  const int n_q_tiles = (tq + kTile - 1) / kTile;
-  const int n_items = (hk == 1 ? h : 1) * n_q_tiles;  // (head, query tile) pairs
-  auto visits = [&](int item) {  // as in flash_bwd_dkv
-    if (!causal) return true;
-    const int q0 = (item % n_q_tiles) * kTile;
-    const int q_last = min(q0 + kTile, tq) - 1;
-    if (q_last >= k0) return true;
-    return q0 < first_valid && jax_masked_row_keys(min(q_last, first_valid - 1), tq, tk) > k0;
-  };
-  auto next_item = [&](int item) {
-    while (item < n_items && !visits(item)) ++item;
-    return item;
-  };
-  auto tile = [&](int stage, int op) { return tiles + (stage * 2 + op) * TF; };
-  auto load = [&](int item, int stage) {
-    const size_t bh = (size_t)b * h + head_begin + item / n_q_tiles;
-    load_tiles<D>(tile(stage, 0), tile(stage, 1), q + bh * tq * D, dout + bh * tq * D,
-                  (item % n_q_tiles) * kTile, tq, tid, kAll);
-  };
-
-  // the block's 64 keys of K and V, staged in the tiles (free until the loop
-  // starts), then split into A fragments: K by group 0, V by group 1
-  load_rows<D, kBlockRows>(tiles, tiles + kBlockRows * Layout<D>::kRow, kp, vp, [&](const float* src, int r) {
-    return k0 + r < tk ? src + (size_t)(k0 + r) * D : nullptr;
-  }, tid, kAll);
-  tf32::cp_async_commit();
-  tf32::cp_async_wait_all();
-  __syncthreads();
-  store_a_fragments<D>(role == 0 ? k_frag : v_frag, tiles + role * kBlockRows * Layout<D>::kRow, 1.f, w);
-  __syncthreads();  // every fragment is stored; the staged rows are read
-
-  int item = next_item(0);
-  if (item < n_items) load(item, 0);
-  tf32::cp_async_commit();
-
-  int key[2];
-  bool key_ok[2];
+  // the cluster's sums join in rank order through distributed shared
+  // memory: each CTA puts its sums in K's and V's space ([role][element]
+  // [thread]), then writes every gridDim.z-th pair of each thread's
+  // elements, summed over the CTAs 0, 1, ...
+  __syncthreads();  // every warp is done with the tiles
+  float* part = reinterpret_cast<float*>(smem + S::kK);
+  static_assert(2 * (D / 2) * kWG * 4 <= 4 * KT::kBytes, "no room");
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    key[i] = k0 + w * kRowsPerWarp + g + 8 * i;
-    key_ok[i] = key[i] < tk && mp[key[i]] != 0;
+  for (int e = 0; e < D / 2; ++e) part[(role * (D / 2) + e) * kWG + wtid] = acc[e];
+  cluster_sync();
+  const uint32_t mine = smem_addr(part + role * (D / 2) * kWG + wtid);
+  for (int pr = blockIdx.z; pr < D / 4; pr += gridDim.z) {  // pair pr: elements 2pr, 2pr + 1
+    const int i = pr & 1, j = pr >> 1;
+    float x = 0.f, y = 0.f;
+    for (int r = 0; r < (int)gridDim.z; ++r) {
+      x += ld_cluster(mine + (2 * pr) * kWG * 4, r);
+      y += ld_cluster(mine + (2 * pr + 1) * kWG * 4, r);
+    }
+    if (key[i] < tk) store2(out + ((size_t)bkv * tk + key[i]) * D + 8 * j + 2 * t4, x, y);
   }
-  float acc[kSteps][4];  // dV (group 0) or dK (group 1)
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float* px = p_x + w * (kTileN * 4 * 32);
-
-  int stage = 0;
-  while (item < n_items) {
-    tf32::cp_async_wait_all();
-    __syncthreads();  // this tile has landed; every warp is done with the last one and with px
-    const int nxt = next_item(item + 1);
-    if (nxt < n_items) load(nxt, stage ^ 1);
-    tf32::cp_async_commit();
-    const int head = head_begin + item / n_q_tiles;
-    const int q0 = (item % n_q_tiles) * kTile;
-    float* qs = tile(stage, 0);  // q, scaled in place below
-    const float* os = tile(stage, 1);  // dO
-    if (scale != 1.f)
-      for (int i = tid * 4; i < TF; i += kAll * 4) {
-        float4 x = *reinterpret_cast<float4*>(qs + i);
-        *reinterpret_cast<float4*>(qs + i) = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-      }
-    if (tid < kTile) {
-      const int qi = q0 + tid;
-      const size_t row = ((size_t)b * h + head) * tq + qi;
-      lse_s[tid] = qi < tq ? lse[row] : 0.f;
-      delta_s[tid] = qi < tq ? delta[row] : 0.f;
-      limit_s[tid] = key_limit(qi, tq, tk, causal);
-    }
-    __syncthreads();
-
-    // group 0: S^T = K.(q*scale)^T; group 1: dP^T = V.dO^T. Rows are this
-    // warp's keys, columns the tile's queries
-    float x[kTileN][4];
-#pragma unroll
-    for (int n = 0; n < kTileN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-    if (role == 0) {
-#pragma unroll 1
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t a_hi[4], a_lo[4];
-        load_a(k_frag, w, kk, kSteps, a_hi, a_lo);
-#pragma unroll
-        for (int n = 0; n < kTileN; ++n) {
-          uint32_t b_hi[2], b_lo[2];
-          load_b_rows_at_use<D>(qs, n, kk, b_hi, b_lo);
-          mma_split(x[n], a_hi, a_lo, b_hi, b_lo);
-        }
-      }
-    } else {
-#pragma unroll 1
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t a_hi[4], a_lo[4];
-        load_a(v_frag, w, kk, kSteps, a_hi, a_lo);
-#pragma unroll
-        for (int n = 0; n < kTileN; ++n) {
-          uint32_t b_hi[2], b_lo[2];
-          load_b_rows_at_use<D>(os, n, kk, b_hi, b_lo);
-          mma_split(x[n], a_hi, a_lo, b_hi, b_lo);
-        }
-      }
-    }
-
-    // element e of x is key g + 8*(e>>1), query 8n + 2*t4 + (e&1)
-    if (role == 0) {
-      // P^T in place, handed to warp w of group 1
-      const float slope = slopes[head];
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int jq = n * 8 + 2 * t4 + c;
-          const int qi = q0 + jq;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int e = 2 * i + c;
-            const int kj = key[i];
-            float s = x[n][e] - slope * fabsf((float)(kj - qi));
-            s = (key_ok[i] && (!causal || kj <= qi)) ? s : kMaskValue;
-            x[n][e] = kj < limit_s[jq] ? expf(s - lse_s[jq]) : 0.f;
-            px[(n * 4 + e) * 32 + lane] = x[n][e];
-          }
-        }
-      }
-      asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + w), "r"(64) : "memory");
-    } else {
-      // dS^T = P^T * (dP^T - delta), once warp w of group 0 has put P^T
-      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + w), "r"(64) : "memory");
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[n][e] = px[(n * 4 + e) * 32 + lane] * (x[n][e] - delta_s[n * 8 + 2 * t4 + (e & 1)]);
-    }
-
-    // group 0: dV += P^T.dO; group 1: dK += dS^T.(q*scale); A straight from
-    // the accumulator, a k-step's 8 queries in the order 0, 2, 4, 6, 1, 3, 5, 7
-#pragma unroll
-    for (int kk = 0; kk < kTileN; ++kk) {
-      uint32_t a_hi[4], a_lo[4];
-      split_acc(x[kk], a_hi, a_lo);
-      if (role == 0) {
-#pragma unroll
-        for (int n = 0; n < kSteps; ++n) {
-          uint32_t b_hi[2], b_lo[2];
-          load_b_cols_at_use<D>(os, n, kk, b_hi, b_lo);
-          mma_split(acc[n], a_hi, a_lo, b_hi, b_lo);
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < kSteps; ++n) {
-          uint32_t b_hi[2], b_lo[2];
-          load_b_cols_at_use<D>(qs, n, kk, b_hi, b_lo);
-          mma_split(acc[n], a_hi, a_lo, b_hi, b_lo);
-        }
-      }
-    }
-    item = nxt;
-    stage ^= 1;
-  }
-
-  float* out = role == 0 ? dv : dk;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= tk) continue;
-    const size_t off = ((size_t)bkv * tk + key[i]) * D + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < kSteps; ++n) tf32::store2(out + off + n * 8, acc[n][2 * i], acc[n][2 * i + 1]);
-  }
+  cluster_sync();  // no CTA leaves while another reads its shared memory
 }
 
+// The CTA's shared memory, from a 1024-byte aligned base: kGroups
+// warpgroups of 64 rows each (two share each key tile where both fit), and
+// key tiles of kKeys.
 template <int D>
-struct DkvWideLayout {
-  // the q*scale and dO tiles [stage][op], K's and V's A fragments, the P
-  // exchange [warp][n][e][lane]
-  static constexpr int kBytes = 4 * Layout<D>::kTileFloats * 4 + 2 * Layout<D>::kFrags * 16 +
-                                kWarps * kTileN * 4 * 32 * 4;
+struct DqSmem {
+  static constexpr int kKeys = D == 128 ? 32 : 64;
+  static constexpr int kGroups = D == 128 ? 1 : 2;
+  using RT = F32Tile<kRows, D>;   // a warpgroup's rows of q*scale and dO
+  using ST = F32Tile<kKeys, D>;   // a key tile of K and V
+  using TT = F32Tile<D, kKeys>;   // K's transpose, the B of dQ
+  // [group][q*scale hi, lo, dO hi, lo], then each streamed operand's hi and lo
+  static constexpr int kK = kGroups * 4 * RT::kBytes, kV = kK + 2 * ST::kBytes, kKT = kV + 2 * ST::kBytes;
+  static constexpr int kSlopeRows = kK;  // [group][64 rows][4 lanes] fp32, over the key tiles once they are done
+  static_assert(kGroups * kRows * 4 * 4 <= 4 * ST::kBytes, "no room");
+  static constexpr int kBars = kKT + 2 * TT::kBytes;  // mbarriers: rows, key tile, its natural tiles free
+  static constexpr int kWarpFirst = kBars + 3 * 8;
+  static constexpr int kBits = kWarpFirst + kGroups * 4 * 4;  // [32-key words]
+  static int bytes(int tk) { return kBits + 4 * ((tk + 31) / 32) + 1024; }  // and the alignment's slack
 };
 
-// Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
-// == h (one KV head), else (blocks of 64 positions, b * h).
+// Grid: (CTAs of kGroups blocks of 64 / heads_per_block positions, b) when
+// heads_per_block == h (one KV head), else (CTAs of kGroups blocks of 64
+// positions, b * h). tm_q and tm_o take boxes of (positions,
+// heads_per_block) rows, so a block's 64 rows come in one copy of each.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ slopes,
-                 const uint8_t* __restrict__ mask, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, float* __restrict__ dslope_part, int h, int hk, int tq,
-                 int tk, int causal, float scale, int heads_per_block) {
-  using L = Layout<D>;
-  constexpr int kSteps = L::kSteps;
-  constexpr int TF = L::kTileFloats;
-  extern __shared__ __align__(16) float smem[];
-  float* hi = smem;           // [stage][K, V][TF]
-  float* lo = smem + 4 * TF;  // [K, V][TF]
-  uint4* q_frag = reinterpret_cast<uint4*>(smem + 6 * TF);
-  uint4* o_frag = q_frag + L::kFrags;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(o_frag + L::kFrags);  // [key tiles]
-  __shared__ int warp_first[kWarps];
+__global__ void __launch_bounds__(DqSmem<D>::kGroups * kWG, 1)
+    flash_bwd_dq(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
+                 const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                 float* __restrict__ dslope_part, int h, int hk, int tq, int tk, int causal, float scale,
+                 int heads_per_block) {
+  using S = DqSmem<D>;
+  using RT = typename S::RT;
+  using ST = typename S::ST;
+  using TT = typename S::TT;
+  constexpr int Kt = S::kKeys;
+  constexpr int kThreads = S::kGroups * kWG;
+  constexpr uint64_t kAllKeys = Kt == 64 ? ~0ull : (1ull << Kt) - 1;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  float* slope_rows = reinterpret_cast<float*>(smem + S::kSlopeRows);
+  int* warp_first = reinterpret_cast<int*>(smem + S::kWarpFirst);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + S::kBits);
+  const uint32_t bar_rows = base + S::kBars, full = bar_rows + 8, nat_free = bar_rows + 16;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int positions = kBlockRows / heads_per_block;
+  const int grp = tid / kWG;  // this warpgroup's block of the CTA
+  const int wtid = tid % kWG;
+  const int w = wtid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int positions = kRows / heads_per_block;
+  const int blocks = (tq + positions - 1) / positions;
   const int b = heads_per_block == 1 ? blockIdx.y / h : blockIdx.y;
   const int head0 = heads_per_block == 1 ? blockIdx.y % h : 0;
-  const int q0 = blockIdx.x * positions;
-  const size_t kv_off = ((size_t)b * hk + (hk == 1 ? 0 : head0)) * tk * D;
-  const float* kp = k + kv_off;
-  const float* vp = v + kv_off;
+  const int cta_q0 = blockIdx.x * S::kGroups * positions;
+  const int q0 = cta_q0 + grp * positions;  // may lie past t in the last CTA
+  const int kv_slab = b * hk + (hk == 1 ? 0 : head0);
   const uint8_t* mp = mask + (size_t)b * tk;
+  const size_t row_base = (size_t)b * h;
+  const uint32_t rows_tile = base + grp * 4 * RT::kBytes;  // q*scale hi, lo, dO hi, lo
+
+  // the CTA's rows of q and dO, and key tile 0 before the mask is read: the
+  // walk over the key tiles starts there whatever the mask (a tile whose
+  // keys are all masked gives P = 0 on every row with a valid key)
+  if (tid == 0) {
+    wg::mbar_init(bar_rows, 1);
+    wg::mbar_init(full, 1);
+    wg::mbar_init(nat_free, kThreads / 32);  // every warp releases a tile's natural tiles
+    wg::mbar_init_fence();
+    wg::mbar_expect_tx(bar_rows, S::kGroups * 2 * RT::kBytes);
+    for (int gg = 0; gg < S::kGroups; ++gg) {
+      const uint32_t rt = base + gg * 4 * RT::kBytes;
+      wg::tma_tile_f32<RT, D>(rt, &tm_q, cta_q0 + gg * positions, b * h + head0, bar_rows);
+      wg::tma_tile_f32<RT, D>(rt + 2 * RT::kBytes, &tm_o, cta_q0 + gg * positions, b * h + head0, bar_rows);
+    }
+    wg::mbar_expect_tx(full, 2 * ST::kBytes);
+    wg::tma_tile_f32<ST, D>(base + S::kK, &tm_k, 0, kv_slab, full);
+    wg::tma_tile_f32<ST, D>(base + S::kV, &tm_v, 0, kv_slab, full);
+  }
 
   // this thread's rows: g and g + 8 of the warp's 16
   int row_head[2], row_pos[2], row_limit[2];
   float row_slope[2], row_lse[2], row_delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = warp * kRowsPerWarp + g + 8 * i;
+    const int r = w * 16 + g + 8 * i;
     row_head[i] = head0 + r / positions;
     row_pos[i] = q0 + r % positions;
     row_slope[i] = slopes[row_head[i]];
     row_limit[i] = key_limit(row_pos[i], tq, tk, causal);
-    const size_t row = ((size_t)b * h + row_head[i]) * tq + row_pos[i];
+    const size_t row = (row_base + row_head[i]) * tq + row_pos[i];
     row_lse[i] = row_pos[i] < tq ? lse[row] : 0.f;
     row_delta[i] = row_pos[i] < tq ? delta[row] : 0.f;
   }
 
-  const int all_tiles = (tk + kTile - 1) / kTile;
-  const int first_valid = first_valid_key(mp, tk, bits, warp_first);
-  // a row of this block has no valid key: its first row's, if any
-  const bool has_empty_row = first_valid >= tk || (causal && first_valid > q0);
-  const int last_pos = min(tq, q0 + positions) - 1;
-  int end = causal ? min(all_tiles, last_pos / kTile + 1) : all_tiles;
-  if (causal && has_empty_row)
-    end = max(end, (jax_masked_row_keys(last_pos, tq, tk) + kTile - 1) / kTile);
+  const int words = (tk + 31) / 32;
+  const int all_tiles = (tk + Kt - 1) / Kt;
+  const int first_valid = first_valid_key(mp, tk, bits, warp_first);  // and the barriers' initialization
+  // a row of this CTA has no valid key: its first row's, if any
+  const bool has_empty_row = first_valid >= tk || (causal && first_valid > cta_q0);
+  const int last_pos = min(tq, cta_q0 + S::kGroups * positions) - 1;
+  int end = causal ? min(all_tiles, last_pos / Kt + 1) : all_tiles;
+  if (causal && has_empty_row) end = max(end, (jax_masked_row_keys(last_pos, tq, tk) + Kt - 1) / Kt);
+  auto word = [&](int i) { return i < words ? bits[i] : 0u; };
+  // bit jj: key tile*Kt + jj is valid
+  auto tile_bits = [&](int tile) -> uint64_t {
+    if constexpr (Kt == 64) return (uint64_t)word(2 * tile) | (uint64_t)word(2 * tile + 1) << 32;
+    else if constexpr (Kt == 32) return word(tile);
+    else return (word(tile / 2) >> (16 * (tile & 1))) & kAllKeys;
+  };
   auto next_tile = [&](int tile) {
-    while (tile < end && !has_empty_row && bits[tile] == 0) ++tile;
+    while (tile < end && !has_empty_row && tile_bits(tile) == 0) ++tile;
     return tile;
   };
-  auto load = [&](int tile, int stage) {
-    load_tiles<D>(hi + (2 * stage) * TF, hi + (2 * stage + 1) * TF, kp, vp, tile * kTile, tk, tid,
-                  kThreads);
+  // the key tile's K and V over their natural hi (thread 0)
+  auto issue = [&](int tile) {
+    wg::mbar_expect_tx(full, 2 * ST::kBytes);
+    wg::tma_tile_f32<ST, D>(base + S::kK, &tm_k, tile * Kt, kv_slab, full);
+    wg::tma_tile_f32<ST, D>(base + S::kV, &tm_v, tile * Kt, kv_slab, full);
   };
 
-  int tile = next_tile(0);
-  if (tile < end) load(tile, 0);
-  // the block's 64 rows of q and dO, staged in the second stage and the lo
-  // tiles (free until the loop starts), then split into A fragments
-  const size_t row_base = (size_t)b * h;
-  float* staged = hi + 2 * TF;
-  load_rows<D, kBlockRows>(staged, staged + kBlockRows * L::kRow, q, dout, [&](const float* src, int r) {
-    const int pos = q0 + r % positions;
-    return pos < tq ? src + ((row_base + head0 + r / positions) * tq + pos) * D : nullptr;
-  }, tid, kThreads);
-  tf32::cp_async_commit();
-  tf32::cp_async_wait_all();
-  __syncthreads();
-  store_a_fragments<D>(q_frag, staged, scale, warp);
-  store_a_fragments<D>(o_frag, staged + kBlockRows * L::kRow, 1.f, warp);
-
-  float acc[kSteps][4];
+  float acc[D / 2];  // dQ / scale
 #pragma unroll
-  for (int n = 0; n < kSteps; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float dslope[2] = {0.f, 0.f};
+  // full tiles below every row need no mask
+  const bool rows_plain = !has_empty_row && min(tq, q0 + positions) == q0 + positions;
+  // this warpgroup's rows, split once
+  wg::mbar_wait(bar_rows, 0);
+  uint8_t* rows = smem + (rows_tile - base);
+  wg::split_tile<RT, kWG>(rows, rows + RT::kBytes, scale, wtid);
+  wg::split_tile<RT, kWG>(rows + 2 * RT::kBytes, rows + 3 * RT::kBytes, 1.f, wtid);
 
-  int stage = 0;
-  while (tile < end) {
-    tf32::cp_async_wait_all();
-    __syncthreads();  // this tile has landed; every warp is done with the last one
+  int tile = 0;  // end >= 1: every CTA has a key tile to walk
+  for (int j = 0; tile < end; ++j) {
     const int nxt = next_tile(tile + 1);
-    if (nxt < end) load(nxt, stage ^ 1);
-    tf32::cp_async_commit();
-    const float* kh = hi + (2 * stage) * TF;
-    const float* vh = kh + TF;
-    const float* kl = lo;
-    const float* vl = lo + TF;
-    split_tile<D>(hi + (2 * stage) * TF, lo, 1.f, tid, kThreads);
-    split_tile<D>(hi + (2 * stage + 1) * TF, lo + TF, 1.f, tid, kThreads);
+    const int k0 = tile * Kt;
+    __syncthreads();  // every warp is done with the last tile's transposed K
+    wg::mbar_wait(full, j & 1);
+    wg::split_transpose<ST, TT, kThreads>(smem + S::kK, smem + S::kK + ST::kBytes, smem + S::kKT,
+                                          smem + S::kKT + TT::kBytes, 1.f, tid);
+    wg::split_tile<ST, kThreads>(smem + S::kV, smem + S::kV + ST::kBytes, 1.f, tid);
+    wg::fence_proxy_async();
     __syncthreads();
-    const int k0 = tile * kTile;
 
-    // S = (q*scale).K^T and dP = dO.V^T
-    float s[kTileN][4], dp[kTileN][4];
-#pragma unroll
-    for (int n = 0; n < kTileN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 1  // each k-step computes its own swizzled offsets: fewer registers, fewer spills
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t qa_hi[4], qa_lo[4], oa_hi[4], oa_lo[4];
-      load_a(q_frag, warp, kk, kSteps, qa_hi, qa_lo);
-      load_a(o_frag, warp, kk, kSteps, oa_hi, oa_lo);
-#pragma unroll
-      for (int n = 0; n < kTileN; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        load_b_rows<D>(kh, kl, n, kk, b_hi, b_lo);
-        mma_split(s[n], qa_hi, qa_lo, b_hi, b_lo);
-        load_b_rows<D>(vh, vl, n, kk, b_hi, b_lo);
-        mma_split(dp[n], oa_hi, oa_lo, b_hi, b_lo);
-      }
+    // S = (q*scale).K^T (sd[0]) and dP = dO.V^T (sd[1])
+    float sd[2][Kt / 2];
+    {
+      const uint32_t a[2] = {rows_tile, rows_tile + 2 * RT::kBytes};
+      const uint32_t bt[2] = {base + S::kK, base + S::kV};
+      split_ss_sum<Kt, RT, ST, D / 8, 2>(sd, a, bt);
+    }
+    float(&s)[Kt / 2] = sd[0];
+    float(&dp)[Kt / 2] = sd[1];
+    // the next key tile over the natural tiles, once every warp has read
+    // them (thread 0)
+    if (lane == 0) wg::mbar_arrive(nat_free);
+    if (tid == 0 && nxt < end) {
+      wg::mbar_wait(nat_free, j & 1);
+      issue(nxt);
     }
 
-    // dS in place of dP: element e is row g + 8*(e>>1), key k0 + 8n + 2*t4 + (e&1)
-    const uint32_t word = bits[tile];
+    // dS in place of dP: element e is row g + 8*((e>>1)&1) of warp w, key
+    // k0 + 8*(e>>2) + 2*t4 + (e&1); kd[i] + c is the key of column offset c
+    // = 8*(e>>2) + (e&1) less row i's position
+    const uint64_t valid_keys = tile_bits(tile);
+    const float kd[2] = {(float)(k0 + 2 * t4 - row_pos[0]), (float)(k0 + 2 * t4 - row_pos[1])};
+    if (rows_plain && valid_keys == kAllKeys && (!causal || k0 + Kt - 1 <= q0)) {
+      // every (row, key) pair of the tile is valid and below every row's
+      // key limit: no mask
 #pragma unroll
-    for (int n = 0; n < kTileN; ++n) {
+      for (int e = 0; e < Kt / 2; ++e) {
+        const int i = (e >> 1) & 1;
+        const float dist = fabsf(kd[i] + (float)(8 * (e >> 2) + (e & 1)));
+        const float p = expf(s[e] - row_slope[i] * dist - row_lse[i]);
+        dp[e] = p * (dp[e] - row_delta[i]);
+        dslope[i] = fmaf(dp[e], -dist, dslope[i]);
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int jj = n * 8 + 2 * t4 + (e & 1);
+      for (int e = 0; e < Kt / 2; ++e) {
+        const int i = (e >> 1) & 1;
+        const int jj = 8 * (e >> 2) + 2 * t4 + (e & 1);
         const int kj = k0 + jj;
-        const bool valid = ((word >> jj) & 1u) != 0;
-        const float dist = fabsf((float)(kj - row_pos[i]));
-        float x = s[n][e] - row_slope[i] * dist;
+        const bool valid = ((valid_keys >> jj) & 1u) != 0;
+        const float dist = fabsf(kd[i] + (float)(8 * (e >> 2) + (e & 1)));
+        float x = s[e] - row_slope[i] * dist;
         x = (valid && (!causal || kj <= row_pos[i])) ? x : kMaskValue;
-        const float p = kj < row_limit[i] ? expf(x - row_lse[i]) : 0.f;
-        const float ds = p * (dp[n][e] - row_delta[i]);
-        dp[n][e] = ds;
-        dslope[i] = fmaf(ds, -dist, dslope[i]);
+        const float p = expf(x - row_lse[i]);
+        dp[e] = (kj < row_limit[i] ? p : 0.f) * (dp[e] - row_delta[i]);
+        dslope[i] = fmaf(dp[e], -dist, dslope[i]);
       }
     }
 
-    // dQ += dS.K, A straight from the accumulator
+    // dQ += dS.K: A from the accumulator, B K's transposed tile, the tile's
+    // products from zero
+    uint32_t a[Kt / 8][2][4];
+    wg::acc_a<Kt / 8>(dp, a);
+    float tile_sum[D / 2];
+    wg::hold(a);
+    wg::hold(tile_sum);
+    wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < kTileN; ++kk) {
-      uint32_t ds_hi[4], ds_lo[4];
-      split_acc(dp[kk], ds_hi, ds_lo);
+    for (int kk = 0; kk < Kt / 8; ++kk) split_rs<D, TT>(tile_sum, a[kk], base + S::kKT, kk, kk == 0);
+    wg::commit();
+    wg::wait_all();
+    wg::hold(tile_sum);
+    wg::hold(a);
 #pragma unroll
-      for (int n = 0; n < kSteps; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        load_b_cols<D>(kh, kl, n, kk, b_hi, b_lo);
-        mma_split(acc[n], ds_hi, ds_lo, b_hi, b_lo);
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] += tile_sum[i];
     tile = nxt;
-    stage ^= 1;
   }
 
+  // element 4j + 2i + c of acc: row g + 8i of warp w, column 8j + 2t4 + c
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row_pos[i] >= tq) continue;
     float* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < kSteps; ++n) tf32::store2(op + n * 8, acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+    for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 
-  // the slope gradient: each head's rows of the block in a fixed order, in
-  // the lo buffer, free now
-  __syncthreads();
-  float* rows = lo;  // [64 rows][4 lanes of a row]
+  // the slope gradient, with the padded keys' part (once a row): each
+  // block's rows of each head in a fixed order
+  __syncthreads();  // every warp is done with the key tiles
 #pragma unroll
-  for (int i = 0; i < 2; ++i) rows[(warp * kRowsPerWarp + g + 8 * i) * 4 + t4] = dslope[i];
+  for (int i = 0; i < 2; ++i) {
+    if (t4 == 0) dslope[i] += padded_keys_dslope(row_pos[i], row_lse[i], row_delta[i], tq, tk, causal);
+    slope_rows[(grp * kRows + w * 16 + g + 8 * i) * 4 + t4] = dslope[i];
+  }
   __syncthreads();
-  if (tid < heads_per_block) {
+  for (int r = tid; r < S::kGroups * heads_per_block; r += kThreads) {
+    const int gg = r / heads_per_block, hh = r % heads_per_block;
+    const int blk = blockIdx.x * S::kGroups + gg;
+    if (blk >= blocks) continue;
     float total = 0.f;
-    for (int r = tid * positions; r < (tid + 1) * positions; ++r)
+    for (int row = hh * positions; row < (hh + 1) * positions; ++row)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) total += rows[r * 4 + c];
-    dslope_part[(row_base + head0 + tid) * gridDim.x + blockIdx.x] = total;
+      for (int c = 0; c < 4; ++c) total += slope_rows[(gg * kRows + row) * 4 + c];
+    dslope_part[(row_base + head0 + hh) * blocks + blk] = total;
   }
-}
-
-// Grants `kernel` the device's dynamic shared memory (less its static part)
-// and the largest shared-memory carveout, once; returns the bytes granted.
-template <typename Kernel>
-int grant_smem(Kernel kernel) {
-  int dev = 0, limit = 0;
-  cudaFuncAttributes attr = {};
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaFuncGetAttributes(&attr, kernel);
-  const int dynamic = limit - (int)attr.sharedSizeBytes;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  return dynamic;
 }
 
 template <int D>
 int launch_dkv(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
-               const float* dout, const float* lse, const float* delta, float* dk, float* dv, int b, int h,
-               int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+               const float* dout, const float* lse, const float* delta, float* dk, float* dv, int b, int h, int hk,
+               int tq, int tk, int causal, float scale, cudaStream_t stream) {
   static const int granted = grant_smem(flash_bwd_dkv<D>);
-  const size_t smem = DkvLayout<D>::kBytes;
-  if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
-  const dim3 grid((tk + kBlockRows - 1) / kBlockRows, b * hk);
-  flash_bwd_dkv<D><<<grid, kDkvThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk, tq,
-                                                        tk, causal, scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv_wide(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
-                    const float* dout, const float* lse, const float* delta, float* dk, float* dv, int b, int h,
-                    int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dkv_wide<D>);
-  const size_t smem = DkvWideLayout<D>::kBytes;
-  if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
-  const dim3 grid((tk + kBlockRows - 1) / kBlockRows, b * hk);
-  flash_bwd_dkv_wide<D><<<grid, 2 * kThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, h, hk,
-                                                              tq, tk, causal, scale);
-  return (int)cudaGetLastError();
+  const int smem = DkvSmem<D>::kBytes;
+  if (smem > granted) return (int)cudaErrorInvalidValue;
+  constexpr int Q = DkvSmem<D>::Q;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!(tile_map_f32<D>(&tm_q, q, tq, b * h, Q, 1) && tile_map_f32<D>(&tm_o, dout, tq, b * h, Q, 1) &&
+        tile_map_f32<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map_f32<D>(&tm_v, v, tk, b * hk, kRows, 1)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (tk + kRows - 1) / kRows * b * hk;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // with one KV head a block walks every query head's tiles: at small
+  // grids split the heads over a cluster until there are 4 CTAs an SM
+  int split = 1;
+  while (hk == 1 && split < 8 && h % (2 * split) == 0 && blocks * split < 4 * sms) split *= 2;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((tk + kRows - 1) / kRows, b * hk, split);
+  config.blockDim = dim3(2 * kWG);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = split;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv<D>, tm_q, tm_k, tm_v, tm_o, slopes, mask, lse,
+                                             delta, dk, dv, h, hk, tq, tk, causal, scale);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
-              const float* dout, const float* lse, const float* delta, float* dq, float* dslope_part, int b,
-              int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+              const float* dout, const float* lse, const float* delta, float* dq, float* dslope_part, int b, int h,
+              int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  using S = DqSmem<D>;
   static const int granted = grant_smem(flash_bwd_dq<D>);
-  const size_t smem = Layout<D>::kBytes + sizeof(uint32_t) * ((tk + kTile - 1) / kTile);
-  if (smem > (size_t)granted) return (int)cudaErrorInvalidValue;
-  const bool mqa = hk == 1 && h > 1 && kBlockRows % h == 0;
+  const int smem = S::bytes(tk);
+  if (smem > granted) return (int)cudaErrorInvalidValue;
+  const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
-  const int positions = kBlockRows / heads_per_block;
-  const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
-  flash_bwd_dq<D><<<grid, kThreads, smem, stream>>>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, h, hk,
-                                                    tq, tk, causal, scale, heads_per_block);
+  const int positions = kRows / heads_per_block;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!(tile_map_f32<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
+        tile_map_f32<D>(&tm_o, dout, tq, b * h, positions, heads_per_block) &&
+        tile_map_f32<D>(&tm_k, k, tk, b * hk, S::kKeys, 1) && tile_map_f32<D>(&tm_v, v, tk, b * hk, S::kKeys, 1)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (tq + positions - 1) / positions;
+  const dim3 grid((blocks + S::kGroups - 1) / S::kGroups, mqa ? b : b * h);
+  flash_bwd_dq<D><<<grid, S::kGroups * kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta, dq,
+                                                             dslope_part, h, hk, tq, tk, causal, scale,
+                                                             heads_per_block);
   return (int)cudaGetLastError();
 }
 
-// launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope
-// parts
+// launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope parts
 template <bool kDkv, typename Out1>
 int dispatch(const float* q, const float* k, const float* v, const float* slopes, const uint8_t* mask,
-             const float* dout, const float* lse, const float* delta, float* out0, Out1* out1, int b, int h,
-             int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
+             const float* dout, const float* lse, const float* delta, float* out0, Out1* out1, int b, int h, int hk,
+             int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   auto run = [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    if constexpr (kDkv && D == 128)
-      return launch_dkv_wide<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal,
-                                scale, s);
-    else if constexpr (kDkv)
+    if constexpr (kDkv)
       return launch_dkv<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
     else
       return launch_dq<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
@@ -1097,27 +795,23 @@ int dispatch(const float* q, const float* k, const float* v, const float* slopes
 // (b, hk, tk, d), written whole (with hk = 1, summed over the h query heads).
 // All fp32, contiguous and 16-byte aligned. Returns the CUDA error code of
 // the launch.
-extern "C" int sp_flash_attention_bwd_dkv(const float* q, const float* k, const float* v,
-                                          const float* slopes, const uint8_t* mask,
-                                          const float* dout, const float* lse,
-                                          const float* delta, float* dk, float* dv, int b, int h,
-                                          int hk, int tq, int tk, int d, int causal, float scale,
-                                          void* stream) {
-  return dispatch<true>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d,
-                        causal, scale, stream);
+extern "C" int sp_flash_attention_bwd_dkv(const float* q, const float* k, const float* v, const float* slopes,
+                                          const uint8_t* mask, const float* dout, const float* lse,
+                                          const float* delta, float* dk, float* dv, int b, int h, int hk, int tq,
+                                          int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<true>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale, stream);
 }
 
 // As above; dq: (b, h, tq, d); dslope_part: (b, h, blocks), each block's
-// part of sum dS * (-|i-j|) for each head it holds, for the caller to sum
-// over b and blocks. A block holds 64 (head, position) rows: with hk = 1 and
-// h dividing 64, all h heads at 64/h positions (blocks = ceil(tq / (64/h))),
-// else 64 positions of one head (blocks = ceil(tq / 64)).
-extern "C" int sp_flash_attention_bwd_dq(const float* q, const float* k, const float* v,
-                                         const float* slopes, const uint8_t* mask,
-                                         const float* dout, const float* lse, const float* delta,
-                                         float* dq, float* dslope_part, int b, int h, int hk,
-                                         int tq, int tk, int d, int causal, float scale,
-                                         void* stream) {
-  return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq,
-                         tk, d, causal, scale, stream);
+// part of sum dS * (-|i-j|) for each head it holds, the padded keys' part
+// included, for the caller to sum over b and blocks. A block holds 64 (head,
+// position) rows: with hk = 1 and h dividing 64, all h heads at 64/h
+// positions (blocks = ceil(tq / (64/h))), else 64 positions of one head
+// (blocks = ceil(tq / 64)).
+extern "C" int sp_flash_attention_bwd_dq(const float* q, const float* k, const float* v, const float* slopes,
+                                         const uint8_t* mask, const float* dout, const float* lse,
+                                         const float* delta, float* dq, float* dslope_part, int b, int h, int hk,
+                                         int tq, int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
+                         scale, stream);
 }

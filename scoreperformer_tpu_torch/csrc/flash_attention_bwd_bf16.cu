@@ -91,8 +91,8 @@
 // the block's first key is skipped unless it holds a row with no valid key
 // that reaches those keys. Rows with no valid key (lse = -1e30) put P = 1 on
 // the keys below `jax_masked_row_keys`, and the dQ kernel adds the slope
-// gradient's part from the keys the JAX wrapper pads past t (for the fp32
-// kernels the caller adds it).
+// gradient's part from the keys the JAX wrapper pads past t
+// (wg::padded_keys_dslope, as the fp32 dQ kernel does).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,10 +106,13 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using wg::cluster_sync;
 using wg::first_valid_key;
 using wg::grant_smem;
 using wg::jax_masked_row_keys;
 using wg::key_limit;
+using wg::ld_cluster;
+using wg::padded_keys_dslope;
 using wg::smem_addr;
 using wg::store2;
 using wg::Tile;
@@ -118,41 +121,6 @@ using wg::tile_map;
 constexpr int kRows = 64;  // keys of a dK/dV block, rows of a dQ block, rows of every tile
 constexpr int kWG = 128;   // threads of a warpgroup
 constexpr float kMaskValue = -1e30f;
-
-// The slope gradient's part from the keys the JAX wrapper pads past t, up to
-// its key blocks' end (as ops/flash_attention.py::padded_key_dslopes): v is
-// 0 there, so dS = -P * delta with P = exp(-1e30 - lse), 1 on a row with no
-// valid key and 0 on every other; dS * (-|i-j|) sums to P * delta * the
-// row's distances to the padded keys it visits (all of them, or with
-// `causal` those below its query block's end).
-__device__ __forceinline__ float padded_keys_dslope(int qi, float lse, float delta, int tq, int tk, int causal) {
-  const float p = expf(kMaskValue - lse);
-  if (qi >= tq || p == 0.f) return 0.f;
-  const int bk = max(128, min(256, tk));
-  int end = (tk + bk - 1) / bk * bk;
-  if (causal) {
-    const int bq = max(8, min(256, tq));
-    end = min(end, ((qi / bq + 1) * bq + bk - 1) / bk * bk);
-  }
-  float dist = 0.f;  // a sum of integers, exact
-  for (int j = tk; j < end; ++j) dist += fabsf((float)(j - qi));
-  return p * delta * dist;
-}
-
-// both halves of a cluster barrier: every thread of every CTA of the
-// cluster has arrived, and their shared-memory writes are visible
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the float at shared address `addr` of the cluster's CTA `rank`
-__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
 
 // the query column (0-15) of a thread's dK/dV accumulator element e: query
 // 8*(e>>2) + 2*t4 + (e&1)

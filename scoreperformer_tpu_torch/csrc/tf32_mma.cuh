@@ -1,5 +1,6 @@
-// Split-TF32 tensor-core products and cp.async copies, shared by the flash
-// forward and backward kernels.
+// Split-TF32 tensor-core products (`mma.sync`) and cp.async copies of the
+// fp32 flash forward (flash_attention_fwd.cu), and the TF32 rounding and
+// split that the fp32 backward's `wgmma` operands take too (wgmma.cuh).
 //
 // fp32 accuracy from TF32 units: x = hi + lo with hi = tf32(x) and
 // lo = tf32(x - hi), both rounded to nearest, ties away (`rna`), and
@@ -14,8 +15,8 @@
 // a3 (g+8, t4+4); B (8x8) b0 (k t4, n g), b1 (k t4+4, n g); C (16x8)
 // c0 (g, 2t4), c1 (g, 2t4+1), c2 (g+8, 2t4), c3 (g+8, 2t4+1).
 //
-// These are the fp32 kernels' helpers; the bf16 kernels are
-// flash_attention_fwd_bf16.cu and flash_attention_bwd_bf16.cu, on bf16
+// The fp32 backward (flash_attention_bwd.cu) and the bf16 kernels
+// (flash_attention_fwd_bf16.cu, flash_attention_bwd_bf16.cu) run on
 // `wgmma` (wgmma.cuh).
 #pragma once
 
@@ -79,8 +80,5 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 
 // all but the newest group have landed
 __device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// every group has landed
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 }  // namespace tf32

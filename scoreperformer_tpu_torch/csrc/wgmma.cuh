@@ -1,8 +1,9 @@
-// Hopper warpgroup MMA (`wgmma`) on bf16 tiles in shared memory, filled by
-// TMA, for the bf16 flash-attention forward (flash_attention_fwd_bf16.cu) and
-// backward (flash_attention_bwd_bf16.cu), and the pieces both share: the
-// tensor maps, the key mask's words and the JAX wrapper's keys for a query
-// row with no valid key.
+// Hopper warpgroup MMA (`wgmma`) on tiles in shared memory, filled by TMA:
+// bf16 tiles for the bf16 flash-attention forward (flash_attention_fwd_bf16.cu)
+// and backward (flash_attention_bwd_bf16.cu), TF32 tiles of fp32 values for
+// the fp32 backward (flash_attention_bwd.cu, below "TF32"), and the pieces
+// they share: the tensor maps, mbarriers, cluster barriers, the key mask's
+// words and the JAX wrapper's keys for a query row with no valid key.
 //
 // A tile is 64 rows of d bf16 values, swizzled as `wgmma` reads it: rows of
 // 32 bytes (d = 16), 64 (d = 32) or 128 (d = 64), each 16-byte chunk XORed
@@ -26,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace wg {
 
@@ -68,6 +71,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
 
 // keeps registers that an asynchronous wgmma reads or writes where they are
 // across this point (before wgmma::fence, after wait_all)
@@ -241,7 +247,279 @@ __device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][3
 }
 
 
-// ---- shared by the bf16 flash kernels ----
+
+// ---- TF32: fp32 tiles for wgmma.m64nNk8.f32.tf32.tf32 ----
+//
+// TF32 wgmma reads its shared-memory operands K-major only (no transpose
+// bit), 8 fp32 values (32 bytes) a k-step. F32Tile<R, C> is R rows of C fp32
+// values, K running along the row: rows of 64 bytes (C = 16, 64-byte
+// swizzle) or blocks of 128-byte rows (C >= 32, 128-byte swizzle), the
+// blocks (columns 0-31, 32-63, ...) one after another, each R x 128 bytes.
+// A 16-byte chunk's index within its row is XORed with address bits 7 and
+// up, as TMA writes the tile with the same swizzle; every tile starts on a
+// 1024-byte boundary. `offset` gives the byte of (row, col) for the threads
+// that read or write a tile themselves (a transposed copy).
+//
+// A from registers (m64k8): register r of a thread holds (row 16w + g +
+// 8*(r&1), k = t4 + 4*(r>>1)), w the warp of the warpgroup, g = lane/4, t4 =
+// lane%4. The fp32 accumulator holds (row 16w + g + 8i, column 8j + 2t4 +
+// c) in d[4j + 2i + c], so a k-step's A registers come straight from the
+// accumulator's columns 8j..8j+7 taken in the order 0, 2, 4, 6, 1, 3, 5, 7
+// (`acc_a`): the B tile of that product holds its K rows in the same order
+// within each 8, row r at column (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2)
+// (`split_transpose`).
+template <int R, int C>
+struct F32Tile {
+  static_assert(C == 16 || C % 32 == 0, "rows of 64 bytes or of 128-byte blocks");
+  static constexpr int kRows = R;
+  static constexpr int kRowBytes = C >= 32 ? 128 : 64;  // a row within one swizzled block
+  static constexpr int kBlockBytes = R * kRowBytes;
+  static constexpr int kBytes = R * C * 4;
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;  // 128B, 64B swizzle
+  static constexpr int kMask = kRowBytes / 16 - 1;
+  static_assert(kBlockBytes % 1024 == 0, "every block starts on a 1024-byte boundary");
+
+  static __device__ __forceinline__ int swizzle(int o) { return o ^ (((o >> 7) & kMask) << 4); }
+  // the byte of (row, col)
+  static __device__ __forceinline__ int offset(int row, int col) {
+    constexpr int kPerRow = kRowBytes / 4;
+    return (col / kPerRow) * kBlockBytes + swizzle(row * kRowBytes + (col % kPerRow) * 4);
+  }
+  // the tile at `tile` as a K-major operand, k-step kk (8 columns)
+  static __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+    constexpr int kStepsPerBlock = kRowBytes / 32;
+    return desc(tile + (kk / kStepsPerBlock) * kBlockBytes + (kk % kStepsPerBlock) * 32, 16, 8 * kRowBytes,
+                kLayout);
+  }
+};
+
+// the fp32 accumulator x (64 x 8K) as the A registers of K k-steps, split
+// as tf32_mma.cuh's `split` splits: a[kk][0] hi, a[kk][1] lo
+template <int K>
+__device__ __forceinline__ void acc_a(const float (&x)[4 * K], uint32_t (&a)[K][2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+    tf32::split(x[4 * kk + 0], a[kk][0][0], a[kk][1][0]);  // (g, column 2t4)
+    tf32::split(x[4 * kk + 2], a[kk][0][1], a[kk][1][1]);  // (g + 8, column 2t4)
+    tf32::split(x[4 * kk + 1], a[kk][0][2], a[kk][1][2]);  // (g, column 2t4 + 1)
+    tf32::split(x[4 * kk + 3], a[kk][0][3], a[kk][1][3]);  // (g + 8, column 2t4 + 1)
+  }
+}
+
+// The landed fp32 tile at `hi` (layout Nat), times `mul`, split in place:
+// hi = tf32(x * mul) where x was, lo = tf32(x * mul - hi) at the same byte
+// of `lo`, by kThreads threads, thread `tid` taking every kThreads-th
+// 16-byte chunk. A thread issues all its loads before its stores: a pass
+// runs with nothing else in flight, so its loads' latency is what it costs.
+template <class Nat, int kThreads>
+__device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, float mul, int tid) {
+  constexpr int kIters = Nat::kBytes / 16 / kThreads;
+  static_assert(kIters * kThreads * 16 == Nat::kBytes, "chunks a thread");
+  float4 x[kIters];
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) x[k] = *reinterpret_cast<const float4*>(hi + (tid + k * kThreads) * 16);
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    uint32_t h[4], l[4];
+    tf32::split(x[k].x * mul, h[0], l[0]);
+    tf32::split(x[k].y * mul, h[1], l[1]);
+    tf32::split(x[k].z * mul, h[2], l[2]);
+    tf32::split(x[k].w * mul, h[3], l[3]);
+    const int o = (tid + k * kThreads) * 16;
+    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// As split_tile, and the tile's transpose (layout Tr: Nat's C columns as
+// rows, its R rows as columns in `acc_a`'s order) split at t_hi and t_lo.
+// A task is rows 8a + c, +2, +4, +6 of column n (c = 0 or 1), whose
+// transposes are one 16-byte chunk, columns 8a + 4c to 8a + 4c + 3, of row
+// n: a warp reads 32 columns of a row (two rows of 16 at C = 16) and writes
+// 8 rows' chunks a phase, both without bank conflicts; thread `tid` takes
+// every kThreads-th task, all its loads first.
+template <class Nat, class Tr, int kThreads>
+__device__ __forceinline__ void split_transpose(uint8_t* hi, uint8_t* lo, uint8_t* t_hi, uint8_t* t_lo, float mul,
+                                                int tid) {
+  constexpr int R = Nat::kRows, C = Nat::kBytes / (4 * R);
+  constexpr int kIters = R / 8 * 2 * C / kThreads;
+  static_assert(kIters * kThreads == R / 8 * 2 * C, "tasks a thread");
+  int o[kIters][4];
+  float x[kIters][4];
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const int t = tid + k * kThreads;
+    const int n = t % C, c = (t / C) & 1, a8 = (t / (2 * C)) * 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[k][i] = Nat::offset(a8 + c + 2 * i, n);
+      x[k][i] = *reinterpret_cast<const float*>(hi + o[k][i]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kIters; ++k) {
+    const int t = tid + k * kThreads;
+    const int n = t % C, c = (t / C) & 1, a8 = (t / (2 * C)) * 8;
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tf32::split(x[k][i] * mul, h[i], l[i]);
+      *reinterpret_cast<uint32_t*>(hi + o[k][i]) = h[i];
+      *reinterpret_cast<uint32_t*>(lo + o[k][i]) = l[i];
+    }
+    const int to = Tr::offset(n, a8 + 4 * c);  // row a8 + c + 2i lands at column a8 + 4c + i
+    *reinterpret_cast<uint4*>(t_hi + to) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(t_lo + to) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// generic-proxy writes to shared memory visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// d (64 x 16) = A (64 x 8, shared) . B (8 x 16, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_ss_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32) = A (64 x 8, shared) . B (8 x 32, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) = A (64 x 8, shared) . B (8 x 64, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 16) = a (64 x 8, registers) . B (8 x 16, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32) = a (64 x 8, registers) . B (8 x 32, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) = a (64 x 8, registers) . B (8 x 64, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 128) = a (64 x 8, registers) . B (8 x 128, shared), tf32, plus d when accumulate
+__device__ __forceinline__ void tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+
+// d (64 x N) = A . B in TF32, both from shared memory, for N = 16, 32, 64
+template <int N>
+__device__ __forceinline__ void tf32_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  if constexpr (N == 16) tf32_ss_n16(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 32) tf32_ss_n32(d, desc_a, desc_b, accumulate);
+  else tf32_ss_n64(d, desc_a, desc_b, accumulate);
+}
+
+// d (64 x N) = a (registers) . B in TF32, for N = 16, 32, 64, 128
+template <int N>
+__device__ __forceinline__ void tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  if constexpr (N == 16) tf32_rs_n16(d, a, desc_b, accumulate);
+  else if constexpr (N == 32) tf32_rs_n32(d, a, desc_b, accumulate);
+  else if constexpr (N == 64) tf32_rs_n64(d, a, desc_b, accumulate);
+  else tf32_rs_n128(d, a, desc_b, accumulate);
+}
+
+// the F32Tile<rows, D> at (row, slab) of `map` into shared memory at `dst`,
+// completing on `bar`: one copy a swizzled column block
+template <class T, int D>
+__device__ __forceinline__ void tma_tile_f32(uint32_t dst, const void* map, int row, int slab, uint32_t bar) {
+#pragma unroll
+  for (int blk = 0; blk < (D > 32 ? D / 32 : 1); ++blk)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+        "%4}], [%5];\n" ::"r"(dst + blk * T::kBlockBytes),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(blk * 32), "r"(row), "r"(slab), "r"(bar)
+        : "memory");
+}
+
+// both halves of a cluster barrier: every thread of every CTA of the
+// cluster has arrived, and their shared-memory writes are visible
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at shared address `addr` of the cluster's CTA `rank`
+__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// ---- shared by the flash kernels ----
 
 // Keys the JAX wrapper averages v over for a query row with no valid key,
 // the keys it pads past t included: every key of its key blocks of
@@ -261,6 +539,21 @@ __device__ __forceinline__ int masked_row_keys(int qi, int tq, int tk, int causa
 // valid key.
 __device__ __forceinline__ int jax_masked_row_keys(int qi, int tq, int tk) {
   return min(tk, masked_row_keys(qi, tq, tk, 1));
+}
+
+// The slope gradient's part from the keys the JAX wrapper pads past t, up to
+// its key blocks' end (as ops/flash_attention.py::padded_key_dslopes): v is
+// 0 there, so dS = -P * delta with P = exp(-1e30 - lse), 1 on a row with no
+// valid key and 0 on every other; dS * (-|i-j|) sums to P * delta * the
+// row's distances to the padded keys it visits (all of them, or with
+// `causal` those below its query block's end).
+__device__ __forceinline__ float padded_keys_dslope(int qi, float lse, float delta, int tq, int tk, int causal) {
+  const float p = expf(-1e30f - lse);
+  if (qi >= tq || p == 0.f) return 0.f;
+  const int end = masked_row_keys(qi, tq, tk, causal);
+  float dist = 0.f;  // a sum of integers, exact
+  for (int j = tk; j < end; ++j) dist += fabsf((float)(j - qi));
+  return p * delta * dist;
 }
 
 // keys [0, limit) can have P != 0 for query row qi (0 past t)
@@ -336,6 +629,23 @@ bool tile_map(CUtensorMap* map, const __nv_bfloat16* ptr, int rows, int slabs, i
                                      : Tile<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `map` over a (slabs, rows, D) fp32 tensor at `ptr`, in boxes of box_rows
+// rows of box_slabs slabs and 32 columns at most, swizzled as F32Tile<_, D>
+template <int D>
+bool tile_map_f32(CUtensorMap* map, const float* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)rows * D * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 32 ? D : 32), (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  static_assert(D >= 16, "rows of 64 bytes at least");
+  const CUtensorMapSwizzle swizzle = D >= 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -13,8 +13,9 @@ the TPU kernels' numerics: q is scaled before the dot, the bias is
 -slope*|i-j|, masked scores are -1e30, the softmax sum is clamped at 1e-30, P
 is recomputed from the saved logsumexp, all in fp32 (the fp32 kernels take
 every product on the tensor cores in split TF32, three TF32 products each,
-within about 2^-21 of fp32; the bf16 kernels take S and dP as single bf16
-`wgmma` products, exact in fp32, and P and dS in three bf16 terms each).
+within about 2^-21 of fp32: `mma.sync` in the forward, `wgmma` in the
+backward; the bf16 kernels take S and dP as single bf16 `wgmma` products,
+exact in fp32, and P and dS in three bf16 terms each).
 
 q, k, v and the output gradient may be bf16 (a model held in bf16 gives
 them), as the Pallas kernels take them: the arithmetic stays fp32, the output is written in q's
@@ -239,8 +240,9 @@ def _count(fn, dtype):
 
 
 def _for_dtype(name, dtype):
-    """The library or entry point `name` of the fp32 kernels (split-TF32
-    `mma.sync`), or its `_bf16` sibling (bf16 `wgmma`) for bf16 operands."""
+    """The library or entry point `name` of the fp32 kernels (split TF32:
+    `mma.sync` in the forward, `wgmma` in the backward), or its `_bf16`
+    sibling (bf16 `wgmma`) for bf16 operands."""
     return name + "_bf16" if dtype == torch.bfloat16 else name
 
 
@@ -307,9 +309,9 @@ def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True
 def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
     """(dq, dslopes) by the dQ/dslope kernel on CUDA tensors (its plain version
     on CPU tensors). The kernel writes one part of the slope gradient per
-    (batch, head, query tile); a torch sum reduces them in a fixed order. The
-    bf16 kernel adds the JAX wrapper's padded keys' part itself; for the fp32
-    one, `padded_key_dslopes` adds it here."""
+    (batch, head, query tile), the JAX wrapper's padded keys' part
+    (`padded_key_dslopes`) included; a torch sum reduces them in a fixed
+    order."""
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     b, h, tq, _ = q.shape
@@ -318,11 +320,7 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
     _count(flash_attention_bwd_dq, q.dtype)
-    dslopes = parts.sum(dim=(0, 2))
-    padded = None if q.dtype == torch.bfloat16 else padded_key_dslopes(lse, delta, tq, k.shape[2], causal)
-    if padded is not None:
-        dslopes = dslopes + padded
-    return dq, dslopes.to(slopes.dtype)
+    return dq, parts.sum(dim=(0, 2)).to(slopes.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

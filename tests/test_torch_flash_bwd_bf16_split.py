@@ -199,12 +199,12 @@ def test_bf16_kernel_head_dims_are_the_cuda_dispatch_cases():
 
 def test_backward_probe_variants_apply_to_the_sources():
     """chip_probe_flash_bwd.py builds the fp32 backward's variants by exact
-    text edits of csrc/flash_attention_bwd.cu and tf32_mma.cuh: each edit
-    still finds its text."""
+    text edits of csrc/flash_attention_bwd.cu (one TF32 product a product,
+    no tile loops, no cluster split): each edit still finds its text."""
     import chip_probe_flash_bwd
 
-    sources = chip_probe_flash_bwd.variants((CSRC / "flash_attention_bwd.cu").read_text(),
-                                             (CSRC / "tf32_mma.cuh").read_text())
-    assert sorted(sources) == ["base", "no_loop", "one_group", "one_mma"]
-    assert all(cu != sources["base"][0] or cuh != sources["base"][1] for name, (cu, cuh) in sources.items()
-               if name != "base")
+    base = (CSRC / "flash_attention_bwd.cu").read_text()
+    sources = chip_probe_flash_bwd.variants(base)
+    assert sorted(sources) == ["base", "no_cluster", "no_loop", "one_mma"]
+    assert sources["base"] == base
+    assert all(cu != base for name, cu in sources.items() if name != "base")

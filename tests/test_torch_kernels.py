@@ -5,6 +5,7 @@ kernels themselves are held against those plain versions on the card by
 `chip_smoke.py`. Inputs come from numpy with a fixed seed.
 """
 import importlib.util
+import re
 import sys
 from pathlib import Path
 
@@ -272,51 +273,231 @@ def test_flash_split_tf32_arithmetic_matches_plain(causal, padded):
     assert max((one_o - want_o).abs().max().item(), (one_lse - want_lse).abs().max().item()) > 1e-5
 
 
-def flash_backward_with(matmul, q, k, v, slopes, mask, dout, lse, delta, causal):
-    """flash_attention_bwd_plain with each of its five products (S, dP, dV,
-    dK, dQ) taken by `matmul`, one KV head: (dq, dk, dv, dslopes)."""
-    b, _, tq, d = q.shape
-    tk = k.shape[2]
-    qs = q * d**-0.5
+# ---- the fp32 backward kernels' split-TF32 wgmma arithmetic, emulated ----
+
+CSRC = Path(__file__).resolve().parents[1] / "scoreperformer_tpu_torch" / "csrc"
+# csrc/flash_attention_bwd.cu's tiles, by head dim: the query rows of a
+# dK/dV item (DkvSmem::Q), the keys of a dQ key tile (DqSmem::kKeys); S and
+# dP sum over d one k-step (8) a tile (split_ss_sum)
+DKV_ITEM_ROWS = {16: 64, 32: 64, 64: 64, 128: 16}
+DQ_KEY_TILE = {16: 64, 32: 64, 64: 64, 128: 32}
+K_STEP = 8
+
+
+def tf32_split(x):
+    """x as the kernels split it: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def round_to_zero(x):
+    """x (fp64, in fp32's normal range) rounded toward zero to fp32's 24
+    bits, as a tensor-core add rounds; kept in fp64."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def tf32_chains(a, b, tile, one=False):
+    """a (..., m, n) @ b (..., n, e) as the kernels' wgmma chains take it: n
+    in tiles of `tile`, each tile's chain from zero, one wgmma at a time
+    (a k-step's lo.hi, hi.lo, hi.hi; only hi.hi when `one`), each adding
+    its k-step's exact products and rounding toward zero; the tiles joined
+    in order by rounded fp32 adds. Tiles run side by side, about 2**21
+    outputs at a time."""
+    n = a.shape[-1]
+    pad = -n % tile
+    tiles = (n + pad) // tile
+    a = torch.nn.functional.pad(a, (0, pad)).unflatten(-1, (tiles, tile)).movedim(-2, -3)
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad)).unflatten(-2, (tiles, tile))
+    (ah, al), (bh, bl) = (tuple(x.double() for x in tf32_split(y)) for y in (a, b))
+    products = [(ah, bh)] if one else [(al, bh), (ah, bl), (ah, bh)]
+    outputs = torch.broadcast_shapes(a.shape[:-3], b.shape[:-3]).numel() * a.shape[-2] * b.shape[-1]
+    group = max(1, (1 << 21) // outputs)
+    total = None
+    for first in range(0, tiles, group):
+        chain = None
+        for k in range(0, tile, K_STEP):
+            for x, y in products:
+                p = x[..., first:first + group, :, k:k + K_STEP] @ y[..., first:first + group, k:k + K_STEP, :]
+                chain = round_to_zero(p if chain is None else chain + p)
+        for part in chain.float().unbind(-3):
+            total = part if total is None else total + part
+    return total
+
+
+def heads_in_turn(x, rows):
+    """x (b, h, r, c) as one KV head's operand summed over the heads' rows in
+    turn, (b, 1, h * r', c), each head's r rows padded to r', a multiple of
+    `rows`, so that no tile spans two heads."""
+    x = torch.nn.functional.pad(x, (0, 0, 0, -x.shape[2] % rows))
+    return x.flatten(1, 2)[:, None]
+
+
+def emulate_fp32_bwd(q, k, v, slopes, mask, dout, lse, delta, causal, one=False):
+    """(dq, dk, dv, dslopes) by csrc/flash_attention_bwd.cu's arithmetic:
+    every product three TF32 products on split operands, each chain of
+    truncating wgmma adds from zero over at most 64 of its summed dimension
+    (a k-step of 8 of d for S and dP; an item's DKV_ITEM_ROWS queries for
+    dV and dK, with one KV head the heads' items in turn; DQ_KEY_TILE keys
+    for dQ), the chains joined by fp32 adds; bias, mask, exp and dS in fp32.
+    `one`: one TF32 product a product instead."""
+    b, h, tq, d = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    scale = d**-0.5
+    qs = q * scale
+    s = tf32_chains(qs, k.transpose(-1, -2), K_STEP, one)
+    dp = tf32_chains(dout, v.transpose(-1, -2), K_STEP, one)
     valid, dist = tflash._valid(b, tq, tk, mask, causal, q.device)
-    s = torch.where(valid, matmul(qs, k.transpose(-1, -2)) - slopes[None, :, None, None] * dist, tflash.NEG_INF)
-    p = torch.exp(s - lse[..., None])
-    if causal:  # rows with no valid key: P = 1 up to the keys JAX visits
-        p = torch.where(torch.arange(tk)[None, :] < tflash.jax_masked_row_keys(tq, tk, True)[:, None], p, 0.0)
-    ds = p * (matmul(dout, v.transpose(-1, -2)) - delta[..., None])
-    dv = matmul(p.transpose(-1, -2), dout).sum(1, keepdim=True)
-    dk = matmul(ds.transpose(-1, -2), qs).sum(1, keepdim=True)
-    dslopes = (ds * -dist).sum(dim=(0, 2, 3)) + tflash.padded_key_dslopes(lse, delta, tq, tk, causal)
-    return matmul(ds, k) * d**-0.5, dk, dv, dslopes
+    x = torch.where(valid, s - slopes[None, :, None, None] * dist, torch.tensor(tflash.NEG_INF))
+    limit = tflash.jax_masked_row_keys(tq, tk, True) if causal else torch.full((tq,), tk)
+    p = torch.where(torch.arange(tk)[None, :] < limit[:, None], torch.exp(x - lse[..., None]), 0.0)
+    ds = p * (dp - delta[..., None])
+    rows = DKV_ITEM_ROWS[d]
+
+    def dkv(a, c):  # a (b, h, tq, tk) summed over its queries with c (b, h, tq, d)
+        if hk == 1:
+            a, c = heads_in_turn(a, rows), heads_in_turn(c, rows)
+        return tf32_chains(a.transpose(-1, -2), c, rows, one)
+
+    dv = dkv(p, dout)
+    dk = dkv(ds, qs)
+    dq = tf32_chains(ds, k.expand(b, h, tk, d), DQ_KEY_TILE[d], one) * scale
+    dslopes = (ds.double() * -dist.double()).sum(dim=(0, 2, 3)).float()
+    padded = tflash.padded_key_dslopes(lse, delta, tq, tk, causal)
+    return dq, dk, dv, dslopes if padded is None else dslopes + padded
 
 
 @pytest.mark.parametrize("causal,padded", [(False, True), (True, True), (False, "empty"), (True, "empty")],
                          ids=["padded", "causal", "empty", "causal_empty"])
-def test_flash_backward_split_tf32_arithmetic_matches_plain(causal, padded):
-    """Every product of the backward in split TF32, as the dK/dV and
-    dQ/dslope kernels take them, stays within 1e-5 of the fp32 plain version
-    on dq, dk, dv and dslopes, each relative to its largest value (split
-    TF32 comes within 3e-6 here); one TF32 product a product is 2e-4 to 5e-3
-    off. Encoders' width with one KV head; a 4-head model's ALiBi slopes, as
-    in the forward's test. t = 384 pads 128 keys past t, so the slope
+@pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
+def test_flash_backward_split_tf32_arithmetic_matches_plain(d, causal, padded):
+    """The fp32 backward kernels' arithmetic (`emulate_fp32_bwd`) stays within
+    1e-5 of the fp32 plain version on dq, dk, dv and dslopes, each relative
+    to its largest value, at every head dim the kernels take; one TF32
+    product a product does not. One KV head; a 4-head model's ALiBi slopes,
+    as in the forward's test. t = 384 pads 128 keys past t, so the slope
     gradient takes the JAX wrapper's padded keys too."""
-    q, k, v, _, mask = map(torch.from_numpy, flash_inputs(2, 4, 384, 64, 1, padded))
+    q, k, v, _, mask = map(torch.from_numpy, flash_inputs(2, 4, 384, d, 1, padded))
     slopes = alibi_slopes(4)
-    dout = torch.from_numpy(rand(7, 2, 4, 384, 64))
+    dout = torch.from_numpy(rand(7, 2, 4, 384, d))
     out, lse = tflash.flash_attention_plain(q, k, v, slopes, mask=mask, causal=causal, return_lse=True)
     delta = (dout * out).sum(-1)
     args = (q, k, v, slopes, mask, dout, lse, delta, causal)
     want = tflash.flash_attention_bwd_plain(*args)
 
-    def errors(matmul):
-        got = flash_backward_with(matmul, *args)
+    def errors(one):
+        got = emulate_fp32_bwd(*args, one=one)
         return {name: ((g - w).abs().max() / w.abs().max()).item()
                 for name, g, w in zip(("dq", "dk", "dv", "dslopes"), got, want)}
 
-    split = errors(split_tf32_matmul)
+    split = errors(False)
     assert max(split.values()) <= 1e-5, split
-    one = errors(lambda a, b: tf32_rna(a) @ tf32_rna(b))
+    one = errors(True)
     assert min(one.values()) > 1e-5, one
+
+
+@pytest.mark.parametrize("d", tflash.KERNEL_HEAD_DIMS)
+def test_flash_backward_logit_chains_do_not_drift_toward_zero(d):
+    """S = (q.scale).K^T and dP = dO.V^T by the kernels' chains (each
+    k-step's three products from zero, joined by rounded fp32 adds) err
+    toward zero by a mean under half of fp32's relative step (2**-23 |x|)
+    at every head dim; one chain over all of d, where each of its 3d/8
+    wgmmas truncates, drifts toward zero by about d/16 steps. The drift
+    adds up coherently in the slope gradient's sum over keys and queries:
+    at the test above's random inputs such a chain's gradients stay within
+    about 1e-5 of the plain version's, yet on the card it moved a train
+    step's slope gradient past chip_smoke.py's card-vs-CPU gate."""
+    q, k, v, _, _ = map(torch.from_numpy, flash_inputs(2, 4, 384, d, 1, True))
+    dout = torch.from_numpy(rand(7, 2, 4, 384, d))
+    for a, b in ((q * d**-0.5, k.transpose(-1, -2)), (dout, v.transpose(-1, -2))):
+        exact = a.double() @ b.double()
+
+        def drift(tile):
+            err = (tf32_chains(a, b, tile).double() - exact) * exact.sign()
+            return (err.mean() / (exact.abs().mean() * 2.0**-23)).item()
+
+        assert abs(drift(K_STEP)) < 0.5
+        assert drift(d) < -d / 32
+
+
+KERNEL_CASES = [c for c in FLASH_CASES if c[3] in tflash.KERNEL_HEAD_DIMS]
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", KERNEL_CASES)
+def test_flash_backward_split_tf32_arithmetic_matches_pallas_kernels(b, h, t, d, hk, causal, padded):
+    """`emulate_fp32_bwd` against `jax.vjp` of the Pallas kernels in
+    interpret mode at "highest", with test_flash_backward_matches_pallas_kernels'
+    tolerances, on the kernel forward's plain lse and delta as the autograd
+    Function takes them."""
+    q, k, v, slopes, mask = flash_inputs(b, h, t, d, hk, padded)
+    dout = rand(7, b, h, t, d)
+    _, vjp = jax.vjp(
+        lambda *a: jflash.flash_attention_alibi(*a, mask=jnp.asarray(mask), causal=causal,
+                                                interpret=True, precision="highest"),
+        *map(jnp.asarray, (q, k, v, slopes)),
+    )
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv, ts, to = (torch.from_numpy(a) for a in (q, k, v, slopes, dout))
+    tm = torch.from_numpy(mask)
+    out, lse = tflash.flash_attention_plain(tq, tk, tv, ts, mask=tm, causal=causal, return_lse=True)
+    got = emulate_fp32_bwd(tq, tk, tv, ts, tm, to, lse, (to * out).sum(-1), causal)
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        w, g = np.asarray(w), g.numpy()
+        if padded == "empty":  # unnormalized sums on element 0, as in the plain version's test
+            atol = 1e-5 * max(1.0, float(np.abs(w[0]).max()))
+            np.testing.assert_allclose(g[0], w[0], atol=atol, rtol=1e-5, err_msg=f"{name}, empty element")
+            w, g = w[1:], g[1:]
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5, err_msg=name)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=1e-5 * t, rtol=1e-5)
+
+
+def masked_row_keys(qi, tq, tk, causal):
+    """wgmma.cuh::masked_row_keys: the end of the keys the JAX wrapper visits
+    for query row qi with no valid key, the keys it pads included."""
+    bk = max(128, min(256, tk))
+    n_kb = -(-tk // bk)
+    if not causal:
+        return n_kb * bk
+    bq = max(8, min(256, tq))
+    return min(n_kb, -(-((qi // bq + 1) * bq) // bk)) * bk
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_padded_key_dslopes_row_by_row_is_the_wrappers(causal):
+    """wgmma.cuh::padded_keys_dslope, the term the dQ kernels add once a row
+    (p * delta * the row's distances to the padded keys it visits, the
+    distances summed in fp32), summed as `padded_key_dslopes` sums, gives
+    its bits for every t from 1 to 300; zero where the wrapper pads no key.
+    Element 0 has rows with no valid key (lse = -1e30, so p = 1), the other
+    a finite lse (p = 0)."""
+    g = np.random.RandomState(3)
+    for t in range(1, 301):
+        lse = torch.from_numpy(g.randn(2, 2, t).astype(np.float32))
+        lse[0, :, ::2] = tflash.NEG_INF
+        delta = torch.from_numpy(g.randn(2, 2, t).astype(np.float32))
+        p = torch.exp(torch.tensor(tflash.NEG_INF, dtype=torch.float32) - lse)
+        dist = torch.tensor([float(np.abs(np.arange(t, masked_row_keys(qi, t, t, causal)) - qi).astype(np.float32)
+                                   .sum(dtype=np.float32)) for qi in range(t)], dtype=torch.float32)
+        rows = torch.where(p == 0, 0.0, p * delta * dist)
+        want = tflash.padded_key_dslopes(lse, delta, t, t, causal)
+        if want is None:
+            assert not rows.any(), t
+        else:
+            assert torch.equal(rows.sum(dim=(0, 2)), want), t
+
+
+def test_fp32_backward_dispatch_cases_and_tiles_are_the_emulations():
+    """csrc/flash_attention_bwd.cu dispatches the wrapper's head dims, and
+    its tiles (a dK/dV item's query rows, a dQ key tile's keys) are the ones
+    `emulate_fp32_bwd` takes."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    switch = re.search(r"switch \(d\) \{(.*?)default:", text, re.S)
+    assert switch is not None
+    assert tuple(sorted(int(c) for c in re.findall(r"case (\d+):", switch.group(1)))) == tflash.KERNEL_HEAD_DIMS
+    item = re.search(r"static constexpr int Q = D == 128 \? (\d+) : (\d+);", text)
+    keys = re.search(r"static constexpr int kKeys = D == 128 \? (\d+) : (\d+);", text)
+    assert item is not None and keys is not None
+    assert DKV_ITEM_ROWS == {d: int(item.group(1 if d == 128 else 2)) for d in tflash.KERNEL_HEAD_DIMS}
+    assert DQ_KEY_TILE == {d: int(keys.group(1 if d == 128 else 2)) for d in tflash.KERNEL_HEAD_DIMS}
 
 
 @pytest.mark.parametrize("b,h,hk,tq,blocks", [

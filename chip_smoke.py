@@ -25,8 +25,8 @@ checkout. It
    flash kernel give the same bits; holds the three flash kernels at head
    dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
    times them at the scale regime's and the smoke-shaped paths' shapes
-   (`check_flash_head_dims`); sweeps `prefix_attend`'s split count at the
-   served shape and at scale_1024's;
+   (`check_flash_head_dims`); sweeps `prefix_attend`'s split count (in
+   tiles) at the served shape and at scale_1024's;
 4. render path: builds the flagship ScorePerformer at full width (random
    weights from a seed, use_flash=True) and renders a 32-bar synthetic score
    through `render_performance`, greedy and top-k sampled, counting the
@@ -1008,9 +1008,9 @@ def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64,
                              f"{(b, cap, base, dtype, h, d, kvh)}")
     if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
         raise AssertionError(f"two prefix_attend calls give other bits at {(b, cap, base, dtype, h, d, kvh)}")
-    splits, _ = pa.split_plan(b, base, torch.cuda.get_device_properties(0).multi_processor_count)
-    rec = {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "kv_heads": kvh, "splits": splits,
-           "max_abs_err": err, "same_bits": True}
+    tile, splits, per = pa.grid_plan(q.device, b * kvh, base, d, h // kvh, k.dtype)
+    rec = {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "kv_heads": kvh, "tile": tile,
+           "splits": splits, "tiles_per_split": per, "max_abs_err": err, "same_bits": True}
     if timed:
         # the bytes this call needs: the first `base` rows of k and v (and
         # their scales), q, the bias columns it reads, o and lse
@@ -1048,11 +1048,14 @@ def check_prefix_attend(torch, pa, b, cap, base, timed, dtype="fp32", h=4, d=64,
     return rec
 
 
-def prefix_split_sweep(torch, pa, b=SERVE_REQUESTS, cap=SERVE_BUCKET, base=SERVE_BUCKET // 2, d=64, h=4):
-    """Device ms of the prefix_attend kernel (fp32, one KV head) at the served
-    shape against its split count, called at its C entry, with the cache
-    cycling through copies larger than L2 ("cold") or one copy that stays in
-    L2 ("warm"): what the split plan and the per-row cost rest on."""
+def prefix_split_sweep(torch, pa, b=SERVE_REQUESTS, cap=SERVE_BUCKET, base=SERVE_BUCKET // 2, d=64, h=4,
+                       dtype="fp32"):
+    """Device ms of the prefix_attend kernel (one KV head) at a decode shape
+    against its split count: every split of its tiles into up to 16 runs of
+    whole tiles, called at its C entry with the cache cycling through copies
+    larger than L2, beside the split count `grid_plan` picks: what the plan
+    rests on."""
+    from scoreperformer_tpu_torch.models.attention import quantize_kv_rows
     from scoreperformer_tpu_torch.ops import _build
 
     fn = _build.kernel("prefix_attend", "sp_prefix_attend")
@@ -1061,24 +1064,28 @@ def prefix_split_sweep(torch, pa, b=SERVE_REQUESTS, cap=SERVE_BUCKET, base=SERVE
     k = torch.randn(cap, b, d, device="cuda", generator=g)
     v = torch.randn(cap, b, d, device="cuda", generator=g)
     bias = torch.zeros(h, cap, device="cuda")
+    k_s = v_s = None
+    if dtype == "int8":
+        (k, k_s), (v, v_s) = quantize_kv_rows(k), quantize_kv_rows(v)
     o, lse = torch.empty(b, h, d, device="cuda"), torch.empty(b, h, device="cuda")
-    cold = [(k.clone(), v.clone()) for _ in range(n_copies(2 * base * b * d * 4))]
+    cold = [(k.clone(), v.clone()) for _ in range(n_copies(2 * base * b * d * k.element_size()))]
+    tile, plan, _ = pa.grid_plan(q.device, b, base, d, h, k.dtype)
+    n_tiles = -(-base // tile)
 
-    def ms(splits, copies):
-        per = -(-base // splits)
-
+    def ms(per):
         def call(kc, vc):
-            err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bias.data_ptr(), None, None, o.data_ptr(),
-                     lse.data_ptr(), b, h, 1, d, cap, base, splits, per, 0, torch.cuda.current_stream().cuda_stream)
+            err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), bias.data_ptr(),
+                     k_s.data_ptr() if k_s is not None else None, v_s.data_ptr() if v_s is not None else None,
+                     o.data_ptr(), lse.data_ptr(), b, h, 1, d, cap, base, -(-n_tiles // per), per, tile,
+                     pa._DTYPE_CODES[k.dtype], torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"prefix_attend: CUDA error {err}")
 
-        return graph_ms(torch, call, copies, iters=200)
+        return graph_ms(torch, call, cold, iters=200)
 
-    return {"shape": [b, h, d], "cap": cap, "base": base,
-            "plan": pa.split_plan(b, base, torch.cuda.get_device_properties(0).multi_processor_count)[0],
-            "cold_ms": {n: ms(n, cold) for n in (1, 2, 4, 8, 16)},
-            "warm_ms": {n: ms(n, [(k, v)]) for n in (1, 4)}}
+    pers = sorted({-(-n_tiles // n) for n in range(1, min(pa.MAX_CLUSTER, n_tiles) + 1)}, reverse=True)
+    return {"shape": [b, h, d], "cap": cap, "base": base, "dtype": dtype, "tile": tile, "plan": plan,
+            "cold_ms": {-(-n_tiles // per): ms(per) for per in pers}}
 
 
 def train_config(tokenizer, root, out_dir, batch_size, max_steps):
@@ -2230,6 +2237,9 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     rec["profile"] = profile_device(torch, lambda: box.update(int8=server.render_batch(requests)),
                                     ported=PORTED_DECODE)
     print("profile scale_1024 served int8 batch", json.dumps(rec["profile"]))
+    got = rec["profile"]["ported"]["prefix_attend"]
+    print(f"scale_1024 served int8 batch: prefix_attend {got['ms']:.1f} device ms over {got['count']} launches "
+          f"(the row-walking kernel this one replaced: 121.2 ms over 3,072 on an H100 at 700 W)")
     check_decode_profile(rec["profile"], "the scale_1024 served batch's profile", expected)
     lap("profiled_int8_batch")
     # fp32 caches; a length bucket of 64, so that the 4-bar scores below pad
@@ -3912,6 +3922,15 @@ def main() -> int:
     ] + [
         check_prefix_attend(torch, pa, 5, 100, base, timed=False, dtype=dt, kvh=4)
         for base in (0, 60) for dt in ("fp32", "bf16", "int8")
+    ] + [
+        # around the tiles: a base below one tile, one that no tile divides,
+        # n_valid = cap (every slot), splits of uneven tile counts
+        check_prefix_attend(torch, pa, SERVE_REQUESTS, SERVE_BUCKET, base, timed=False, dtype=dt)
+        for base in (5, 100, SERVE_BUCKET) for dt in ("fp32", "bf16", "int8")
+    ] + [
+        check_prefix_attend(torch, pa, b, cap, base, timed=False, dtype=dt, h=h, d=d, kvh=kvh)
+        for b, cap, base, h, d, kvh, dt in ((7, 300, 300, 2, 16, 1, "bf16"), (3, 300, 299, 2, 16, 2, "int8"),
+                                            (2, 1000, 999, 4, 32, 1, "fp32"), (9, 200, 161, 8, 64, 8, "bf16"))
     ]
     # the recipes' other decoder head dims, one KV head: recipes/smoke.yaml's
     # 2 heads of 16 at the served shape; scale_1024's 8 heads of 128 over a
@@ -3925,6 +3944,11 @@ def main() -> int:
         check_prefix_attend(torch, pa, b, cap, base, timed=False, dtype=dt, h=h, d=d)
         for b, cap, h, d in ((SERVE_REQUESTS, SERVE_BUCKET, 2, 16), (64, 1024, 8, 128))
         for base in (0, CHUNK, cap // 2, cap - CHUNK) for dt in ("fp32", "bf16", "int8")
+    ] + [
+        # scale_1024's decoder at b = 1 (16-block clusters in fp32) and with
+        # bases that no tile divides, n_valid = cap
+        check_prefix_attend(torch, pa, b, 1024, base, timed=False, dtype=dt, h=8, d=128)
+        for b, base in ((1, 1024), (1, 517), (3, 517), (64, 1024)) for dt in ("fp32", "bf16", "int8")
     ]
     # and at the shapes the new paths give it, bases from the first chunk to
     # the last: the smoke-shaped render (b = 1) and served batch (b = 16);
@@ -3940,8 +3964,9 @@ def main() -> int:
     for rec in [pa_main] + pa_recs + pa_dims:
         print("prefix_attend", json.dumps(rec))
     print("prefix_attend split sweep", json.dumps(prefix_split_sweep(torch, pa)))
-    print("prefix_attend split sweep, scale_1024's shape",
-          json.dumps(prefix_split_sweep(torch, pa, b=64, cap=1024, base=512, d=128, h=8)))
+    for dt in ("fp32", "int8"):
+        print("prefix_attend split sweep, scale_1024's shape",
+              json.dumps(prefix_split_sweep(torch, pa, b=64, cap=1024, base=512, d=128, h=8, dtype=dt)))
     print(f"kernel checks: {time.perf_counter() - t_kernels:.1f} s")
 
     # ---- the main path: the flagship renders the score on the card ----

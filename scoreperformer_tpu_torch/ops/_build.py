@@ -43,7 +43,7 @@ ENTRY_POINTS = {
         "sp_flash_attention_bwd_dkv_bf16": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq_bf16": _FLASH_BWD_ARGS,
     },
-    "prefix_attend": {"sp_prefix_attend": [_P] * 8 + [_I] * 9 + [_P]},
+    "prefix_attend": {"sp_prefix_attend": [_P] * 8 + [_I] * 10 + [_P]},
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,9 @@ Counterpart of scripts/exp_pallas_decode_attend.py: `pallas_prefix_attend`
 split that `models/attention.py::Attention._chunked_cache_attend` runs every
 chunked decode step: the prefix half here, the fresh chunk's half in torch,
 joined by `combine_lse`. On CUDA tensors `prefix_attend` launches the
-hand-written kernel of `csrc/prefix_attend.cu`, one launch whose blocks split
-the slots and whose clusters merge them; on CPU tensors it runs
-`prefix_attend_plain`, the same function in plain PyTorch.
+hand-written kernel of `csrc/prefix_attend.cu`, one launch whose blocks take
+the slots in tiles, split across a cluster that merges them; on CPU tensors
+it runs `prefix_attend_plain`, the same function in plain PyTorch.
 
 Unlike the TPU kernel, which wanted the cache relaid as (cap, d, b), both
 take the cache in its own time-major layout, (cap, b, kv_heads * d), in
@@ -17,7 +17,7 @@ probabilities before the value product.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,10 +26,12 @@ from ._build import kernel
 MASK_VALUE = -1e9  # the Pallas kernel's running max starts here
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # every decoder head dim of the recipes
 KERNEL_HEADS = (1, 2, 4, 8)  # the kernel's head-count template parameter
-MAX_CLUSTER = 16  # blocks a cluster: the kernel's splits of one batch row
-BLOCKS_PER_SM = 4  # blocks (128 threads; 256 at d = 128) the split choice fills an SM with, at most
-MIN_SLOTS_PER_SPLIT = 16
+MAX_CLUSTER = 16  # blocks a cluster: the kernel's splits of one (batch row, KV head)
+# the kernel's tiles (csrc/prefix_attend.cu: kTileKBytes, kMaxPairs, tile_slots)
+TILE_K_BYTES = 16384
+MAX_PAIRS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SM_COUNT: Dict[int, int] = {}  # per device index, read once
 
 
 def _check(q, pk, pv, bias, k_s, v_s, n_valid):
@@ -85,15 +87,37 @@ def combine_lse(o_p, lse_p, o_f, lse_f) -> Tuple[torch.Tensor, torch.Tensor]:
     return o, lse
 
 
-def split_plan(b: int, n_slots: int, sm_count: int) -> Tuple[int, int]:
-    """(splits, slots per split) of the kernel's grid: the splits of one batch
-    row form one cluster of at most MAX_CLUSTER blocks; the grid fills the
-    SMs with up to BLOCKS_PER_SM blocks each, in one wave (a second wave of
-    blocks costs more than its shorter loops save), each block with at least
-    MIN_SLOTS_PER_SPLIT slots; no split is empty unless there is no slot."""
-    want = min(MAX_CLUSTER, BLOCKS_PER_SM * sm_count // b, -(-n_slots // MIN_SLOTS_PER_SPLIT))
-    per = max(1, -(-n_slots // max(1, want)))
-    return max(1, -(-n_slots // per)), per
+def tile_slots(d: int, element_size: int, heads_per_kv: int) -> int:
+    """Slots a tile of the kernel at head dim d, cache elements of
+    `element_size` bytes and `heads_per_kv` query heads a KV head: its K rows
+    TILE_K_BYTES, 64 to 128 slots, at most MAX_PAIRS (head, slot) pairs."""
+    return min(max(64, min(128, TILE_K_BYTES // (d * element_size))), MAX_PAIRS // heads_per_kv)
+
+
+def split_plan(units: int, n_slots: int, tile: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the kernel's grid for `units` (batch row,
+    KV head) pairs over `n_slots` slots in tiles of `tile`: tile i goes to
+    split i // per, and the splits of a unit form one cluster of at most
+    MAX_CLUSTER blocks. A unit splits only while the grid has at most one
+    block an SM: a split costs a merge that more tiles a block do not (the
+    served batch, 128 units of 3 tiles, ran 0.0079 ms in one split and 0.0097
+    in two, `chip_probe_decode.py` on an H100). No split is empty unless
+    there is no slot."""
+    n_tiles = -(-n_slots // tile)
+    want = min(MAX_CLUSTER, max(1, sm_count // units), max(1, n_tiles))
+    per = max(1, -(-n_tiles // want))
+    return max(1, -(-n_tiles // per)), per
+
+
+def grid_plan(device: torch.device, units: int, n_slots: int, d: int, heads_per_kv: int,
+              dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(tile, splits, tiles per split) of the kernel on CUDA device `device`;
+    its SM count is read on the first call and kept."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    tile = tile_slots(d, dtype.itemsize, heads_per_kv)
+    return (tile, *split_plan(units, n_slots, tile, _SM_COUNT[index]))
 
 
 def prefix_attend(
@@ -106,7 +130,7 @@ def prefix_attend(
     n_valid: Optional[int] = None,  # slots at or past it have weight 0 and are not read
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of one query row per (batch, head) over the prefix cache: the
-    clustered split-K kernel on CUDA tensors, its plain version on CPU
+    tiled, clustered split-K kernel on CUDA tensors, its plain version on CPU
     tensors."""
     if q.device.type == "cpu":
         return prefix_attend_plain(q, pk, pv, bias, k_s, v_s, n_valid)
@@ -130,17 +154,20 @@ def prefix_attend(
     if pk.data_ptr() % 16 or pv.data_ptr() % 16:
         raise ValueError("prefix_attend: the cache must be 16-byte aligned")
     n = cap if n_valid is None else int(n_valid)
-    splits, per = split_plan(b, n, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    tile, splits, per = grid_plan(q.device, b * kvh, n, d, h // kvh, pk.dtype)
     o = torch.empty(b, h, d, dtype=torch.float32, device=q.device)
     lse = torch.empty(b, h, dtype=torch.float32, device=q.device)
     err = kernel("prefix_attend", "sp_prefix_attend")(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), bias.data_ptr(),
         k_s.data_ptr() if k_s is not None else None, v_s.data_ptr() if v_s is not None else None,
-        o.data_ptr(), lse.data_ptr(), b, h, kvh, d, cap, n, splits, per, _DTYPE_CODES[pk.dtype],
+        o.data_ptr(), lse.data_ptr(), b, h, kvh, d, cap, n, splits, per, tile, _DTYPE_CODES[pk.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"prefix_attend: kernel launch failed with CUDA error {err}")
+        what = ("a tile the kernel does not take" if err == -1 else
+                f"no tensor map for the cache (CUresult {-1000 - err})" if err <= -1000 else f"CUDA error {err}")
+        raise RuntimeError(f"prefix_attend: kernel launch failed at b={b}, h={h}, d={d}, kv_heads={kvh}, cap={cap}, "
+                           f"n_valid={n}, {pk.dtype}, tile {tile}, {splits} splits of {per} tiles: {what}")
     prefix_attend.launches += 1
     return o, lse
 

@@ -557,8 +557,10 @@ def prefix_inputs(b, cap, base, h=4, d=64, seed=11):
     (128, 64, 40, 4, 64), (128, 64, 0, 4, 64), (512, 256, 200, 4, 64), (512, 256, 0, 4, 64),
     # the decoders of recipes/smoke.yaml and recipes/scoreperformer/scale_1024.yaml
     (128, 64, 40, 2, 16), (128, 128, 100, 8, 128),
+    # scale_1024's decoder cache with a base that no tile divides
+    (128, 1024, 517, 8, 128),
 ], ids=["b128_cap64", "b128_cap64_all_stale", "b512_cap256", "b512_cap256_all_stale", "b128_cap64_h2_d16",
-        "b128_cap128_h8_d128"])
+        "b128_cap128_h8_d128", "b128_cap1024_base517_h8_d128"])
 def test_prefix_attend_plain_matches_pallas_kernel(pallas_decode_attend, monkeypatch, b, cap, base, h, d):
     """The Pallas kernel in interpret mode (module globals B, CAP, H and D
     set to the shape, inputs relaid to its (cap, d, b) layout) against the
@@ -607,18 +609,123 @@ def test_combine_lse_matches_one_softmax():
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 176, 192, 240])
 @pytest.mark.parametrize("b", [1, 4, 128, 512])
 def test_prefix_attend_split_plan(b, n):
-    """The kernel's split of `n` slots on 132 SMs: slot j goes to split
-    j // per, each slot to exactly one split, no split is empty unless there
-    is no slot, one cluster per batch row holds every split, and the grid has
-    two blocks a SM where b and n allow."""
-    sms = 132
-    splits, per = tprefix.split_plan(b, n, sms)
+    """The kernel's split of `n` slots of b (batch row, KV head) units in
+    tiles of 64 on 132 SMs: tile i goes to split i // per, each slot lies in
+    exactly one tile of one split, no split is empty unless there is no
+    slot, a cluster holds at most MAX_CLUSTER blocks, and a grid of more
+    than one split has at most one block an SM."""
+    sms, tile = 132, 64
+    splits, per = tprefix.split_plan(b, n, tile, sms)
     assert 1 <= splits <= tprefix.MAX_CLUSTER and per >= 1
-    ranges = [range(s * per, min(n, (s + 1) * per)) for s in range(splits)]
-    assert sorted(j for r in ranges for j in r) == list(range(n))
+    tiles = [[range(t * tile, min(n, (t + 1) * tile)) for t in range(s * per, (s + 1) * per) if t * tile < n]
+             for s in range(splits)]
+    assert sorted(j for split in tiles for r in split for j in r) == list(range(n))
     if n:
-        assert all(len(r) > 0 for r in ranges)
-    assert splits * b >= min(2 * sms, b * tprefix.MAX_CLUSTER, b * (n // tprefix.MIN_SLOTS_PER_SPLIT))
+        assert all(split and all(len(r) > 0 for r in split) for split in tiles)
+    assert splits == 1 or splits * b <= sms
+
+
+def emulate_prefix_attend(q, pk, pv, bias, k_s=None, v_s=None, n_valid=None, sms=132):
+    """csrc/prefix_attend.cu's order in fp32 on the CPU: for each (batch row,
+    KV head), `split_plan`'s splits of whole tiles of `tile_slots` slots; in
+    each split's tiles, one max a head, one rescale of (m, l, acc), one
+    exponential a (head, slot) and P = p * v_s; the splits merged in order
+    from the floor of -1e9."""
+    b, h, d = q.shape
+    cap, kvh = pk.shape[0], pk.shape[2] // d
+    r = h // kvh
+    n = cap if n_valid is None else n_valid
+    tile = tprefix.tile_slots(d, pk.element_size(), r)
+    splits, per = tprefix.split_plan(b * kvh, n, tile, sms)
+    n_tiles = -(-n // tile)
+    k, v = (x.float().reshape(cap, b, kvh, d) for x in (pk, pv))
+    ks = k_s if k_s is not None else torch.ones(cap, b)
+    vs = v_s if v_s is not None else torch.ones(cap, b)
+    o, lse = torch.zeros(b, h, d), torch.zeros(b, h)
+    for g in range(kvh):
+        heads = slice(g * r, (g + 1) * r)
+        states = []
+        for s in range(splits):
+            m, l, acc = torch.full((b, r), tprefix.MASK_VALUE), torch.zeros(b, r), torch.zeros(b, r, d)
+            for t in range(s * per, min(n_tiles, (s + 1) * per)):
+                j = torch.arange(t * tile, min(n, (t + 1) * tile))
+                sc = torch.einsum("brd,jbd->brj", q[:, heads], k[j, :, g]) * ks[j].T[:, None] + bias[heads, j][None]
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("brj,jbd->brd", p * vs[j].T[:, None], v[j, :, g])
+                m = m_new
+            states.append((m, l, acc))
+        mx = torch.full((b, r), tprefix.MASK_VALUE)
+        for m, _, _ in states:
+            mx = torch.maximum(mx, m)
+        lsum, a = torch.zeros(b, r), torch.zeros(b, r, d)
+        for m, l, acc in states:
+            w = torch.exp(m - mx)
+            lsum, a = lsum + l * w, a + acc * w[..., None]
+        safe = torch.where(lsum == 0, 1.0, lsum)
+        o[:, heads], lse[:, heads] = a / safe[..., None], mx + torch.log(safe)
+    return o, lse
+
+
+@pytest.mark.parametrize("b,cap,base,h,d,kvh,dtype,sms", [
+    (3, 100, 77, 4, 32, 1, "fp32", 132),  # a base that no tile divides
+    (5, 100, 60, 4, 64, 4, "int8", 132),  # one KV head a query head
+    (2, 1024, 1024, 8, 128, 1, "int8", 132),  # n_valid = cap, b = 2: many splits
+    (16, 384, 192, 4, 64, 1, "bf16", 132),  # the MoE served batch's shape
+    (1, 352, 176, 4, 64, 1, "fp32", 132),  # the render's
+    (4, 1024, 517, 8, 128, 1, "fp32", 20),  # scale_1024's decoder, uneven splits
+    (3, 128, 0, 2, 16, 1, "fp32", 132),  # no slot: o = 0, lse = -1e9
+    (2, 384, 5, 2, 16, 1, "bf16", 132),  # a base below one tile
+], ids=["d32_base77", "mha_int8", "d128_int8_full", "served_bf16", "render", "d128_base517", "empty", "d16_base5"])
+def test_prefix_attend_tile_order_matches_plain(b, cap, base, h, d, kvh, dtype, sms):
+    """The kernel's tiles, rescales and split merge (emulated in fp32) give
+    the plain version's o and lse within 1e-5 on fp32, bf16 and int8 caches."""
+    from scoreperformer_tpu_torch.models.attention import quantize_kv_rows
+
+    rng = np.random.RandomState(21)
+    q = torch.from_numpy((rng.randn(b, h, d) * d**-0.5).astype(np.float32))
+    pk, pv = (torch.from_numpy(rng.randn(cap, b, kvh * d).astype(np.float32)) for _ in range(2))
+    slopes = 0.5 ** np.arange(1, h + 1)
+    bias = torch.from_numpy(np.where(np.arange(cap)[None] < base, -np.abs(base - np.arange(cap))[None] * slopes[:, None],
+                                     -1e9).astype(np.float32))
+    scales = (None, None)
+    if dtype == "bf16":
+        pk, pv = pk.bfloat16(), pv.bfloat16()
+    elif dtype == "int8":
+        (pk, k_s), (pv, v_s) = quantize_kv_rows(pk), quantize_kv_rows(pv)
+        scales = (k_s.contiguous(), v_s.contiguous())
+    got_o, got_lse = emulate_prefix_attend(q, pk, pv, bias, *scales, n_valid=base, sms=sms)
+    want_o, want_lse = tprefix.prefix_attend_plain(q, pk, pv, bias, *scales, n_valid=base)
+    np.testing.assert_allclose(got_o.numpy(), want_o.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=1e-5)
+    if base == 0:
+        assert not got_o.any() and (got_lse == tprefix.MASK_VALUE).all()
+
+
+def test_prefix_attend_tiles_are_the_kernels():
+    """ops/prefix_attend.py's tile constants and cluster limit are
+    csrc/prefix_attend.cu's, whose tile_slots and grid they set."""
+    src = (Path(tprefix.__file__).resolve().parent.parent / "csrc" / "prefix_attend.cu").read_text()
+
+    def constant(name):
+        match = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert match, name
+        return int(match.group(1))
+
+    assert constant("kTileKBytes") == tprefix.TILE_K_BYTES
+    assert constant("kMaxPairs") == tprefix.MAX_PAIRS
+    assert constant("kMaxCluster") == tprefix.MAX_CLUSTER
+    # every tile: 64 to 128 slots, a multiple of 16 (a TMA box), at most
+    # MAX_PAIRS pairs
+    for d in tprefix.KERNEL_HEAD_DIMS:
+        for size in (4, 2, 1):
+            for r in tprefix.KERNEL_HEADS:
+                tile = tprefix.tile_slots(d, size, r)
+                assert 64 <= tile <= 128 and tile % 16 == 0 and r * tile <= tprefix.MAX_PAIRS
+    assert tprefix.tile_slots(128, 4, 8) == 64 and tprefix.tile_slots(64, 4, 4) == 64
+    assert tprefix.tile_slots(128, 1, 8) == 64 and tprefix.tile_slots(16, 4, 2) == 128
 
 
 def test_prefix_attend_rejects_bad_inputs():

@@ -16,11 +16,10 @@ checkout. It
    the same function (the yardstick; the port never calls it) by CUDA-graph
    replay, with the eager time beside (the two backward kernels also as a
    pair against one SDPA backward; the row writes also beside `copy_` and
-   `index_copy_`); checks that the fp32 flash forward holds TF32
-   tensor-core instructions (HMMA) in its SASS (`cuobjdump -sass`), the
-   fp32 backward TF32 warpgroup MMAs (HGMMA) and no TF32 HMMA, and the
-   bf16 forward and backward bf16 HGMMA and no TF32 HMMA, in an instance
-   at each head dim the wrapper takes
+   `index_copy_`); checks that the fp32 flash forward and backward hold
+   TF32 warpgroup MMAs (HGMMA) in their SASS (`cuobjdump -sass`) and no
+   TF32 HMMA (`mma.sync`), and the bf16 forward and backward bf16 HGMMA and
+   no TF32 HMMA, in an instance at each head dim the wrapper takes
    (16, 32, 64, 128), and that two calls of `prefix_attend` and of each
    flash kernel give the same bits; holds the three flash kernels at head
    dims 128 and 16 (fp32 and bf16) to their plain versions at the edges and
@@ -171,8 +170,8 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 BF16_FWD_PASSES = 4
 BF16_BWD_PASSES = {"dkv": 8, "dq": 5}
 # the words of a SASS line of each tensor-core instruction the kernels take
-TF32_HMMA = ("HMMA", "TF32")  # split-TF32 mma.sync (the fp32 forward)
-TF32_HGMMA = ("HGMMA", "TF32")  # split-TF32 wgmma (the fp32 backward)
+TF32_HMMA = ("HMMA", "TF32")  # TF32 mma.sync, which no kernel takes
+TF32_HGMMA = ("HGMMA", "TF32")  # split-TF32 wgmma (the fp32 forward and backward)
 BF16_HGMMA = ("HGMMA", "BF16")  # bf16 wgmma
 L2_BYTES = 50e6  # H100 L2: timed inputs cycle through copies that exceed it
 CHUNK = 16  # the chunked decode's chunk, as the render and the server use it
@@ -580,7 +579,43 @@ def check_flash(torch, fa, b, t, causal, padded, timed, h=4, d=64, lengths=None,
         rec["bound_ms"] = max(ops / FP32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
         # the same fp32-accurate work as three TF32 tensor-core products
         rec["bound_tc_ms"] = max(3 * ops / TF32_OPS_PER_S, nbytes / BYTES_PER_S) * 1e3
+        rec["over_library"] = rec["ms"] / rec["library_ms"]
+        rec["over_bound_tc"] = rec["ms"] / rec["bound_tc_ms"]
     return rec
+
+
+def ptxas_entries(log, kernel):
+    """Registers, spills and static shared memory of each instance of
+    `kernel` (a substring of its mangled name) in an `nvcc -Xptxas=-v` log:
+    [{"function", "d", "warpgroups", "registers", "spill_stores", "smem"}],
+    d and warpgroups from the template arguments `ILi<d>ELi<g>E`."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m is not None:
+            cur = None
+            if kernel in m.group(1):
+                args = [int(a) for a in re.findall(r"Li(\d+)E", m.group(1).split(kernel, 1)[1])]
+                cur = {"function": m.group(1), "d": args[0] if args else None,
+                       "warpgroups": args[1] if len(args) > 1 else None}
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_stores"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def fp32_fwd_smem(d, warpgroups, t):
+    """Dynamic shared memory of an fp32 forward launch, as
+    csrc/flash_attention_fwd.cu's FwdSmem lays it out: each warpgroup's q
+    hi and lo (64 rows), one key tile's K, K's lo and V's transpose, hi and
+    lo (32 keys, 64 at d = 16), three mbarriers, the warps' first keys, the
+    key mask's words and the 1024-byte alignment's slack."""
+    keys = 64 if d == 16 else 32
+    return warpgroups * 2 * 64 * d * 4 + 4 * keys * d * 4 + 3 * 8 + warpgroups * 16 + 4 * -(-t // 32) + 1024
 
 
 def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths=None):
@@ -1878,10 +1913,10 @@ def check_decode_profile(prof, what, expected):
                              f"write_kv_pair launch, {expected['write_kv_pair']}")
 
 
-def tensor_core_counts(path, kernels, head_dims=(), instruction=TF32_HMMA, forbidden=None):
+def tensor_core_counts(path, kernels, head_dims=(), instruction=TF32_HGMMA, forbidden=None):
     """The tensor-core instructions of one kind (`instruction`, the words of
-    its SASS lines: TF32 HMMA, TF32 HGMMA for the fp32 backward, BF16 HGMMA
-    for the bf16 kernels) in the SASS of the library at `path`, by kernel (a
+    its SASS lines: TF32 HGMMA for the fp32 kernels, BF16 HGMMA for the bf16
+    ones) in the SASS of the library at `path`, by kernel (a
     substring of its functions' names); fails when a function of one of
     them has none, or has any `forbidden` instruction (no TF32 HMMA in the
     `wgmma` kernels), or when a
@@ -3742,8 +3777,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line or "C7518" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
     # the fp32 forward's library holds only the fp32 flash_fwd instances
-    (hmma, hmma_dims), (tf32_gmma, tf32_gmma_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
-        tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS),
+    (fwd_gmma, fwd_gmma_dims), (tf32_gmma, tf32_gmma_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
+        tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS,
+                           instruction=TF32_HGMMA, forbidden=TF32_HMMA),
         tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS,
                            instruction=TF32_HGMMA, forbidden=TF32_HMMA),
         tensor_core_counts(libs["flash_attention_fwd_bf16"], ("flash_fwd_bf16",), fa.KERNEL_HEAD_DIMS,
@@ -3752,10 +3788,19 @@ def main() -> int:
                            fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
     hgmma.update(hgmma_bwd)
     hgmma_dims.update(hgmma_bwd_dims)
-    print(f"TF32 tensor-core instructions (HMMA) in the fp32 forward's SASS, by kernel: {json.dumps(hmma)}; "
-          f"by kernel and head dim: {json.dumps(hmma_dims)}")
+    print(f"TF32 warpgroup instructions (HGMMA) in the fp32 forward's SASS, and no TF32 HMMA, by kernel: "
+          f"{json.dumps(fwd_gmma)}; by kernel and head dim: {json.dumps(fwd_gmma_dims)}")
     print(f"TF32 warpgroup instructions (HGMMA) in the fp32 backward's SASS, and no TF32 HMMA, by kernel: "
           f"{json.dumps(tf32_gmma)}; by kernel and head dim: {json.dumps(tf32_gmma_dims)}")
+    # the fp32 forward by head dim: ptxas's registers, spills and static
+    # shared memory, and the dynamic shared memory of a launch at the
+    # flagship's t (258) and scale_1024's (1026)
+    fwd_ptxas = ptxas_entries(libs["flash_attention_fwd"].with_suffix(".log").read_text(), "flash_fwd")
+    for entry in fwd_ptxas:
+        entry["dynamic_smem"] = {t: fp32_fwd_smem(entry["d"], entry["warpgroups"], t) for t in (258, 1026)}
+        print("ptxas flash_fwd by head dim", json.dumps({k: v for k, v in entry.items() if k != "function"}))
+    if any(e.get("spill_stores") for e in fwd_ptxas) or "C7518" in libs["flash_attention_fwd"].with_suffix(".log").read_text():
+        raise AssertionError("ptxas spilled registers in the fp32 forward, or serialized its wgmmas (C7518)")
     print(f"bf16 warpgroup instructions (HGMMA) in the bf16 forward's and backward's SASS, and no TF32 HMMA, "
           f"by kernel: {json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
     print(f"build and SASS checks: {time.perf_counter() - t0:.1f} s")
@@ -4226,9 +4271,11 @@ def main() -> int:
          "source": "scoreperformer_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "scoreperformer_tpu/ops/flash_attention.py:49",
          "launches": launches["flash_attention_fwd"],
-         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms")}, "tf32_hmma_in_sass": hmma["flash_fwd"],
-         "tf32_hmma_by_head_dim": hmma_dims["flash_fwd"],
-         "streaming_shape": {k: stream_fa[0][k] for k in bound_keys + ("bound_tc_ms", "eager_ms", "shape")}},
+         **{k: fa_main[k] for k in bound_keys + ("bound_tc_ms", "eager_ms", "over_library", "over_bound_tc")},
+         "tf32_hgmma_in_sass": fwd_gmma["flash_fwd"], "tf32_hgmma_by_head_dim": fwd_gmma_dims["flash_fwd"],
+         "ptxas_by_head_dim": [{k: v for k, v in e.items() if k != "function"} for e in fwd_ptxas],
+         "streaming_shape": {k: stream_fa[0][k] for k in bound_keys + ("bound_tc_ms", "eager_ms", "shape", "over_library",
+                                                                     "over_bound_tc")}},
     ] + [
         {"name": name, "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": replaces, "launches": train_launches[name],
@@ -4265,7 +4312,7 @@ def main() -> int:
          "head_dims": [{"shape": r["shape"], "cap": r["cap"], "base": r["base"], "dtype": r["dtype"],
                         **{k: r[k] for k in timed}} for r in pa_dims if "ms" in r]},
     ]
-    shape_keys = ("shape", "cap", "base", "index", "causal", "max_abs_err") + timed + ("bound_by",)
+    shape_keys = ("shape", "cap", "base", "index", "causal", "max_abs_err") + timed + ("bound_by", "over_bound_tc")
     # every flash instance at head dims 16 and 128 (and scale_1024's
     # encoders at 64), at the shapes of the paths that launch them, timed
     part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dkv": "dkv", "flash_attention_bwd_dq": "dq"}
@@ -4280,16 +4327,16 @@ def main() -> int:
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
         if rec["name"] in performer["kernels"]:  # the Performer paths' shapes, timed
-            rec["performer_shapes"] = [{k: r[k] for k in shape_keys if k in r}
+            rec["performer_shapes"] = [{k: r[k] for k in shape_keys + ("over_library",) if k in r}
                                        for r in performer["kernels"][rec["name"]] if "ms" in r]
         if rec["name"] in moe["kernels"]:  # the MoE phase's shapes and the variants' caps, timed
-            rec["moe_shapes"] = [{k: r[k] for k in shape_keys + ("path",) if k in r}
+            rec["moe_shapes"] = [{k: r[k] for k in shape_keys + ("path", "over_library") if k in r}
                                  for r in moe["kernels"][rec["name"]] if "ms" in r]
         if rec["name"] in parallel["kernels"]:  # the model axis's shape; moe.yaml's served batch
-            rec["parallel_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms") if k in r}
+            rec["parallel_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms", "over_library") if k in r}
                                       for r in parallel["kernels"][rec["name"]] if "ms" in r]
         if rec["name"] in pipeline["kernels"]:  # a pipeline microbatch's shape, 4 and 2 heads
-            rec["pipeline_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms") if k in r}
+            rec["pipeline_shapes"] = [{k: r[k] for k in shape_keys + ("kv_heads", "bound_tc_ms", "over_library") if k in r}
                                       for r in pipeline["kernels"][rec["name"]] if "ms" in r]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,7 +18,7 @@
 //
 // Numerics: those of the Pallas kernels at "highest". Every product is
 // three TF32 `wgmma` products, hi.hi + hi.lo + lo.hi, with x = hi + lo, hi =
-// tf32(x) and lo = tf32(x - hi) rounded to nearest (tf32_mma.cuh's `split`):
+// tf32(x) and lo = tf32(x - hi) rounded to nearest (wgmma.cuh's `tf32::split`):
 // S^T, dP^T, dV and dK in dK/dV, S, dP and dQ in dQ/dslope. The tensor cores
 // truncate the fp32 sums they accumulate (a long chain in one accumulator
 // drifts toward zero), so each product's chain starts from zero on a tile of

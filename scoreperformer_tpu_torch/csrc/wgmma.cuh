@@ -1,9 +1,11 @@
 // Hopper warpgroup MMA (`wgmma`) on tiles in shared memory, filled by TMA:
 // bf16 tiles for the bf16 flash-attention forward (flash_attention_fwd_bf16.cu)
 // and backward (flash_attention_bwd_bf16.cu), TF32 tiles of fp32 values for
-// the fp32 backward (flash_attention_bwd.cu, below "TF32"), and the pieces
-// they share: the tensor maps, mbarriers, cluster barriers, the key mask's
-// words and the JAX wrapper's keys for a query row with no valid key.
+// the fp32 forward and backward (flash_attention_fwd.cu,
+// flash_attention_bwd.cu, below "TF32", with the TF32 rounding and split in
+// namespace tf32), and the pieces they share: the tensor maps, mbarriers,
+// cluster barriers, the key mask's words and the JAX wrapper's keys for a
+// query row with no valid key.
 //
 // A tile is 64 rows of d bf16 values, swizzled as `wgmma` reads it: rows of
 // 32 bytes (d = 16), 64 (d = 32) or 128 (d = 64), each 16-byte chunk XORed
@@ -28,7 +30,37 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "tf32_mma.cuh"
+// fp32 accuracy from TF32 units: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi), both rounded to nearest, ties away (`rna`), and
+// a.b ~ hi_a.hi_b + hi_a.lo_b + lo_a.hi_b, summed in fp32 (the dropped lo.lo
+// term and lo's rounding leave an error near 2^-21 relative). The tensor
+// cores truncate the fp32 sums they accumulate, so a long chain of products
+// in one accumulator drifts toward zero: the fp32 kernels start each chain
+// from zero on a short stretch of its summed dimension and join the chains
+// by rounded fp32 adds.
+namespace tf32 {
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// the bits of `cvt.rna.tf32.f32` for every x but a NaN whose payload lies
+// in the 13 dropped bits. cvt.rna compiles to a NaN test and a select
+// around this add and mask, twice the instructions, and the split is on
+// the kernels' hot paths.
+__device__ __forceinline__ uint32_t rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x ~ hi + lo, both TF32, lo the rounded remainder
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna(x);
+  lo = rna(x - __uint_as_float(hi));
+}
+
+// two adjacent elements (an even index)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+}  // namespace tf32
 
 namespace wg {
 
@@ -294,7 +326,7 @@ struct F32Tile {
 };
 
 // the fp32 accumulator x (64 x 8K) as the A registers of K k-steps, split
-// as tf32_mma.cuh's `split` splits: a[kk][0] hi, a[kk][1] lo
+// as `tf32::split` splits: a[kk][0] hi, a[kk][1] lo
 template <int K>
 __device__ __forceinline__ void acc_a(const float (&x)[4 * K], uint32_t (&a)[K][2][4]) {
 #pragma unroll
@@ -332,13 +364,14 @@ __device__ __forceinline__ void split_tile(uint8_t* hi, uint8_t* lo, float mul, 
 }
 
 // As split_tile, and the tile's transpose (layout Tr: Nat's C columns as
-// rows, its R rows as columns in `acc_a`'s order) split at t_hi and t_lo.
-// A task is rows 8a + c, +2, +4, +6 of column n (c = 0 or 1), whose
-// transposes are one 16-byte chunk, columns 8a + 4c to 8a + 4c + 3, of row
-// n: a warp reads 32 columns of a row (two rows of 16 at C = 16) and writes
-// 8 rows' chunks a phase, both without bank conflicts; thread `tid` takes
-// every kThreads-th task, all its loads first.
-template <class Nat, class Tr, int kThreads>
+// rows, its R rows as columns in `acc_a`'s order) split at t_hi and t_lo;
+// with kNatural false only the transpose (the tile at `hi` is only read, and
+// `lo` is not used). A task is rows 8a + c, +2, +4, +6 of column n (c = 0 or
+// 1), whose transposes are one 16-byte chunk, columns 8a + 4c to 8a + 4c + 3,
+// of row n: a warp reads 32 columns of a row (two rows of 16 at C = 16) and
+// writes 8 rows' chunks a phase, both without bank conflicts; thread `tid`
+// takes every kThreads-th task, all its loads first.
+template <class Nat, class Tr, int kThreads, bool kNatural = true>
 __device__ __forceinline__ void split_transpose(uint8_t* hi, uint8_t* lo, uint8_t* t_hi, uint8_t* t_lo, float mul,
                                                 int tid) {
   constexpr int R = Nat::kRows, C = Nat::kBytes / (4 * R);
@@ -364,8 +397,10 @@ __device__ __forceinline__ void split_transpose(uint8_t* hi, uint8_t* lo, uint8_
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       tf32::split(x[k][i] * mul, h[i], l[i]);
-      *reinterpret_cast<uint32_t*>(hi + o[k][i]) = h[i];
-      *reinterpret_cast<uint32_t*>(lo + o[k][i]) = l[i];
+      if constexpr (kNatural) {
+        *reinterpret_cast<uint32_t*>(hi + o[k][i]) = h[i];
+        *reinterpret_cast<uint32_t*>(lo + o[k][i]) = l[i];
+      }
     }
     const int to = Tr::offset(n, a8 + 4 * c);  // row a8 + c + 2i lands at column a8 + 4c + i
     *reinterpret_cast<uint4*>(t_hi + to) = make_uint4(h[0], h[1], h[2], h[3]);

@@ -12,10 +12,10 @@ and `flash_attention_bwd_plain`, the same functions in plain PyTorch. All keep
 the TPU kernels' numerics: q is scaled before the dot, the bias is
 -slope*|i-j|, masked scores are -1e30, the softmax sum is clamped at 1e-30, P
 is recomputed from the saved logsumexp, all in fp32 (the fp32 kernels take
-every product on the tensor cores in split TF32, three TF32 products each,
-within about 2^-21 of fp32: `mma.sync` in the forward, `wgmma` in the
-backward; the bf16 kernels take S and dP as single bf16 `wgmma` products,
-exact in fp32, and P and dS in three bf16 terms each).
+every product on the tensor cores in split TF32, three TF32 `wgmma`
+products each, within about 2^-21 of fp32; the bf16 kernels take S and dP
+as single bf16 `wgmma` products, exact in fp32, and P and dS in three bf16
+terms each).
 
 q, k, v and the output gradient may be bf16 (a model held in bf16 gives
 them), as the Pallas kernels take them: the arithmetic stays fp32, the output is written in q's
@@ -240,9 +240,8 @@ def _count(fn, dtype):
 
 
 def _for_dtype(name, dtype):
-    """The library or entry point `name` of the fp32 kernels (split TF32:
-    `mma.sync` in the forward, `wgmma` in the backward), or its `_bf16`
-    sibling (bf16 `wgmma`) for bf16 operands."""
+    """The library or entry point `name` of the fp32 kernels (split-TF32
+    `wgmma`), or its `_bf16` sibling (bf16 `wgmma`) for bf16 operands."""
     return name + "_bf16" if dtype == torch.bfloat16 else name
 
 

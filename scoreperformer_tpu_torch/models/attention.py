@@ -9,6 +9,11 @@ or in bf16 with `softmax_bf16` outside the chunked decode, as in the JAX
 module. Attention-probability dropout applies in `module.train()` mode only
 (see `dropout.py`).
 
+A cache may hold each KV head at a width past the head dim (the kernels'
+layout on the GPU, `ops/head_layout.py`): rows are written with zero
+columns there, and every reader takes each head's first `dim_head`
+columns.
+
 On a model axis (`parallel/shard.py` sets `head_range`), a rank holds its
 query heads' rows of `to_q` and columns of `to_out`, and its KV heads' rows
 of `to_k`/`to_v`, or all of them when there are fewer KV heads than ranks
@@ -28,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import flash_attention_alibi
+from ..ops.head_layout import pad_head_dim
 from ..ops.kv_cache import write_kv_pair
 from ..ops.prefix_attend import combine_lse, prefix_attend
 from ..parallel.collectives import (copy_to_group, gather_seq_to_group, reduce_from_group, reduce_scatter_seq,
@@ -148,9 +154,19 @@ class Attention(nn.Module):
         return 1 if self.one_kv_head else self.heads
 
     def _split_kv(self, t: torch.Tensor) -> torch.Tensor:
-        """(j, b, kv) time-major rows -> (b, kv_heads, j, d)."""
+        """(j, b, kv) time-major rows -> (b, kv_heads, j, d): each head's first
+        d columns of the cache's width."""
         j, b = t.shape[:2]
-        return t.reshape(j, b, self.kv_heads, self.dim_head).permute(1, 2, 0, 3)
+        return t.reshape(j, b, self.kv_heads, -1)[..., : self.dim_head].permute(1, 2, 0, 3)
+
+    def _cache_rows(self, x: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+        """(b, n, kv) projected rows -> (n, b, kv') rows of `cache`, each
+        head zero-padded to the cache's width."""
+        rows = x.transpose(0, 1)
+        width = cache.shape[2] // self.kv_heads
+        if width != self.dim_head:
+            rows = pad_head_dim(rows.reshape(*rows.shape[:2], self.kv_heads, self.dim_head), width).flatten(2)
+        return rows.contiguous()
 
     def _decode_bias(self, mask, attn_mask, pos_q, key_pos, cap, base):
         """(h, cap + C) additive bias of the chunked decode's keys, the
@@ -198,8 +214,8 @@ class Attention(nn.Module):
         base = cache["base"]
 
         q = self.to_q(x).reshape(b, h, d)
-        fk, fv = write_kv_pair(cache["fk"], cache["fv"], self.to_k(x).transpose(0, 1).contiguous(),
-                               self.to_v(x).transpose(0, 1).contiguous(), idx - base)
+        fk, fv = write_kv_pair(cache["fk"], cache["fv"], self._cache_rows(self.to_k(x), cache["fk"]),
+                               self._cache_rows(self.to_v(x), cache["fv"]), idx - base)
         cap, chunk = cache["k"].shape[0], fk.shape[0]
         dev = x.device
 
@@ -295,8 +311,8 @@ class Attention(nn.Module):
             # ring buffer: single-position steps past the capacity wrap and the
             # cache then holds the last `cap` positions
             slot = idx % cap
-            k_t, v_t = write_kv_pair(cache["k"], cache["v"], k.transpose(0, 1).contiguous(),
-                                     v.transpose(0, 1).contiguous(), slot)
+            k_t, v_t = write_kv_pair(cache["k"], cache["v"], self._cache_rows(k, cache["k"]),
+                                     self._cache_rows(v, cache["v"]), slot)
             j = cap
             pos_q = idx + torch.arange(n, device=dev)
             # absolute position held by each slot: the latest write at or

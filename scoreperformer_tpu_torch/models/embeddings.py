@@ -194,6 +194,13 @@ class TupleTokenEmbeddings(nn.Module):
             self.project_multiemb = Linear(cfg.num_sequences * project_emb_dim, project_emb_dim)
 
     @property
+    def uniform_dim(self) -> Optional[int]:
+        """The streams' embedding width when every stream has the same one,
+        else None (JAX's `_uniform_dim`)."""
+        dims = list(self.emb_dims_map.values())
+        return dims[0] if all(d == dims[0] for d in dims) else None
+
+    @property
     def multiseq_mode(self) -> Optional[str]:
         return self.config.multiseq_mode if self.config._target_ == "multi-seq" else None
 
@@ -266,8 +273,17 @@ class TupleTokenTiedLMHead(nn.Module):
             self.project_emb = Linear(dim, total_emb_dim, bias=False)
         self.norm = LayerNorm(total_emb_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings,
-                keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, embeddings: TupleTokenEmbeddings, keys: Optional[List[str]] = None,
+                batched: bool = False) -> Union[Dict[str, torch.Tensor], torch.Tensor]:
+        """Per-stream logits, or with `batched` one (..., S, Vmax) tensor from
+        a single product against the zero-padded stacked tables: the columns
+        at or past a stream's vocabulary are 0. `batched` needs uniform
+        stream dims and emits every stream."""
+        if batched:
+            if embeddings.uniform_dim is None:
+                raise ValueError("the batched head requires uniform stream dims")
+            if keys is not None:
+                raise ValueError("the batched head emits all streams: keys must be None")
         if self.reuse_projection:
             if not embeddings.has_project:
                 raise ValueError("the tied head requires an embedding projection")
@@ -276,6 +292,11 @@ class TupleTokenTiedLMHead(nn.Module):
         else:
             h = self.norm(self.project_emb(x))
         tables = embeddings.tables()
+        if batched:
+            vmax = max(t.shape[0] for t in tables.values())
+            stacked = torch.stack([F.pad(t, (0, 0, 0, vmax - t.shape[0])) for t in tables.values()])  # (S, Vmax, d)
+            hs, stacked = promoted(h.reshape(*h.shape[:-1], len(tables), embeddings.uniform_dim), stacked)
+            return torch.einsum("...sd,svd->...sv", hs, stacked)
         logits, offset = {}, 0
         for key in embeddings.num_tokens:
             dim = embeddings.emb_dims_map[key]

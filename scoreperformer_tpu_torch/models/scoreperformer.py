@@ -304,6 +304,10 @@ class ScorePerformerModel(nn.Module):
             caches=caches, cache_index=cache_index,
         )
 
+    @property
+    def perf_decoder_dim(self) -> int:
+        return self.config.dim
+
     def init_decoder_cache(self, batch: int, max_len: int, dtype=torch.float32, device=None):
         """The decoder's static KV caches, on the parameters' device unless
         `device` is given."""

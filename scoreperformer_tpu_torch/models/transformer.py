@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..configs import ModuleConfig
+from ..ops import head_layout
 from ..parallel.collectives import copy_to_group, gather_seq, scatter_seq
 from ..parallel.mesh import MODEL_AXIS, current
 from .attention import Attention, init_kv_cache
@@ -169,9 +170,10 @@ class TransformerStack(nn.Module):
                    else isinstance(block, FeedForward) and block.model_sharded for _, block in self.layers)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32, device="cpu") -> List[Any]:
-        """Per-self-attention-layer static KV caches."""
+        """Per-self-attention-layer static KV caches, each head at the width
+        the device's kernels take (`head_layout.head_width`)."""
         att = self.config.attention
-        kv_dim = att.dim_head * (1 if att.one_kv_head else self.config.heads)
+        kv_dim = head_layout.head_width(att.dim_head, device) * (1 if att.one_kv_head else self.config.heads)
         return [
             init_kv_cache(batch, max_len, kv_dim, dtype, device) if lt == "a" else None
             for lt in self.layer_types

@@ -194,9 +194,14 @@ class TupleTransformerModule(nn.Module):
         return TupleTransformerOutput(hidden_state=hidden, logits=logits, reg_values=reg_values, caches=caches,
                                       hiddens=hiddens)
 
-    def apply_lm_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
+    def apply_lm_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None, batched: bool = False):
         """Per-stream logits, keyed in the order of `num_tokens` (of `keys`
-        only, when given)."""
+        only, when given); with `batched`, the tied head's one (..., S, Vmax)
+        tensor (`TupleTokenTiedLMHead.forward`)."""
+        if batched:
+            if not isinstance(self.lm_head, TupleTokenTiedLMHead):
+                raise ValueError("batched logits are only available on the tied LM head")
+            return self.lm_head(hidden, self.token_emb, keys=keys, batched=True)
         return self.lm_head(hidden, self.token_emb, keys=keys)
 
     def apply_regression_head(self, hidden: torch.Tensor, keys: Optional[List[str]] = None):

@@ -24,6 +24,11 @@ fp32, and delta = rowsum(dout * out) is taken in the residuals' dtype, as the
 JAX wrapper takes it. A bf16 launch counts in `launches_bf16`, an fp32 one in
 `launches`.
 
+Head dims other than the kernels' built widths, up to 128, take the kernels
+at the next built width (`head_layout.py`): q, k, v (and dout) are
+zero-padded along d, o, dq, dk and dv sliced back; the scale stays that of
+the real d, and lse and dslopes do not change.
+
 A query row whose keys are all masked gets the JAX wrapper's answer: that
 wrapper pads keys to whole blocks with mask 0, so the row averages v over
 every key of the blocks it visits (`jax_masked_row_keys`), not over t keys.
@@ -34,10 +39,11 @@ from typing import Optional
 
 import torch
 
+from . import head_layout
 from ._build import kernel
+from .head_layout import KERNEL_HEAD_DIMS, kernel_head_dim, pad_head_dim
 
 NEG_INF = -1.0000000150474662e30  # -1e30 in fp32, so that fp64 references subtract it exactly as the kernels do
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 BLOCK_ROWS = 64  # (head, position) rows per block of the dQ kernel
 
 
@@ -161,7 +167,15 @@ def padded_key_dslopes(lse, delta, tq: int, tk: int, causal: bool) -> Optional[t
 
 
 def _sum_kv_heads(x, hk):
-    return x.sum(dim=1, keepdim=True) if hk == 1 else x
+    """x summed over the query heads when there is one KV head: one add a
+    head in head order, so that the sum's bits do not depend on the head
+    dim (a zero-padded one gives the same columns)."""
+    if hk != 1:
+        return x
+    out = x[:, :1]
+    for i in range(1, x.shape[1]):
+        out = out + x[:, i : i + 1]
+    return out
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
@@ -245,9 +259,51 @@ def _for_dtype(name, dtype):
     return name + "_bf16" if dtype == torch.bfloat16 else name
 
 
+def _padded_width(q) -> Optional[int]:
+    """The built width that q's head dim is padded to, or None when the
+    kernels take it as it is (or the plain versions run it)."""
+    d = q.shape[-1]
+    if not head_layout.kernel_layout(q.device) or d in KERNEL_HEAD_DIMS:
+        return None
+    return kernel_head_dim(d)
+
+
+def _to_built_width(q, k, v, slopes, mask, *rest):
+    """q, k, v and `rest` (dout) zero-padded along the head dim to the next
+    built width where the kernels are not built for q's, as they are
+    otherwise."""
+    width = _padded_width(q)
+    if width is None:
+        return (q, k, v, *rest)
+    _check(q, k, v, slopes, mask)
+    return tuple(pad_head_dim(x, width) for x in (q, k, v, *rest))
+
+
+def _at_built_width(launch, q, k, v, slopes, mask, dout, rest, causal, scale, sliced):
+    """`launch`'s results at q's head dim: the inputs taken to the built
+    width (`_to_built_width`), and the results named by `sliced` cut back."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else d**-0.5
+    padded = _to_built_width(q, k, v, slopes, mask, *(() if dout is None else (dout,)))
+    outs = launch(*padded[:3], slopes, mask, *padded[3:], *rest, causal, scale)
+    if padded[0] is q:
+        return outs
+    return tuple(_cut(o, d) if cut else o for o, cut in zip(outs, sliced))
+
+
+def _cut(x, d):
+    """x's first d columns as a tensor of their own, so that the padded one
+    is freed."""
+    return x[..., :d].contiguous()
+
+
 def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     """(out, lse): the forward kernel on CUDA tensors, its plain version on CPU
     tensors."""
+    return _at_built_width(_fwd, q, k, v, slopes, mask, None, (), causal, scale, (True, False))
+
+
+def _fwd(q, k, v, slopes, mask, causal, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True)
     if q.device.type != "cuda":
@@ -259,7 +315,6 @@ def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
     slopes = _f32("flash_attention: slopes", slopes, (h,), q.device)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
-    scale = scale if scale is not None else d**-0.5
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
     launch = kernel(_for_dtype("flash_attention_fwd", q.dtype), _for_dtype("sp_flash_attention_fwd", q.dtype))
@@ -284,7 +339,6 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     delta = _f32(f"{name}: delta", delta, (b, h, tq), q.device)
     if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
-    scale = scale if scale is not None else d**-0.5
     _raise_on(name, kernel(_for_dtype("flash_attention_bwd", q.dtype), _for_dtype(symbol, q.dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
@@ -296,6 +350,10 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
 def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
     """(dk, dv) by the dK/dV kernel on CUDA tensors (its plain version on CPU
     tensors); with one KV head the sum over query heads is in the kernel."""
+    return _at_built_width(_bwd_dkv, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, True))
+
+
+def _bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -311,6 +369,10 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
     (batch, head, query tile), the JAX wrapper's padded keys' part
     (`padded_key_dslopes`) included; a torch sum reduces them in a fixed
     order."""
+    return _at_built_width(_bwd_dq, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, False))
+
+
+def _bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
     b, h, tq, _ = q.shape
@@ -324,7 +386,9 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
 
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, then the two backward kernels (or the plain versions on
-    CPU tensors). The mask gets no gradient."""
+    CPU tensors). The mask gets no gradient. At a head dim the kernels are
+    not built for, the residuals are kept unpadded and padded once for both
+    backward kernels, whose wrappers then take them as they are."""
 
     @staticmethod
     def forward(ctx, q, k, v, slopes, mask, causal, scale):
@@ -338,10 +402,13 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, slopes, mask, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = (dout * out).sum(-1).float()  # in the residuals' dtype, as the JAX wrapper
-        args = (q, k, v, slopes, mask, dout, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(*args)
+        d = q.shape[-1]
+        scale = ctx.scale if ctx.scale is not None else d**-0.5  # the real d's, not the padded width's
+        q, k, v, dout = _to_built_width(q, k, v, slopes, mask, dout)
+        args = (q, k, v, slopes, mask, dout, lse, delta, ctx.causal, scale)
+        dk, dv = flash_attention_bwd_dkv(*args)  # by module name: a caller may swap in the plain versions
         dq, dslopes = flash_attention_bwd_dq(*args)
-        return dq, dk, dv, dslopes, None, None, None
+        return dq[..., :d], dk[..., :d], dv[..., :d], dslopes, None, None, None
 
 
 def flash_attention_alibi(

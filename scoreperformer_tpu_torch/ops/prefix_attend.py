@@ -14,17 +14,28 @@ take the cache in its own time-major layout, (cap, b, kv_heads * d), in
 fp32, bf16 or int8 with (cap, b) row scales, folded as the JAX attention
 folds them: the key scale multiplies the dots, the value scale the
 probabilities before the value product.
+
+On CUDA tensors the cache takes the kernels' head layout (`head_layout.py`):
+each KV head's columns at the built width w at or above the head dim d, the
+columns past d zero. q (b, h, d) is zero-padded to w here and o cut back to
+d. The kernel is built for 1, 2, 4 or 8 query heads a KV head: with one KV
+head per query head it runs at 1 whatever h is; over one KV head the query
+heads go in groups of 8, one launch a group, the last group padded with
+zero query and bias rows up to the next of 1, 2, 4, 8, whose outputs are
+dropped.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from . import head_layout
 from ._build import kernel
+from .head_layout import KERNEL_HEAD_DIMS, kernel_head_dim
 
 MASK_VALUE = -1e9  # the Pallas kernel's running max starts here
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # every decoder head dim of the recipes
 KERNEL_HEADS = (1, 2, 4, 8)  # the kernel's head-count template parameter
 MAX_CLUSTER = 16  # blocks a cluster: the kernel's splits of one (batch row, KV head)
 # the kernel's tiles (csrc/prefix_attend.cu: kTileKBytes, kMaxPairs, tile_slots)
@@ -34,14 +45,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SM_COUNT: Dict[int, int] = {}  # per device index, read once
 
 
-def _check(q, pk, pv, bias, k_s, v_s, n_valid):
+def _check(q, pk, pv, bias, k_s, v_s, n_valid, width=None):
+    """(b, h, d, cap, kv heads) after checking the shapes; the cache holds
+    each KV head at `width` columns (d by default)."""
     if q.ndim != 3 or pk.ndim != 3 or pk.shape != pv.shape:
         raise ValueError(f"prefix_attend: q {tuple(q.shape)}, pk {tuple(pk.shape)}, pv {tuple(pv.shape)}")
     b, h, d = q.shape
     cap = pk.shape[0]
-    kvh = pk.shape[2] // d
-    if pk.shape[1] != b or kvh * d != pk.shape[2] or kvh not in (1, h):
-        raise ValueError(f"prefix_attend: cache {tuple(pk.shape)} does not fit q {tuple(q.shape)}")
+    width = width or d
+    kvh = pk.shape[2] // width
+    if pk.shape[1] != b or kvh * width != pk.shape[2] or kvh not in (1, h):
+        raise ValueError(f"prefix_attend: cache {tuple(pk.shape)} does not fit q {tuple(q.shape)} at "
+                         f"{width} columns a head")
     if bias.shape != (h, cap):
         raise ValueError(f"prefix_attend: bias {tuple(bias.shape)}, expected ({h}, {cap})")
     if (k_s is None) != (v_s is None) or (k_s is not None) != (pk.dtype == torch.int8):
@@ -132,14 +147,51 @@ def prefix_attend(
     """(o, lse) of one query row per (batch, head) over the prefix cache: the
     tiled, clustered split-K kernel on CUDA tensors, its plain version on CPU
     tensors."""
+    if not head_layout.kernel_layout(q.device):
+        return prefix_attend_plain(q, pk, pv, bias, k_s, v_s, n_valid)
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    b, h, _, cap, kvh = dims = _check(q, pk, pv, bias, k_s, v_s, n_valid, width)
+    if width == d and h // kvh in KERNEL_HEADS:
+        return _attend(q, pk, pv, bias, k_s, v_s, n_valid, dims)
+    parts = []
+    for g0, n, rows in launch_groups(h, kvh):
+        extra = 0 if kvh == h else rows - n  # zero query and bias rows, dropped below
+        qg, bg = q[:, g0 : g0 + n], bias[g0 : g0 + n]
+        qg = F.pad(qg, (0, width - d, 0, extra)) if width > d or extra else qg.contiguous()
+        if extra:
+            bg = F.pad(bg, (0, 0, 0, extra))
+        o, lse = _attend(qg, pk, pv, bg, k_s, v_s, n_valid, (b, n + extra, width, cap, kvh))
+        parts.append((o[:, :n, :d], lse[:, :n]))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([o for o, _ in parts], dim=1), torch.cat([lse for _, lse in parts], dim=1)
+
+
+def launch_groups(h: int, kv_heads: int):
+    """`prefix_attend`'s launches over h query heads on CUDA tensors, as
+    (first head, heads, query heads a KV head in the launch) each: with a KV
+    head per query head one launch at 1; over one KV head groups of 8, the
+    last padded with zero rows up to the next of `KERNEL_HEADS`."""
+    if kv_heads == h:
+        return [(0, h, 1)]
+    group = KERNEL_HEADS[-1]
+    return [(g0, n, next(r for r in KERNEL_HEADS if r >= n))
+            for g0 in range(0, h, group) for n in (min(group, h - g0),)]
+
+
+def _attend(q, pk, pv, bias, k_s, v_s, n_valid, dims=None):
+    """One launch of the kernel over q's heads, at a head dim and a count of
+    heads a KV head it is built for (the plain version on CPU tensors);
+    `dims` is `_check`'s answer where the caller has it."""
     if q.device.type == "cpu":
         return prefix_attend_plain(q, pk, pv, bias, k_s, v_s, n_valid)
     if q.device.type != "cuda":
         raise ValueError(f"prefix_attend: unsupported device {q.device}")
-    b, h, d, cap, kvh = _check(q, pk, pv, bias, k_s, v_s, n_valid)
-    if d not in KERNEL_HEAD_DIMS or h not in KERNEL_HEADS:
-        raise ValueError(f"prefix_attend: the kernel takes head dims {KERNEL_HEAD_DIMS} and head counts "
-                         f"{KERNEL_HEADS}, got d={d}, h={h}")
+    b, h, d, cap, kvh = dims or _check(q, pk, pv, bias, k_s, v_s, n_valid)
+    if d not in KERNEL_HEAD_DIMS or h // kvh not in KERNEL_HEADS:
+        raise ValueError(f"prefix_attend: the kernel takes head dims {KERNEL_HEAD_DIMS} and {KERNEL_HEADS} "
+                         f"query heads a KV head, got d={d}, h={h}, kv_heads={kvh}")
     if pk.dtype not in _DTYPE_CODES or pv.dtype != pk.dtype:
         raise TypeError(f"prefix_attend: cache dtypes {pk.dtype}/{pv.dtype} not in {list(_DTYPE_CODES)}")
     scales = [s for s in (k_s, v_s) if s is not None]

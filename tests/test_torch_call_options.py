@@ -2,9 +2,11 @@
 meaning, held to the JAX package on the CPU on the same numpy inputs and
 weights: the MMD encoder's external `latents` and `mask_bars`; the tuple
 transformer's `return_embeddings`, `return_hiddens` and `logits_keys` (and
-the stack's `return_hiddens`); the ScorePerformer output's `perf_decoder` and
-`score_encoder` and `forward_encoders`' fourth value; `save_checkpoint`'s
-`extra_meta`; `top_k`'s `method` and `recall`.
+the stack's `return_hiddens`); the tied head's `batched` (through
+`apply_lm_head`); the ScorePerformer output's `perf_decoder` and
+`score_encoder` and `forward_encoders`' fourth value; both models'
+`perf_decoder_dim`; `save_checkpoint`'s `extra_meta`; `top_k`'s `method` and
+`recall`.
 """
 import json
 
@@ -21,6 +23,7 @@ from scoreperformer_tpu_torch.models.tuple_transformer import TupleTransformerOu
 from scoreperformer_tpu_torch.ops import sampling as tsampling
 from scoreperformer_tpu_torch.training import checkpoint as tcheckpoint
 
+import test_torch_performer as tperformer
 from test_torch_modules import LAYER_TOL, MODEL_TOL, NUM_TOKENS, apply, build_pair, close, make_inputs, rand, t, \
     tiny_config
 
@@ -160,6 +163,51 @@ def test_scoreperformer_output_keeps_the_decoder_and_score_encoder_outputs(pair)
     close(jenc[0], tenc[0], MODEL_TOL)
     close(jenc[2].hidden_state, tenc[2].hidden_state, MODEL_TOL)
     close(jenc[3].embeddings, tenc[3].embeddings, MODEL_TOL)
+
+
+@torch.no_grad()
+def test_batched_tied_head_matches_jax(pair):
+    """`apply_lm_head(h, batched=True)`: one (..., S, Vmax) tensor from the
+    zero-padded stacked tables, as JAX's; a stream's columns at or past its
+    vocabulary are 0, the others its per-stream logits."""
+    model, variables, port, _ = pair
+    h = rand(8, 2, 12, 32)
+    want = apply(model, variables, lambda m, h: m.perf_decoder.apply_lm_head(h, batched=True), h)
+    got = port.decoder.apply_lm_head(t(h), batched=True)
+    vmax = max(NUM_TOKENS.values())
+    assert got.shape == (2, 12, len(NUM_TOKENS), vmax)
+    close(want, got, LAYER_TOL)
+    per_stream = port.decoder.apply_lm_head(t(h))
+    for s, (key, num) in enumerate(NUM_TOKENS.items()):
+        assert torch.equal(got[..., s, num:], torch.zeros_like(got[..., s, num:]))
+        close(per_stream[key].numpy(), got[..., s, :num], LAYER_TOL)
+
+
+def test_batched_head_refusals(pair, monkeypatch):
+    """Where JAX asserts, the port raises ValueError: `keys` with `batched`,
+    stream dims that differ, a head that is not tied."""
+    _, _, port, _ = pair
+    h = torch.zeros(1, 3, 32)
+    with pytest.raises(ValueError, match="all streams"):
+        port.decoder.apply_lm_head(h, keys=["Pitch"], batched=True)
+    monkeypatch.setitem(port.decoder.token_emb.emb_dims_map, "Bar", 8)
+    with pytest.raises(ValueError, match="uniform stream dims"):
+        port.decoder.apply_lm_head(h, batched=True)
+    monkeypatch.undo()
+    _, _, performer = tperformer.build_pair(tperformer.performer_config(head="lm"), tperformer.tokens())
+    with pytest.raises(ValueError, match="tied LM head"):
+        performer.decoder.apply_lm_head(h, batched=True)
+
+
+def test_perf_decoder_dim_matches_jax(pair):
+    """Both models' `perf_decoder_dim`: the ScorePerformer's `config.dim`,
+    the Performer's transformer's."""
+    model, _, port, _ = pair
+    assert port.perf_decoder_dim == model.perf_decoder_dim == 32
+    cfg = tperformer.performer_config()
+    cfg["transformer"]["dim"] = 48
+    jmodel, _, performer = tperformer.build_pair(cfg, tperformer.tokens())
+    assert performer.perf_decoder_dim == jmodel.perf_decoder_dim == 48
 
 
 def test_save_checkpoint_merges_extra_meta(pair, tmp_path):

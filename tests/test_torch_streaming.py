@@ -80,15 +80,16 @@ def tiny_cfg():
 
 
 class Pair:
-    """The JAX and port generators over one piece, with the same weights."""
+    """The JAX and port generators over one piece, with the same weights
+    (`cfg`, `tiny_cfg()` by default, before the data config is injected)."""
 
-    def __init__(self, root):
+    def __init__(self, root, cfg=None):
         jax_build_synthetic_dataset(root, n_scores=1, n_perfs_per_score=1, n_bars=N_BARS, seed=7,
                                     with_directions=False)
         jds = JaxDataset(root=root, **DATASET_KW)
         tds = LocalScorePerformanceDataset(root=root, **DATASET_KW)
         jcoll, tcoll = JaxCollator(**COLLATOR_KW), MixedLMScorePerformanceCollator(**COLLATOR_KW)
-        self.cfg = inject_data_config(tiny_cfg(), jds)
+        self.cfg = inject_data_config(cfg or tiny_cfg(), jds)
         self.jmodel, _ = MODELS.get("ScorePerformer")(**self.cfg)
         inputs = {k: jnp.asarray(v) for k, v in jax_model_inputs(jcoll([jds[0]])).items()}
         rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),

@@ -184,6 +184,10 @@ BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # each for dV and dK; dQ/dslope S, dP and three for dQ
 BF16_FWD_PASSES = 4
 BF16_BWD_PASSES = {"dkv": 8, "dq": 5}
+# bf16 passes of the one-pass kernels (csrc/flash_attention_fwd_one_pass.cu,
+# csrc/flash_attention_bwd_one_pass.cu): the forward S and P.V; dK/dV S, dP,
+# dV and dK; dQ/dslope S, dP and dQ
+ONE_PASS_PASSES = {"fwd": 2, "dkv": 4, "dq": 3}
 # the words of a SASS line of each tensor-core instruction the kernels take
 TF32_HMMA = ("HMMA", "TF32")  # TF32 mma.sync, which no kernel takes
 TF32_HGMMA = ("HGMMA", "TF32")  # split-TF32 wgmma (the fp32 forward and backward)
@@ -430,6 +434,103 @@ def moe_config(tokenizer, n_notes=TRAIN_SEQ):
     for key in ("score_encoder", "perf_encoder", "perf_decoder"):
         cfg[key]["transformer"]["feed_forward"].update(MOE_FEED_FORWARD)
     return cfg
+
+
+# Each phase's seconds (`PHASE_S`), the host seconds of its CPU references
+# (`CPU_REF_S`: CPU renders, CPU train steps, CPU greedy tokens; those the
+# worker computes counted in its seconds) and the seconds the script waited
+# for the worker's (`CPU_WAIT_S`, by the phase that waited), by phase
+PHASE_S, CPU_REF_S, CPU_WAIT_S = {}, {}, {}
+_PHASE = ["set-up"]
+# the CPU reference worker's torch threads: half the card machine's 8
+# cores, the rest for the card's host work
+CPU_REF_THREADS = 4
+
+
+def begin_phase(name):
+    """Start the phase `name`: later CPU references count toward it."""
+    _PHASE[0] = name
+    CPU_REF_S.setdefault(name, 0.0)
+    PHASE_S[name] = -time.perf_counter()
+
+
+def end_phase(name):
+    """End the phase `name`; print its seconds, its CPU references' and its
+    waits for the worker's."""
+    PHASE_S[name] += time.perf_counter()
+    print(f"phase {name}: phase_s {PHASE_S[name]:.1f}, cpu_ref_s {CPU_REF_S[name]:.1f} (the worker's joined so "
+          f"far), cpu_wait_s {CPU_WAIT_S.get(name, 0.0):.1f}", flush=True)
+
+
+@contextlib.contextmanager
+def cpu_ref():
+    """Count the block's host seconds as a CPU reference of the running phase."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        CPU_REF_S[_PHASE[0]] = CPU_REF_S.get(_PHASE[0], 0.0) + time.perf_counter() - t0
+
+
+def _cpu_worker_init(threads):
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the worker computes on the CPU alone
+    import torch
+
+    torch.set_num_threads(threads)
+    import scoreperformer_tpu_torch.inference  # noqa: F401  (the imports while the card builds)
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    value = fn(*args)
+    return value, time.perf_counter() - t0
+
+
+class CpuReferences:
+    """The CPU references that need no result of the card (only seeded
+    weights, checkpoints and inputs on disk), computed by one spawned
+    worker process on the CPU while the card works. `submit` queues one as
+    soon as its inputs exist and `later` registers its gate; `check_all`
+    runs the gates, joining each result, before the script's record. A
+    reference counts toward its phase's `cpu_ref_s` in the worker's seconds,
+    and the main process's wait for it toward the waiting phase's
+    `cpu_wait_s`."""
+
+    def __init__(self, threads=CPU_REF_THREADS):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_worker_init, initargs=(threads,))
+        self.gates = []
+        self.pool.submit(int)  # start the worker now
+
+    def submit(self, fn, *args):
+        return _PHASE[0], self.pool.submit(_timed, fn, *args)
+
+    def result(self, job):
+        phase, future = job
+        t0 = time.perf_counter()
+        value, seconds = future.result()
+        CPU_WAIT_S[_PHASE[0]] = CPU_WAIT_S.get(_PHASE[0], 0.0) + time.perf_counter() - t0
+        CPU_REF_S[phase] = CPU_REF_S.get(phase, 0.0) + seconds
+        return value
+
+    def later(self, what, job, gate):
+        """`gate(value)` on the job's result, run by `check_all`."""
+        self.gates.append((what, job, gate))
+
+    def check_all(self):
+        for what, job, gate in self.gates:
+            gate(self.result(job))
+            print(f"CPU reference gate passed: {what}", flush=True)
+        self.gates = []
+
+    def close(self):
+        """Stop the worker, whatever it is doing."""
+        for process in list(getattr(self.pool, "_processes", {}).values()):
+            process.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -957,6 +1058,167 @@ def check_flash_bf16(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, le
     return fwd, dkv, dq
 
 
+def one_pass_over_bound(torch, got, want, bound):
+    """Largest |got - want| over `bound` (elementwise), one bf16 ulp of the
+    output added for bf16 outputs, whose own rounding may flip."""
+    err = (got.double() - want.double()).abs()
+    if got.dtype == torch.bfloat16:
+        m = torch.maximum(got.double().abs(), want.double().abs()).clamp_min(1.2e-38)
+        bound = bound + torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return (err / bound.clamp_min(1e-30)).max().item()
+
+
+def one_pass_bounds(torch, fa, q, k, v, slopes, mask, dout, lse, delta, causal):
+    """The one-pass kernels' bounds against their one-pass plain versions on
+    the same inputs, elementwise for o, dk, dv and dq. Each rounded P or dS
+    may land on the other bf16 neighbour on the two sides (their fp32
+    values differ by the sums' order and `__expf`): one bf16 ulp, at most 2^-7 of
+    the value, on every product it enters, so 2^-7 of the output's sum over
+    those products' absolute values (P.|v| / l, P^T.|dO|, |dS|^T.|q|*scale,
+    |dS|.|k|*scale), and 2^-12 of it for the fp32 rounding of S and exp at
+    |s| up to a few hundred (2^-23 relative each). dS = P * (dP - delta)
+    cancels where dP is near delta (a query row with one valid key: dP =
+    delta = dO.v), so its fp32 rounding, both sides' sums of d products in
+    dP, d * 2^-23 of sum |dO|.|v| (times P), enters dk and dq as well."""
+    hk, d = k.shape[1], q.shape[-1]
+    scale = d**-0.5
+    ulp = 2.0**-7 + 2.0**-12
+    bounds = {"o": ulp * fa.flash_attention_plain(q.float(), k.float(), v.float().abs(), slopes, mask, causal)}
+    p, ds, _ = fa._bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale, True)
+    ds_err = ulp * ds.abs() + p * (d * 2.0**-23) * (dout.float().abs() @ v.float().abs().transpose(-1, -2))
+    del ds
+    bounds["dv"] = ulp * fa._sum_kv_heads(p.transpose(-1, -2) @ dout.float().abs(), hk)
+    del p
+    bounds["dk"] = fa._sum_kv_heads(ds_err.transpose(-1, -2) @ q.float().abs(), hk) * scale
+    bounds["dq"] = (ds_err @ k.float().abs()) * scale
+    return bounds
+
+
+def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, dtype="fp32", lengths=None):
+    """The one-pass kernels (the TPU's "default" numerics: q, k, v and dO
+    rounded to bf16, P and dS one bf16 term) against their one-pass plain
+    versions on the same fp32 or bf16 (`dtype`) inputs: o, dk, dv and dq
+    within `one_pass_bounds` (one bf16 ulp of each rounded P or dS), lse to
+    1e-5 (or 4 fp32 ulps of its value) of the fp64 plain version's on the
+    rounded operands, dslopes (from the
+    unrounded dS) to 1e-3 of the fp64 one's largest value beyond the fp32
+    plain version's own error, outputs in the inputs' dtype, and two calls
+    giving the same bits. Returns the records of the forward, dK/dV and
+    dQ/dslope kernels; timed when `timed` (by CUDA-graph replay, the kernel
+    launches alone on the rounded operands, the wrappers' casts beside
+    (`cast_ms`), SDPA's bf16 forward and backward as the library)."""
+    import torch.nn.functional as F
+
+    q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
+    if dtype == "bf16":
+        q, k, v, dout = (x.bfloat16() for x in (q, k, v, dout))
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal, one_pass=True)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, slopes, mask, causal, one_pass=True)
+    po, plse = fa.flash_attention_plain(q, k, v, slopes, mask, causal, return_lse=True, one_pass=True)
+    delta = (dout * o).sum(-1).float()
+    args = (q, k, v, slopes, mask, dout, lse, delta, causal)
+    got = fa.flash_attention_bwd_dkv(*args, one_pass=True) + fa.flash_attention_bwd_dq(*args, one_pass=True)
+    again = fa.flash_attention_bwd_dkv(*args, one_pass=True) + fa.flash_attention_bwd_dq(*args, one_pass=True)
+    want = (fa.flash_attention_bwd_dkv_plain(*args, one_pass=True)
+            + fa.flash_attention_bwd_dq_plain(*args, one_pass=True))
+    torch.cuda.synchronize()
+    if o.dtype != q.dtype or any(x.dtype != y.dtype for x, y in zip(got[:3], (k, v, q))):
+        raise AssertionError(f"the one-pass kernels returned {o.dtype} and {[x.dtype for x in got]} for {q.dtype}")
+    bounds = one_pass_bounds(torch, fa, q, k, v, slopes, mask, dout, lse, delta, causal)
+    over = {name: one_pass_over_bound(torch, x, y, bounds[name])
+            for name, x, y in (("o", o, po), ("dk", got[0], want[0]), ("dv", got[1], want[1]), ("dq", got[2], want[2]))}
+    qs = (q.float() * scale).bfloat16()
+    _, lse64 = fa.flash_attention_plain(qs.double(), k.bfloat16().double(), v.bfloat16().double(), slopes.double(),
+                                        mask, causal, 1.0, return_lse=True, one_pass=True)
+    lse_gate = lse_over_gate(torch, lse, lse64, 1e-5)
+    exact = fa.flash_attention_bwd_dq_plain(q.double(), k.double(), v.double(), slopes.double(), mask,
+                                            dout.double(), lse.double(), delta.double(), causal, one_pass=True)[1]
+    dslopes_err = dslopes_beyond(got[3], want[3], exact)
+    where = (b, t, causal, padded, d, hk, dtype)
+    if not (max(over.values()) <= 1.0 and lse_gate <= 1.0 and dslopes_err <= 1e-3):
+        raise AssertionError(f"one-pass flash kernels differ from their plain versions at {where}: over their "
+                             f"bounds {over}, lse {lse_gate}, dslopes {dslopes_err}")
+    if not all(torch.equal(x, y) for x, y in zip(got + (o, lse), again + (o2, lse2))):
+        raise AssertionError(f"two one-pass flash calls give other bits at {where}")
+    shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "dtype": dtype,
+             "one_pass": True, "err_over_bound": over, "lse_err_over_gate": lse_gate,
+             "lse_err_vs_fp32_plain": (lse - plse).abs().max().item(), "dslopes_err": dslopes_err}
+    fwd = {**shape, "max_abs_err": (o.float() - po.float()).abs().max().item()}
+    dkv = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[:2], want[:2]))}
+    dq = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[2:], want[2:]))}
+    if not timed:
+        return fwd, dkv, dq
+    # the kernels alone, on the operands the wrappers round (q scaled first
+    # for the forward), writing outputs in the inputs' dtype
+    ops = [(qc, (qc.float() * scale).bfloat16(), qc.bfloat16(), kc.bfloat16(), vc.bfloat16(), dc.bfloat16())
+           for qc, kc, vc, dc in [(q.clone(), k.clone(), v.clone(), dout.clone())
+                                  for _ in range(n_copies(2 * (q.numel() + k.numel() + v.numel() + dout.numel())))]]
+    out_dtype = q.dtype
+    fwd["ms"] = graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: fa._fwd_launch(qs_, kb, vb, slopes, mask, causal, 1.0,
+                                                                               out_dtype, True), ops, iters=50)
+
+    def bwd(name, outs):
+        return lambda qc, qs_, qb, kb, vb, db: fa._bwd_launch(
+            f"flash_attention_bwd_{name}", f"sp_flash_attention_bwd_{name}", qb, kb, vb, slopes, mask, db, lse, delta,
+            causal, scale, outs(), True)
+
+    dkv["ms"] = graph_ms(torch, bwd("dkv", lambda: (torch.empty_like(k), torch.empty_like(v))), ops, iters=20)
+    parts = fa.dq_slope_parts(b, h, hk, t)
+    dq["ms"] = graph_ms(torch, bwd("dq", lambda: (torch.empty_like(q), torch.empty(parts, device=q.device))), ops,
+                        iters=20)
+    # the casts each wrapper makes: the forward's q*scale, k and v (q alone
+    # on bf16 operands); each backward wrapper's q, k, v and dO (fp32 only)
+    fwd["cast_ms"] = graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: (
+        (qc.float() * scale).bfloat16(), *(() if dtype == "bf16" else (kb.float().bfloat16(), vb.float().bfloat16()))),
+        ops, iters=50)
+    bwd_cast = 0.0 if dtype == "bf16" else graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: tuple(
+        x.bfloat16() for x in (qc, kb.float(), vb.float(), db.float())), ops, iters=50)
+    dkv["cast_ms"] = dq["cast_ms"] = bwd_cast
+    del ops
+    fwd["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask, causal, one_pass=True))
+    dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args, one_pass=True), iters=10,
+                              warmup=2)
+    dq["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq_plain(*args, one_pass=True), iters=10, warmup=2)
+    for rec in (fwd, dkv, dq):
+        rec["plain_timing"] = "eager"
+    # the library: SDPA on bf16 q, k, v (bias materialized in bf16)
+    qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, dout))
+    bias, ok = sdpa_bias(torch, slopes, mask, causal)
+    bias = bias.bfloat16()
+    sdpa = [(qb.clone(), kb.expand(b, h, t, d).contiguous(), vb.expand(b, h, t, d).contiguous())
+            for _ in range(n_copies(3 * 2 * q.numel()))]
+    fwd["library_ms"] = graph_ms(
+        torch, lambda qc, kc, vc: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=bias), sdpa, iters=50)
+    del sdpa, bias
+    fwd["over_library"] = fwd["ms"] / fwd["library_ms"]
+    library, library_timing = sdpa_backward_ms(torch, qb, kb, vb, dob, slopes, mask, causal)
+    dkv["library_ms"] = dq["library_ms"] = library
+    dkv["library_timing"] = dq["library_timing"] = library_timing
+    dkv["pair_over_library"] = dq["pair_over_library"] = (dkv["ms"] + dq["ms"]) / library
+    print(f"one-pass kernels ({dtype}) at {(b, h, hk, d, t, causal, padded)}: forward {fwd['ms']:.4f} ms (casts "
+          f"{fwd['cast_ms']:.4f}), SDPA's bf16 forward {fwd['library_ms']:.4f}; dK/dV {dkv['ms']:.4f}, dQ/dslope "
+          f"{dq['ms']:.4f} ms (casts {bwd_cast:.4f} a wrapper), SDPA's bf16 backward {library:.4f}")
+    # bounds: each kernel's bf16 passes (ONE_PASS_PASSES) at 989 TFLOP/s,
+    # against its bytes: bf16 operands read once, outputs written once in
+    # the inputs' dtype, fp32 lse, delta, slopes and slope parts
+    pairs = ok.expand(b, 1, t, t).sum().item()
+    product = 2 * d * h * pairs
+    bf16, f32, out = 2, 4, q.element_size()
+    for rec, key, nbytes in (
+        (fwd, "fwd", bf16 * (q.numel() + k.numel() + v.numel()) + out * q.numel() + f32 * (lse.numel() + h)
+         + mask.numel()),
+        (dkv, "dkv", bf16 * (2 * q.numel() + k.numel() + v.numel()) + out * (k.numel() + v.numel())
+         + f32 * (2 * lse.numel() + h) + mask.numel()),
+        (dq, "dq", bf16 * (2 * q.numel() + k.numel() + v.numel()) + out * q.numel()
+         + f32 * (2 * lse.numel() + h + math.prod(parts)) + mask.numel()),
+    ):
+        t_ops, t_bytes = ONE_PASS_PASSES[key] * product / BF16_OPS_PER_S, nbytes / BYTES_PER_S
+        rec.update(bf16_passes=ONE_PASS_PASSES[key], bound_by="operations" if t_ops > t_bytes else "bytes",
+                   bound_ms=max(t_ops, t_bytes) * 1e3)
+    return fwd, dkv, dq
+
+
 def check_flash_head_dims(torch, fa, timed=True):
     """The three flash kernels at the recipes' other head dims, 128
     (scale_1024's decoder: 8 heads, one KV head) and 16 (recipes/smoke.yaml:
@@ -1172,22 +1434,24 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_
 
 
 def flash_counts(fa, dtype="fp32"):
-    """The flash wrappers' counts of their fp32 (`launches`) or bf16
-    (`launches_bf16`) kernel instances."""
-    attr = "launches_bf16" if dtype == "bf16" else "launches"
+    """The flash wrappers' counts of their fp32 (`launches`), bf16
+    (`launches_bf16`) or one-pass (`launches_one_pass`, either operand
+    dtype) kernel instances."""
+    attr = {"bf16": "launches_bf16", "one_pass": "launches_one_pass"}.get(dtype, "launches")
     return {name: getattr(getattr(fa, name), attr) for name in FLASH}
 
 
 def reset_counts(fa, kv, pa):
     kv.write_kv.launches = kv.write_kv_pair.launches = pa.prefix_attend.launches = 0
     for name in FLASH:
-        getattr(fa, name).launches = getattr(fa, name).launches_bf16 = 0
+        getattr(fa, name).launches = getattr(fa, name).launches_bf16 = getattr(fa, name).launches_one_pass = 0
 
 
 def all_counts(fa, kv, pa):
     return {"write_kv": kv.write_kv.launches, "write_kv_pair": kv.write_kv_pair.launches,
             "prefix_attend": pa.prefix_attend.launches, **flash_counts(fa),
-            **{f"{name}_bf16": n for name, n in flash_counts(fa, "bf16").items()}}
+            **{f"{name}_bf16": n for name, n in flash_counts(fa, "bf16").items()},
+            **{f"{name}_one_pass": n for name, n in flash_counts(fa, "one_pass").items()}}
 
 
 def decode_launches(n_steps, layers=DECODER_LAYERS, flash=2 + 4):
@@ -1198,7 +1462,7 @@ def decode_launches(n_steps, layers=DECODER_LAYERS, flash=2 + 4):
     decoder layer and step; no single `write_kv` and no backward."""
     return {"write_kv": 0, "write_kv_pair": layers * n_steps, "prefix_attend": layers * n_steps,
             "flash_attention_fwd": flash, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            **{f"{name}_bf16": 0 for name in FLASH}}
+            **{f"{name}{suffix}": 0 for name in FLASH for suffix in ("_bf16", "_one_pass")}}
 
 
 def check_launches(what, got, expected):
@@ -1209,7 +1473,8 @@ def check_launches(what, got, expected):
 def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed, dtype="fp32", flash=10):
     """Train steps through `Trainer.train_step` on the trainer's own batches;
     every step's losses must be finite and launch `flash` flash forwards and
-    as many of each backward kernel, all of them the `dtype` instances.
+    as many of each backward kernel, all of them the `dtype` instances
+    ("fp32", "bf16" or "one_pass").
     Returns (step times in ms, launch totals, the last device batch, valid
     notes per batch, the last step's metrics)."""
     n = n_warmup + n_timed
@@ -1229,7 +1494,7 @@ def train_steps(torch, fa, kv, pa, trainer, dataset, n_warmup, n_timed, dtype="f
         if step >= n_warmup:
             times.append((time.perf_counter() - t0) * 1e3)
         per_step = {k: v - before[k] for k, v in all_counts(fa, kv, pa).items()}
-        suffix = "_bf16" if dtype == "bf16" else ""
+        suffix = {"bf16": "_bf16", "one_pass": "_one_pass"}.get(dtype, "")
         expected = {k: flash if k in {name + suffix for name in FLASH} else 0 for k in per_step}
         if per_step != expected:
             raise AssertionError(f"train step {step} launched {per_step}, expected {expected}")
@@ -1249,8 +1514,8 @@ def plain_flash(fa):
     """The flash wrappers swapped for their plain versions, on CUDA tensors
     too (the autograd Function calls them by their module names)."""
     saved = {name: getattr(fa, name) for name in FLASH}
-    fa.flash_attention_fwd = lambda q, k, v, slopes, mask=None, causal=True, scale=None: fa.flash_attention_plain(
-        q, k, v, slopes, mask, causal, scale, return_lse=True)
+    fa.flash_attention_fwd = lambda q, k, v, slopes, mask=None, causal=True, scale=None, one_pass=False: (
+        fa.flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True, one_pass=one_pass))
     fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
     fa.flash_attention_bwd_dq = fa.flash_attention_bwd_dq_plain
     try:
@@ -1261,19 +1526,22 @@ def plain_flash(fa):
 
 
 def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cuda"), precision="fp32",
-                       optimizer=None, reference_plain_flash=False):
+                       optimizer=None, reference_plain_flash=False, reference_matmul=None, by_name=False):
     """One train step (forward, loss, backward) of the same weights on the
     card and on the CPU (the plain versions), on the first `b` sequences and
     the same MMD samples: {"loss_err", "loss_rel" (its relative error),
     "grad_err" (the largest gradient error over that gradient's largest
     value), "grad_rel_l2" (the largest relative L2 error of a gradient) and
     its "worst" gradient, "global_rel_l2" (over all gradients as one
-    vector), "gradients" (their number)}. `precision`: "fp32";
+    vector), "gradients" (their number), and with `by_name` "grad_errs"
+    (each gradient's error over its largest value, by name)}. `precision`: "fp32";
     "bf16_compute", the Trainer's bf16 copies of the fp32 parameters; "bf16",
     the model held in bf16. With `optimizer` (an OptimizerConfig dict) the
     step also updates the parameters, and the gradient errors are those of
     the parameters after the update. With `reference_plain_flash` the
-    reference (the first of `devices`) runs the plain flash functions. A
+    reference (the first of `devices`) runs the plain flash functions; with
+    `reference_matmul` it runs under that `torch.set_float32_matmul_precision`
+    (the other under the global one). A
     model without an MMD style encoder (the standalone Performer) takes no
     MMD samples. An MoE model's loss is the trainer's: its layers' aux
     added."""
@@ -1296,6 +1564,7 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
 
     results = {}
     for dev in devices:
+        t_dev = time.perf_counter()
         model, _ = build_model(model_config.get("_name_", "ScorePerformer"), cfg, device=dev, seed=SEED)
         if precision == "bf16":
             model.to(torch.bfloat16)
@@ -1309,6 +1578,9 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
                 stack.enter_context(_bf16_parameters(model))
             if reference_plain_flash and not results:
                 stack.enter_context(plain_flash(fa))
+            if reference_matmul is not None and not results:
+                stack.callback(torch.set_float32_matmul_precision, torch.get_float32_matmul_precision())
+                torch.set_float32_matmul_precision(reference_matmul)
             out = model(**batch, **({"mmd_sampler": sampler} if enc else {}))
             loss = out.loss.float() if out.moe_aux is None else out.loss.float() + out.moe_aux
             loss.backward()
@@ -1321,18 +1593,21 @@ def compare_train_step(torch, model_config, host_batch, b=4, devices=("cpu", "cu
         else:
             values = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}
         results[len(results)] = (loss.item(), values)
+        if dev == "cpu":
+            CPU_REF_S[_PHASE[0]] = CPU_REF_S.get(_PHASE[0], 0.0) + time.perf_counter() - t_dev
     (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results[0], results[1]
     if set(cpu_grads) != set(gpu_grads):
         raise AssertionError("the card's step and the CPU's reach different parameters")
-    grad_err = max(((gpu_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
-                   for n, g in cpu_grads.items())
+    grad_errs = {n: ((gpu_grads[n] - g).abs().max() / g.abs().max().clamp_min(1e-12)).item()
+                 for n, g in cpu_grads.items()}
+    grad_err = max(grad_errs.values())
     rel_l2, worst = max((((gpu_grads[n] - g).norm() / g.norm().clamp_min(1e-30)).item(), n)
                         for n, g in cpu_grads.items())
     diff = math.sqrt(sum(((gpu_grads[n] - g).norm() ** 2).item() for n, g in cpu_grads.items()))
     total = math.sqrt(sum((g.norm() ** 2).item() for g in cpu_grads.values()))
     return {"loss_err": abs(gpu_loss - cpu_loss), "loss_rel": abs(gpu_loss - cpu_loss) / abs(cpu_loss),
             "grad_err": grad_err, "grad_rel_l2": rel_l2, "worst": worst, "global_rel_l2": diff / total,
-            "gradients": len(cpu_grads)}
+            "gradients": len(cpu_grads), **({"grad_errs": grad_errs} if by_name else {})}
 
 
 def score_musicxml(n_bars, divisions=480):
@@ -2081,7 +2356,7 @@ def greedy_tokens(torch, model, inputs, dev):
     `dev`, through `mixedlm_unmask` as `render_performance` calls it."""
     from scoreperformer_tpu_torch.models.wrappers import mixedlm_unmask
 
-    with torch.inference_mode():
+    with torch.inference_mode(), (cpu_ref() if dev == "cpu" else contextlib.nullcontext()):
         x = {k: torch.as_tensor(np.asarray(inputs[k])[None], dtype=torch.int64, device=dev)
              for k in ("deadpan_ids", "score_ids", "bars", "beats", "onsets", "tokens_in", "masked_all")}
         mask = torch.ones_like(x["bars"], dtype=torch.bool)
@@ -2089,6 +2364,80 @@ def greedy_tokens(torch, model, inputs, dev):
                                                           x["bars"], x["beats"], x["onsets"])
         return mixedlm_unmask(model, x["tokens_in"], x["masked_all"], style_embeddings=style_emb,
                               context=score_emb, greedy=True).cpu()
+
+
+# ---- CPU references the worker computes (`CpuReferences`): arguments and
+# results are paths, configs and numpy arrays ----
+
+
+def cpu_greedy_from_checkpoint(params, inputs):
+    """The CPU path's greedy tokens for one score's render `inputs` from the
+    port checkpoint `params` (its params.pt or directory)."""
+    import torch
+
+    from scoreperformer_tpu_torch.inference import load_model_from_checkpoint
+
+    model, _ = load_model_from_checkpoint(params, device="cpu")
+    return greedy_tokens(torch, model, inputs, "cpu").numpy()
+
+
+def cpu_scale_1024_references(ckpt, small, small_inputs):
+    """scale_1024's CPU server (fp32 caches) on the four 4-bar requests
+    `small`, with softmax_bf16 off and on, and the CPU path's greedy tokens
+    of `small_inputs` (softmax_bf16 off)."""
+    import torch
+
+    from scoreperformer_tpu_torch.inference import RenderServer
+
+    cpu = RenderServer(ckpt, bucket=64, chunk_size=CHUNK, cache_dtype="fp32", device="cpu")
+    out = {}
+    for flag in (False, True):
+        set_attention(cpu.model, softmax_bf16=flag)
+        out[flag] = [{k: r[k] for k in ("tokens", "padded_to")} for r in cpu.render_batch(small)]
+    set_attention(cpu.model, softmax_bf16=False)
+    out["greedy"] = greedy_tokens(torch, cpu.model, small_inputs, "cpu").numpy()
+    return out
+
+
+def cpu_stream_references(cfg, stream_root, gate_windows, gate_window, gate_ctx, softmax_bf16_off):
+    """The CPU path's greedy streamed windows of `cfg`'s model (random weights
+    from SEED) on the streaming piece at `stream_root`, and its encoder
+    pass's context and embeddings."""
+    from scoreperformer_tpu_torch.inference import ScorePerformerGenerator, SPMuple2Messenger
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+
+    dataset, collator = streaming_dataset(stream_root, write=False)
+    model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
+    if softmax_bf16_off:
+        set_attention(model, softmax_bf16=False)
+    gen = ScorePerformerGenerator(model, dataset, collator, SPMuple2Messenger(dataset.tokenizer))
+    gen.reset()
+    gen.prepare_performance_notes(0, overlay_bars=0.0)
+    windows = stream(gen, gate_windows, gate_window, gate_ctx, greedy=True)
+    return {"windows": [{k: w[k] for k in ("tokens", "window_start")} for w in windows],
+            "context": np.asarray(gen.perf_data.context), "embeddings": np.asarray(gen.perf_data.embeddings)}
+
+
+def cpu_moe_references(ckpt, score, requests, stream_root):
+    """From the MoE checkpoint at `ckpt`, on the CPU: the 32-bar `score`'s
+    greedy rendition (pitch, velocity, start, end), the greedy served batch
+    of `requests` (tokens) and the greedy streamed windows (tokens)."""
+    from scoreperformer_tpu_torch.inference import (
+        RenderServer, ScorePerformerGenerator, SPMuple2Messenger, render_performance,
+    )
+
+    server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu")
+    notes = render_performance(server.model, server.tokenizer, score, seed=SEED, device="cpu",
+                               greedy=True).all_notes()
+    out = {"render": [notes.pitch, notes.velocity, notes.start, notes.end],
+           "served": [r["tokens"] for r in server.render_batch(requests)]}
+    dataset, collator = streaming_dataset(stream_root, write=False)
+    gen = ScorePerformerGenerator(server.model, dataset, collator, SPMuple2Messenger(dataset.tokenizer))
+    gen.reset()
+    gen.prepare_performance_notes(0, overlay_bars=0.0)
+    out["streaming"] = [w["tokens"] for w in stream(gen, STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX,
+                                                    greedy=True)]
+    return out
 
 
 def token_agreement(out, ref, dims):
@@ -2131,7 +2480,9 @@ def smoke_phase(torch, tokenizer, work, scores, inputs, root):
 
     score, score_inputs, _ = smoke_render_score(tokenizer)
     n_steps = -(-(len(score_inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
-    models = {dev: load_model_from_checkpoint(ckpt, device=dev)[0] for dev in ("cuda", "cpu")}
+    models = {"cuda": load_model_from_checkpoint(ckpt, device="cuda")[0]}
+    with cpu_ref():
+        models["cpu"] = load_model_from_checkpoint(ckpt, device="cpu")[0]
     reset_counts(fa, kv, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2161,7 +2512,8 @@ def smoke_phase(torch, tokenizer, work, scores, inputs, root):
                                                                              layers, 0))
     left_out = sum(check_performance(tokenizer, inputs[i]["score_ids"], r["perf"], f"smoke-shaped served request {i}",
                                      all_performed=False) for i, r in enumerate(out))
-    on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(requests)
+    with cpu_ref():
+        on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(requests)
     same = all(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(out, on_cpu))
     rec["served"] = {"requests": len(requests), "wall_s": wall, "notes": sum(r["notes"] for r in out),
                      "notes_not_performed": left_out, "launches": launches, "identical_to_cpu": same}
@@ -2227,7 +2579,9 @@ def smoke_flash(torch, tokenizer, root, work):
                            model_config={"_name_": "ScorePerformer", **smoke_flash_config(tokenizer, SERVE_BUCKET)})
     tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
     del comp, batch
-    models = {dev: load_model_from_checkpoint(ckpt, device=dev)[0] for dev in ("cuda", "cpu")}
+    models = {"cuda": load_model_from_checkpoint(ckpt, device="cuda")[0]}
+    with cpu_ref():
+        models["cpu"] = load_model_from_checkpoint(ckpt, device="cpu")[0]
     reset_counts(fa, kv, pa)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2277,7 +2631,7 @@ def set_attention(model, **flags):
                 setattr(m, name, value)
 
 
-def scale_1024_phase(torch, tokenizer, work, scores, inputs):
+def scale_1024_phase(torch, tokenizer, work, scores, inputs, refs):
     """recipes/scoreperformer/scale_1024.yaml's model at full width on the
     card (random weights from SEED), with `use_flash` in every stack
     (`scale_flash_config` with the recipe's dropout: the encoders' 10 layers
@@ -2291,7 +2645,9 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     (gated: identical tokens) and on (the share of equal tokens: bf16
     rounds differently on the two devices); then one greedy
     `render_performance` of an 8-bar score and a 4-bar score's greedy tokens
-    against the CPU path's (softmax_bf16 off). Returns the phase's record."""
+    against the CPU path's (softmax_bf16 off). The CPU side runs in `refs`'
+    worker from the checkpoint while the card works; its gates run at the
+    phase's end. Returns the phase's record."""
     from scoreperformer_tpu_torch.data import synthetic_score
     from scoreperformer_tpu_torch.inference import RenderServer, prepare_render_inputs, render_performance
     from scoreperformer_tpu_torch.midi import read_midi, write_midi
@@ -2310,6 +2666,10 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
     layers = cfg["perf_decoder"]["transformer"]["depth"]
     encoder_layers = sum(cfg[key]["transformer"]["depth"] for key in ("score_encoder", "perf_encoder"))
     ckpt = save_port_checkpoint(tokenizer, cfg, work)
+    small = [dict(score_midi=synthetic_score(np.random.RandomState(1000 + i), n_bars=4), greedy=True)
+             for i in range(4)]
+    small_inputs = prepare_render_inputs(tokenizer, small[0]["score_midi"])
+    cpu_job = refs.submit(cpu_scale_1024_references, ckpt, small, small_inputs)
     lap("build_and_save_checkpoint")
     server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, cache_dtype="auto", device="cuda")
     lap("load_on_card")
@@ -2363,24 +2723,13 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
           f"of the filled tokens")
     del server, box
 
-    small = [dict(score_midi=synthetic_score(np.random.RandomState(1000 + i), n_bars=4), greedy=True)
-             for i in range(4)]
-    cpu = RenderServer(ckpt, bucket=64, chunk_size=CHUNK, cache_dtype="fp32", device="cpu")
-    lap("load_on_cpu")
-    rec["card_vs_cpu"] = {}
+    on_card = {}
     for flag in (False, True):
-        for srv in (card, cpu):
-            set_attention(srv.model, softmax_bf16=flag)
+        set_attention(card.model, softmax_bf16=flag)
         t0 = time.perf_counter()
-        on_card, on_cpu = card.render_batch(small), cpu.render_batch(small)
-        rec["card_vs_cpu"][f"softmax_bf16={flag}"] = {
-            "identical_requests": sum(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(on_card, on_cpu)),
-            "token_agreement": token_agreement(on_card, on_cpu, list(card.sample_dims)),
-            "padded_to": on_cpu[0]["padded_to"], "wall_s": time.perf_counter() - t0}
-    lap("card_vs_cpu")
-    print("scale_1024, four 4-bar requests, card vs CPU server (fp32 caches)", json.dumps(rec["card_vs_cpu"]))
-    if rec["card_vs_cpu"]["softmax_bf16=False"]["identical_requests"] != len(small):
-        raise AssertionError("the scale_1024 model's greedy tokens on the card differ from the CPU server's")
+        on_card[flag] = card.render_batch(small)
+        rec[f"card_render_s_softmax_bf16={flag}"] = time.perf_counter() - t0
+    lap("card_renders")
     rec["launches"] = expected
 
     # the flash render: render_performance on the card, launches and notes;
@@ -2398,15 +2747,27 @@ def scale_1024_phase(torch, tokenizer, work, scores, inputs):
                                                               "scale_1024 flash render", all_performed=False)}
     check_launches("the scale_1024 flash render", rec["render"]["launches"],
                    decode_launches(n_steps, layers, encoder_layers))
-    for srv in (card, cpu):
-        set_attention(srv.model, softmax_bf16=False)
-    small_inputs = prepare_render_inputs(tokenizer, small[0]["score_midi"])
-    rec["render"]["identical_to_cpu"] = torch.equal(greedy_tokens(torch, card.model, small_inputs, "cuda"),
-                                                    greedy_tokens(torch, cpu.model, small_inputs, "cpu"))
+    set_attention(card.model, softmax_bf16=False)
+    card_greedy = greedy_tokens(torch, card.model, small_inputs, "cuda")
     print("scale_1024 render with use_flash", json.dumps(rec["render"]))
+    lap("render")
+
+    # the CPU server's and the CPU path's tokens, from the worker
+    cpu = refs.result(cpu_job)
+    rec["card_vs_cpu"] = {
+        f"softmax_bf16={flag}": {
+            "identical_requests": sum(np.array_equal(a["tokens"], b["tokens"])
+                                      for a, b in zip(on_card[flag], cpu[flag])),
+            "token_agreement": token_agreement(on_card[flag], cpu[flag], list(card.sample_dims)),
+            "padded_to": cpu[flag][0]["padded_to"]} for flag in (False, True)}
+    print("scale_1024, four 4-bar requests, card vs CPU server (fp32 caches)", json.dumps(rec["card_vs_cpu"]))
+    if rec["card_vs_cpu"]["softmax_bf16=False"]["identical_requests"] != len(small):
+        raise AssertionError("the scale_1024 model's greedy tokens on the card differ from the CPU server's")
+    rec["render"]["identical_to_cpu"] = torch.equal(card_greedy, torch.as_tensor(cpu["greedy"]))
+    print(f"scale_1024 4-bar greedy tokens, card vs CPU path: identical={rec['render']['identical_to_cpu']}")
     if not rec["render"]["identical_to_cpu"]:
         raise AssertionError("the scale_1024 flash render's greedy tokens on the card differ from the CPU path's")
-    lap("render")
+    lap("card_vs_cpu")
     return rec
 
 
@@ -2541,7 +2902,8 @@ def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET
     small = [dict(score_midi=synthetic_score(np.random.RandomState(1000 + i), n_bars=4), greedy=True)
              for i in range(4)]
     on_card = server.render_batch(small)
-    on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(small)
+    with cpu_ref():
+        on_cpu = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu").render_batch(small)
     same = all(np.array_equal(a["tokens"], b["tokens"]) for a, b in zip(on_card, on_cpu))
     print(f"served batch of four 4-bar requests, card vs CPU server: identical tokens={same}")
     if not same:
@@ -2556,17 +2918,19 @@ def serve_phase(torch, tokenizer, cfg, work, scores, inputs, bucket=SERVE_BUCKET
     return rec
 
 
-def streaming_dataset(work):
+def streaming_dataset(work, write=True):
     """scripts/exp_streaming_slo.py's piece: one synthetic score of
     STREAM_BARS bars with one performance (seed 7), in a dataset of
-    STREAM_SEQ-note windows, and its collator."""
+    STREAM_SEQ-note windows, and its collator; the piece written to `work`
+    first unless `write` is false (the CPU reference worker reads it)."""
     from scoreperformer_tpu_torch.data import (
         LocalScorePerformanceDataset, MixedLMScorePerformanceCollator, build_synthetic_dataset,
     )
 
-    shutil.rmtree(work, ignore_errors=True)
-    build_synthetic_dataset(work, n_scores=1, n_perfs_per_score=1, n_bars=STREAM_BARS, seed=7,
-                            with_directions=False)
+    if write:
+        shutil.rmtree(work, ignore_errors=True)
+        build_synthetic_dataset(work, n_scores=1, n_perfs_per_score=1, n_bars=STREAM_BARS, seed=7,
+                                with_directions=False)
     dataset = LocalScorePerformanceDataset(root=work, max_seq_len=STREAM_SEQ, bar_sliding_window=8,
                                            fit_to_zero_bar=True, add_sos_eos=True, preload=True,
                                            auxiliary_data_keys=["bars"])
@@ -2614,7 +2978,7 @@ def same_stream_tokens(a, b):
 
 
 def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_windows, gate_ctx, gate_window,
-                    flash_per_chunk, smi, gate_softmax_bf16_off=False, sampled_parity=False):
+                    flash_per_chunk, smi, refs, stream_root, gate_softmax_bf16_off=False, sampled_parity=False):
     """The streaming generator on the card, exp_streaming_slo.py's regime:
     the piece prepared (the encoder pass, counted in chunks), `warmup`, then
     `n_windows` windows of STREAM_WINDOW s (STREAM_OVERFLOW s overflow) with
@@ -2630,8 +2994,9 @@ def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_window
     with softmax_bf16 off on both when `gate_softmax_bf16_off`; with
     `sampled_parity`, one seed samples the same tokens through blocks of 16
     as through the per-note path (the same blocks, each refused by
-    `decode_block`) over twice `gate_windows` windows. Returns the phase's
-    record."""
+    `decode_block`) over twice `gate_windows` windows. The CPU path's
+    windows come from `refs`' worker, on the piece at `stream_root`; their
+    gate runs in `refs.check_all`. Returns the phase's record."""
     from unittest import mock
 
     from scoreperformer_tpu_torch.inference import ScorePerformerGenerator, SPMuple2Messenger, StreamingDecoder
@@ -2651,6 +3016,8 @@ def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_window
         model, _ = build_scoreperformer(cfg, device=device, seed=SEED)
         return ScorePerformerGenerator(model, dataset, collator, SPMuple2Messenger(dataset.tokenizer))
 
+    cpu_job = refs.submit(cpu_stream_references, cfg, stream_root, gate_windows, gate_window, gate_ctx,
+                          gate_softmax_bf16_off)
     gen = generator("cuda")
     layers = cfg["perf_decoder"]["transformer"]["depth"]
     chunks = []  # (t, valid keys) of each encoder pass
@@ -2739,34 +3106,36 @@ def streaming_phase(torch, dataset, collator, cfg, label, n_windows, gate_window
         if not rec["sampled_block_vs_per_note"]["identical"]:
             raise AssertionError(f"{label}: sampled tokens through blocks differ from the per-note path's")
 
-    # greedy windows, the card against the port's CPU path on the same weights
-    cpu = generator("cpu")
+    # greedy windows, the card against the port's CPU path on the same
+    # weights (the worker's, `cpu_stream_references`)
     if gate_softmax_bf16_off:
         set_attention(gen.model, softmax_bf16=False)
-        set_attention(cpu.model, softmax_bf16=False)
-    runs = {}
-    for name, g in (("card", gen), ("cpu", cpu)):
-        g.reset()
-        g.prepare_performance_notes(0, overlay_bars=0.0)
-        runs[name] = stream(g, gate_windows, gate_window, gate_ctx, greedy=True)
-    check_stream_vocab(gen, runs["card"], f"{label} greedy gate")
-    emb_err = max(float(np.abs(a - b).max()) for a, b in ((gen.perf_data.context, cpu.perf_data.context),
-                                                            (gen.perf_data.embeddings, cpu.perf_data.embeddings)))
+    gen.reset()
+    gen.prepare_performance_notes(0, overlay_bars=0.0)
+    card = stream(gen, gate_windows, gate_window, gate_ctx, greedy=True)
+    check_stream_vocab(gen, card, f"{label} greedy gate")
+    context, embeddings = np.asarray(gen.perf_data.context), np.asarray(gen.perf_data.embeddings)
     rec["greedy_card_vs_cpu"] = {
-        "windows": len(runs["card"]), "window_s": gate_window, "max_context_len": gate_ctx,
-        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in runs["card"]),
-        "window_starts": sorted({w["window_start"] for w in runs["card"]}),
-        "identical": same_stream_tokens(runs["card"], runs["cpu"]), "embeddings_max_abs_err": emb_err,
-        "softmax_bf16_off": gate_softmax_bf16_off}
-    lap("greedy_card_vs_cpu")
-    print(f"{label} greedy windows, card vs CPU:", json.dumps(rec["greedy_card_vs_cpu"]))
-    if not rec["greedy_card_vs_cpu"]["identical"]:
-        raise AssertionError(f"{label}: the card's greedy streaming tokens differ from the CPU path's")
-    if not emb_err <= 1e-3:
-        raise AssertionError(f"{label}: the encoder pass differs between the card and the CPU by {emb_err}")
+        "windows": len(card), "window_s": gate_window, "max_context_len": gate_ctx,
+        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in card),
+        "window_starts": sorted({w["window_start"] for w in card}), "softmax_bf16_off": gate_softmax_bf16_off}
+    lap("greedy_card")
     if gate_windows >= 12 and max(rec["greedy_card_vs_cpu"]["window_starts"]) == 0:
         raise AssertionError(f"{label}: the greedy gate's windows never shifted the context window")
-    del gen, cpu
+
+    def gate(cpu):
+        emb_err = max(float(np.abs(a - b).max()) for a, b in ((context, cpu["context"]),
+                                                                (embeddings, cpu["embeddings"])))
+        rec["greedy_card_vs_cpu"].update(identical=same_stream_tokens(card, cpu["windows"]),
+                                         embeddings_max_abs_err=emb_err)
+        print(f"{label} greedy windows, card vs CPU:", json.dumps(rec["greedy_card_vs_cpu"]))
+        if not rec["greedy_card_vs_cpu"]["identical"]:
+            raise AssertionError(f"{label}: the card's greedy streaming tokens differ from the CPU path's")
+        if not emb_err <= 1e-3:
+            raise AssertionError(f"{label}: the encoder pass differs between the card and the CPU by {emb_err}")
+
+    refs.later(f"{label} greedy streamed windows against the CPU path's", cpu_job, gate)
+    del gen
     torch.cuda.empty_cache()
     return rec
 
@@ -2835,7 +3204,7 @@ def ar_launches(t0, steps, chunk=None, layers=DECODER_LAYERS):
     padded = steps if chunk is None else -(-steps // chunk) * chunk
     return {"write_kv": 0, "write_kv_pair": layers * ((t0 > 1) + padded),
             "prefix_attend": 0 if chunk is None else layers * padded,
-            **{name: 0 for name in FLASH}, **{f"{name}_bf16": 0 for name in FLASH}}
+            **{f"{name}{suffix}": 0 for name in FLASH for suffix in ("", "_bf16", "_one_pass")}}
 
 
 def recording(fn, calls):
@@ -3001,14 +3370,18 @@ def performer_phase(torch, smi):
     lap("ar_generate")
 
     # (c) greedy: the card's tokens against the CPU's, chunked and ring (a 32-row window, so that it wraps)
-    cpu_model, _ = build_performer({k: v for k, v in model_config.items() if not k.startswith("_")}, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu_model.eval()
+    with cpu_ref():
+        cpu_model, _ = build_performer({k: v for k, v in model_config.items() if not k.startswith("_")},
+                                       device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_model.eval()
     greedy = {}
     for label, b, kw in (("chunked", GEN_BATCH, {}), ("ring", 4, {"max_seq_len": GREEDY_RING_WINDOW})):
         seq_len = GEN_T0 - 1 + GREEDY_STEPS
-        out = [ar_generate(m, prompts[:b].to(dev), seq_len, greedy=True, stream_names=stream_names, **kw)
-               for m, dev in ((model, "cuda"), (cpu_model, "cpu"))]
+        out = [ar_generate(model, prompts[:b], seq_len, greedy=True, stream_names=stream_names, **kw)]
+        with cpu_ref():
+            out.append(ar_generate(cpu_model, prompts[:b].cpu(), seq_len, greedy=True, stream_names=stream_names,
+                                   **kw))
         same = torch.equal(out[0][0].cpu(), out[1][0]) and torch.equal(out[0][1].cpu(), out[1][1])
         greedy[label] = {"batch": b, "steps": GREEDY_STEPS, "identical": same, "num_generated": out[0][1].tolist()}
         print(f"performer greedy ar_generate ({label}), card vs CPU", json.dumps(greedy[label]))
@@ -3046,11 +3419,12 @@ def performer_phase(torch, smi):
     for label, single_run in (("single_run", True), ("iterative", False)):
         out = {}
         for dev in ("cuda", "cpu"):
-            m, _ = build_performer(mlm_cfg, device=dev, seed=SEED)
-            reset_counts(fa, kv, pa)
-            t0 = time.perf_counter()
-            out[dev] = mlm_unmask(m.eval(), torch.as_tensor(x, device=dev), single_run=single_run,
-                                  mask=torch.as_tensor(mask, device=dev), greedy=True).cpu()
+            with cpu_ref() if dev == "cpu" else contextlib.nullcontext():
+                m, _ = build_performer(mlm_cfg, device=dev, seed=SEED)
+                reset_counts(fa, kv, pa)
+                t0 = time.perf_counter()
+                out[dev] = mlm_unmask(m.eval(), torch.as_tensor(x, device=dev), single_run=single_run,
+                                      mask=torch.as_tensor(mask, device=dev), greedy=True).cpu()
             if dev == "cuda":
                 launches, wall = all_counts(fa, kv, pa), time.perf_counter() - t0
         forwards = 1 if single_run else MLM_MASKED
@@ -3141,19 +3515,20 @@ def router_margins(torch, models):
             h.remove()
 
 
-def same_greedy(torch, what, models, run, outs=None):
-    """`run(0)` (the card) and `run(1)` (the CPU), or their results `outs`
-    when given, are the same greedy tokens (a tensor, or a list of arrays,
-    None for none); if not, both are run again with their `models`' MoE
-    layers hooked, and the smallest top-k router margins of each side's MoE
-    calls are printed before the gate fails."""
-    outs = outs or [run(0), run(1)]
+def same_greedy(torch, what, pair, outs):
+    """The card's and the CPU's greedy tokens `outs` (each a tensor, or a
+    list of arrays, None for none) are the same; if not, `pair()` gives
+    (the two sides' models, `run`) and `run(0)` (the card) and `run(1)` (the
+    CPU) run again with those models' MoE layers hooked, and the smallest
+    top-k router margins of each side's MoE calls are printed before the
+    gate fails."""
     flat = [np.concatenate([np.asarray(x).reshape(-1) for x in (o if isinstance(o, list) else [o]) if x is not None]
                            or [np.zeros(0)]) for o in outs]
     n = min(len(flat[0]), len(flat[1]))
     if len(flat[0]) == len(flat[1]) and np.array_equal(flat[0], flat[1]):
         return True
     first = int(np.flatnonzero(flat[0][:n] != flat[1][:n])[0]) if (flat[0][:n] != flat[1][:n]).any() else n
+    models, run = pair()
     with router_margins(torch, models) as margins:
         run(0)
         run(1)
@@ -3162,7 +3537,7 @@ def same_greedy(torch, what, models, run, outs=None):
     raise AssertionError(f"{what}: the card's greedy tokens differ from the CPU path's")
 
 
-def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data):
+def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data, refs, stream_root):
     """recipes/scoreperformer/moe.yaml on the card (5 MoE layers: 1 in the
     score encoder, 2 in the performance encoder, 2 in the decoder):
     1. trained as written (base.yaml's widths, dropout and 4 direction
@@ -3172,8 +3547,9 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
        (dropout off) within 1e-4 and 1e-3 of the CPU's, aux included;
     2. from those weights (a port checkpoint): the 32-bar render, 16 served
        requests and 12 greedy streamed windows (1.2 s over a 64-row cache),
-       each with the CPU path's greedy tokens and the dense formula's
-       `write_kv_pair` and `prefix_attend` launches; renditions with the
+       each with the CPU path's greedy tokens (from `refs`' worker,
+       `cpu_moe_references`, gated in `refs.check_all`) and the dense
+       formula's `write_kv_pair` and `prefix_attend` launches; renditions with the
        score's pitches and finite times (10-step weights may leave any share
        of the notes "not performed": counted, not gated);
     3. an 8-bar score decoded with the classic layout and every
@@ -3262,16 +3638,13 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     cpu_model.load_state_dict(state)
     ckpt = save_checkpoint(os.path.join(work, "checkpoint"), cpu_model, model_config=serve_cfg)
     tokenizer.save(os.path.join(ckpt, "tokenizer.json"))
+    del cpu_model
+    requests = [dict(score_midi=sc, greedy=True) for sc in serve_scores[:MOE_REQUESTS]]
+    cpu_job = refs.submit(cpu_moe_references, ckpt, score, requests, stream_root)
     card_model = load_model_from_checkpoint(ckpt, device="cuda")[0]
-    models = (card_model, cpu_model.eval())
 
     T = len(inputs["deadpan_ids"])
     n_steps = -(-(T - 1) // CHUNK) * CHUNK
-
-    def rendered(i):  # the rendition's notes: equal notes are equal tokens
-        notes = render_performance(models[i], tokenizer, score, seed=SEED, device=("cuda", "cpu")[i],
-                                   greedy=True).all_notes()
-        return [notes.pitch, notes.velocity, notes.start, notes.end]
 
     reset_counts(fa, kv, pa)
     torch.cuda.synchronize()
@@ -3284,9 +3657,7 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
                                                               all_performed=False, max_left_out=1.0)}
     check_launches("the MoE render", rec["render"]["launches"], decode_launches(n_steps, layers, 0))
     notes = perf.all_notes()
-    rec["render"]["identical_to_cpu"] = same_greedy(
-        torch, "the MoE render", models, rendered,
-        outs=[[notes.pitch, notes.velocity, notes.start, notes.end], rendered(1)])
+    card_outs = {"render": [notes.pitch, notes.velocity, notes.start, notes.end]}
     print(f"MoE render ({smi})", json.dumps(rec["render"]))
     lap("render")
 
@@ -3322,7 +3693,6 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     print("MoE mixedlm_unmask variants", json.dumps(rec["variants"]))
     lap("variants")
 
-    requests = [dict(score_midi=sc, greedy=True) for sc in serve_scores[:MOE_REQUESTS]]
     bucket = -(-max(len(s["deadpan_ids"]) for s in serve_inputs[:MOE_REQUESTS]) // 128) * 128
     server = RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cuda")
     reset_counts(fa, kv, pa)
@@ -3335,46 +3705,66 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     check_launches("the MoE served batch", launches, decode_launches(-(-(bucket - 1) // CHUNK) * CHUNK, layers, 0))
     left_out = sum(check_performance(tokenizer, serve_inputs[i]["score_ids"], r["perf"], f"MoE served request {i}",
                                      all_performed=False, max_left_out=1.0) for i, r in enumerate(out))
-    servers = (server, RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device="cpu"))
-    served = lambda i: [r["tokens"] for r in servers[i].render_batch(requests)]  # noqa: E731
-    same = same_greedy(torch, "the MoE served batch", [srv.model for srv in servers], served,
-                       outs=[[r["tokens"] for r in out], served(1)])
+    card_outs["served"] = [r["tokens"] for r in out]
     rec["served"] = {"requests": len(requests), "bucket": bucket, "wall_s": wall, "notes": sum(r["notes"] for r in out),
-                     "notes_not_performed": left_out, "launches": launches, "identical_to_cpu": same}
+                     "notes_not_performed": left_out, "launches": launches}
     print(f"MoE served batch ({smi})", json.dumps(rec["served"]))
-    del server, servers
+    del server
     lap("served")
 
     dataset, collator = stream_data
-    gens = [ScorePerformerGenerator(m, dataset, collator, SPMuple2Messenger(dataset.tokenizer)) for m in models]
 
-    def streamed(i):
-        gens[i].reset()
-        gens[i].prepare_performance_notes(0, overlay_bars=0.0)
-        return stream(gens[i], STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX, greedy=True)
+    def streamed(model):
+        gen = ScorePerformerGenerator(model, dataset, collator, SPMuple2Messenger(dataset.tokenizer))
+        gen.reset()
+        gen.prepare_performance_notes(0, overlay_bars=0.0)
+        return stream(gen, STREAM_GATE_WINDOWS, STREAM_GATE_WINDOW, STREAM_GATE_CTX, greedy=True), gen
 
     reset_counts(fa, kv, pa)
-    runs = [streamed(0)]
-    launches, stats = all_counts(fa, kv, pa), dict(gens[0]._decoder.stats)
-    runs.append(streamed(1))
-    check_stream_vocab(gens[0], runs[0], "MoE greedy streaming")
+    windows, gen = streamed(card_model)
+    card_outs["streaming"] = [w["tokens"] for w in windows]
+    launches, stats = all_counts(fa, kv, pa), dict(gen._decoder.stats)
+    check_stream_vocab(gen, windows, "MoE greedy streaming")
+    del gen
     expected = {**{k: 0 for k in launches}, "write_kv_pair": layers * (stats["consume_calls"] + stats["block_steps"])}
     check_launches("the MoE streaming run", launches, expected)
     rec["streaming"] = {
-        "windows": len(runs[0]), "window_s": STREAM_GATE_WINDOW, "max_context_len": STREAM_GATE_CTX,
-        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in runs[0]),
-        "window_ms": [round(w["wall_s"] * 1e3, 3) for w in runs[0]],
-        "window_starts": sorted({w["window_start"] for w in runs[0]}), "decoder_stats": stats, "launches": launches,
-        "identical_to_cpu": same_stream_tokens(*runs)}
+        "windows": len(windows), "window_s": STREAM_GATE_WINDOW, "max_context_len": STREAM_GATE_CTX,
+        "notes": sum(0 if w["tokens"] is None else len(w["tokens"]) for w in windows),
+        "window_ms": [round(w["wall_s"] * 1e3, 3) for w in windows],
+        "window_starts": sorted({w["window_start"] for w in windows}), "decoder_stats": stats, "launches": launches}
     print(f"MoE greedy streaming ({smi})", json.dumps(rec["streaming"]))
-    if not rec["streaming"]["identical_to_cpu"]:
-        same_greedy(torch, "the MoE streamed windows", models, streamed,
-                    outs=[[w["tokens"] for w in run] for run in runs])
-        raise AssertionError("the MoE streamed windows on the card differ from the CPU path's")
     if max(rec["streaming"]["window_starts"]) == 0:
         raise AssertionError("the MoE streaming gate's windows never shifted the context window")
-    del gens
     lap("streaming")
+
+    # the CPU's render, served batch and streamed windows come from the
+    # worker; on a mismatch both sides run again (the CPU's here), with the
+    # router margins of their MoE calls (`same_greedy`)
+    def model_pair():
+        return [card_model, load_model_from_checkpoint(ckpt, device="cpu")[0].eval()]
+
+    def render_pair():
+        models = model_pair()
+        return models, lambda i: (lambda n: [n.pitch, n.velocity, n.start, n.end])(render_performance(
+            models[i], tokenizer, score, seed=SEED, device=("cuda", "cpu")[i], greedy=True).all_notes())
+
+    def served_pair():
+        servers = [RenderServer(ckpt, bucket=128, chunk_size=CHUNK, device=d) for d in ("cuda", "cpu")]
+        return [s.model for s in servers], lambda i: [r["tokens"] for r in servers[i].render_batch(requests)]
+
+    def streamed_pair():
+        models = model_pair()
+        return models, lambda i: [w["tokens"] for w in streamed(models[i])[0]]
+
+    def gate(cpu):
+        for key, what, pair in (("render", "the MoE render", render_pair),
+                                ("served", "the MoE served batch", served_pair),
+                                ("streaming", "the MoE streamed windows", streamed_pair)):
+            rec[key]["identical_to_cpu"] = same_greedy(torch, what, pair, outs=[card_outs[key], cpu[key]])
+        print("MoE render, served batch and streamed windows, card vs CPU: identical")
+
+    refs.later("the MoE render, served batch and streamed windows against the CPU path's", cpu_job, gate)
 
     # ---- 4. the tokenizer ops on the served renditions, card against CPU ----
     ops = TokenizerOps(tokenizer)
@@ -3382,7 +3772,7 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     for r, x_in in zip(out, serve_inputs):
         res = {}
         for dev in ("cuda", "cpu"):
-            tok = torch.as_tensor(r["tokens"], device=dev)
+            tok = torch.as_tensor(r["tokens"], device=dev)  # the CPU's share here is milliseconds
             res[dev] = [t.cpu() for t in (ops.note_on_ticks(tok, tokenizer.max_beat_res),
                                           *ops.spmuple2_decode_times(tok, tokenizer.max_beat_res),
                                           ops.score_tokens_as_performance(torch.as_tensor(x_in["score_ids"], device=dev)))]
@@ -3401,7 +3791,6 @@ def moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, 
     print("MoE tokenizer ops, card vs CPU:", json.dumps(rec["tokenizer_ops"]))
     if not max(worst.values()) <= 1e-5:
         raise AssertionError(f"the tokenizer ops on the card differ from the CPU's by {worst}")
-    del card_model, cpu_model, models
     torch.cuda.empty_cache()
     lap("tokenizer_ops")
 
@@ -3458,7 +3847,7 @@ def parallel_gates(one, got, what, grad_tol=1e-3, param_tol=1e-4, loss_tol=1e-4)
     return errs
 
 
-def parallel_phase(torch, tokenizer, smi, inputs):
+def parallel_phase(torch, tokenizer, smi, inputs, refs):
     """Training on several processes (`scoreperformer_tpu_torch.parallel`):
     the flagship with `use_flash` at batch 128 x 258 (2 adamw steps on the
     training phase's dataset) on data = 2 with ZeRO, model = 2 (2 query
@@ -3633,16 +4022,18 @@ def parallel_phase(torch, tokenizer, smi, inputs):
     card = greedy_tokens(torch, model, inputs, "cuda")
     launches = all_counts(fa, kv, pa)
     lap("render_card")
-    cpu_model, _ = load_model_from_checkpoint(os.path.join(ckpts["gathered"], "params.pt"), device="cpu")
-    cpu = greedy_tokens(torch, cpu_model, inputs, "cpu")
-    lap("render_cpu")
-    if not torch.equal(card, cpu):
-        raise AssertionError("the render from the gathered checkpoint differs from the CPU path's greedy tokens")
+    # the CPU path's tokens from the worker, gated in `refs.check_all`
+    def gate(cpu):
+        if not torch.equal(card, torch.as_tensor(cpu)):
+            raise AssertionError("the render from the gathered checkpoint differs from the CPU path's greedy tokens")
+
+    refs.later("the render from the gathered checkpoint against the CPU path's greedy tokens",
+               refs.submit(cpu_greedy_from_checkpoint, os.path.join(ckpts["gathered"], "params.pt"), inputs), gate)
     n_steps = -(-(len(inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
     check_launches("render from the gathered checkpoint", launches, decode_launches(n_steps))
     rec["checkpoints"] = {"restored": ["sharded in one process", "async in one process", "sharded at model = 2"],
                           "render_launches": launches, "render_tokens": list(card.shape)}
-    del model, cpu_model
+    del model
 
     # ---- the kernels at the model axis's shape and prefix_attend at moe.yaml's served batch ----
     kernels = {"flash_attention_fwd": [check_flash(torch, fa, TRAIN_BATCH, TRAIN_SEQ + 2, False, True, False, h=2),
@@ -3822,6 +4213,184 @@ def pipeline_phase(torch, tokenizer, smi):
 # the CPU on an 8-bar score; the kernels first at 6 and 12 heads over one KV
 # head at the built width 64, then at head dims 8, 48 and 96, (heads, KV
 # heads, t, causal, padded) a case; the phase's budget in seconds
+# the precision phase: the one-pass kernels' checks on the card, (b, t,
+# causal, padded, h, d, kv heads, lengths): the flagship's encoders and
+# decoder (the first timed, fp32), recipes/smoke.yaml's d = 16 and
+# scale_1024's decoder (d = 128) at their train shapes, and the edges (d =
+# 32, rows with no valid key, one KV head per query head, t around the
+# tiles, keys that start late); each in fp32 and bf16
+PRECISION_CHECKS = [
+    (TRAIN_BATCH, TRAIN_SEQ + 2, False, True, 4, 64, 1, None),
+    (TRAIN_BATCH, TRAIN_SEQ + 1, True, True, 4, 64, 1, None),
+    (4, 49, True, True, 2, 16, 1, None), (4, 50, False, True, 2, 16, 1, None),
+    (8, 1025, True, True, 8, 128, 1, None), (8, 1026, False, True, 8, 128, 1, None),
+    (3, 77, True, "empty", 4, 32, 1, None), (4, 130, False, True, 4, 64, 4, None),
+    (2, 300, True, "empty", 4, 64, 4, None),
+    (2, 1, False, False, 4, 64, 1, None), (2, 17, True, False, 4, 64, 1, None),
+    (2, 65, False, False, 4, 64, 1, None), (2, 129, True, False, 4, 64, 1, None),
+    (3, 200, True, "late", 4, 64, 1, [(70, 200), (5, 90), (130, 131)]),
+]
+PRECISION_TRAIN_STEPS = (2, 4)  # warm-up and timed steps at batch 128 under "medium"
+# the one-pass kernels' batch-4 step against the plain flash functions on
+# the card: the fp32 step's loss gate, 1e-4, and the gradients as one vector
+# within one bf16 ulp, 2^-7, in relative L2. The fp32 step's gradient gate
+# (1e-3 of each gradient's largest value) cannot hold here: one pass
+# computes delta from the forward's rounded P and dS from the backward's
+# unrounded one, so on a row whose P sits on one key dS is that rounding's
+# residue, which one bf16 tie flipped on one side moves wholly. The learned
+# ALiBi slopes' and the decoder's to_q/to_k gradients sum such rows: on the
+# H100 (`chip_probe_precision.py::step_spread`) kernels and plain versions
+# differ there by 0.207 of a gradient's largest value, two plain steps by
+# 0.069 (the MMD subsample's atomics, 2.0e-5 at "highest"), and the
+# kernels and plain versions at "highest" by 2.9e-4. Each gradient's error
+# is recorded beside.
+ONE_PASS_STEP_GATES = {"loss_err": 1e-4, "global_rel_l2": 2.0**-7}
+ALIBI_SLOPES = "rel_pos.learned_logslopes"
+
+
+def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi):
+    """The flash attention's "default" precision as the TPU's one-pass
+    numerics, on the card: under torch.set_float32_matmul_precision("medium")
+    (restored to "highest" after)
+    1. the one-pass kernels against their one-pass plain versions at
+       PRECISION_CHECKS, fp32 and bf16 (`check_flash_one_pass`), the
+       flagship's encoder shape timed;
+    2. the flagship (use_flash) trained through `ExperimentComponents` and
+       the `Trainer` on the train phase's dataset at `root`, batch 128 x 258:
+       PRECISION_TRAIN_STEPS steps with 10 launches of each one-pass kernel
+       a step, one more profiled (the GEMM kernels cuBLAS takes under
+       "medium"; busy ms beside the fp32 step's);
+    3. the 32-bar `score` rendered greedy: 6 one-pass forwards (the
+       encoders), the chunked decode's launches, `check_performance`;
+    4. a batch-4 step of `model_config` on the card against the same step
+       with the plain flash functions in the one-pass mode (the same GEMMs
+       on both sides, so the kernels alone differ), 10 launches of each
+       one-pass kernel: loss within the fp32 step's 1e-4 and the gradients
+       as one vector within one bf16 ulp (2^-7) in relative L2
+       (`ONE_PASS_STEP_GATES`; each gradient's error recorded); the model held in bf16
+       likewise, at the bf16 model's gates (loss 1e-2 relative, gradients
+       5e-2 relative L2 as one vector);
+    5. recorded, not gated: the "medium" step's loss and gradients against
+       the "highest" step's on the card.
+    Returns the phase's record."""
+    from scoreperformer_tpu_torch.inference import prepare_render_inputs, render_performance
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+    from scoreperformer_tpu_torch.ops import flash_attention as fa
+    from scoreperformer_tpu_torch.ops import kv_cache as kv
+    from scoreperformer_tpu_torch.ops import prefix_attend as pa
+    from scoreperformer_tpu_torch.training import ExperimentComponents
+
+    phase_s, last = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        phase_s[step] = now - last[0]
+        last[0] = now
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_precision")
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"card": smi, "phase_s": phase_s}
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    try:
+        if not fa.precision_is_one_pass("default"):
+            raise AssertionError("\"default\" under \"medium\" does not take the one-pass route")
+        # 1. the kernels
+        checks = [check_flash_one_pass(torch, fa, b, t, c, p, timed=i == 0 and dt == "fp32", h=h, d=d, hk=hk,
+                                       dtype=dt, lengths=lengths)
+                  for i, (b, t, c, p, h, d, hk, lengths) in enumerate(PRECISION_CHECKS) for dt in ("fp32", "bf16")]
+        for recs in checks:
+            for name, r in zip(FLASH, recs):
+                print(f"{name}_one_pass", json.dumps(r))
+        rec["main"] = checks[0]
+        rec["checks"] = len(checks)
+        rec["worst_over_bound"] = max(max(r["err_over_bound"].values()) for recs in checks for r in recs)
+        lap("kernels")
+
+        # 2. train steps under "medium"
+        comp = ExperimentComponents(train_config(tokenizer, root, os.path.join(work, "run"), TRAIN_BATCH, 2),
+                                    device="cuda").init_components()
+        trainer = comp.trainer
+        trainer._prepare()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, launches, batch, notes, values = train_steps(torch, fa, kv, pa, trainer, comp.train_dataset,
+                                                              *PRECISION_TRAIN_STEPS, dtype="one_pass")
+        rec["train"] = {**train_record(torch, step_ms, notes, launches), "last_loss": values["loss"]}
+        prof = profile_device(torch, lambda: trainer.train_step(batch, sum(PRECISION_TRAIN_STEPS)),
+                              ported=PORTED_TRAIN, top=16)
+        kernels = {k for n in PORTED_TRAIN for k in prof["ported"][n]["kernels"]}
+        if {k: prof["ported"][k]["count"] for k in PORTED_TRAIN} != {k: 10 for k in PORTED_TRAIN} or not all(
+                one_pass_instance(k) for k in kernels):
+            raise AssertionError(f"the profiled step under \"medium\" ran the flash kernels {prof['ported']}")
+        rec["train"]["profile"] = prof
+        print(f"precision: train steps under \"medium\" ({smi})", json.dumps(rec["train"]))
+        del comp, trainer, batch
+        torch.cuda.empty_cache()
+        lap("train_steps")
+
+        # 3. the render
+        inputs = prepare_render_inputs(tokenizer, score)
+        n_steps = -(-(len(inputs["deadpan_ids"]) - 1) // CHUNK) * CHUNK
+        model, _ = build_scoreperformer(flagship_config(tokenizer, len(inputs["deadpan_ids"])), device="cuda",
+                                        seed=SEED)
+        model.eval()
+        reset_counts(fa, kv, pa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        perf = render_performance(model, tokenizer, score, seed=SEED, device="cuda", greedy=True)
+        torch.cuda.synchronize()
+        rec["render"] = {"bars": N_BARS, "notes": perf.num_notes, "wall_s": time.perf_counter() - t0,
+                         "launches": all_counts(fa, kv, pa)}
+        check_launches("the render under \"medium\"", rec["render"]["launches"],
+                       {**decode_launches(n_steps, flash=0), "flash_attention_fwd_one_pass": 2 + 4})
+        check_performance(tokenizer, inputs["score_ids"], perf, "the render under \"medium\"")
+        print(f"precision: render under \"medium\" ({smi})", json.dumps(rec["render"]))
+        del model
+        torch.cuda.empty_cache()
+        lap("render")
+
+        # 4. batch-4 steps, the kernels against the plain flash functions on the card
+        for name, dtype, gates in (("fp32", "fp32", ONE_PASS_STEP_GATES),
+                                   ("bf16_model", "bf16", {"loss_rel": 1e-2, "global_rel_l2": 5e-2})):
+            reset_counts(fa, kv, pa)
+            gate = compare_train_step(torch, model_config, host_batch, devices=("cuda", "cuda"), precision=dtype,
+                                      reference_plain_flash=True, by_name=True)
+            errs = gate.pop("grad_errs")
+            gate["slope_grad_errs"] = {n: e for n, e in errs.items() if n.endswith(ALIBI_SLOPES)}
+            gate["grad_err_but_slopes"] = max(e for n, e in errs.items() if not n.endswith(ALIBI_SLOPES))
+            gate["largest_grad_errs"] = dict(sorted(errs.items(), key=lambda x: -x[1])[:8])
+            launches = all_counts(fa, kv, pa)
+            rec[f"{name}_step_vs_plain"] = {**gate, "launches": launches}
+            print(f"precision: batch-4 step ({name}) under \"medium\", kernels vs plain on the card",
+                  json.dumps(rec[f"{name}_step_vs_plain"]))
+            check_launches(f"the batch-4 {name} step under \"medium\"", launches,
+                           {k: 10 if k in {f + "_one_pass" for f in FLASH} else 0 for k in launches})
+            if not all(gate[k] <= tol for k, tol in gates.items()):
+                raise AssertionError(f"the one-pass kernels' {name} step differs from the plain versions': {gate}")
+        lap("steps_vs_plain")
+
+        # 5. recorded: "medium" against "highest", both on the card
+        gate = compare_train_step(torch, model_config, host_batch, devices=("cuda", "cuda"),
+                                  reference_matmul="highest", by_name=True)
+        rec["medium_vs_highest"] = {k: gate[k] for k in ("loss_rel", "grad_err", "grad_rel_l2", "worst",
+                                                          "global_rel_l2", "gradients")}
+        rec["medium_vs_highest"]["slope_grad_errs"] = {n: e for n, e in gate["grad_errs"].items()
+                                                       if n.endswith(ALIBI_SLOPES)}
+        print("precision: batch-4 step under \"medium\" against \"highest\" (recorded, not gated)",
+              json.dumps(rec["medium_vs_highest"]))
+        lap("medium_vs_highest")
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def one_pass_instance(kernel):
+    """Whether a profiled flash kernel's name is a one-pass instance (P or
+    dS one bf16 term): `flash_fwd_bf16<64, 1, float>` and the like."""
+    return re.search(r"_bf16<\d+, 1,", kernel) is not None
+
+
 HEAD_SHAPES_MODEL = (6, 48)
 HEAD_SHAPES_BUDGET_S = 60.0
 HEAD_SHAPES_GATE_BARS = 8
@@ -3890,7 +4459,9 @@ def head_shapes_phase(torch, tokenizer, score, model_config, host_batch, scores,
     # the flagship at 6 heads of 48: greedy tokens on the card and the CPU
     T = len(prepare_render_inputs(tokenizer, score)["deadpan_ids"])
     cfg = flagship_config(tokenizer, T, heads=heads, dim_head=dim_head)
-    models = {dev: build_scoreperformer(cfg, device=dev, seed=SEED)[0].eval() for dev in ("cuda", "cpu")}
+    models = {"cuda": build_scoreperformer(cfg, device="cuda", seed=SEED)[0].eval()}
+    with cpu_ref():
+        models["cpu"] = build_scoreperformer(cfg, device="cpu", seed=SEED)[0].eval()
     gate_inputs = prepare_render_inputs(tokenizer, synthetic_score(np.random.RandomState(SEED + 3),
                                                                    n_bars=HEAD_SHAPES_GATE_BARS))
     t0 = time.perf_counter()
@@ -3966,7 +4537,16 @@ def main() -> int:
         return 1
     t_script = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    refs = CpuReferences()
+    try:
+        return smoke(torch, refs, t_script)
+    finally:
+        refs.close()
 
+
+def smoke(torch, refs, t_script) -> int:
+    """Every phase in turn, the CPU references that need no result of the
+    card computed by `refs`' worker beside them."""
     from scoreperformer_tpu_torch.data import build_synthetic_dataset, synthetic_score
     from scoreperformer_tpu_torch.inference import prepare_render_inputs, render_performance
     from scoreperformer_tpu_torch.models.factory import build_scoreperformer
@@ -3986,6 +4566,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # ---- build ----
+    begin_phase("build")
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {sorted(str(p) for p in libs.values())}")
@@ -4005,6 +4586,17 @@ def main() -> int:
                            fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
     hgmma.update(hgmma_bwd)
     hgmma_dims.update(hgmma_bwd_dims)
+    # the one-pass instances (P and dS one bf16 term): bf16 HGMMA, no TF32
+    # instruction of any kind
+    one_pass_gmma, one_pass_gmma_dims = {}, {}
+    for library, names in (("flash_attention_fwd_one_pass", ("flash_fwd_bf16",)),
+                           ("flash_attention_bwd_one_pass", ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"))):
+        counts, dims = tensor_core_counts(libs[library], names, fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA,
+                                          forbidden=("TF32",))
+        one_pass_gmma.update(counts)
+        one_pass_gmma_dims.update(dims)
+    print(f"bf16 warpgroup instructions (HGMMA) in the one-pass instances' SASS, and no TF32 instruction, by "
+          f"kernel: {json.dumps(one_pass_gmma)}; by kernel and head dim: {json.dumps(one_pass_gmma_dims)}")
     print(f"TF32 warpgroup instructions (HGMMA) in the fp32 forward's SASS, and no TF32 HMMA, by kernel: "
           f"{json.dumps(fwd_gmma)}; by kernel and head dim: {json.dumps(fwd_gmma_dims)}")
     print(f"TF32 warpgroup instructions (HGMMA) in the fp32 backward's SASS, and no TF32 HMMA, by kernel: "
@@ -4021,6 +4613,7 @@ def main() -> int:
     print(f"bf16 warpgroup instructions (HGMMA) in the bf16 forward's and backward's SASS, and no TF32 HMMA, "
           f"by kernel: {json.dumps(hgmma)}; by kernel and head dim: {json.dumps(hgmma_dims)}")
     print(f"build and SASS checks: {time.perf_counter() - t0:.1f} s")
+    end_phase("build")
 
     # ---- the score and the render's shapes ----
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
@@ -4036,6 +4629,7 @@ def main() -> int:
         raise AssertionError(f"the served scores' longest has {max(serve_lens)} notes, not in the {SERVE_BUCKET} bucket")
 
     # ---- kernels against their plain versions ----
+    begin_phase("kernels")
     t_kernels = time.perf_counter()
     # write_kv and write_kv_pair (every case both ways, timed at the
     # render's step, the served batch's step and a 2 MB write): the render's
@@ -4226,8 +4820,10 @@ def main() -> int:
     for rec in [pa_main] + pa_recs + pa_dims:
         print("prefix_attend", json.dumps(rec))
     print(f"kernel checks: {time.perf_counter() - t_kernels:.1f} s")
+    end_phase("kernels")
 
     # ---- the main path: the flagship renders the score on the card ----
+    begin_phase("flagship")
     cfg = flagship_config(tokenizer, T)
     model, _ = build_scoreperformer(cfg, device="cuda", seed=SEED)
     model.eval()
@@ -4307,15 +4903,18 @@ def main() -> int:
         check_performance(tokenizer, inputs["score_ids"], perf, f"{mode} render")
 
     # the kernel path against the port's CPU path (plain versions) on the same weights
-    cpu_model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
-    cpu_model.eval()
+    with cpu_ref():
+        cpu_model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
+        cpu_model.eval()
     with torch.inference_mode():
         args = [inputs[k] for k in ("deadpan_ids", "score_ids", "bars", "beats", "onsets")]
         def enc(m, dev):
             x = [torch.as_tensor(np.asarray(a)[None], dtype=torch.int64, device=dev) for a in args]
             mask = torch.ones(1, T, dtype=torch.bool, device=dev)
             return m.encode_embeddings(x[0], mask, x[1], mask, *x[2:])
-        gpu_emb, cpu_emb = enc(model, "cuda"), enc(cpu_model, "cpu")
+        gpu_emb = enc(model, "cuda")
+        with cpu_ref():
+            cpu_emb = enc(cpu_model, "cpu")
         emb_err = max((g.cpu() - c).abs().max().item() for g, c in zip(gpu_emb[:2], cpu_emb[:2]))
     print(f"encoders, GPU kernels vs CPU plain: max abs err {emb_err:.3g}")
     if not emb_err <= 1e-3:
@@ -4336,56 +4935,71 @@ def main() -> int:
         raise AssertionError(f"the card's train step differs from the CPU's: loss {loss_err}, gradients {grad_err}")
     del model, cpu_model
     torch.cuda.empty_cache()
+    end_phase("flagship")
 
     # ---- the trainer's options: bf16_compute and a bf16 model, remat, scale_1024, lamb/lion/adafactor ----
+    begin_phase("options")
     t0 = time.perf_counter()
     options = options_phase(torch, tokenizer, root, os.path.join(work, "options"))
     print(f"options phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("options")
     print("options", json.dumps({k: v for k, v in options.items() if k not in ("bf16_compute", "bf16_model")}))
 
     # ---- the paper's recipe: MIDI and MusicXML prepared, direction classifiers trained ----
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    begin_phase("paper")
     t0 = time.perf_counter()
     paper = paper_phase(torch, tokenizer, os.path.join(build, "chip_smoke_paper"))
     print(f"paper recipe phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("paper")
     print("paper recipe", json.dumps({k: v for k, v in paper.items() if k != "profile"}))
     if paper["train"]["launches"]["prefix_attend"] or paper["train"]["launches"]["write_kv_pair"]:
         raise AssertionError(f"the paper recipe's train steps launched decode kernels: {paper['train']['launches']}")
 
     # ---- the serving path: a RenderServer on a port checkpoint serves 128 requests ----
+    begin_phase("serving")
     t0 = time.perf_counter()
     served = serve_phase(torch, tokenizer, flagship_config(tokenizer, SERVE_BUCKET),
                          os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_serve"),
                          serve_scores, serve_inputs)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("serving")
     served_launches = served["greedy"]["launches"]
 
     # ---- the recipes' other decoder head dims: smoke.yaml's d = 16, scale_1024's d = 128 ----
+    begin_phase("smoke")
     t0 = time.perf_counter()
     smoke = smoke_phase(torch, tokenizer, os.path.join(build, "chip_smoke_smoke"), serve_scores, serve_inputs, root)
     print(f"smoke-shaped phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("smoke")
+    begin_phase("scale_1024")
     t0 = time.perf_counter()
     scale = scale_1024_phase(torch, tokenizer, os.path.join(build, "chip_smoke_scale_1024"), serve_scores,
-                             serve_inputs)
+                             serve_inputs, refs)
     shutil.rmtree(os.path.join(build, "chip_smoke_scale_1024"), ignore_errors=True)  # a 1.1 GB checkpoint
     print(f"scale_1024 phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("scale_1024")
     print("scale_1024 served", json.dumps({k: v for k, v in scale.items() if k != "profile"}))
 
     # ---- the scale regime with the flash kernels: train at 1024 and 2048 notes, bf16 ----
+    begin_phase("scale_flash")
     t0 = time.perf_counter()
     scale_flash = scale_flash_phase(torch, tokenizer, os.path.join(build, "chip_smoke_scale_flash"), smi)
     print(f"scale flash phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("scale_flash")
     print("scale flash", json.dumps({k: v for k, v in scale_flash.items() if k not in ("seq_1024", "seq_2048")}))
 
     # ---- streaming: the generator window by window, flagship and scale_1024 ----
+    begin_phase("streaming")
     t0 = time.perf_counter()
-    stream_data = streaming_dataset(os.path.join(build, "chip_smoke_stream"))
+    stream_root = os.path.join(build, "chip_smoke_stream")
+    stream_data = streaming_dataset(stream_root)
     stream_flag = streaming_phase(torch, *stream_data, flagship_config(tokenizer, STREAM_SEQ), "flagship",
                                   STREAM_WINDOWS, STREAM_GATE_WINDOWS, STREAM_GATE_CTX, STREAM_GATE_WINDOW, 2 + 4,
-                                  smi, sampled_parity=True)
+                                  smi, refs, stream_root, sampled_parity=True)
     stream_scale = streaming_phase(torch, *stream_data, scale_1024_config(tokenizer), "scale_1024",
                                    STREAM_SCALE_WINDOWS, STREAM_SCALE_GATE_WINDOWS, STREAM_CTX, STREAM_WINDOW, 0,
-                                   smi, gate_softmax_bf16_off=True)
+                                   smi, refs, stream_root, gate_softmax_bf16_off=True)
     # the kernels at the streaming shapes: the decoder's row writes of each
     # consume chunk (128, 64, 8, 1 rows) and decode step into the 256-row
     # cache, at the flagship's kv width (64) and scale_1024's (128), one
@@ -4401,23 +5015,30 @@ def main() -> int:
     for rec in stream_fa:
         print("flash_attention_fwd, streaming", json.dumps(rec))
     print(f"streaming phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("streaming")
 
     # ---- the Performer family: train performer.yaml, ar_generate, mlm_unmask ----
+    begin_phase("performer")
     t0 = time.perf_counter()
     performer = performer_phase(torch, smi)
     print(f"performer phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("performer")
     print("performer", json.dumps({k: v for k, v in performer.items() if k != "kernels"}))
 
     # ---- Mixture-of-Experts: moe.yaml trained, rendered, served, streamed; the decode variants ----
+    begin_phase("moe")
     t0 = time.perf_counter()
-    moe = moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data)
+    moe = moe_phase(torch, tokenizer, smi, score, inputs, serve_scores, serve_inputs, stream_data, refs, stream_root)
     print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("moe")
     print("moe", json.dumps({k: v for k, v in moe.items() if k != "kernels"}))
 
     # ---- training on several processes: data, model and expert axes, ZeRO, checkpoints ----
+    begin_phase("parallel")
     t0 = time.perf_counter()
-    parallel = parallel_phase(torch, tokenizer, smi, inputs)
+    parallel = parallel_phase(torch, tokenizer, smi, inputs, refs)
     print(f"parallel phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("parallel")
     print(f"parallel: {parallel['cards']} card(s); multi-rank checks over {parallel['backend']}, "
           f"{parallel['ranks_a_card']} rank(s) a card"
           + ("; a world-size-1 nccl group ran a step and each collective" if "nccl_world1" in parallel else ""))
@@ -4429,14 +5050,24 @@ def main() -> int:
           f"gradient error {sp['grad_err']:.3g} against {no_sp['grad_err']:.3g}", flush=True)
 
     # ---- GPipe over a pipe axis: the flagship decoder trunk; the dry run ----
+    begin_phase("pipeline")
     t0 = time.perf_counter()
     pipeline = pipeline_phase(torch, tokenizer, smi)
     print(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+    end_phase("pipeline")
     print("pipeline", json.dumps({k: v for k, v in pipeline.items() if k != "kernels"}))
 
+    # ---- the flash attention's "default" precision as the TPU's one pass ----
+    begin_phase("precision")
+    precision = precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi)
+    end_phase("precision")
+    print("precision", json.dumps({k: v for k, v in precision.items() if k not in ("main", "train")}))
+
     # ---- head shapes the kernels are not built for: 6 heads of 48 over one KV head ----
+    begin_phase("head_shapes")
     shapes = head_shapes_phase(torch, tokenizer, score, model_config, host_batch, serve_scores, serve_inputs,
                                os.path.join(build, "chip_smoke_head_shapes"))
+    end_phase("head_shapes")
     print(f"head shapes phase: {shapes['phase_s']:.1f} s (budget {HEAD_SHAPES_BUDGET_S:.0f} s); the script "
           f"{time.perf_counter() - t_script:.1f} s so far")
     print("head shapes", json.dumps(shapes))
@@ -4472,6 +5103,10 @@ def main() -> int:
                 for name, run in parallel["steps"].items()},
              **{f"pipeline_{name}_step_a_rank": {**{k: 0 for k in launches}, **run["launches_a_step"]}
                 for name, run in pipeline["runs"].items()},
+             "precision_medium_train_steps": precision["train"]["launches"],
+             "precision_medium_render": precision["render"]["launches"],
+             "precision_medium_batch4_step": precision["fp32_step_vs_plain"]["launches"],
+             "precision_medium_bf16_model_batch4_step": precision["bf16_model_step_vs_plain"]["launches"],
              "head_shapes_render": shapes["render"]["launches"], "head_shapes_served": shapes["served"]["launches"],
              "head_shapes_train_step": shapes["train_step"]["launches"]}
     bound_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4523,6 +5158,25 @@ def main() -> int:
                             "bf16_hgmma_by_head_dim": hgmma_dims["flash_bwd_dq_bf16"]}),
         )
     ] + [
+        # the one-pass instances (the TPU's "default" numerics, under
+        # torch.set_float32_matmul_precision("medium")), as the flagship's
+        # fp32 train steps launch them; `ms` the kernel on the rounded
+        # operands, `cast_ms` the wrapper's rounding copies beside
+        {"name": f"{name}_one_pass", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": precision["train"]["launches"][f"{name}_one_pass"],
+         **{k: rec[k] for k in bound_keys + ("cast_ms", "bf16_passes", "over_library", "pair_over_library",
+                                             "err_over_bound", "library_timing") if k in rec},
+         "shape": rec["shape"], "dtype": rec["dtype"], "bf16_hgmma_in_sass": one_pass_gmma[kernel],
+         "bf16_hgmma_by_head_dim": one_pass_gmma_dims[kernel]}
+        for name, source, replaces, rec, kernel in (
+            ("flash_attention_fwd", "flash_attention_fwd_one_pass.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
+             precision["main"][0], "flash_fwd_bf16"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd_one_pass.cu",
+             "scoreperformer_tpu/ops/flash_attention.py:135", precision["main"][1], "flash_bwd_dkv_bf16"),
+            ("flash_attention_bwd_dq", "flash_attention_bwd_one_pass.cu",
+             "scoreperformer_tpu/ops/flash_attention.py:192", precision["main"][2], "flash_bwd_dq_bf16"),
+        )
+    ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",
          "replaces": "scripts/exp_pallas_decode_attend.py:51", "launches": launches["prefix_attend"],
          **{k: pa_main[k] for k in bound_keys + ("eager_ms",)}},
@@ -4544,6 +5198,15 @@ def main() -> int:
     # above and timed by chip_probe_recipe_shapes.py
     for rec in kernels:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in paths.items()}
+    # the worker's CPU references, joined where their gates read them
+    begin_phase("cpu_reference_gates")
+    refs.check_all()
+    end_phase("cpu_reference_gates")
+    print("phases", json.dumps({"phase_s": PHASE_S, "cpu_ref_s": CPU_REF_S, "cpu_wait_s": CPU_WAIT_S,
+                                "cpu_ref_s_sum": sum(CPU_REF_S.values()),
+                                "cpu_wait_s_sum": sum(CPU_WAIT_S.values())}))
+    print(f"CPU references: {sum(CPU_REF_S.values()):.1f} s of host time, the script waited "
+          f"{sum(CPU_WAIT_S.values()):.1f} s of it for the worker's")
     print(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,17 @@
 // Flash-attention backward on bf16 operands, with ALiBi generated in the
 // kernel, on Hopper's warpgroup MMA (`wgmma`): dK/dV and dQ/dslope, P
-// recomputed from the forward's logsumexp, every sum fp32-accurate.
+// recomputed from the forward's logsumexp, every sum fp32-accurate; and,
+// built from this file by csrc/flash_attention_bwd_one_pass.cu
+// (SP_FLASH_ONE_PASS), the one-pass instances (kTerms = 1), dK, dV and dQ
+// in bf16 or fp32.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
 // (:135) and ::_flash_bwd_dq_kernel (:192), the two Pallas kernels that
 // `_flash_attention_bwd` launches inside the `jax.custom_vjp` of
 // `flash_attention_alibi`, for a model held in bf16 (q, k, v and dO bf16;
-// lse and delta fp32; dK, dV, dQ written in bf16, the slope parts in fp32).
-// The fp32 instances are csrc/flash_attention_bwd.cu's.
+// lse and delta fp32; dK, dV, dQ written in bf16, the slope parts in fp32),
+// and at the Pallas kernels' "default" precision for any operands. The fp32
+// instances are csrc/flash_attention_bwd.cu's.
 //
 // The math, per (batch, head), with s = scale*(q.k) - slope*|i-j| masked to
 // -1e30 and P = exp(s - lse):
@@ -16,8 +20,12 @@
 //   dV = P^T.dO,  dK = scale * dS^T.q,  dQ = scale * dS.K,
 //   dslope = sum dS * (-|i-j|).
 //
-// Numerics: those of the Pallas kernels, which upcast their blocks and take
-// fp32 products at "highest". A bf16 times a bf16 is exact in fp32, so S =
+// Numerics. The Pallas kernels upcast their blocks and take their products
+// at the `precision` they are given: JAX's model gives none, so "default",
+// where the TPU rounds each dot's operands to bf16 and sums in fp32 (one
+// pass); "highest" is the JAX parity tests' setting. These instances
+// (kTerms = 3) are fp32-accurate, as "highest" is. A bf16 times a bf16 is
+// exact in fp32, so S =
 // Q.K^T and dP = dO.V^T are single bf16 products (scale applied to S in
 // fp32 afterwards, as `_recompute_p` does). P and dS are fp32: each is split
 // into three bf16 terms, hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi
@@ -29,12 +37,17 @@
 // join the running sums by rounded fp32 adds: the dK/dV sums run over h*t
 // query rows a key with one KV head, dQ's over t keys. Bias, mask, exp and
 // dS stay in fp32 registers. No atomics, and every sum runs in a fixed
-// order: two calls give the same bits.
+// order: two calls give the same bits. The one-pass instances (kTerms = 1)
+// take the TPU's "default" numerics: P^T, dS^T and dS are one bf16 term
+// each, rounded to nearest even (dS and the slope gradient still from the
+// unrounded fp32 values), 4 products a tile where there were 12; fp32
+// operands come rounded to bf16 by the wrapper, and dK, dV and dQ are
+// written in their dtype (`Out`).
 //
 // Bound on the H100. dK/dV takes 8 bf16 passes over the (query, key) pairs
 // of each head (S, dP, 3 for dV, 3 for dK), dQ/dslope 5 (S, dP, 3 for dQ),
 // each pass 2*d operations a pair: at 989 TFLOP/s (bf16 dense) 13 passes of
-// 2*d*h*pairs. The bytes (q, k, v, dO in bf16 read once, lse and delta,
+// 2*d*h*pairs; the one-pass instances 4 and 3, 7 passes. The bytes (q, k, v, dO in bf16 read once, lse and delta,
 // dK, dV, dQ written once, 3.35 TB/s) are a few tens of MB: at the train
 // shapes the operations bound both kernels (chip_smoke.py's `bound_tc_ms`:
 // 0.044 + 0.028 ms at b 8, h 8, one KV head, d 128, t 1025 causal).
@@ -115,6 +128,7 @@ using wg::ld_cluster;
 using wg::padded_keys_dslope;
 using wg::smem_addr;
 using wg::store2;
+using tf32::store2;  // fp32 gradients (the one-pass instances on fp32 operands)
 using wg::Tile;
 using wg::tile_map;
 
@@ -138,13 +152,15 @@ struct DkvSmem {
   static constexpr int kBytes = kWarpFirst + 8 * 4 + 1024;  // and the alignment's slack
 };
 
-template <int D>
+// kTerms: P^T's and dS^T's bf16 terms (3, or 1 for the one-pass instances);
+// Out: dK's and dV's type
+template <int D, int kTerms, typename Out>
 __global__ void __launch_bounds__(2 * kWG, 1)
     flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                        const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
-                       const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
-                       bf16* __restrict__ dv, int h, int hk, int tq, int tk, int causal, float scale) {
+                       const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dk,
+                       Out* __restrict__ dv, int h, int hk, int tq, int tk, int causal, float scale) {
   using S = DkvSmem<D>;
   constexpr int kThreads = 2 * kWG;
   extern __shared__ uint8_t smem_raw[];
@@ -343,9 +359,9 @@ __global__ void __launch_bounds__(2 * kWG, 1)
     }
 
     // dV += P^T.dO (warpgroup 0) or dK += dS^T.q (warpgroup 1): A from the
-    // accumulator in three bf16 terms, the tile's products from zero
+    // accumulator in kTerms bf16 terms, the tile's products from zero
     {
-      uint32_t a[4][3][4];
+      uint32_t a[4][kTerms][4];
       wg::split_a(x, a);
       const uint32_t bt = role == 0 ? ot : qt;
       float tile_sum[D / 2];
@@ -355,8 +371,8 @@ __global__ void __launch_bounds__(2 * kWG, 1)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int term = 2; term >= 0; --term)
-          wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(bt, kk), kk > 0 || term < 2);
+        for (int term = kTerms - 1; term >= 0; --term)
+          wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(bt, kk), kk > 0 || term < kTerms - 1);
       wg::commit();
       wg::wait_all();
       wg::hold(tile_sum);
@@ -369,13 +385,13 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   }
 
   // element 4j + 2i + c of acc: key row g + 8i of warp w, column 8j + 2t4 + c
-  bf16* out = role == 0 ? dv : dk;
+  Out* out = role == 0 ? dv : dk;
   const float mul = role == 0 ? 1.f : scale;
   if (gridDim.z == 1) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] >= tk) continue;
-      bf16* op = out + ((size_t)bkv * tk + key[i]) * D + 2 * t4;
+      Out* op = out + ((size_t)bkv * tk + key[i]) * D + 2 * t4;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] * mul, acc[4 * j + 2 * i + 1] * mul);
     }
@@ -419,13 +435,13 @@ struct DqSmem {
 // Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
 // == h (one KV head), else (blocks of 64 positions, b * h). tm_q and tm_o
 // take boxes of (positions, heads_per_block) rows, so a block's 64 rows
-// come in one copy of each.
-template <int D>
+// come in one copy of each. kTerms: dS's bf16 terms; Out: dQ's type.
+template <int D, int kTerms, typename Out>
 __global__ void __launch_bounds__(kWG, 2)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                       const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
-                      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+                      const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dq,
                       float* __restrict__ dslope_part, int h, int hk, int tq, int tk, int causal, float scale,
                       int heads_per_block) {
   using S = DqSmem<D>;
@@ -580,9 +596,9 @@ __global__ void __launch_bounds__(kWG, 2)
       }
     }
 
-    // dQ += dS.K: A from the accumulator in three bf16 terms, the tile's
+    // dQ += dS.K: A from the accumulator in kTerms bf16 terms, the tile's
     // products from zero
-    uint32_t a[4][3][4];
+    uint32_t a[4][kTerms][4];
     wg::split_a(dp, a);
     float tile_sum[D / 2];
     wg::hold(a);
@@ -591,8 +607,8 @@ __global__ void __launch_bounds__(kWG, 2)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int term = 2; term >= 0; --term)
-        wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(kt, kk), kk > 0 || term < 2);
+      for (int term = kTerms - 1; term >= 0; --term)
+        wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(kt, kk), kk > 0 || term < kTerms - 1);
     wg::commit();
     wg::wait_all();
     wg::hold(tile_sum);
@@ -607,7 +623,7 @@ __global__ void __launch_bounds__(kWG, 2)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row_pos[i] >= tq) continue;
-    bf16* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
+    Out* op = dq + ((row_base + row_head[i]) * tq + row_pos[i]) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
@@ -629,11 +645,11 @@ __global__ void __launch_bounds__(kWG, 2)
   }
 }
 
-template <int D>
+template <int D, int kTerms, typename Out>
 int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-               const bf16* dout, const float* lse, const float* delta, bf16* dk, bf16* dv, int b, int h, int hk,
+               const bf16* dout, const float* lse, const float* delta, Out* dk, Out* dv, int b, int h, int hk,
                int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dkv_bf16<D>);
+  static const int granted = grant_smem(flash_bwd_dkv_bf16<D, kTerms, Out>);
   const int smem = DkvSmem<D>::kBytes;
   if (smem > granted) return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -661,16 +677,16 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
   cluster[0].val.clusterDim.z = split;
   config.attrs = cluster;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv_bf16<D>, tm_q, tm_k, tm_v, tm_o, slopes, mask, lse,
-                                             delta, dk, dv, h, hk, tq, tk, causal, scale);
+  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv_bf16<D, kTerms, Out>, tm_q, tm_k, tm_v, tm_o,
+                                             slopes, mask, lse, delta, dk, dv, h, hk, tq, tk, causal, scale);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int D>
+template <int D, int kTerms, typename Out>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-              const bf16* dout, const float* lse, const float* delta, bf16* dq, float* dslope_part, int b, int h,
+              const bf16* dout, const float* lse, const float* delta, Out* dq, float* dslope_part, int b, int h,
               int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dq_bf16<D>);
+  static const int granted = grant_smem(flash_bwd_dq_bf16<D, kTerms, Out>);
   const int smem = DqSmem<D>::bytes(tk);
   if (smem > granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
@@ -682,24 +698,27 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const float* slopes, 
         tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
-  flash_bwd_dq_bf16<D><<<grid, kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta, dq, dslope_part,
-                                                    h, hk, tq, tk, causal, scale, heads_per_block);
+  flash_bwd_dq_bf16<D, kTerms, Out><<<grid, kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta, dq,
+                                                                  dslope_part, h, hk, tq, tk, causal, scale,
+                                                                  heads_per_block);
   return (int)cudaGetLastError();
 }
 
 // launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope parts
-template <bool kDkv, typename Out1>
+template <bool kDkv, int kTerms, typename Out0, typename Out1>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-             const bf16* dout, const float* lse, const float* delta, bf16* out0, Out1* out1, int b, int h, int hk,
+             const bf16* dout, const float* lse, const float* delta, Out0* out0, Out1* out1, int b, int h, int hk,
              int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   auto run = [&](auto dim) {
     constexpr int D = decltype(dim)::value;
     if constexpr (kDkv)
-      return launch_dkv<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
+      return launch_dkv<D, kTerms>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal,
+                                   scale, s);
     else
-      return launch_dq<D>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal, scale, s);
+      return launch_dq<D, kTerms>(q, k, v, slopes, mask, dout, lse, delta, out0, out1, b, h, hk, tq, tk, causal,
+                                  scale, s);
   };
   switch (d) {
     case 16:
@@ -719,25 +738,68 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, c
 
 // q, dout: (b, h, tq, d) bf16; k, v: (b, hk, tk, d) bf16 with hk in {1, h};
 // slopes: (h,) fp32; mask: (b, tk) bytes, nonzero = valid key; lse, delta:
-// (b, h, tq) fp32; dk, dv: (b, hk, tk, d) bf16, written whole (with hk = 1,
-// summed over the h query heads). Contiguous and 16-byte aligned. Returns
-// the CUDA error code of the launch.
+// (b, h, tq) fp32; dk, dv: (b, hk, tk, d) bf16 (fp32 for `_f32`), written
+// whole (with hk = 1, summed over the h query heads). Contiguous and
+// 16-byte aligned. Returns the CUDA error code of the launch.
+#ifndef SP_FLASH_ONE_PASS
 extern "C" int sp_flash_attention_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                                const uint8_t* mask, const bf16* dout, const float* lse,
                                                const float* delta, bf16* dk, bf16* dv, int b, int h, int hk, int tq,
                                                int tk, int d, int causal, float scale, void* stream) {
-  return dispatch<true>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale, stream);
+  return dispatch<true, 3>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
+                           stream);
 }
+#endif
 
-// As above; dq: (b, h, tq, d) bf16; dslope_part: (b, h, blocks) fp32, each
-// block's part of sum dS * (-|i-j|) for each head it holds, for the caller
-// to sum over b and blocks. A block holds 64 (head, position) rows: with
-// hk = 1 and h dividing 64, all h heads at 64/h positions (blocks =
-// ceil(tq / (64/h))), else 64 positions of one head (blocks = ceil(tq / 64)).
+// As above; dq: (b, h, tq, d) bf16 (fp32 for `_f32`); dslope_part: (b, h,
+// blocks) fp32, each block's part of sum dS * (-|i-j|) for each head it
+// holds, for the caller to sum over b and blocks. A block holds 64 (head,
+// position) rows: with hk = 1 and h dividing 64, all h heads at 64/h
+// positions (blocks = ceil(tq / (64/h))), else 64 positions of one head
+// (blocks = ceil(tq / 64)).
+#ifndef SP_FLASH_ONE_PASS
 extern "C" int sp_flash_attention_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                               const uint8_t* mask, const bf16* dout, const float* lse,
                                               const float* delta, bf16* dq, float* dslope_part, int b, int h, int hk,
                                               int tq, int tk, int d, int causal, float scale, void* stream) {
-  return dispatch<false>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
-                         scale, stream);
+  return dispatch<false, 3>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
+                            scale, stream);
 }
+#else
+// The one-pass instances (P^T, dS^T and dS in one bf16 term), gradients in
+// bf16 or (`_f32`) fp32.
+extern "C" int sp_flash_attention_bwd_dkv_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                                   const uint8_t* mask, const bf16* dout, const float* lse,
+                                                   const float* delta, bf16* dk, bf16* dv, int b, int h, int hk,
+                                                   int tq, int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<true, 1>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
+                           stream);
+}
+
+extern "C" int sp_flash_attention_bwd_dkv_one_pass_f32(const bf16* q, const bf16* k, const bf16* v,
+                                                       const float* slopes, const uint8_t* mask, const bf16* dout,
+                                                       const float* lse, const float* delta, float* dk, float* dv,
+                                                       int b, int h, int hk, int tq, int tk, int d, int causal,
+                                                       float scale, void* stream) {
+  return dispatch<true, 1>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
+                           stream);
+}
+
+extern "C" int sp_flash_attention_bwd_dq_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                                  const uint8_t* mask, const bf16* dout, const float* lse,
+                                                  const float* delta, bf16* dq, float* dslope_part, int b, int h,
+                                                  int hk, int tq, int tk, int d, int causal, float scale,
+                                                  void* stream) {
+  return dispatch<false, 1>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
+                            scale, stream);
+}
+
+extern "C" int sp_flash_attention_bwd_dq_one_pass_f32(const bf16* q, const bf16* k, const bf16* v,
+                                                      const float* slopes, const uint8_t* mask, const bf16* dout,
+                                                      const float* lse, const float* delta, float* dq,
+                                                      float* dslope_part, int b, int h, int hk, int tq, int tk, int d,
+                                                      int causal, float scale, void* stream) {
+  return dispatch<false, 1>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
+                            scale, stream);
+}
+#endif

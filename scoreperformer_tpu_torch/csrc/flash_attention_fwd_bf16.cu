@@ -1,17 +1,23 @@
 // Flash-attention forward on bf16 operands, with ALiBi generated in the
 // kernel, on Hopper's warpgroup MMA (`wgmma`): o in bf16 and the row
-// logsumexp in fp32, every sum fp32-accurate.
+// logsumexp in fp32, every sum fp32-accurate; and, built from this file by
+// csrc/flash_attention_fwd_one_pass.cu (SP_FLASH_ONE_PASS), the one-pass
+// instances (kTerms = 1), o in bf16 or fp32.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_kernel (:49),
 // the Pallas forward that `_flash_forward` launches (:314) for
 // `flash_attention_alibi`, for a model held in bf16 (q, k, v bf16, slopes
-// fp32). The fp32 instances are csrc/flash_attention_fwd.cu's.
+// fp32), and at the Pallas kernel's "default" precision for any operands.
+// The fp32 instances are csrc/flash_attention_fwd.cu's.
 //
 // The math, per (batch, head): s = scale*(q.k) - slope*|i-j|, masked to
 // -1e30 (key mask, causal); o = softmax(s).v, lse = m + log(l).
 //
-// Numerics: those of the Pallas kernel, which upcasts its blocks and takes
-// fp32 products at "highest". A bf16 times a bf16 is exact in fp32, so S =
+// Numerics. The Pallas kernel upcasts its blocks and takes its products at
+// the `precision` it is given: JAX's model gives none, so "default", where
+// the TPU rounds each dot's operands to bf16 and sums in fp32 (one pass);
+// "highest" is the JAX parity tests' setting. These instances (kTerms = 3)
+// are fp32-accurate, as "highest" is. A bf16 times a bf16 is exact in fp32, so S =
 // q.K^T is a single bf16 product, scale applied to S in fp32 afterwards (the
 // Pallas kernel scales q before the dot: at d = 32 and 128, whose scale is no
 // power of two, the two orders differ by fp32 rounding, within one bf16 ulp
@@ -23,11 +29,17 @@
 // accumulate, so each key tile's 12 products start from zero and join the
 // running o by rounded fp32 operations, o = alpha*o, then o + tile. No
 // atomics, and every sum runs in a fixed order: two calls give the same bits.
+// The one-pass instances (kTerms = 1) take the TPU's "default" numerics: P
+// is one bf16 term, bf16(P) rounded to nearest even, so P.V is 4 products a
+// tile, and the wrapper passes q rounded to bf16 after the scale (the
+// Pallas kernel's bf16(q*scale)) with scale 1; fp32 operands come rounded
+// to bf16 by the wrapper, and o is written in their dtype (`Out`).
 //
 // Bound on the H100: 4 bf16 passes over the valid (query, key) pairs of
-// each head (S, and three for P.V), each 2*d operations a pair, at 989
-// TFLOP/s (bf16 dense); the bytes (q, k, v, o in bf16, lse) are far below
-// at the timed shapes (chip_smoke.py's `bound_tc_ms`, BF16_FWD_PASSES).
+// each head (S, and three for P.V; 2 for the one-pass instances), each 2*d
+// operations a pair, at 989 TFLOP/s (bf16 dense); the bytes (q, k, v, o in
+// bf16, lse) are far below at the timed shapes (chip_smoke.py's
+// `bound_tc_ms`, BF16_FWD_PASSES, ONE_PASS_PASSES).
 //
 // Design. A CTA of two warpgroups (256 threads) holds 128 query rows: each
 // warpgroup 64, wgmma's M. With one KV head the 64 rows of a warpgroup are
@@ -46,7 +58,8 @@
 // transpose bit (the running o rescaled while they run), then the next
 // tile's S = q.K^T (shared-memory operands) while the tile joins o. S
 // cannot be issued before the softmax: beside o, the tile's sum and P's 48
-// registers, its 32 would spill at d = 128 (255 registers). The two
+// registers (16 in one term), its 32 would spill at d = 128 (255
+// registers). The two
 // warpgroups run independently, so one's softmax overlaps the other's
 // products; making them take turns at the tensor cores on named barriers
 // gained nothing (0.99-1.03x the time, chip_probe_flash_fwd_bf16.py). A
@@ -87,6 +100,7 @@ using wg::key_limit;
 using wg::masked_row_keys;
 using wg::smem_addr;
 using wg::store2;
+using tf32::store2;  // fp32 o (the one-pass instances on fp32 operands)
 using wg::Tile;
 using wg::tile_map;
 
@@ -111,12 +125,13 @@ struct FwdSmem {
 // Grid: (b when heads_per_block == h (one KV head), else b * h; CTAs of two
 // row blocks). A row block is 64 (head, position) rows: heads_per_block
 // heads x 64 / heads_per_block positions. tm_q takes boxes of (positions,
-// heads_per_block) rows, so a warpgroup's 64 rows come in one copy.
-template <int D>
+// heads_per_block) rows, so a warpgroup's 64 rows come in one copy. kTerms:
+// P's bf16 terms (3, or 1 for the one-pass instances); Out: o's type.
+template <int D, int kTerms, typename Out>
 __global__ void __launch_bounds__(kGroups * kWG, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ slopes,
-                   const uint8_t* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int h, int hk,
+                   const uint8_t* __restrict__ mask, Out* __restrict__ out, float* __restrict__ lse, int h, int hk,
                    int tq, int tk, int causal, float scale, int heads_per_block) {
   using S = FwdSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -316,9 +331,9 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 
-    // the tile's P.V, A from the accumulator in three bf16 terms, the
+    // the tile's P.V, A from the accumulator in kTerms bf16 terms, the
     // products from zero; o is rescaled while they run
-    uint32_t a[4][3][4];
+    uint32_t a[4][kTerms][4];
     wg::split_a(s, a);
     float tile_sum[D / 2];
     wg::hold(a);
@@ -328,8 +343,8 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int term = 2; term >= 0; --term)
-        wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(vt, kk), kk > 0 || term < 2);
+      for (int term = kTerms - 1; term >= 0; --term)
+        wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(vt, kk), kk > 0 || term < kTerms - 1);
     wg::commit();
     refill(j);
     // element 4j + 2i + c of acc: row g + 8i of warp w, column 8j + 2t4 + c
@@ -366,17 +381,17 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
     if (qi >= tq) continue;
     const float lc = m[i] == kMaskValue ? (float)masked_row_keys(qi, tq, tk, causal) : fmaxf(l[i], 1e-30f);
     const size_t row = (row_base + row_head[i]) * tq + qi;
-    bf16* op = out + row * D + 2 * t4;
+    Out* op = out + row * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) store2(op + 8 * j, acc[4 * j + 2 * i] / lc, acc[4 * j + 2 * i + 1] / lc);
     if (lse != nullptr && t4 == 0) lse[row] = m[i] + logf(lc);
   }
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, bf16* out,
+template <int D, int kTerms, typename Out>
+int launch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, Out* out,
            float* lse, int b, int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_fwd_bf16<D>);
+  static const int granted = grant_smem(flash_fwd_bf16<D, kTerms, Out>);
   const int smem = FwdSmem<D>::bytes(tk);
   if (smem > granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
@@ -388,18 +403,19 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, con
     return (int)cudaErrorInvalidValue;
   const int row_blocks = (tq + positions - 1) / positions;
   const dim3 grid(mqa ? b : b * h, (row_blocks + kGroups - 1) / kGroups);
-  flash_fwd_bf16<D><<<grid, kGroups * kWG, smem, stream>>>(tm_q, tm_k, tm_v, slopes, mask, out, lse, h, hk, tq, tk,
-                                                           causal, scale, heads_per_block);
+  flash_fwd_bf16<D, kTerms, Out><<<grid, kGroups * kWG, smem, stream>>>(tm_q, tm_k, tm_v, slopes, mask, out, lse, h,
+                                                                        hk, tq, tk, causal, scale, heads_per_block);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, bf16* out,
+template <int kTerms, typename Out>
+int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, Out* out,
              float* lse, int b, int h, int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   auto run = [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return launch<D>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+    return launch<D, kTerms, Out>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
   };
   switch (d) {
     case 16:
@@ -419,10 +435,27 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, c
 
 // q: (b, h, tq, d) bf16; k, v: (b, hk, tk, d) bf16 with hk in {1, h}; slopes:
 // (h,) fp32; mask: (b, tk) bytes, nonzero = valid key; out: (b, h, tq, d)
-// bf16; lse: (b, h, tq) fp32 or null. Contiguous and 16-byte aligned.
-// Returns the CUDA error code of the launch.
+// bf16 (fp32 for `_f32`); lse: (b, h, tq) fp32 or null. Contiguous and
+// 16-byte aligned. Returns the CUDA error code of the launch.
+#ifndef SP_FLASH_ONE_PASS
 extern "C" int sp_flash_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                            const uint8_t* mask, bf16* out, float* lse, int b, int h, int hk, int tq,
                                            int tk, int d, int causal, float scale, void* stream) {
-  return dispatch(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
+  return dispatch<3>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
 }
+#else
+// The one-pass instances: P in one bf16 term; q is bf16(q*scale) and scale
+// 1 (the wrapper's), as the TPU's "default" rounds the Pallas kernel's
+// scaled q.
+extern "C" int sp_flash_attention_fwd_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                               const uint8_t* mask, bf16* out, float* lse, int b, int h, int hk,
+                                               int tq, int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<1>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
+}
+
+extern "C" int sp_flash_attention_fwd_one_pass_f32(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
+                                                   const uint8_t* mask, float* out, float* lse, int b, int h, int hk,
+                                                   int tq, int tk, int d, int causal, float scale, void* stream) {
+  return dispatch<1>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
+}
+#endif

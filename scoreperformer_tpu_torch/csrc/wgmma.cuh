@@ -269,13 +269,24 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t&
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// the 64 x 64 fp32 accumulator x as A operands of four k-steps, three bf16
-// terms each: a[kk][term][r], term 0 hi, 1 mid, 2 lo
-__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][3][4]) {
+// the 64 x 64 fp32 accumulator x as A operands of four k-steps in kTerms
+// bf16 terms each, a[kk][term][r]: three (term 0 hi, 1 mid, 2 lo; x
+// exactly), or one, bf16(x) rounded to nearest even (hi alone: the TPU's
+// DEFAULT precision, one MXU pass)
+template <int kTerms>
+__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][kTerms][4]) {
+  static_assert(kTerms == 1 || kTerms == 3, "one bf16 term or three");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
+    for (int r = 0; r < 4; ++r) {
+      if constexpr (kTerms == 3) {
+        split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][0][r], a[kk][1][r], a[kk][2][r]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+        a[kk][0][r] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
 }
 
 

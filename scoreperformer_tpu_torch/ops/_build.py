@@ -4,8 +4,9 @@ Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc` into a
 shared library of its own, loaded with `ctypes`; no source includes PyTorch's
 headers, so a build takes seconds. All sources compile in parallel, one `nvcc`
 each, at first use. Outputs go to `build/torch_kernels/` at the repository
-root, keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and
-the flags, so an edit rebuilds. `nvcc`'s
+root, keyed by a hash of the source, the `.cu` files it includes (a
+library may build another's source with other instances), the shared
+headers (`csrc/*.cuh`) and the flags, so an edit rebuilds. `nvcc`'s
 `-Xptxas=-v` report (registers, shared memory, spills) is kept beside each
 library as `<name>_<hash>.log`.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,6 +45,18 @@ ENTRY_POINTS = {
         "sp_flash_attention_bwd_dkv_bf16": _FLASH_BWD_ARGS,
         "sp_flash_attention_bwd_dq_bf16": _FLASH_BWD_ARGS,
     },
+    # the TPU's "default" precision: the bf16 kernels with P and dS one bf16
+    # term, outputs in bf16 or (`_f32`) fp32
+    "flash_attention_fwd_one_pass": {
+        "sp_flash_attention_fwd_one_pass": _FLASH_FWD_ARGS,
+        "sp_flash_attention_fwd_one_pass_f32": _FLASH_FWD_ARGS,
+    },
+    "flash_attention_bwd_one_pass": {
+        "sp_flash_attention_bwd_dkv_one_pass": _FLASH_BWD_ARGS,
+        "sp_flash_attention_bwd_dkv_one_pass_f32": _FLASH_BWD_ARGS,
+        "sp_flash_attention_bwd_dq_one_pass": _FLASH_BWD_ARGS,
+        "sp_flash_attention_bwd_dq_one_pass_f32": _FLASH_BWD_ARGS,
+    },
     "prefix_attend": {"sp_prefix_attend": [_P] * 8 + [_I] * 10 + [_P]},
 }
 
@@ -57,8 +71,16 @@ def _nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> list:
+    """The files library `name` is built from: `csrc/<name>.cu`, the `.cu`
+    files it includes, and every shared header."""
+    main = CSRC / f"{name}.cu"
+    included = re.findall(r'^#include "(\w+\.cu)"', main.read_text(), re.M)
+    return [main, *(CSRC / f for f in included), *sorted(CSRC.glob("*.cuh"))]
+
+
 def library_path(name: str) -> Path:
-    source = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    source = b"".join(p.read_bytes() for p in sources(name))
     tag = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}_{tag}.so"
 

@@ -9,13 +9,34 @@ gradient, the dK/dV and dQ/dslope kernels, inside one
 for bf16 ones; none of them materializes the (h, t, t) bias or score
 tensors. On CPU tensors the same Function runs `flash_attention_plain`
 and `flash_attention_bwd_plain`, the same functions in plain PyTorch. All keep
-the TPU kernels' numerics: q is scaled before the dot, the bias is
--slope*|i-j|, masked scores are -1e30, the softmax sum is clamped at 1e-30, P
-is recomputed from the saved logsumexp, all in fp32 (the fp32 kernels take
-every product on the tensor cores in split TF32, three TF32 `wgmma`
-products each, within about 2^-21 of fp32; the bf16 kernels take S and dP
-as single bf16 `wgmma` products, exact in fp32, and P and dS in three bf16
-terms each).
+the TPU kernels' order of operations: q is scaled before the forward's dot
+and S after the backward's, the bias is -slope*|i-j|, masked scores are
+-1e30, the softmax sum is clamped at 1e-30, P is recomputed from the saved
+logsumexp, all in fp32.
+
+`precision` takes the Pallas kernels' names. Their products run at
+whatever `precision` they are given, and JAX's model calls them with none,
+so at "default": on the TPU each dot's operands are rounded to bf16 and
+their products summed in fp32 (one MXU pass; "highest" is what the JAX
+parity tests ask for). Here "default" follows PyTorch's counterpart of a
+device's default matmul precision (`precision_is_one_pass`):
+- under `torch.set_float32_matmul_precision("medium")` it is the one-pass
+  route, the TPU's DEFAULT numerics: S = bf16(q*scale).bf16(k) in the
+  forward, (bf16(q).bf16(k))*scale in the backward, P.V, P^T.dO, dO.V^T,
+  dS^T.q and dS.K each one product of bf16 operands summed in fp32, dS and
+  the slope gradient from the unrounded fp32 values. On CUDA tensors the
+  one-pass kernels (`csrc/flash_attention_fwd_one_pass.cu` and
+  `csrc/flash_attention_bwd_one_pass.cu`: the bf16 `wgmma` kernels with P
+  and dS one bf16 term) run it, on fp32 operands rounded to
+  bf16 by the wrapper, and write fp32 or bf16 outputs as their inputs are;
+- under "high" or "highest" (PyTorch's default), and for "high" and
+  "highest", the fp32-accurate kernels run: fp32 operands take every
+  product in split TF32, three TF32 `wgmma` products each, within about
+  2^-21 of fp32; bf16 operands take S and dP as single bf16 `wgmma`
+  products, exact in fp32, and P and dS in three bf16 terms each. That is
+  at least the TPU's HIGH (bf16_3x).
+The mode is resolved once in the forward and kept for its backward. A
+one-pass launch counts in each wrapper's `launches_one_pass`.
 
 q, k, v and the output gradient may be bf16 (a model held in bf16 gives
 them), as the Pallas kernels take them: the arithmetic stays fp32, the output is written in q's
@@ -35,6 +56,7 @@ every key of the blocks it visits (`jax_masked_row_keys`), not over t keys.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -43,6 +65,11 @@ from . import head_layout
 from ._build import kernel
 from .head_layout import KERNEL_HEAD_DIMS, kernel_head_dim, pad_head_dim
 
+# the names of JAX's `_PRECISIONS` (scoreperformer_tpu/ops/flash_attention.py:42-46)
+PRECISIONS = ("default", "high", "highest")
+# keys of a tile of the bf16 forward kernel (csrc/flash_attention_fwd_bf16.cu
+# kRows), against whose running max its one-pass instances round P
+ONE_PASS_KEY_TILE = 64
 NEG_INF = -1.0000000150474662e30  # -1e30 in fp32, so that fp64 references subtract it exactly as the kernels do
 BLOCK_ROWS = 64  # (head, position) rows per block of the dQ kernel
 
@@ -90,6 +117,34 @@ def _acc(x):
     return x.double() if x.dtype == torch.float64 else x.float()
 
 
+def _fp32_products(fn):
+    """`fn` with PyTorch's fp32 matrix products at full precision whatever
+    the global setting: the plain versions are the kernels' reference, and
+    under `torch.set_float32_matmul_precision("medium")` PyTorch takes fp32
+    products in bf16 on the CPU and TF32 on the card."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        saved = torch.get_float32_matmul_precision()
+        if saved == "highest":
+            return fn(*args, **kwargs)
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_float32_matmul_precision(saved)
+
+    return wrapped
+
+
+def _operand(x, one_pass):
+    """A dot's operand x in the plain versions' arithmetic type, rounded to
+    bf16 (to nearest, ties to even) first in the one-pass mode, as the TPU's
+    DEFAULT precision rounds every dot's operands."""
+    a = _acc(x)
+    return a.to(torch.bfloat16).to(a.dtype) if one_pass else a
+
+
 def _valid(b, tq, tk, mask, causal, device):
     i = torch.arange(tq, device=device)[:, None]
     j = torch.arange(tk, device=device)[None, :]
@@ -101,24 +156,37 @@ def _valid(b, tq, tk, mask, causal, device):
     return valid, (j - i).abs().float()
 
 
-def _scores(q, k, slopes, mask, causal, scale):
-    """Masked scores (b, h, tq, tk) and the distances |i-j| (tq, tk)."""
+def _scores(q, k, slopes, mask, causal, scale, one_pass=False, recompute=False):
+    """Masked scores (b, h, tq, tk) and the distances |i-j| (tq, tk). In the
+    one-pass mode the forward's S is bf16(q*scale).bf16(k) (`_flash_kernel`
+    scales q before the dot) and the backward's recomputed one (`recompute`)
+    (bf16(q).bf16(k))*scale (`_recompute_p` scales after it)."""
     b, _, tq, _ = q.shape
     tk = k.shape[2]
-    s = (_acc(q) * scale) @ _acc(k).transpose(-1, -2)  # hk=1 broadcasts
+    if not one_pass:
+        s = (_acc(q) * scale) @ _acc(k).transpose(-1, -2)  # hk=1 broadcasts
+    elif recompute:
+        s = (_operand(q, True) @ _operand(k, True).transpose(-1, -2)) * scale
+    else:
+        s = _operand(_acc(q) * scale, True) @ _operand(k, True).transpose(-1, -2)
     valid, dist = _valid(b, tq, tk, mask, causal, q.device)
     dist = dist.to(s.dtype)
     s = s - _acc(slopes)[None, :, None, None] * dist
     return torch.where(valid, s, NEG_INF), dist
 
 
-def flash_attention_plain(q, k, v, slopes, mask=None, causal=True, scale=None, return_lse=False):
-    """Plain version of the forward: the whole (b, h, tq, tk) score tensor at once."""
+@_fp32_products
+def flash_attention_plain(q, k, v, slopes, mask=None, causal=True, scale=None, return_lse=False, one_pass=False):
+    """Plain version of the forward: the whole (b, h, tq, tk) score tensor at
+    once. `one_pass`: the TPU's DEFAULT numerics (S and P.V each one product
+    of bf16-rounded operands, summed in fp32), P rounded against the running
+    max of the one-pass kernel's key tiles (`_one_pass_tiles`), else
+    fp32-accurate."""
     _check(q, k, v, slopes, mask)
     tq, d = q.shape[2], q.shape[3]
     tk = k.shape[2]
     scale = scale if scale is not None else d**-0.5
-    s, _ = _scores(q, k, slopes, mask, causal, scale)
+    s, _ = _scores(q, k, slopes, mask, causal, scale, one_pass)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -128,14 +196,42 @@ def flash_attention_plain(q, k, v, slopes, mask=None, causal=True, scale=None, r
         keys = jax_masked_row_keys(tq, tk, causal, q.device)[:, None]
         p = torch.where(none_valid, (torch.arange(tk, device=q.device)[None, :] < keys).to(p.dtype), p)
         l = torch.where(none_valid, keys.to(l.dtype), l)
-    out = ((p @ _acc(v)) / l).to(q.dtype)
+    out = (_operand(p, one_pass) @ _operand(v, one_pass)) / l
+    if one_pass:
+        tiled, m_tiled, l_tiled = _one_pass_tiles(s, v)
+        out = torch.where(none_valid, out, tiled)
+        m, l = torch.where(none_valid, m, m_tiled), torch.where(none_valid, l, l_tiled)
+    out = out.to(q.dtype)
     if return_lse:
         return out, (m + torch.log(l))[..., 0]
     return out
 
 
-def _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
-    s, dist = _scores(q, k, slopes, mask, causal, scale)
+def _one_pass_tiles(s, v):
+    """(o, m, l) of the online softmax over the masked scores `s` in key
+    tiles of ONE_PASS_KEY_TILE, in order, as the one-pass forward kernel
+    walks them: each tile's P = exp(s - m) against the running max m,
+    rounded to bf16 for P.V, and the running sums rescaled by exp(m_old -
+    m_new). For a row with a valid key this is the kernel's arithmetic;
+    rows with none are the caller's."""
+    tk = s.shape[-1]
+    m = torch.full(s.shape[:-1] + (1,), NEG_INF, dtype=s.dtype, device=s.device)
+    l = torch.zeros_like(m)
+    acc = None
+    for t0 in range(0, tk, ONE_PASS_KEY_TILE):
+        st = s[..., t0:t0 + ONE_PASS_KEY_TILE]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = torch.exp(m - m_new)
+        tile = _operand(p, True) @ _operand(v[..., t0:t0 + ONE_PASS_KEY_TILE, :], True)
+        acc = tile if acc is None else alpha * acc + tile
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return acc / l.clamp_min(1e-30), m, l.clamp_min(1e-30)
+
+
+def _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass):
+    s, dist = _scores(q, k, slopes, mask, causal, scale, one_pass, recompute=True)
     p = torch.exp(s - lse[..., None])
     if causal:
         # a row with no valid key has lse = -1e30, so P = 1 on every key the
@@ -143,7 +239,7 @@ def _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
         tq, tk = s.shape[-2:]
         keys = jax_masked_row_keys(tq, tk, True, q.device)
         p = torch.where(torch.arange(tk, device=q.device)[None, :] < keys[:, None], p, 0.0)
-    ds = p * (_acc(dout) @ _acc(v).transpose(-1, -2) - delta[..., None])
+    ds = p * (_operand(dout, one_pass) @ _operand(v, one_pass).transpose(-1, -2) - delta[..., None])
     return p, ds, dist
 
 
@@ -178,23 +274,33 @@ def _sum_kv_heads(x, hk):
     return out
 
 
-def flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
+@_fp32_products
+def flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None,
+                                  one_pass=False):
     """Plain version of the dK/dV kernel: (dk, dv), summed over the query heads
-    when there is one KV head."""
+    when there is one KV head. `one_pass`: every dot's operands rounded to
+    bf16 (`_flash_bwd_dkv_kernel` at DEFAULT: dV = bf16(P)^T.bf16(dO), dK =
+    (bf16(dS)^T.bf16(q))*scale)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    p, ds, _ = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
-    dv = p.transpose(-1, -2) @ _acc(dout)
-    dk = ds.transpose(-1, -2) @ (_acc(q) * scale)
+    p, ds, _ = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
+    dv = _operand(p, one_pass).transpose(-1, -2) @ _operand(dout, one_pass)
+    if one_pass:
+        dk = (_operand(ds, True).transpose(-1, -2) @ _operand(q, True)) * scale
+    else:
+        dk = ds.transpose(-1, -2) @ (_acc(q) * scale)
     hk = k.shape[1]
     return _sum_kv_heads(dk, hk).to(k.dtype), _sum_kv_heads(dv, hk).to(v.dtype)
 
 
-def flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
+@_fp32_products
+def flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None,
+                                 one_pass=False):
     """Plain version of the dQ/dslope kernel: (dq, dslopes), dslopes summed
-    over the batch."""
+    over the batch. `one_pass`: dQ = (bf16(dS).bf16(K))*scale
+    (`_flash_bwd_dq_kernel` at DEFAULT); dslopes from the unrounded dS."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    _, ds, dist = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
-    dq = (ds @ _acc(k)) * scale
+    _, ds, dist = _bwd_plain_parts(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
+    dq = (_operand(ds, one_pass) @ _operand(k, one_pass)) * scale
     dslopes = (ds * -dist).sum(dim=(0, 2, 3))
     padded = padded_key_dslopes(lse, delta, q.shape[2], k.shape[2], causal)
     if padded is not None:
@@ -202,11 +308,11 @@ def flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal
     return dq.to(q.dtype), dslopes.to(slopes.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
+def flash_attention_bwd_plain(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None, one_pass=False):
     """Plain backward: (dq, dk, dv, dslopes) from the saved lse and
     delta = rowsum(dout * out)."""
-    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
-    dq, dslopes = flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
+    dq, dslopes = flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
     return dq, dk, dv, dslopes
 
 
@@ -246,8 +352,10 @@ def _f32(name, x, shape, device):
     return x.float().contiguous()
 
 
-def _count(fn, dtype):
-    if dtype == torch.bfloat16:
+def _count(fn, dtype, one_pass=False):
+    if one_pass:
+        fn.launches_one_pass += 1
+    elif dtype == torch.bfloat16:
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
@@ -257,6 +365,18 @@ def _for_dtype(name, dtype):
     """The library or entry point `name` of the fp32 kernels (split-TF32
     `wgmma`), or its `_bf16` sibling (bf16 `wgmma`) for bf16 operands."""
     return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def _one_pass_kernel(library, symbol, out_dtype):
+    """The one-pass entry point `symbol` of `library` (bf16 `wgmma`, P and dS
+    one bf16 term) that writes its outputs in `out_dtype`, fp32 or bf16."""
+    return kernel(library, symbol + ("_f32" if out_dtype == torch.float32 else ""))
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest, ties to even): the one-pass kernels'
+    operand (a copy for fp32 x, x itself for bf16)."""
+    return x.to(torch.bfloat16).contiguous()
 
 
 def _padded_width(q) -> Optional[int]:
@@ -279,13 +399,13 @@ def _to_built_width(q, k, v, slopes, mask, *rest):
     return tuple(pad_head_dim(x, width) for x in (q, k, v, *rest))
 
 
-def _at_built_width(launch, q, k, v, slopes, mask, dout, rest, causal, scale, sliced):
+def _at_built_width(launch, q, k, v, slopes, mask, dout, rest, causal, scale, sliced, one_pass):
     """`launch`'s results at q's head dim: the inputs taken to the built
     width (`_to_built_width`), and the results named by `sliced` cut back."""
     d = q.shape[-1]
     scale = scale if scale is not None else d**-0.5
     padded = _to_built_width(q, k, v, slopes, mask, *(() if dout is None else (dout,)))
-    outs = launch(*padded[:3], slopes, mask, *padded[3:], *rest, causal, scale)
+    outs = launch(*padded[:3], slopes, mask, *padded[3:], *rest, causal, scale, one_pass)
     if padded[0] is q:
         return outs
     return tuple(_cut(o, d) if cut else o for o, cut in zip(outs, sliced))
@@ -297,17 +417,33 @@ def _cut(x, d):
     return x[..., :d].contiguous()
 
 
-def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None):
+def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None, one_pass=False):
     """(out, lse): the forward kernel on CUDA tensors, its plain version on CPU
-    tensors."""
-    return _at_built_width(_fwd, q, k, v, slopes, mask, None, (), causal, scale, (True, False))
+    tensors; `one_pass` takes the TPU's DEFAULT numerics (the one-pass
+    kernel, csrc/flash_attention_fwd_one_pass.cu)."""
+    return _at_built_width(_fwd, q, k, v, slopes, mask, None, (), causal, scale, (True, False), one_pass)
 
 
-def _fwd(q, k, v, slopes, mask, causal, scale):
+def _fwd(q, k, v, slopes, mask, causal, scale, one_pass):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True)
+        return flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True, one_pass=one_pass)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, slopes, mask)
+    if one_pass:
+        # S = bf16(q*scale).bf16(k), as `_flash_kernel` scales q before its
+        # dot: the kernel takes q rounded after the scale, and scale 1
+        out = _fwd_launch(_bf16(q.float() * scale), _bf16(k), _bf16(v), slopes, mask, causal, 1.0, q.dtype, True)
+    else:
+        out = _fwd_launch(q, k, v, slopes, mask, causal, scale, q.dtype, False)
+    _count(flash_attention_fwd, q.dtype, one_pass)
+    return out
+
+
+def _fwd_launch(q, k, v, slopes, mask, causal, scale, out_dtype, one_pass):
+    """(out in `out_dtype`, lse) of one forward launch on CUDA tensors: the
+    one-pass kernel (bf16 operands, q already scaled) or the fp32-accurate
+    kernel of q's dtype (out_dtype is q's)."""
     _check(q, k, v, slopes, mask)
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
@@ -315,19 +451,24 @@ def _fwd(q, k, v, slopes, mask, causal, scale):
     slopes = _f32("flash_attention: slopes", slopes, (h,), q.device)
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
-    launch = kernel(_for_dtype("flash_attention_fwd", q.dtype), _for_dtype("sp_flash_attention_fwd", q.dtype))
+    if one_pass:
+        launch = _one_pass_kernel("flash_attention_fwd_one_pass", "sp_flash_attention_fwd_one_pass", out_dtype)
+    else:
+        launch = kernel(_for_dtype("flash_attention_fwd", q.dtype), _for_dtype("sp_flash_attention_fwd", q.dtype))
     _raise_on("flash_attention", launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, hk, tq, tk, d, int(causal), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
-    _count(flash_attention_fwd, q.dtype)
     return out, lse
 
 
-def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs):
+def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs, one_pass):
+    """One backward launch on CUDA tensors into `outs`: the one-pass kernel
+    (bf16 operands, `outs` fp32 or bf16) or the fp32-accurate kernel of q's
+    dtype."""
     _check(q, k, v, slopes, mask)
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
@@ -339,7 +480,11 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     delta = _f32(f"{name}: delta", delta, (b, h, tq), q.device)
     if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
-    _raise_on(name, kernel(_for_dtype("flash_attention_bwd", q.dtype), _for_dtype(symbol, q.dtype))(
+    if one_pass:
+        launch = _one_pass_kernel("flash_attention_bwd_one_pass", symbol + "_one_pass", outs[0].dtype)
+    else:
+        launch = kernel(_for_dtype("flash_attention_bwd", q.dtype), _for_dtype(symbol, q.dtype))
+    _raise_on(name, launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, h, hk, tq, tk, d, int(causal), float(scale),
@@ -347,40 +492,47 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     ))
 
 
-def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
+def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None, one_pass=False):
     """(dk, dv) by the dK/dV kernel on CUDA tensors (its plain version on CPU
-    tensors); with one KV head the sum over query heads is in the kernel."""
-    return _at_built_width(_bwd_dkv, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, True))
+    tensors); with one KV head the sum over query heads is in the kernel.
+    `one_pass`: the TPU's DEFAULT numerics (the one-pass kernel)."""
+    return _at_built_width(_bwd_dkv, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, True),
+                           one_pass)
 
 
-def _bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
+def _bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass):
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
+        return flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if one_pass:  # the operands rounded to bf16, the gradients in their inputs' dtypes
+        q, k, v, dout = _bf16(q), _bf16(k), _bf16(v), _bf16(dout)
     _bwd_launch("flash_attention_bwd_dkv", "sp_flash_attention_bwd_dkv",
-                q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dk, dv))
-    _count(flash_attention_bwd_dkv, q.dtype)
+                q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dk, dv), one_pass)
+    _count(flash_attention_bwd_dkv, dk.dtype, one_pass)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None):
+def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None, one_pass=False):
     """(dq, dslopes) by the dQ/dslope kernel on CUDA tensors (its plain version
     on CPU tensors). The kernel writes one part of the slope gradient per
     (batch, head, query tile), the JAX wrapper's padded keys' part
     (`padded_key_dslopes`) included; a torch sum reduces them in a fixed
-    order."""
-    return _at_built_width(_bwd_dq, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, False))
+    order. `one_pass`: the TPU's DEFAULT numerics (the one-pass kernel)."""
+    return _at_built_width(_bwd_dq, q, k, v, slopes, mask, dout, (lse, delta), causal, scale, (True, False),
+                           one_pass)
 
 
-def _bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal, scale):
+def _bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass):
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale)
+        return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
     b, h, tq, _ = q.shape
     dq = torch.empty_like(q)
     parts = torch.empty(dq_slope_parts(b, h, k.shape[1], tq), dtype=torch.float32, device=q.device)
+    if one_pass:  # the operands rounded to bf16, the gradients in their inputs' dtypes
+        q, k, v, dout = _bf16(q), _bf16(k), _bf16(v), _bf16(dout)
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
-                q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts))
-    _count(flash_attention_bwd_dq, q.dtype)
+                q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts), one_pass)
+    _count(flash_attention_bwd_dq, dq.dtype, one_pass)
     return dq, parts.sum(dim=(0, 2)).to(slopes.dtype)
 
 
@@ -391,10 +543,10 @@ class _FlashAttention(torch.autograd.Function):
     backward kernels, whose wrappers then take them as they are."""
 
     @staticmethod
-    def forward(ctx, q, k, v, slopes, mask, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, slopes, mask, causal, scale)
+    def forward(ctx, q, k, v, slopes, mask, causal, scale, one_pass):
+        out, lse = flash_attention_fwd(q, k, v, slopes, mask, causal, scale, one_pass=one_pass)
         ctx.save_for_backward(q, k, v, slopes, mask, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.one_pass = causal, scale, one_pass  # the forward's mode, whatever comes after
         return out
 
     @staticmethod
@@ -406,9 +558,10 @@ class _FlashAttention(torch.autograd.Function):
         scale = ctx.scale if ctx.scale is not None else d**-0.5  # the real d's, not the padded width's
         q, k, v, dout = _to_built_width(q, k, v, slopes, mask, dout)
         args = (q, k, v, slopes, mask, dout, lse, delta, ctx.causal, scale)
-        dk, dv = flash_attention_bwd_dkv(*args)  # by module name: a caller may swap in the plain versions
-        dq, dslopes = flash_attention_bwd_dq(*args)
-        return dq[..., :d], dk[..., :d], dv[..., :d], dslopes, None, None, None
+        # by module name: a caller may swap in the plain versions
+        dk, dv = flash_attention_bwd_dkv(*args, one_pass=ctx.one_pass)
+        dq, dslopes = flash_attention_bwd_dq(*args, one_pass=ctx.one_pass)
+        return dq[..., :d], dk[..., :d], dv[..., :d], dslopes, None, None, None, None
 
 
 def flash_attention_alibi(
@@ -419,14 +572,31 @@ def flash_attention_alibi(
     mask: Optional[torch.Tensor] = None,  # (b, tk) key validity
     causal: bool = True,
     scale: Optional[float] = None,
+    precision: str = "default",
 ) -> torch.Tensor:
     """Attention, o = softmax(q.k*scale - slope*|i-j|, masked) . v, with
     gradients for q, k, v and slopes (`flash_attention_fwd` gives o and the
-    row logsumexp without them)."""
+    row logsumexp without them). `precision` takes JAX's names
+    (`precision_is_one_pass`), resolved here once for the forward and its
+    backward."""
+    one_pass = precision_is_one_pass(precision)
     _check(q, k, v, slopes, mask)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, slopes, mask, causal, scale)
+    return _FlashAttention.apply(q, k, v, slopes, mask, causal, scale, one_pass)
+
+
+def precision_is_one_pass(precision: str = "default") -> bool:
+    """Whether `precision` (a name of JAX's `_PRECISIONS`: "default", "high",
+    "highest"; any other raises KeyError, as JAX's lookup does) takes the
+    one-pass route, the TPU's DEFAULT numerics: "default" does where PyTorch's
+    counterpart of a device's default matmul precision,
+    `torch.get_float32_matmul_precision()`, is "medium"; otherwise, and for
+    "high" and "highest", the fp32-accurate kernels run (split TF32, or P and
+    dS in three bf16 terms: at least the TPU's HIGH, bf16_3x)."""
+    if precision not in PRECISIONS:
+        raise KeyError(precision)
+    return precision == "default" and torch.get_float32_matmul_precision() == "medium"
 
 
 for _fn in (flash_attention_fwd, flash_attention_bwd_dkv, flash_attention_bwd_dq):
-    _fn.launches = _fn.launches_bf16 = 0
+    _fn.launches = _fn.launches_bf16 = _fn.launches_one_pass = 0

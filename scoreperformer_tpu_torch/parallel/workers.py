@@ -41,7 +41,7 @@ from .mesh import DATA_AXIS, MODEL_AXIS, current, make_pipeline_mesh, rank_devic
 def _flash_launches() -> Dict[str, int]:
     from ..ops import flash_attention as fa
 
-    return {name: getattr(fa, name).launches + getattr(fa, name).launches_bf16
+    return {name: getattr(fa, name).launches + getattr(fa, name).launches_bf16 + getattr(fa, name).launches_one_pass
             for name in ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
 
 

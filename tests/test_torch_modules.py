@@ -573,7 +573,7 @@ def test_port_imports_no_jax():
     files = sorted((root / "scoreperformer_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py", root / "chip_probe_flash_bwd.py", root / "chip_probe_flash_fwd_bf16.py",
         root / "chip_probe_flash_fwd.py", root / "chip_probe_decode.py", root / "chip_probe_head_shapes.py",
-        root / "chip_probe_recipe_shapes.py"]
+        root / "chip_probe_recipe_shapes.py", root / "chip_probe_precision.py"]
     assert len(files) > 20
     names = {str(p.relative_to(root)) for p in files}
     for serving in ("inference/server.py", "serve.py", "render.py", "ops/prefix_attend.py"):

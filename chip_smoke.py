@@ -1094,6 +1094,18 @@ def one_pass_bounds(torch, fa, q, k, v, slopes, mask, dout, lse, delta, causal):
     return bounds
 
 
+def one_pass_bwd_parts(torch, fa, q, k, v, dout, slopes, mask, lse, delta, causal):
+    """(dk, dv, dq, slope parts) of one launch of each one-pass backward
+    kernel on these operands, as they are (no wrapper, no sum)."""
+    b, h, t, d = q.shape
+    dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
+    parts = torch.empty(fa.dq_slope_parts(b, h, k.shape[1], t), dtype=torch.float32, device=q.device)
+    for name, outs in (("dkv", (dk, dv)), ("dq", (dq, parts))):
+        fa._bwd_launch(f"flash_attention_bwd_{name}", f"sp_flash_attention_bwd_{name}", q, k, v, slopes, mask, dout,
+                       lse, delta, causal, d**-0.5, outs, True)
+    return dk, dv, dq, parts
+
+
 def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1, dtype="fp32", lengths=None):
     """The one-pass kernels (the TPU's "default" numerics: q, k, v and dO
     rounded to bf16, P and dS one bf16 term) against their one-pass plain
@@ -1103,10 +1115,14 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     rounded operands, dslopes (from the
     unrounded dS) to 1e-3 of the fp64 one's largest value beyond the fp32
     plain version's own error, outputs in the inputs' dtype, and two calls
-    giving the same bits. Returns the records of the forward, dK/dV and
-    dQ/dslope kernels; timed when `timed` (by CUDA-graph replay, the kernel
-    launches alone on the rounded operands, the wrappers' casts beside
-    (`cast_ms`), SDPA's bf16 forward and backward as the library)."""
+    giving the same bits. On fp32 operands the backward kernels, which round
+    q, k, v and dO in the kernel, give the same bits on x as on fp32(bf16(x))
+    (dk, dv, dq and the slope parts: the rounding is torch's). Returns the
+    records of the forward, dK/dV and dQ/dslope kernels; timed when `timed`
+    (by CUDA-graph replay, the kernel launches alone on what each kernel
+    reads: the forward the wrapper's rounded copies, whose casts are timed
+    beside (`cast_ms`), the backward kernels the operands as they are, with
+    no copy; SDPA's bf16 forward and backward as the library)."""
     import torch.nn.functional as F
 
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -1141,6 +1157,13 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
                              f"bounds {over}, lse {lse_gate}, dslopes {dslopes_err}")
     if not all(torch.equal(x, y) for x, y in zip(got + (o, lse), again + (o2, lse2))):
         raise AssertionError(f"two one-pass flash calls give other bits at {where}")
+    if dtype == "fp32":
+        rounded = [x.bfloat16().float() for x in (q, k, v, dout)]
+        on_x, on_rounded = (one_pass_bwd_parts(torch, fa, *ops, slopes, mask, lse, delta, causal)
+                            for ops in ((q, k, v, dout), rounded))
+        if not all(torch.equal(x, y) for x, y in zip(on_x, on_rounded)):
+            raise AssertionError(f"the one-pass backward kernels on fp32 operands give other bits on x than on "
+                                 f"fp32(bf16(x)) at {where}")
     shape = {"shape": [b, h, t, d], "kv_heads": hk, "causal": causal, "padded": padded, "dtype": dtype,
              "one_pass": True, "err_over_bound": over, "lse_err_over_gate": lse_gate,
              "lse_err_vs_fp32_plain": (lse - plse).abs().max().item(), "dslopes_err": dslopes_err}
@@ -1149,32 +1172,33 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     dq = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[2:], want[2:]))}
     if not timed:
         return fwd, dkv, dq
-    # the kernels alone, on the operands the wrappers round (q scaled first
-    # for the forward), writing outputs in the inputs' dtype
-    ops = [(qc, (qc.float() * scale).bfloat16(), qc.bfloat16(), kc.bfloat16(), vc.bfloat16(), dc.bfloat16())
+    # the kernels alone, writing outputs in the inputs' dtype: the forward
+    # on the copies its wrapper rounds (q scaled first), the backward on the
+    # operands as its wrappers receive them (each set: those operands, then
+    # the forward's copies)
+    ops = [(qc, kc, vc, dc, (qc.float() * scale).bfloat16(), kc.bfloat16(), vc.bfloat16())
            for qc, kc, vc, dc in [(q.clone(), k.clone(), v.clone(), dout.clone())
                                   for _ in range(n_copies(2 * (q.numel() + k.numel() + v.numel() + dout.numel())))]]
     out_dtype = q.dtype
-    fwd["ms"] = graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: fa._fwd_launch(qs_, kb, vb, slopes, mask, causal, 1.0,
-                                                                               out_dtype, True), ops, iters=50)
+    fwd["ms"] = graph_ms(torch, lambda qc, kc, vc, dc, qs_, kb, vb: fa._fwd_launch(
+        qs_, kb, vb, slopes, mask, causal, 1.0, out_dtype, True), ops, iters=50)
 
     def bwd(name, outs):
-        return lambda qc, qs_, qb, kb, vb, db: fa._bwd_launch(
-            f"flash_attention_bwd_{name}", f"sp_flash_attention_bwd_{name}", qb, kb, vb, slopes, mask, db, lse, delta,
+        return lambda qc, kc, vc, dc, *_: fa._bwd_launch(
+            f"flash_attention_bwd_{name}", f"sp_flash_attention_bwd_{name}", qc, kc, vc, slopes, mask, dc, lse, delta,
             causal, scale, outs(), True)
 
     dkv["ms"] = graph_ms(torch, bwd("dkv", lambda: (torch.empty_like(k), torch.empty_like(v))), ops, iters=20)
     parts = fa.dq_slope_parts(b, h, hk, t)
     dq["ms"] = graph_ms(torch, bwd("dq", lambda: (torch.empty_like(q), torch.empty(parts, device=q.device))), ops,
                         iters=20)
-    # the casts each wrapper makes: the forward's q*scale, k and v (q alone
-    # on bf16 operands); each backward wrapper's q, k, v and dO (fp32 only)
-    fwd["cast_ms"] = graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: (
-        (qc.float() * scale).bfloat16(), *(() if dtype == "bf16" else (kb.float().bfloat16(), vb.float().bfloat16()))),
+    # the casts the forward's wrapper makes, on the tensors it receives:
+    # q*scale, k and v (q alone on bf16 operands); the backward wrappers
+    # make none
+    fwd["cast_ms"] = graph_ms(torch, lambda qc, kc, vc, dc, *_: (
+        (qc.float() * scale).bfloat16(), *(() if dtype == "bf16" else (kc.bfloat16(), vc.bfloat16()))),
         ops, iters=50)
-    bwd_cast = 0.0 if dtype == "bf16" else graph_ms(torch, lambda qc, qs_, qb, kb, vb, db: tuple(
-        x.bfloat16() for x in (qc, kb.float(), vb.float(), db.float())), ops, iters=50)
-    dkv["cast_ms"] = dq["cast_ms"] = bwd_cast
+    bwd_cast = dkv["cast_ms"] = dq["cast_ms"] = 0.0
     del ops
     fwd["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask, causal, one_pass=True))
     dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args, one_pass=True), iters=10,
@@ -1200,18 +1224,19 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
           f"{fwd['cast_ms']:.4f}), SDPA's bf16 forward {fwd['library_ms']:.4f}; dK/dV {dkv['ms']:.4f}, dQ/dslope "
           f"{dq['ms']:.4f} ms (casts {bwd_cast:.4f} a wrapper), SDPA's bf16 backward {library:.4f}")
     # bounds: each kernel's bf16 passes (ONE_PASS_PASSES) at 989 TFLOP/s,
-    # against its bytes: bf16 operands read once, outputs written once in
-    # the inputs' dtype, fp32 lse, delta, slopes and slope parts
+    # against its bytes: operands read once (the forward's bf16 copies, the
+    # backward's in the inputs' dtype), outputs written once in the inputs'
+    # dtype, fp32 lse, delta, slopes and slope parts
     pairs = ok.expand(b, 1, t, t).sum().item()
     product = 2 * d * h * pairs
     bf16, f32, out = 2, 4, q.element_size()
     for rec, key, nbytes in (
         (fwd, "fwd", bf16 * (q.numel() + k.numel() + v.numel()) + out * q.numel() + f32 * (lse.numel() + h)
          + mask.numel()),
-        (dkv, "dkv", bf16 * (2 * q.numel() + k.numel() + v.numel()) + out * (k.numel() + v.numel())
-         + f32 * (2 * lse.numel() + h) + mask.numel()),
-        (dq, "dq", bf16 * (2 * q.numel() + k.numel() + v.numel()) + out * q.numel()
-         + f32 * (2 * lse.numel() + h + math.prod(parts)) + mask.numel()),
+        (dkv, "dkv", out * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) + f32 * (2 * lse.numel() + h)
+         + mask.numel()),
+        (dq, "dq", out * (3 * q.numel() + k.numel() + v.numel()) + f32 * (2 * lse.numel() + h + math.prod(parts))
+         + mask.numel()),
     ):
         t_ops, t_bytes = ONE_PASS_PASSES[key] * product / BF16_OPS_PER_S, nbytes / BYTES_PER_S
         rec.update(bf16_passes=ONE_PASS_PASSES[key], bound_by="operations" if t_ops > t_bytes else "bytes",
@@ -1431,6 +1456,17 @@ def train_config(tokenizer, root, out_dir, batch_size, max_steps):
 
 
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+# PyTorch's copy kernels (names holding `copy_kernel`), which convert
+# dtypes: in a profile of the flagship's step the one-pass wrappers'
+# rounding copies are what the "medium" step runs beyond the fp32 one (110
+# with every wrapper rounding, 30 with the forward's alone; H100,
+# chip_probe_precision.py::profiled_steps)
+CONVERSION_KERNEL = "copy_kernel"
+# the one-pass forward wrapper's conversions a launch on fp32 operands
+# (q*scale, k and v to bf16); the backward wrappers make none, where they
+# once made 4 each (q, k, v and dO), 8 a backward
+ONE_PASS_FWD_CONVERSIONS = 3
+ONE_PASS_BWD_CONVERSIONS_BEFORE = 8
 
 
 def flash_counts(fa, dtype="fp32"):
@@ -2151,7 +2187,7 @@ def scale_flash_phase(torch, tokenizer, work, smi):
     return rec
 
 
-def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10, host_events=False):
+def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10, host_events=False, counted=()):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI),
     the device's busy time, its idle share of the profiled wall time, and the
     totals of the ported kernels (by kernel-name substring). Only the CUDA
@@ -2165,7 +2201,9 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10, host_e
     seconds from the end of `fn` to the record (the profiler's stop and this
     sum). `host_events` records the host's operator events as well (what
     `profile_decode` falls back on); `hidden_device_events` counts the device
-    events that the profiler marks hidden, which no sum here takes."""
+    events that the profiler marks hidden, which no sum here takes.
+    `counted`: other kernels' totals by name substring, as `ported`'s (the
+    dtype conversions, `CONVERSION_KERNEL`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2203,6 +2241,9 @@ def profile_device(torch, fn, ported=("write_rows", "flash_fwd"), top=10, host_e
             for name in ported
             for hits in [[e for e in device if name in e[0]]]
         },
+        **({"counted": {name: {"ms": sum(ms for _, ms, _ in hits), "count": sum(n for _, _, n in hits),
+                               "kernels": sorted({k[:160] for k, _, _ in hits})[:8]}
+                        for name in counted for hits in [[e for e in device if name in e[0]]]}} if counted else {}),
         "post_s": time.perf_counter() - t1,
     }
 
@@ -4248,7 +4289,7 @@ ONE_PASS_STEP_GATES = {"loss_err": 1e-4, "global_rel_l2": 2.0**-7}
 ALIBI_SLOPES = "rel_pos.learned_logslopes"
 
 
-def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi):
+def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi, fp32_conversions):
     """The flash attention's "default" precision as the TPU's one-pass
     numerics, on the card: under torch.set_float32_matmul_precision("medium")
     (restored to "highest" after)
@@ -4259,7 +4300,11 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
        the `Trainer` on the train phase's dataset at `root`, batch 128 x 258:
        PRECISION_TRAIN_STEPS steps with 10 launches of each one-pass kernel
        a step, one more profiled (the GEMM kernels cuBLAS takes under
-       "medium"; busy ms beside the fp32 step's);
+       "medium"; busy ms beside the fp32 step's), whose dtype conversions
+       (`CONVERSION_KERNEL`) over the fp32 step's `fp32_conversions` (the
+       train phase's profile) are the forward wrapper's rounding copies,
+       ONE_PASS_FWD_CONVERSIONS a launch, and none of the backward
+       wrappers' (recorded; gated below halfway to what those would add);
     3. the 32-bar `score` rendered greedy: 6 one-pass forwards (the
        encoders), the chunked decode's launches, `check_performance`;
     4. a batch-4 step of `model_config` on the card against the same step
@@ -4317,12 +4362,25 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
                                                               *PRECISION_TRAIN_STEPS, dtype="one_pass")
         rec["train"] = {**train_record(torch, step_ms, notes, launches), "last_loss": values["loss"]}
         prof = profile_device(torch, lambda: trainer.train_step(batch, sum(PRECISION_TRAIN_STEPS)),
-                              ported=PORTED_TRAIN, top=16)
+                              ported=PORTED_TRAIN, top=16, counted=(CONVERSION_KERNEL,))
         kernels = {k for n in PORTED_TRAIN for k in prof["ported"][n]["kernels"]}
         if {k: prof["ported"][k]["count"] for k in PORTED_TRAIN} != {k: 10 for k in PORTED_TRAIN} or not all(
                 one_pass_instance(k) for k in kernels):
             raise AssertionError(f"the profiled step under \"medium\" ran the flash kernels {prof['ported']}")
         rec["train"]["profile"] = prof
+        # a profile's count moves by a few between steps and runs (on the
+        # H100: 298 and 299 against the fp32 step's 276 in two runs of one
+        # program, 307 against 277 in another), so the gate sits halfway
+        # between the forward's 30 more and the 110 more with the backward
+        # wrappers' copies (the route before the kernels rounded them)
+        conversions = prof["counted"][CONVERSION_KERNEL]["count"]
+        limit = 10 * (ONE_PASS_FWD_CONVERSIONS + ONE_PASS_BWD_CONVERSIONS_BEFORE // 2)
+        rec["train"]["conversions"] = {"medium": conversions, "fp32_step": fp32_conversions,
+                                       "forward_copies": 10 * ONE_PASS_FWD_CONVERSIONS, "limit_over_fp32": limit}
+        if conversions - fp32_conversions >= limit:
+            raise AssertionError(f"the profiled step under \"medium\" ran {conversions} dtype conversions, the fp32 "
+                                 f"step {fp32_conversions}: the backward wrappers' copies are back (the forward's "
+                                 f"make {10 * ONE_PASS_FWD_CONVERSIONS} more, limit {limit})")
         print(f"precision: train steps under \"medium\" ({smi})", json.dumps(rec["train"]))
         del comp, trainer, batch
         torch.cuda.empty_cache()
@@ -4876,7 +4934,7 @@ def smoke(torch, refs, t_script) -> int:
     }
     print("train steps", json.dumps(train))
     prof_train = profile_device(torch, lambda: trainer.train_step(batch, TRAIN_WARMUP + TRAIN_TIMED),
-                                ported=PORTED_TRAIN)
+                                ported=PORTED_TRAIN, counted=(CONVERSION_KERNEL,))
     if isinstance(prof_train["device_busy_ms"], float):
         prof_train["backward_kernels_share"] = sum(
             prof_train["ported"][k]["ms"] for k in ("flash_bwd_dkv", "flash_bwd_dq")) / prof_train["device_busy_ms"]
@@ -5059,7 +5117,8 @@ def smoke(torch, refs, t_script) -> int:
 
     # ---- the flash attention's "default" precision as the TPU's one pass ----
     begin_phase("precision")
-    precision = precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi)
+    precision = precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi,
+                                prof_train["counted"][CONVERSION_KERNEL]["count"])
     end_phase("precision")
     print("precision", json.dumps({k: v for k, v in precision.items() if k not in ("main", "train")}))
 
@@ -5160,21 +5219,26 @@ def smoke(torch, refs, t_script) -> int:
     ] + [
         # the one-pass instances (the TPU's "default" numerics, under
         # torch.set_float32_matmul_precision("medium")), as the flagship's
-        # fp32 train steps launch them; `ms` the kernel on the rounded
-        # operands, `cast_ms` the wrapper's rounding copies beside
+        # fp32 train steps launch them (`instances`: their names in the
+        # profiled step); `ms` the forward on its wrapper's rounded copies,
+        # `cast_ms` those copies beside, and the backward kernels on the fp32
+        # operands, which they round themselves (`cast_ms` 0)
         {"name": f"{name}_one_pass", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": precision["train"]["launches"][f"{name}_one_pass"],
          **{k: rec[k] for k in bound_keys + ("cast_ms", "bf16_passes", "over_library", "pair_over_library",
                                              "err_over_bound", "library_timing") if k in rec},
-         "shape": rec["shape"], "dtype": rec["dtype"], "bf16_hgmma_in_sass": one_pass_gmma[kernel],
-         "bf16_hgmma_by_head_dim": one_pass_gmma_dims[kernel]}
-        for name, source, replaces, rec, kernel in (
+         "shape": rec["shape"], "dtype": rec["dtype"], "operands": operands,
+         "instances": precision["train"]["profile"]["ported"][ported]["kernels"],
+         "bf16_hgmma_in_sass": one_pass_gmma[kernel], "bf16_hgmma_by_head_dim": one_pass_gmma_dims[kernel]}
+        for name, source, replaces, rec, kernel, ported, operands in (
             ("flash_attention_fwd", "flash_attention_fwd_one_pass.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
-             precision["main"][0], "flash_fwd_bf16"),
+             precision["main"][0], "flash_fwd_bf16", "flash_fwd", "bf16 copies made by the wrapper"),
             ("flash_attention_bwd_dkv", "flash_attention_bwd_one_pass.cu",
-             "scoreperformer_tpu/ops/flash_attention.py:135", precision["main"][1], "flash_bwd_dkv_bf16"),
+             "scoreperformer_tpu/ops/flash_attention.py:135", precision["main"][1], "flash_bwd_dkv_bf16",
+             "flash_bwd_dkv", "fp32, rounded to bf16 in the kernel"),
             ("flash_attention_bwd_dq", "flash_attention_bwd_one_pass.cu",
-             "scoreperformer_tpu/ops/flash_attention.py:192", precision["main"][2], "flash_bwd_dq_bf16"),
+             "scoreperformer_tpu/ops/flash_attention.py:192", precision["main"][2], "flash_bwd_dq_bf16",
+             "flash_bwd_dq", "fp32, rounded to bf16 in the kernel"),
         )
     ] + [
         {"name": "prefix_attend", "route": "cuda", "source": "scoreperformer_tpu_torch/csrc/prefix_attend.cu",

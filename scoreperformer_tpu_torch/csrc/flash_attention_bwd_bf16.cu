@@ -2,8 +2,9 @@
 // kernel, on Hopper's warpgroup MMA (`wgmma`): dK/dV and dQ/dslope, P
 // recomputed from the forward's logsumexp, every sum fp32-accurate; and,
 // built from this file by csrc/flash_attention_bwd_one_pass.cu
-// (SP_FLASH_ONE_PASS), the one-pass instances (kTerms = 1), dK, dV and dQ
-// in bf16 or fp32.
+// (SP_FLASH_ONE_PASS), the one-pass instances (kTerms = 1): bf16 operands
+// and gradients, or fp32 operands rounded to bf16 in the kernel and fp32
+// gradients.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
 // (:135) and ::_flash_bwd_dq_kernel (:192), the two Pallas kernels that
@@ -41,16 +42,23 @@
 // take the TPU's "default" numerics: P^T, dS^T and dS are one bf16 term
 // each, rounded to nearest even (dS and the slope gradient still from the
 // unrounded fp32 values), 4 products a tile where there were 12; fp32
-// operands come rounded to bf16 by the wrapper, and dK, dV and dQ are
-// written in their dtype (`Out`).
+// operands (`In` = float) are read in fp32 and rounded to bf16 here, to
+// nearest even as torch's `.to(torch.bfloat16)` rounds (the same `cvt.rn`,
+// so the same bits as on fp32(bf16(x))), and dK, dV and dQ are written in
+// their dtype (`Out`).
 //
 // Bound on the H100. dK/dV takes 8 bf16 passes over the (query, key) pairs
 // of each head (S, dP, 3 for dV, 3 for dK), dQ/dslope 5 (S, dP, 3 for dQ),
 // each pass 2*d operations a pair: at 989 TFLOP/s (bf16 dense) 13 passes of
-// 2*d*h*pairs; the one-pass instances 4 and 3, 7 passes. The bytes (q, k, v, dO in bf16 read once, lse and delta,
-// dK, dV, dQ written once, 3.35 TB/s) are a few tens of MB: at the train
-// shapes the operations bound both kernels (chip_smoke.py's `bound_tc_ms`:
-// 0.044 + 0.028 ms at b 8, h 8, one KV head, d 128, t 1025 causal).
+// 2*d*h*pairs; the one-pass instances 4 and 3, 7 passes. The bytes (q, k,
+// v, dO read once, lse and delta, dK, dV, dQ written once, 3.35 TB/s) are a
+// few tens of MB in bf16: at the train shapes the operations bound both
+// kernels (chip_smoke.py's `bound_tc_ms`: 0.044 + 0.028 ms at b 8, h 8, one
+// KV head, d 128, t 1025 causal). On fp32 operands the one-pass instances
+// read 4 bytes an element and write fp32 gradients, and the bytes bound
+// them at the flagship's shapes: dK/dV about 102 MB, dQ/dslope 118 MB at b
+// 128, h 4, one KV head, d 64, t 258 (0.030 + 0.035 ms;
+// chip_smoke.py::check_flash_one_pass's bounds).
 //
 // Design. Every operand is a 64-row bf16 tile in shared memory, swizzled as
 // wgmma reads it (wgmma.cuh), copied by TMA from a 3-d tensor map (rows
@@ -96,6 +104,48 @@
 // query tile; a dQ block's set-up (barriers, the mask's words, the first
 // copies) is a large share of its life at the encoders' padded shapes.
 //
+// fp32 operands (design (a) of two: TMA lands fp32 rows, the threads round
+// them). Rounding in the kernel takes the wrappers' bf16 copies away (four
+// conversions of q, k, v and dO a wrapper, about 85 MB read and 42 MB
+// written each time); rounding once a backward, or keeping the forward's
+// copies, would still cost one such pass a call or hold the copies for the
+// whole step. A tile of fp32 rows lands unswizzled (`wg::rows_map_f32`, a
+// box of all d columns) in a staging area, `kStaged`, and the threads round
+// it into the bf16 tile's swizzle (`wg::round_tile`: 16-byte loads, 8-byte
+// stores, no bank conflict), fence it for the async proxy and mark the
+// stage full on its mbarrier, which now counts the rounding threads; the
+// stage's bf16 tiles, their descriptors and every wgmma stay as they are.
+// Staging registers through global loads (design (b)) would need the
+// rows past t masked by hand and its loads in flight across the products;
+// TMA gives both, and its staging fits: one stage of fp32 rows is 4 bf16
+// tiles.
+// - dK/dV: K's and V's fp32 rows land first where stage 1 and the hand-over
+//   space lie, the first item's q and dO in kStaged; all 256 threads round
+//   them. After that warpgroup 1 rounds the next item's q and dO into the
+//   other stage while its dP^T product runs and warpgroup 0 computes P^T
+//   (time it otherwise waits), and its first thread then issues the item
+//   after that into kStaged: a copy leads its rounding by one item, as the
+//   bf16 copies lead their use. Shared memory: 115,792 B at d = 64 and
+//   197,712 B at d = 128 (83,016 and 132,168 on bf16), one block an SM as
+//   before.
+// - dQ/dslope: q's and dO's fp32 rows land where the two K/V stages lie and
+//   are rounded first, then key tile 0 from kStaged; after that the 128
+//   threads round the next key tile's K and V while this tile's S and dP
+//   products run. Shared memory: 84,068 B at d = 64 and t = 258 (51,292 on
+//   bf16), two blocks an SM at d <= 64; 166,084 B at d = 128 and t = 1026,
+//   one block.
+// What the card showed (graph replay on the H100, PERF.md §6): at
+// the flagship's shapes (b 128, h 4, one KV head, d 64, t 258 / 257) dK/dV
+// takes 0.110 / 0.103 ms and dQ/dslope 0.080 / 0.072 on fp32 operands,
+// against 0.094 / 0.088 and 0.062 / 0.056 on the wrappers' bf16 copies,
+// which cost 0.049 ms more a wrapper; at d = 128 dQ/dslope, one block an
+// SM, nearly doubles (0.133 against 0.070 at t 1025 causal). Each block
+// reads its operands from L2 in fp32, twice the bytes, and rounds them
+// through shared memory. Tried and dropped, each the same bits: warpgroup
+// 0 rounding q while its dV product runs (dK/dV +15%: warpgroup 0's chain,
+// S^T, exp and the hand-over, sets an item's time) and two fp32 staging
+// buffers at d <= 64 (+4-6%).
+//
 // Masked tiles and rows with no valid key: as csrc/flash_attention_bwd.cu's
 // header says, with tiles of 64. dQ skips a key tile whose keys are all
 // masked unless the block holds a row with no valid key; a dK/dV block whose
@@ -140,28 +190,35 @@ constexpr float kMaskValue = -1e30f;
 // 8*(e>>2) + 2*t4 + (e&1)
 __host__ __device__ constexpr int column(int e) { return ((e >> 2) << 1) | (e & 1); }
 
-// the block's shared memory, from a 1024-byte aligned base
-template <int D>
+// the block's shared memory, from a 1024-byte aligned base; kF32: fp32
+// operands, whose q and dO land in `kStaged` (fp32 rows, `wg::round_tile`'s
+// source) before they are rounded into their stage
+template <int D, bool kF32>
 struct DkvSmem {
-  static constexpr int kTile = Tile<D>::kBytes;
+  static constexpr int kTile = Tile<D>::kBytes;  // an fp32 tile of 64 rows: 2 * kTile
   static constexpr int kK = 0, kV = kTile;
   static constexpr int kQ = 2 * kTile;  // [stage][q, dO] tiles
   static constexpr int kX = 6 * kTile;  // P^T handed over: [stage][element][thread of the warpgroup] fp32
-  static constexpr int kBars = kX + 2 * kRows * kRows * 4;  // mbarriers: K and V, full[stage], empty[stage]
-  static constexpr int kWarpFirst = kBars + 5 * 8;
+  static constexpr int kStaged = kX + 2 * kRows * kRows * 4;  // fp32 q and dO of the next item to round
+  static constexpr int kBars = kStaged + (kF32 ? 4 * kTile : 0);
+  // mbarriers: K and V, full[stage], empty[stage], and (kF32) staged
+  static constexpr int kWarpFirst = kBars + (kF32 ? 6 : 5) * 8;
   static constexpr int kBytes = kWarpFirst + 8 * 4 + 1024;  // and the alignment's slack
 };
 
 // kTerms: P^T's and dS^T's bf16 terms (3, or 1 for the one-pass instances);
-// Out: dK's and dV's type
-template <int D, int kTerms, typename Out>
+// Out: dK's and dV's type; In: q's, k's, v's and dO's (bf16, or fp32 for
+// the one-pass instances, rounded here)
+template <int D, int kTerms, typename Out, typename In>
 __global__ void __launch_bounds__(2 * kWG, 1)
     flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
                        const float* __restrict__ slopes, const uint8_t* __restrict__ mask,
                        const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dk,
                        Out* __restrict__ dv, int h, int hk, int tq, int tk, int causal, float scale) {
-  using S = DkvSmem<D>;
+  constexpr bool kF32 = std::is_same_v<In, float>;
+  static_assert(kF32 || std::is_same_v<In, bf16>, "bf16 or fp32 operands");
+  using S = DkvSmem<D, kF32>;
   constexpr int kThreads = 2 * kWG;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -170,6 +227,7 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   int* warp_first = reinterpret_cast<int*>(smem + S::kWarpFirst);
   const uint32_t bar_kv = base + S::kBars;
   const uint32_t full = bar_kv + 8, empty = bar_kv + 24;  // [stage] at + 8 * stage
+  const uint32_t staged = bar_kv + 40;  // kF32: the fp32 q and dO in kStaged
 
   const int tid = threadIdx.x;
   const int role = tid / kWG;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
@@ -223,32 +281,57 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   auto after = [&](Item it) {  // the next visited item past `it`
     return next_item(it.tile + 1 == n_q_tiles ? Item{it.head + 1, 0} : Item{it.head, it.tile + 1});
   };
-  // the item's q and dO tiles into stage `stage` (thread 0)
+  // the item's q and dO tiles into stage `stage` (thread 0), or with fp32
+  // operands their fp32 rows into kStaged (one thread)
   auto issue = [&](Item item, int stage) {
     const int slab = b * h + head_begin + item.head;
     const int q0 = item.tile * kRows;
-    const uint32_t qt = base + S::kQ + stage * 2 * S::kTile;
-    wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
-    wg::tma_tile<D>(qt, &tm_q, q0, slab, full + 8 * stage);
-    wg::tma_tile<D>(qt + S::kTile, &tm_o, q0, slab, full + 8 * stage);
+    if constexpr (kF32) {
+      wg::mbar_expect_tx(staged, 4 * S::kTile);
+      wg::tma_rows(base + S::kStaged, &tm_q, q0, slab, staged);
+      wg::tma_rows(base + S::kStaged + 2 * S::kTile, &tm_o, q0, slab, staged);
+    } else {
+      const uint32_t qt = base + S::kQ + stage * 2 * S::kTile;
+      wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
+      wg::tma_tile<D>(qt, &tm_q, q0, slab, full + 8 * stage);
+      wg::tma_tile<D>(qt + S::kTile, &tm_o, q0, slab, full + 8 * stage);
+    }
+  };
+  // fp32 operands: the fp32 q and dO in kStaged rounded into stage `stage`
+  // by `threads` (a std::integral_constant) threads, this one the t-th
+  auto round_item = [&](int stage, int t, auto threads) {
+    uint8_t* qt = smem + S::kQ + stage * 2 * S::kTile;
+    wg::round_tile<D, decltype(threads)::value>(smem + S::kStaged, qt, t);
+    wg::round_tile<D, decltype(threads)::value>(smem + S::kStaged + 2 * S::kTile, qt + S::kTile, t);
   };
 
   Item item = next_item(Item{0, 0});
   if (tid == 0) {
     wg::mbar_init(bar_kv, 1);
     for (int st = 0; st < 2; ++st) {
-      wg::mbar_init(full + 8 * st, 1);
+      // with fp32 operands warpgroup 1's threads fill a stage
+      wg::mbar_init(full + 8 * st, kF32 ? kWG : 1);
       wg::mbar_init(empty + 8 * st, 2 * kWG / 32);  // every warp releases a stage
     }
+    if (kF32) wg::mbar_init(staged, 1);
     wg::mbar_init_fence();
-    // the block's 64 keys of K and V, then the first two items
-    wg::mbar_expect_tx(bar_kv, 2 * S::kTile);
-    wg::tma_tile<D>(base + S::kK, &tm_k, k0, bkv, bar_kv);
-    wg::tma_tile<D>(base + S::kV, &tm_v, k0, bkv, bar_kv);
-    if (item.head < n_heads) {
-      issue(item, 0);
-      const Item second = after(item);
-      if (second.head < n_heads) issue(second, 1);
+    // the block's 64 keys of K and V, then the first two items (with fp32
+    // operands the first: its q and dO land in kStaged, K and V where stage 1
+    // and the hand-over space lie, until all are rounded)
+    if constexpr (kF32) {
+      wg::mbar_expect_tx(bar_kv, 4 * S::kTile);
+      wg::tma_rows(base + S::kQ + 2 * S::kTile, &tm_k, k0, bkv, bar_kv);
+      wg::tma_rows(base + S::kQ + 4 * S::kTile, &tm_v, k0, bkv, bar_kv);
+      if (item.head < n_heads) issue(item, 0);
+    } else {
+      wg::mbar_expect_tx(bar_kv, 2 * S::kTile);
+      wg::tma_tile<D>(base + S::kK, &tm_k, k0, bkv, bar_kv);
+      wg::tma_tile<D>(base + S::kV, &tm_v, k0, bkv, bar_kv);
+      if (item.head < n_heads) {
+        issue(item, 0);
+        const Item second = after(item);
+        if (second.head < n_heads) issue(second, 1);
+      }
     }
   }
   __syncthreads();  // the barriers are initialized
@@ -264,6 +347,24 @@ __global__ void __launch_bounds__(2 * kWG, 1)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   wg::mbar_wait(bar_kv, 0);
+  if constexpr (kF32) {
+    // every thread rounds K, V and the first item; warpgroup 1 marks stage 0
+    // filled, and the second item's fp32 rows take kStaged
+    static_assert(S::kQ + 6 * S::kTile <= S::kStaged, "K's and V's fp32 rows fit before kStaged");
+    wg::round_tile<D, kThreads>(smem + S::kQ + 2 * S::kTile, smem + S::kK, tid);
+    wg::round_tile<D, kThreads>(smem + S::kQ + 4 * S::kTile, smem + S::kV, tid);
+    if (item.head < n_heads) {
+      wg::mbar_wait(staged, 0);
+      round_item(0, tid, std::integral_constant<int, kThreads>{});
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+    if (role == 1) wg::mbar_arrive(full);
+    if (tid == 0 && item.head < n_heads) {
+      const Item second = after(item);
+      if (second.head < n_heads) issue(second, 1);
+    }
+  }
 
   for (int j = 0; item.head < n_heads; ++j) {
     const int stage = j & 1;
@@ -300,9 +401,29 @@ __global__ void __launch_bounds__(2 * kWG, 1)
       for (int kk = 0; kk < D / 16; ++kk) wg::mma_ss_n64<0>(x, wg::desc_k<D>(a, kk), wg::desc_k<D>(bt, kk), kk > 0);
       wg::commit();
     }
-    // the item after next into the other stage, once every warp has
-    // released it (thread 0; the first two came before the loop)
-    if (tid == 0 && j >= 1 && nxt.head < n_heads) {
+    if constexpr (kF32) {
+      // warpgroup 1, while the products run and warpgroup 0 computes P^T:
+      // the next item's fp32 q and dO (landed in kStaged during this item's
+      // predecessor) rounded into the other stage, once every warp has
+      // released it; then the item after that into kStaged, once every
+      // thread of warpgroup 1 has read it (its first thread)
+      if (role == 1 && nxt.head < n_heads) {
+        if (j >= 1) wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
+        wg::mbar_wait(staged, (j + 1) & 1);
+        round_item(stage ^ 1, wtid, std::integral_constant<int, kWG>{});
+        wg::fence_proxy_async();
+        wg::mbar_arrive(full + 8 * (stage ^ 1));
+        if (wtid == 0) {
+          const Item far = after(nxt);
+          if (far.head < n_heads) {
+            wg::mbar_wait(full + 8 * (stage ^ 1), ((j + 1) >> 1) & 1);
+            issue(far, 0);
+          }
+        }
+      }
+    } else if (tid == 0 && j >= 1 && nxt.head < n_heads) {
+      // the item after next into the other stage, once every warp has
+      // released it (thread 0; the first two came before the loop)
       wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
       issue(nxt, stage ^ 1);
     }
@@ -420,14 +541,18 @@ __global__ void __launch_bounds__(2 * kWG, 1)
   cluster_sync();  // no CTA leaves while another reads its shared memory
 }
 
-template <int D>
+// kF32: fp32 operands, whose K and V land in `kStaged` (fp32 rows) before
+// they are rounded into their stage; q and dO land where the two stages lie
+template <int D, bool kF32>
 struct DqSmem {
-  static constexpr int kTile = Tile<D>::kBytes;
+  static constexpr int kTile = Tile<D>::kBytes;  // an fp32 tile of 64 rows: 2 * kTile
   static constexpr int kQ = 0, kO = kTile;
   static constexpr int kK = 2 * kTile;  // [stage][K, V] tiles
   static constexpr int kSlopeRows = 6 * kTile;  // [64 rows][4 lanes] fp32
-  static constexpr int kBars = kSlopeRows + kRows * 4 * 4;  // mbarriers: q and dO, full[stage], empty[stage]
-  static constexpr int kWarpFirst = kBars + 5 * 8;
+  static constexpr int kStaged = kSlopeRows + kRows * 4 * 4;  // fp32 K and V of the key tile after next
+  static constexpr int kBars = kStaged + (kF32 ? 4 * kTile : 0);
+  // mbarriers: q and dO, full[stage], empty[stage], and (kF32) staged
+  static constexpr int kWarpFirst = kBars + (kF32 ? 6 : 5) * 8;
   static constexpr int kBits = kWarpFirst + 4 * 4;  // [32-key words]
   static int bytes(int tk) { return kBits + 4 * ((tk + 31) / 32) + 1024; }  // and the alignment's slack
 };
@@ -435,8 +560,9 @@ struct DqSmem {
 // Grid: (blocks of 64 / heads_per_block positions, b) when heads_per_block
 // == h (one KV head), else (blocks of 64 positions, b * h). tm_q and tm_o
 // take boxes of (positions, heads_per_block) rows, so a block's 64 rows
-// come in one copy of each. kTerms: dS's bf16 terms; Out: dQ's type.
-template <int D, int kTerms, typename Out>
+// come in one copy of each. kTerms: dS's bf16 terms; Out: dQ's type; In:
+// the operands' (bf16, or fp32 for the one-pass instances, rounded here).
+template <int D, int kTerms, typename Out, typename In>
 __global__ void __launch_bounds__(kWG, 2)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
@@ -444,7 +570,9 @@ __global__ void __launch_bounds__(kWG, 2)
                       const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dq,
                       float* __restrict__ dslope_part, int h, int hk, int tq, int tk, int causal, float scale,
                       int heads_per_block) {
-  using S = DqSmem<D>;
+  constexpr bool kF32 = std::is_same_v<In, float>;
+  static_assert(kF32 || std::is_same_v<In, bf16>, "bf16 or fp32 operands");
+  using S = DqSmem<D, kF32>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -454,6 +582,7 @@ __global__ void __launch_bounds__(kWG, 2)
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + S::kBits);
   const uint32_t bar_qo = base + S::kBars;
   const uint32_t full = bar_qo + 8, empty = bar_qo + 24;  // [stage] at + 8 * stage
+  const uint32_t staged = bar_qo + 40;  // kF32: the fp32 K and V in kStaged
 
   const int tid = threadIdx.x;
   const int w = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -467,20 +596,32 @@ __global__ void __launch_bounds__(kWG, 2)
 
   // the block's 64 rows of q and dO, and key tile 0 before the mask is
   // read: the walk over the key tiles starts there whatever the mask (a tile
-  // whose keys are all masked gives P = 0 on every row with a valid key)
+  // whose keys are all masked gives P = 0 on every row with a valid key).
+  // With fp32 operands q's and dO's fp32 rows land where the two stages lie
+  // and key tile 0's in kStaged, until they are rounded.
   if (tid == 0) {
     wg::mbar_init(bar_qo, 1);
     for (int st = 0; st < 2; ++st) {
-      wg::mbar_init(full + 8 * st, 1);
+      wg::mbar_init(full + 8 * st, kF32 ? kWG : 1);  // with fp32 operands every thread fills a stage
       wg::mbar_init(empty + 8 * st, kWG / 32);  // every warp releases a stage
     }
+    if (kF32) wg::mbar_init(staged, 1);
     wg::mbar_init_fence();
-    wg::mbar_expect_tx(bar_qo, 2 * S::kTile);
-    wg::tma_tile<D>(base + S::kQ, &tm_q, q0, b * h + head0, bar_qo);
-    wg::tma_tile<D>(base + S::kO, &tm_o, q0, b * h + head0, bar_qo);
-    wg::mbar_expect_tx(full, 2 * S::kTile);
-    wg::tma_tile<D>(base + S::kK, &tm_k, 0, kv_slab, full);
-    wg::tma_tile<D>(base + S::kK + S::kTile, &tm_v, 0, kv_slab, full);
+    if constexpr (kF32) {
+      wg::mbar_expect_tx(bar_qo, 4 * S::kTile);
+      wg::tma_rows(base + S::kK, &tm_q, q0, b * h + head0, bar_qo);
+      wg::tma_rows(base + S::kK + 2 * S::kTile, &tm_o, q0, b * h + head0, bar_qo);
+      wg::mbar_expect_tx(staged, 4 * S::kTile);
+      wg::tma_rows(base + S::kStaged, &tm_k, 0, kv_slab, staged);
+      wg::tma_rows(base + S::kStaged + 2 * S::kTile, &tm_v, 0, kv_slab, staged);
+    } else {
+      wg::mbar_expect_tx(bar_qo, 2 * S::kTile);
+      wg::tma_tile<D>(base + S::kQ, &tm_q, q0, b * h + head0, bar_qo);
+      wg::tma_tile<D>(base + S::kO, &tm_o, q0, b * h + head0, bar_qo);
+      wg::mbar_expect_tx(full, 2 * S::kTile);
+      wg::tma_tile<D>(base + S::kK, &tm_k, 0, kv_slab, full);
+      wg::tma_tile<D>(base + S::kK + S::kTile, &tm_v, 0, kv_slab, full);
+    }
   }
 
   // this thread's rows: g and g + 8 of the warp's 16
@@ -511,16 +652,49 @@ __global__ void __launch_bounds__(kWG, 2)
     while (tile < end && !has_empty_row && (word(2 * tile) | word(2 * tile + 1)) == 0) ++tile;
     return tile;
   };
-  // the key tile's K and V into stage `stage` (thread 0)
+  // the key tile's K and V into stage `stage` (thread 0), or with fp32
+  // operands their fp32 rows into kStaged
   auto issue = [&](int tile, int stage) {
-    const uint32_t kt = base + S::kK + stage * 2 * S::kTile;
-    wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
-    wg::tma_tile<D>(kt, &tm_k, tile * kRows, kv_slab, full + 8 * stage);
-    wg::tma_tile<D>(kt + S::kTile, &tm_v, tile * kRows, kv_slab, full + 8 * stage);
+    if constexpr (kF32) {
+      wg::mbar_expect_tx(staged, 4 * S::kTile);
+      wg::tma_rows(base + S::kStaged, &tm_k, tile * kRows, kv_slab, staged);
+      wg::tma_rows(base + S::kStaged + 2 * S::kTile, &tm_v, tile * kRows, kv_slab, staged);
+    } else {
+      const uint32_t kt = base + S::kK + stage * 2 * S::kTile;
+      wg::mbar_expect_tx(full + 8 * stage, 2 * S::kTile);
+      wg::tma_tile<D>(kt, &tm_k, tile * kRows, kv_slab, full + 8 * stage);
+      wg::tma_tile<D>(kt + S::kTile, &tm_v, tile * kRows, kv_slab, full + 8 * stage);
+    }
+  };
+  // fp32 operands: the fp32 K and V in kStaged rounded into stage `stage`,
+  // then the stage marked filled (every thread)
+  auto round_tiles = [&](int stage) {
+    uint8_t* kt = smem + S::kK + stage * 2 * S::kTile;
+    wg::round_tile<D, kWG>(smem + S::kStaged, kt, tid);
+    wg::round_tile<D, kWG>(smem + S::kStaged + 2 * S::kTile, kt + S::kTile, tid);
+    wg::fence_proxy_async();
+    wg::mbar_arrive(full + 8 * stage);
   };
 
   int tile = 0;  // end >= 1: every block has a key tile to walk
-  if (tid == 0) {
+  if constexpr (kF32) {
+    // q and dO rounded first (their fp32 rows lie where key tile 0 goes),
+    // then key tile 0; the second tile's fp32 rows take kStaged once every
+    // thread has read it
+    wg::mbar_wait(bar_qo, 0);
+    wg::round_tile<D, kWG>(smem + S::kK, smem + S::kQ, tid);
+    wg::round_tile<D, kWG>(smem + S::kK + 2 * S::kTile, smem + S::kO, tid);
+    __syncthreads();
+    wg::mbar_wait(staged, 0);
+    round_tiles(0);
+    if (tid == 0) {
+      const int second = next_tile(1);
+      if (second < end) {
+        wg::mbar_wait(full, 0);
+        issue(second, 1);
+      }
+    }
+  } else if (tid == 0) {
     const int second = next_tile(1);
     if (second < end) issue(second, 1);
   }
@@ -531,7 +705,7 @@ __global__ void __launch_bounds__(kWG, 2)
   float dslope[2] = {0.f, 0.f};
   // full tiles below every row need no mask
   const bool rows_plain = !has_empty_row && last_pos + 1 == q0 + positions;
-  wg::mbar_wait(bar_qo, 0);
+  if (!kF32) wg::mbar_wait(bar_qo, 0);
 
   for (int j = 0; tile < end; ++j) {
     const int stage = j & 1;
@@ -554,9 +728,26 @@ __global__ void __launch_bounds__(kWG, 2)
     for (int kk = 0; kk < D / 16; ++kk)
       wg::mma_ss_n64<0>(dp, wg::desc_k<D>(base + S::kO, kk), wg::desc_k<D>(vt, kk), kk > 0);
     wg::commit();
-    // the tile after next into the other stage, once every warp has
-    // released it (thread 0; the first two came before the loop)
-    if (tid == 0 && j >= 1 && nxt < end) {
+    if constexpr (kF32) {
+      // while the products run: the next tile's fp32 K and V (landed in
+      // kStaged during this tile's predecessor) rounded into the other
+      // stage, once every warp has released it; then the tile after that
+      // into kStaged, once every thread has read it (thread 0)
+      if (nxt < end) {
+        if (j >= 1) wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
+        wg::mbar_wait(staged, (j + 1) & 1);
+        round_tiles(stage ^ 1);
+        if (tid == 0) {
+          const int far = next_tile(nxt + 1);
+          if (far < end) {
+            wg::mbar_wait(full + 8 * (stage ^ 1), ((j + 1) >> 1) & 1);
+            issue(far, 0);
+          }
+        }
+      }
+    } else if (tid == 0 && j >= 1 && nxt < end) {
+      // the tile after next into the other stage, once every warp has
+      // released it (thread 0; the first two came before the loop)
       wg::mbar_wait(empty + 8 * (stage ^ 1), ((j - 1) >> 1) & 1);
       issue(nxt, stage ^ 1);
     }
@@ -645,16 +836,27 @@ __global__ void __launch_bounds__(kWG, 2)
   }
 }
 
-template <int D, int kTerms, typename Out>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-               const bf16* dout, const float* lse, const float* delta, Out* dk, Out* dv, int b, int h, int hk,
-               int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dkv_bf16<D, kTerms, Out>);
-  const int smem = DkvSmem<D>::kBytes;
+// `map` over an operand, (slabs, rows, D), in boxes of box_rows rows of
+// box_slabs slabs: bf16 tiles swizzled as wgmma reads them, or fp32 rows
+// for `wg::round_tile`
+template <int D, typename In>
+bool operand_map(CUtensorMap* map, const In* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+  if constexpr (std::is_same_v<In, float>)
+    return wg::rows_map_f32<D>(map, ptr, rows, slabs, box_rows, box_slabs);
+  else
+    return tile_map<D>(map, ptr, rows, slabs, box_rows, box_slabs);
+}
+
+template <int D, int kTerms, typename Out, typename In>
+int launch_dkv(const In* q, const In* k, const In* v, const float* slopes, const uint8_t* mask, const In* dout,
+               const float* lse, const float* delta, Out* dk, Out* dv, int b, int h, int hk, int tq, int tk,
+               int causal, float scale, cudaStream_t stream) {
+  static const int granted = grant_smem(flash_bwd_dkv_bf16<D, kTerms, Out, In>);
+  const int smem = DkvSmem<D, std::is_same_v<In, float>>::kBytes;
   if (smem > granted) return (int)cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!(tile_map<D>(&tm_q, q, tq, b * h, kRows, 1) && tile_map<D>(&tm_o, dout, tq, b * h, kRows, 1) &&
-        tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
+  if (!(operand_map<D>(&tm_q, q, tq, b * h, kRows, 1) && operand_map<D>(&tm_o, dout, tq, b * h, kRows, 1) &&
+        operand_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && operand_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
     return (int)cudaErrorInvalidValue;
   const int blocks = (tk + kRows - 1) / kRows * b * hk;
   int dev = 0, sms = 0;
@@ -677,38 +879,38 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
   cluster[0].val.clusterDim.z = split;
   config.attrs = cluster;
   config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv_bf16<D, kTerms, Out>, tm_q, tm_k, tm_v, tm_o,
-                                             slopes, mask, lse, delta, dk, dv, h, hk, tq, tk, causal, scale);
+  const cudaError_t err = cudaLaunchKernelEx(&config, flash_bwd_dkv_bf16<D, kTerms, Out, In>, tm_q, tm_k, tm_v,
+                                             tm_o, slopes, mask, lse, delta, dk, dv, h, hk, tq, tk, causal, scale);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int D, int kTerms, typename Out>
-int launch_dq(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-              const bf16* dout, const float* lse, const float* delta, Out* dq, float* dslope_part, int b, int h,
-              int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_bwd_dq_bf16<D, kTerms, Out>);
-  const int smem = DqSmem<D>::bytes(tk);
+template <int D, int kTerms, typename Out, typename In>
+int launch_dq(const In* q, const In* k, const In* v, const float* slopes, const uint8_t* mask, const In* dout,
+              const float* lse, const float* delta, Out* dq, float* dslope_part, int b, int h, int hk, int tq,
+              int tk, int causal, float scale, cudaStream_t stream) {
+  static const int granted = grant_smem(flash_bwd_dq_bf16<D, kTerms, Out, In>);
+  const int smem = DqSmem<D, std::is_same_v<In, float>>::bytes(tk);
   if (smem > granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
   const int positions = kRows / heads_per_block;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  if (!(tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
-        tile_map<D>(&tm_o, dout, tq, b * h, positions, heads_per_block) &&
-        tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
+  if (!(operand_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
+        operand_map<D>(&tm_o, dout, tq, b * h, positions, heads_per_block) &&
+        operand_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && operand_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((tq + positions - 1) / positions, mqa ? b : b * h);
-  flash_bwd_dq_bf16<D, kTerms, Out><<<grid, kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta, dq,
-                                                                  dslope_part, h, hk, tq, tk, causal, scale,
-                                                                  heads_per_block);
+  flash_bwd_dq_bf16<D, kTerms, Out, In><<<grid, kWG, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, slopes, mask, lse, delta,
+                                                                      dq, dslope_part, h, hk, tq, tk, causal, scale,
+                                                                      heads_per_block);
   return (int)cudaGetLastError();
 }
 
 // launch_dkv (kDkv) or launch_dq at head dim d; out0/out1: dk/dv or dq/dslope parts
-template <bool kDkv, int kTerms, typename Out0, typename Out1>
-int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask,
-             const bf16* dout, const float* lse, const float* delta, Out0* out0, Out1* out1, int b, int h, int hk,
-             int tq, int tk, int d, int causal, float scale, void* stream) {
+template <bool kDkv, int kTerms, typename In, typename Out0, typename Out1>
+int dispatch(const In* q, const In* k, const In* v, const float* slopes, const uint8_t* mask, const In* dout,
+             const float* lse, const float* delta, Out0* out0, Out1* out1, int b, int h, int hk, int tq, int tk,
+             int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   auto run = [&](auto dim) {
@@ -736,18 +938,19 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, c
 
 }  // namespace
 
-// q, dout: (b, h, tq, d) bf16; k, v: (b, hk, tk, d) bf16 with hk in {1, h};
-// slopes: (h,) fp32; mask: (b, tk) bytes, nonzero = valid key; lse, delta:
-// (b, h, tq) fp32; dk, dv: (b, hk, tk, d) bf16 (fp32 for `_f32`), written
-// whole (with hk = 1, summed over the h query heads). Contiguous and
-// 16-byte aligned. Returns the CUDA error code of the launch.
+// q, dout: (b, h, tq, d) bf16 (fp32 for `_f32`); k, v: (b, hk, tk, d) of
+// the same type with hk in {1, h}; slopes: (h,) fp32; mask: (b, tk) bytes,
+// nonzero = valid key; lse, delta: (b, h, tq) fp32; dk, dv: (b, hk, tk, d)
+// bf16 (fp32 for `_f32`), written whole (with hk = 1, summed over the h
+// query heads). Contiguous and 16-byte aligned. Returns the CUDA error code
+// of the launch.
 #ifndef SP_FLASH_ONE_PASS
 extern "C" int sp_flash_attention_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                                const uint8_t* mask, const bf16* dout, const float* lse,
                                                const float* delta, bf16* dk, bf16* dv, int b, int h, int hk, int tq,
                                                int tk, int d, int causal, float scale, void* stream) {
-  return dispatch<true, 3>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
-                           stream);
+  return dispatch<true, 3, bf16>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal,
+                                 scale, stream);
 }
 #endif
 
@@ -762,27 +965,28 @@ extern "C" int sp_flash_attention_bwd_dq_bf16(const bf16* q, const bf16* k, cons
                                               const uint8_t* mask, const bf16* dout, const float* lse,
                                               const float* delta, bf16* dq, float* dslope_part, int b, int h, int hk,
                                               int tq, int tk, int d, int causal, float scale, void* stream) {
-  return dispatch<false, 3>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
-                            scale, stream);
+  return dispatch<false, 3, bf16>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d,
+                                  causal, scale, stream);
 }
 #else
-// The one-pass instances (P^T, dS^T and dS in one bf16 term), gradients in
-// bf16 or (`_f32`) fp32.
+// The one-pass instances (P^T, dS^T and dS in one bf16 term): bf16 operands
+// and gradients, or (`_f32`) fp32 operands, rounded to bf16 in the kernel,
+// and fp32 gradients.
 extern "C" int sp_flash_attention_bwd_dkv_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                                    const uint8_t* mask, const bf16* dout, const float* lse,
                                                    const float* delta, bf16* dk, bf16* dv, int b, int h, int hk,
                                                    int tq, int tk, int d, int causal, float scale, void* stream) {
-  return dispatch<true, 1>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
-                           stream);
+  return dispatch<true, 1, bf16>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal,
+                                 scale, stream);
 }
 
-extern "C" int sp_flash_attention_bwd_dkv_one_pass_f32(const bf16* q, const bf16* k, const bf16* v,
-                                                       const float* slopes, const uint8_t* mask, const bf16* dout,
+extern "C" int sp_flash_attention_bwd_dkv_one_pass_f32(const float* q, const float* k, const float* v,
+                                                       const float* slopes, const uint8_t* mask, const float* dout,
                                                        const float* lse, const float* delta, float* dk, float* dv,
                                                        int b, int h, int hk, int tq, int tk, int d, int causal,
                                                        float scale, void* stream) {
-  return dispatch<true, 1>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal, scale,
-                           stream);
+  return dispatch<true, 1, float>(q, k, v, slopes, mask, dout, lse, delta, dk, dv, b, h, hk, tq, tk, d, causal,
+                                  scale, stream);
 }
 
 extern "C" int sp_flash_attention_bwd_dq_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
@@ -790,16 +994,16 @@ extern "C" int sp_flash_attention_bwd_dq_one_pass(const bf16* q, const bf16* k, 
                                                   const float* delta, bf16* dq, float* dslope_part, int b, int h,
                                                   int hk, int tq, int tk, int d, int causal, float scale,
                                                   void* stream) {
-  return dispatch<false, 1>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
-                            scale, stream);
+  return dispatch<false, 1, bf16>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d,
+                                  causal, scale, stream);
 }
 
-extern "C" int sp_flash_attention_bwd_dq_one_pass_f32(const bf16* q, const bf16* k, const bf16* v,
-                                                      const float* slopes, const uint8_t* mask, const bf16* dout,
+extern "C" int sp_flash_attention_bwd_dq_one_pass_f32(const float* q, const float* k, const float* v,
+                                                      const float* slopes, const uint8_t* mask, const float* dout,
                                                       const float* lse, const float* delta, float* dq,
                                                       float* dslope_part, int b, int h, int hk, int tq, int tk, int d,
                                                       int causal, float scale, void* stream) {
-  return dispatch<false, 1>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d, causal,
-                            scale, stream);
+  return dispatch<false, 1, float>(q, k, v, slopes, mask, dout, lse, delta, dq, dslope_part, b, h, hk, tq, tk, d,
+                                   causal, scale, stream);
 }
 #endif

@@ -291,6 +291,57 @@ __device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][k
 
 
 
+// ---- fp32 operands rounded to bf16 in the kernel ----
+//
+// An fp32 operand tile lands by TMA with no swizzle, as 64 rows of D floats
+// (a box of all D columns, `rows_map_f32`), and the threads round it into
+// the bf16 tile above (`round_tile`): the one-pass backward instances on
+// fp32 operands (csrc/flash_attention_bwd_bf16.cu).
+
+// the fp32 box at (row, slab) of `map` (`rows_map_f32`) into shared memory
+// at `dst`, completing on `bar`: one copy
+__device__ __forceinline__ void tma_rows(uint32_t dst, const void* map, int row, int slab, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+      "%4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(slab), "r"(bar)
+      : "memory");
+}
+
+// The 64 x D fp32 rows at `src` rounded to bf16, to nearest even (the bits
+// of torch's `.to(torch.bfloat16)`, which takes the same `cvt.rn`), into the
+// swizzled Tile<D> at `dst`, by kThreads threads from `tid`. A thread takes
+// 4 floats at a time, one 16-byte load (a warp reads 512 contiguous bytes),
+// and writes their 8 bytes where the tile's swizzle puts them (a half-warp
+// fills whole 128-byte spans: no bank conflict either way); up to 8 loads
+// in flight before their stores.
+template <int D, int kThreads>
+__device__ __forceinline__ void round_tile(const uint8_t* src, uint8_t* dst, int tid) {
+  using L = Tile<D>;
+  constexpr int kQuads = L::kRows * D / 4;
+  constexpr int kIters = kQuads / kThreads;
+  constexpr int kBatch = kIters < 8 ? kIters : 8;
+  static_assert(kIters * kThreads == kQuads && kIters % kBatch == 0, "quads a thread");
+  constexpr int kPerRow = L::kRowBytes / 2;  // a row's elements within one swizzled block
+  constexpr int kMask = L::kRowBytes / 16 - 1;
+#pragma unroll
+  for (int i0 = 0; i0 < kIters; i0 += kBatch) {
+    float4 x[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) x[i] = reinterpret_cast<const float4*>(src)[tid + (i0 + i) * kThreads];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = 4 * (tid + (i0 + i) * kThreads);  // its first element, row-major
+      const int row = e / D, col = e % D;
+      const int o = row * L::kRowBytes + (col % kPerRow) * 2;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x[i].x, x[i].y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x[i].z, x[i].w);
+      *reinterpret_cast<uint2*>(dst + (col / kPerRow) * L::kBlockBytes + (o ^ (((o >> 7) & kMask) << 4))) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+}
+
 // ---- TF32: fp32 tiles for wgmma.m64nNk8.f32.tf32.tf32 ----
 //
 // TF32 wgmma reads its shared-memory operands K-major only (no transpose
@@ -693,6 +744,23 @@ bool tile_map_f32(CUtensorMap* map, const float* ptr, int rows, int slabs, int b
   const CUtensorMapSwizzle swizzle = D >= 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `map` over a (slabs, rows, D) fp32 tensor at `ptr`, in boxes of box_rows
+// rows of box_slabs slabs and all D columns, unswizzled: a box lands as
+// box_slabs * box_rows rows of D floats (`round_tile`'s source)
+template <int D>
+bool rows_map_f32(CUtensorMap* map, const float* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)rows * D * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  static_assert(D % 4 == 0 && D <= 256, "a box row of 16-byte multiples, at most 256 columns");
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

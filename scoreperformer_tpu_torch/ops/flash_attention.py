@@ -27,8 +27,10 @@ device's default matmul precision (`precision_is_one_pass`):
   the slope gradient from the unrounded fp32 values. On CUDA tensors the
   one-pass kernels (`csrc/flash_attention_fwd_one_pass.cu` and
   `csrc/flash_attention_bwd_one_pass.cu`: the bf16 `wgmma` kernels with P
-  and dS one bf16 term) run it, on fp32 operands rounded to
-  bf16 by the wrapper, and write fp32 or bf16 outputs as their inputs are;
+  and dS one bf16 term) run it and write fp32 or bf16 outputs as their
+  inputs are. The backward kernels read fp32 operands as they are and round
+  them to bf16 inside (the bits of `.to(torch.bfloat16)`); the forward's
+  wrapper rounds q (after the scale), k and v itself;
 - under "high" or "highest" (PyTorch's default), and for "high" and
   "highest", the fp32-accurate kernels run: fp32 operands take every
   product in split TF32, three TF32 `wgmma` products each, within about
@@ -367,15 +369,17 @@ def _for_dtype(name, dtype):
     return name + "_bf16" if dtype == torch.bfloat16 else name
 
 
-def _one_pass_kernel(library, symbol, out_dtype):
+def _one_pass_kernel(library, symbol, dtype):
     """The one-pass entry point `symbol` of `library` (bf16 `wgmma`, P and dS
-    one bf16 term) that writes its outputs in `out_dtype`, fp32 or bf16."""
-    return kernel(library, symbol + ("_f32" if out_dtype == torch.float32 else ""))
+    one bf16 term) for `dtype`, fp32 or bf16: the forward's writes its
+    output in `dtype` from bf16 operands; the backward's take operands and
+    write gradients in `dtype`, fp32 operands rounded to bf16 in the kernel."""
+    return kernel(library, symbol + ("_f32" if dtype == torch.float32 else ""))
 
 
 def _bf16(x):
-    """x rounded to bf16 (to nearest, ties to even): the one-pass kernels'
-    operand (a copy for fp32 x, x itself for bf16)."""
+    """x rounded to bf16 (to nearest, ties to even): the one-pass forward
+    kernel's operand (a copy for fp32 x, x itself for bf16)."""
     return x.to(torch.bfloat16).contiguous()
 
 
@@ -466,22 +470,15 @@ def _fwd_launch(q, k, v, slopes, mask, causal, scale, out_dtype, one_pass):
 
 
 def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs, one_pass):
-    """One backward launch on CUDA tensors into `outs`: the one-pass kernel
-    (bf16 operands, `outs` fp32 or bf16) or the fp32-accurate kernel of q's
-    dtype."""
-    _check(q, k, v, slopes, mask)
+    """One backward launch on CUDA tensors into `outs`, the gradients (and
+    dQ's slope parts) in the operands' dtype: the one-pass kernel (fp32
+    operands read as they are and rounded to bf16 in the kernel, or bf16
+    ones) or the fp32-accurate kernel of q's dtype."""
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
-    mask = _kernel_args(name, [q, k, v, dout], mask, b, tk, d, q.device)
-    if dout.shape != q.shape:
-        raise ValueError(f"{name}: dout {tuple(dout.shape)} does not fit q {tuple(q.shape)}")
-    slopes = _f32(f"{name}: slopes", slopes, (h,), q.device)
-    lse = _f32(f"{name}: lse", lse, (b, h, tq), q.device)
-    delta = _f32(f"{name}: delta", delta, (b, h, tq), q.device)
-    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
-        raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
+    mask, slopes, lse, delta = _bwd_args(name, q, k, v, slopes, mask, dout, lse, delta, outs)
     if one_pass:
-        launch = _one_pass_kernel("flash_attention_bwd_one_pass", symbol + "_one_pass", outs[0].dtype)
+        launch = _one_pass_kernel("flash_attention_bwd_one_pass", symbol + "_one_pass", q.dtype)
     else:
         launch = kernel(_for_dtype("flash_attention_bwd", q.dtype), _for_dtype(symbol, q.dtype))
     _raise_on(name, launch(
@@ -492,6 +489,28 @@ def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, s
     ))
 
 
+def _bwd_args(name, q, k, v, slopes, mask, dout, lse, delta, outs):
+    """The backward launch's checks: q, k, v and dout of one dtype, fp32 or
+    bf16, and the gradients in `outs` in it; returns the byte mask and the
+    fp32 slopes, lse and delta."""
+    _check(q, k, v, slopes, mask)
+    b, h, tq, d = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    mask = _kernel_args(name, [q, k, v, dout], mask, b, tk, d, q.device)
+    if dout.shape != q.shape:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} does not fit q {tuple(q.shape)}")
+    grads = [o for o in outs if o.dim() == 4]  # not dQ's slope parts
+    if any(g.dtype != q.dtype for g in grads):
+        raise TypeError(f"{name}: the kernels write the gradients in the operands' dtype, {q.dtype}, "
+                        f"not {[str(g.dtype) for g in grads]}")
+    slopes = _f32(f"{name}: slopes", slopes, (h,), q.device)
+    lse = _f32(f"{name}: lse", lse, (b, h, tq), q.device)
+    delta = _f32(f"{name}: delta", delta, (b, h, tq), q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError(f"{name}: q, k, v and dout must be 16-byte aligned")
+    return mask, slopes, lse, delta
+
+
 def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True, scale=None, one_pass=False):
     """(dk, dv) by the dK/dV kernel on CUDA tensors (its plain version on CPU
     tensors); with one KV head the sum over query heads is in the kernel.
@@ -500,12 +519,18 @@ def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True
                            one_pass)
 
 
+def kernel_route(device) -> bool:
+    """Whether the backward wrappers launch their kernels for tensors on
+    `device` (CPU tensors run the plain versions). The one place they make
+    that choice, so a test may force the kernel route on the CPU and put a
+    launcher of its own in `_bwd_launch`'s place."""
+    return torch.device(device).type != "cpu"
+
+
 def _bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass):
-    if q.device.type == "cpu":
+    if not kernel_route(q.device):
         return flash_attention_bwd_dkv_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if one_pass:  # the operands rounded to bf16, the gradients in their inputs' dtypes
-        q, k, v, dout = _bf16(q), _bf16(k), _bf16(v), _bf16(dout)
     _bwd_launch("flash_attention_bwd_dkv", "sp_flash_attention_bwd_dkv",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dk, dv), one_pass)
     _count(flash_attention_bwd_dkv, dk.dtype, one_pass)
@@ -523,13 +548,11 @@ def flash_attention_bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal=True,
 
 
 def _bwd_dq(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass):
-    if q.device.type == "cpu":
+    if not kernel_route(q.device):
         return flash_attention_bwd_dq_plain(q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
     b, h, tq, _ = q.shape
     dq = torch.empty_like(q)
     parts = torch.empty(dq_slope_parts(b, h, k.shape[1], tq), dtype=torch.float32, device=q.device)
-    if one_pass:  # the operands rounded to bf16, the gradients in their inputs' dtypes
-        q, k, v, dout = _bf16(q), _bf16(k), _bf16(v), _bf16(dout)
     _bwd_launch("flash_attention_bwd_dq", "sp_flash_attention_bwd_dq",
                 q, k, v, slopes, mask, dout, lse, delta, causal, scale, (dq, parts), one_pass)
     _count(flash_attention_bwd_dq, dq.dtype, one_pass)

@@ -415,17 +415,31 @@ def test_one_pass_is_jax_flash_attention_within_bf16_rounding(b, h, t, d, hk, ca
     the whole tensor, in relative L2; dslopes, a sum of t*t terms that
     cancel, to four steps of the sum of their magnitudes, sum |dS|*|i-j|."""
     q, k, v, dout, slopes, mask = inputs(b, h, t, d, hk, padded, dtype)
-    cast = jnp.bfloat16 if dtype == "bf16" else jnp.float32
-    out, vjp = jax.vjp(lambda *a: jflash.flash_attention_alibi(*a, mask=jnp.asarray(mask), causal=causal,
-                                                               interpret=True),
-                       *(jnp.asarray(x, cast) for x in (q, k, v)), jnp.asarray(slopes))
-    want = [out] + list(vjp(jnp.asarray(dout, cast)))
+    want = jax_one_pass_reference(q, k, v, dout, slopes, mask, causal, dtype)
     tq, tk, tv, tdo, ts, tm = port_inputs(q, k, v, dout, slopes, mask, dtype)
     args = [x.requires_grad_() for x in (tq, tk, tv, ts)]
     with matmul_precision("medium"):
         o = tflash.flash_attention_alibi(*args, mask=tm, causal=causal)
     o.backward(tdo)
-    got = [o] + [a.grad for a in args]
+    assert_within_bf16_rounding([o] + [a.grad for a in args], want, args, tm, tdo, causal, padded)
+
+
+def jax_one_pass_reference(q, k, v, dout, slopes, mask, causal, dtype):
+    """[o, dq, dk, dv, dslopes] of `jax.vjp` of the JAX package's
+    `flash_attention_alibi` at its default precision in interpret mode."""
+    cast = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    out, vjp = jax.vjp(lambda *a: jflash.flash_attention_alibi(*a, mask=jnp.asarray(mask), causal=causal,
+                                                               interpret=True),
+                       *(jnp.asarray(x, cast) for x in (q, k, v)), jnp.asarray(slopes))
+    return [out] + list(vjp(jnp.asarray(dout, cast)))
+
+
+def assert_within_bf16_rounding(got, want, args, tm, tdo, causal, padded):
+    """The port's one-pass [o, dq, dk, dv, dslopes] against JAX's
+    (`jax_one_pass_reference`) within the bf16 rounding of every dot's
+    operands (test_one_pass_is_jax_flash_attention_within_bf16_rounding);
+    `args` the port's q, k, v and slopes, o's forward inputs."""
+    o, d = got[0], args[0].shape[-1]
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
         g, w = g.detach().float().numpy().astype(np.float64), np.asarray(jnp.asarray(w, jnp.float32), np.float64)
         if padded == "empty":
@@ -440,6 +454,106 @@ def test_one_pass_is_jax_flash_attention_within_bf16_rounding(b, h, t, d, hk, ca
                                           causal, d**-0.5, True)
     magnitude = (ds.abs() * dist).sum(dim=(0, 2, 3)).numpy()
     np.testing.assert_array_less(np.abs(got[4].numpy() - np.asarray(want[4])), 4 * BF16_ROUND * magnitude + 1e-5)
+
+
+# ---- what the backward wrappers hand the kernels ----
+
+
+@pytest.fixture
+def spy_launcher(monkeypatch):
+    """The backward wrappers' kernel route forced on CPU tensors
+    (`kernel_route`), with a launcher in `_bwd_launch`'s place that records
+    what each launch is handed, holds it to the launch's own checks
+    (`_bwd_args`) and computes it with the one-pass plain version into the
+    launch's outputs (the slope gradient as the first block's part). Returns
+    the list of launches."""
+    launches = []
+
+    def launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs, one_pass):
+        tflash._bwd_args(name, q, k, v, slopes, mask, dout, lse, delta, outs)
+        launches.append({"name": name, "one_pass": one_pass, "operands": (q, k, v, dout),
+                         "outs": [o.dtype for o in outs]})
+        args = (q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
+        if name.endswith("dkv"):
+            for o, x in zip(outs, tflash.flash_attention_bwd_dkv_plain(*args)):
+                o.copy_(x)
+        else:
+            dq, dslopes = tflash.flash_attention_bwd_dq_plain(*args)
+            outs[0].copy_(dq)
+            outs[1].zero_()
+            outs[1][0, :, 0] = dslopes
+
+    monkeypatch.setattr(tflash, "kernel_route", lambda device: True)
+    monkeypatch.setattr(tflash, "_bwd_launch", launch)
+    return launches
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", CASES[:4], ids=CASE_IDS[:4])
+def test_one_pass_backward_hands_the_kernels_its_operands_unrounded(spy_launcher, b, h, t, d, hk, causal, padded,
+                                                                    dtype):
+    """Through the kernel route, the one-pass backward wrappers launch each
+    kernel once, on q, k, v and dO as the autograd Function holds them: fp32
+    operands unrounded (the kernels round them, csrc/flash_attention_bwd_bf16.cu),
+    with fp32 gradients; bf16 operands as before, with bf16 gradients. Each
+    launch counts once in `launches_one_pass`. The gradients the launches
+    give (the one-pass plain version standing in for the kernels) hold to
+    JAX's `flash_attention_alibi` in interpret mode within the bf16 rounding
+    of every dot's operands (`assert_within_bf16_rounding`)."""
+    q, k, v, dout, slopes, mask = inputs(b, h, t, d, hk, padded, dtype)
+    want = jax_one_pass_reference(q, k, v, dout, slopes, mask, causal, dtype)
+    tq, tk, tv, tdo, ts, tm = port_inputs(q, k, v, dout, slopes, mask, dtype)
+    args = [x.requires_grad_() for x in (tq, tk, tv, ts)]
+    counts = {fn: fn.launches_one_pass for fn in (tflash.flash_attention_bwd_dkv, tflash.flash_attention_bwd_dq)}
+    with matmul_precision("medium"):
+        o = tflash.flash_attention_alibi(*args, mask=tm, causal=causal)
+    o.backward(tdo)
+    assert [x["name"] for x in spy_launcher] == ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
+    assert {fn: fn.launches_one_pass - n for fn, n in counts.items()} == {fn: 1 for fn in counts}
+    cast = torch.bfloat16 if dtype == "bf16" else torch.float32
+    for launch in spy_launcher:
+        assert launch["one_pass"]
+        assert launch["outs"][0] == cast and (launch["name"].endswith("dq") or launch["outs"][1] == cast)
+        for handed, mine in zip(launch["operands"], (tq, tk, tv, tdo)):
+            assert handed.dtype == cast and handed.data_ptr() == mine.data_ptr() and torch.equal(handed, mine)
+    if dtype == "fp32":
+        assert not any(torch.equal(x, x.bfloat16().float()) for x in (tq, tk, tv, tdo))
+    assert_within_bf16_rounding([o] + [a.grad for a in args], want, args, tm, tdo, causal, padded)
+
+
+def test_one_pass_backward_launch_refuses_mixed_dtypes():
+    """The launch's checks take fp32 or bf16 operands of one dtype, and
+    gradients in it."""
+    q, k, v, dout, slopes, mask = inputs(1, 2, 9, 16, 1, False, "fp32")
+    tq, tk, tv, tdo, ts, tm = port_inputs(q, k, v, dout, slopes, mask, "fp32")
+    lse, delta = torch.zeros(1, 2, 9), torch.zeros(1, 2, 9)
+    name = "flash_attention_bwd_dkv"
+    tflash._bwd_args(name, tq, tk, tv, ts, tm, tdo, lse, delta, (torch.empty_like(tk), torch.empty_like(tv)))
+    with pytest.raises(TypeError, match="one dtype"):
+        tflash._bwd_args(name, tq, tk.bfloat16(), tv, ts, tm, tdo, lse, delta, (tk, tv))
+    with pytest.raises(TypeError, match="gradients"):
+        tflash._bwd_args(name, tq, tk, tv, ts, tm, tdo, lse, delta, (tk.bfloat16(), tv))
+
+
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", CASES, ids=CASE_IDS)
+def test_one_pass_backward_is_the_same_on_x_and_its_bf16_rounding(b, h, t, d, hk, causal, padded):
+    """The one-pass plain backward on fp32 operands x equals it on
+    fp32(bf16(x)) bit for bit (dk, dv, dq, dslopes): every use of q, k, v
+    and dO rounds them first. The card holds the kernels, which round in
+    the kernel, to the same invariant (chip_smoke.check_flash_one_pass)."""
+    q, k, v, dout, slopes, mask = inputs(b, h, t, d, hk, padded, "fp32")
+    tq, tk, tv, tdo, ts, tm = port_inputs(q, k, v, dout, slopes, mask, "fp32")
+    with matmul_precision("medium"):
+        o, lse = tflash.flash_attention_plain(tq, tk, tv, ts, tm, causal, return_lse=True, one_pass=True)
+        delta = (tdo * o).sum(-1)
+        runs = []
+        for x in ((tq, tk, tv, tdo), [y.bfloat16().float() for y in (tq, tk, tv, tdo)]):
+            args = (*x[:3], ts, tm, x[3], lse, delta, causal)
+            runs.append(tflash.flash_attention_bwd_dkv_plain(*args, one_pass=True)
+                        + tflash.flash_attention_bwd_dq_plain(*args, one_pass=True))
+    assert not torch.equal(tq, tq.bfloat16().float())  # x is not bf16 already
+    for name, x, y in zip(("dk", "dv", "dq", "dslopes"), *runs):
+        assert torch.equal(x, y), name
 
 
 # ---- the switch: PyTorch's matmul precision ----

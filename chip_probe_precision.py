@@ -7,9 +7,10 @@ CUDA card.
 Run from the root of a checkout, on a machine with the CUDA toolkit. It
 builds the kernels, then holds the one-pass forward, dK/dV and dQ/dslope
 kernels to their one-pass plain versions (`chip_smoke.check_flash_one_pass`)
-and times them by CUDA-graph replay, beside the forward wrapper's rounding
-copies (the backward kernels round fp32 operands themselves), the plain
-versions and SDPA's bf16 forward and backward, at:
+and times them by CUDA-graph replay on the operands as the wrappers
+receive them (the kernels round fp32 operands, and the forward's scaled q,
+themselves), beside the plain versions and SDPA's bf16 forward and
+backward, at:
 - the flagship's train step (b 128, 4 heads of 64 over one KV head): t 258
   padded (the encoders) and 257 causal (the decoder), fp32 and bf16;
 - scale_1024's decoder (b 8, 8 heads of 128 over one KV head): t 1025
@@ -29,11 +30,13 @@ difference is the one-pass route's rounding copies.
 
     python3 chip_probe_precision.py --parent DIR
 
-also holds the one-pass backward route on fp32 operands to that of the tree
-unpacked at DIR (`git archive` of an earlier commit, whose backward wrappers
-rounded q, k, v and dO to bf16 in torch before launching its
-bf16-operand, fp32-output entries): its library is built from DIR's
-sources, and dk, dv, dq and the slope gradient must have the same bits
+also holds the one-pass routes to those of the tree unpacked at DIR (`git
+archive` of an earlier commit whose forward wrapper rounded the operands
+to bf16 in torch, bf16(q*scale), k and v, and launched its bf16-operand
+entries with scale 1, and whose backward kernels took fp32 operands as
+they are): its two one-pass libraries are built from DIR's sources, and
+the forward's o and lse, on fp32 and bf16 operands, and the backward's dk,
+dv, dq and slope gradient, on fp32 operands, must have the same bits
 (`parent_route_bits`).
 Prints the card's name and power limit first and one JSON line per record.
 """
@@ -101,47 +104,72 @@ def profiled_steps(torch, cs, fa, tokenizer):
         torch.set_float32_matmul_precision(saved)
 
 
-def parent_route_bits(torch, cs, fa, parent):
-    """(label, record) per fp32 shape of SHAPES: the one-pass dK/dV and
-    dQ/dslope wrappers on fp32 operands against the route of the tree at
-    `parent` (q, k, v and dO rounded to bf16 by torch, its bf16-operand,
-    fp32-output entries), built from `parent`'s sources, on the same
-    inputs and forward; `same_bits` for dk, dv, dq and the slope gradient."""
+def parent_library(torch, parent, name, symbols):
+    """{symbol: entry} of one-pass library `name` built from the sources of
+    the tree at `parent`, with the port's C signature."""
     from scoreperformer_tpu_torch.ops import _build
 
-    src = os.path.join(parent, "scoreperformer_tpu_torch", "csrc", "flash_attention_bwd_one_pass.cu")
-    so = os.path.join(WORK, "parent_flash_attention_bwd_one_pass.so")
+    src = os.path.join(parent, "scoreperformer_tpu_torch", "csrc", f"{name}.cu")
+    so = os.path.join(WORK, f"parent_{name}.so")
     os.makedirs(WORK, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     entries = {}
-    for name in ("dkv", "dq"):
-        fn = getattr(lib, f"sp_flash_attention_bwd_{name}_one_pass_f32")
-        fn.argtypes, fn.restype = _build._FLASH_BWD_ARGS, ctypes.c_int
-        entries[name] = fn
+    for symbol in symbols:
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = _build.ENTRY_POINTS[name][symbol], ctypes.c_int
+        entries[symbol] = fn
+    return entries
+
+
+def parent_route_bits(torch, cs, fa, parent):
+    """(label, record) per shape of SHAPES: the one-pass forward on fp32 and
+    bf16 operands and the dK/dV and dQ/dslope wrappers on fp32 operands
+    against the route of the tree at `parent`, built from `parent`'s
+    sources, on the same inputs: its forward wrapper's bf16 copies,
+    bf16(q*scale), k and v, through its bf16-operand entries with scale 1;
+    its backward's fp32 entries on the fp32 operands. `same_bits` for o and
+    lse, and for dk, dv, dq and the slope gradient."""
+    fwd = parent_library(torch, parent, "flash_attention_fwd_one_pass",
+                         ("sp_flash_attention_fwd_one_pass", "sp_flash_attention_fwd_one_pass_f32"))
+    bwd = parent_library(torch, parent, "flash_attention_bwd_one_pass",
+                         ("sp_flash_attention_bwd_dkv_one_pass_f32", "sp_flash_attention_bwd_dq_one_pass_f32"))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def compare(names, new, old):
+        torch.cuda.synchronize()
+        return {"same_bits": {n: torch.equal(x, y) for n, x, y in zip(names, new, old)},
+                "max_abs_diff": {n: (x.float() - y.float()).abs().max().item() for n, x, y in zip(names, new, old)}}
+
     for label, b, t, causal, padded, h, d in SHAPES:
         q, k, v, slopes, mask, dout = cs.flash_bwd_inputs(torch, b, t, causal, padded, h, d, 1)
+        for dtype in ("fp32", "bf16"):
+            ops = (q, k, v) if dtype == "fp32" else tuple(x.bfloat16() for x in (q, k, v))
+            new = fa.flash_attention_fwd(*ops, slopes, mask, causal, one_pass=True)
+            qs, kb, vb = (ops[0].float() * d**-0.5).bfloat16(), ops[1].bfloat16(), ops[2].bfloat16()
+            o, lse = torch.empty_like(ops[0]), torch.empty(b, h, t, device=q.device)
+            entry = fwd["sp_flash_attention_fwd_one_pass" + ("_f32" if dtype == "fp32" else "")]
+            err = entry(qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), b, h, 1, t, t, d, int(causal), 1.0, stream)
+            if err:
+                raise RuntimeError(f"the parent's forward entry failed with CUDA error {err}")
+            yield f"forward, {label}, {dtype} operands", {"shape": [b, h, t, d], "causal": causal,
+                                                         **compare(("o", "lse"), new, (o, lse))}
         o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal, one_pass=True)
         delta = (dout * o).sum(-1).float()
         args = (q, k, v, slopes, mask, dout, lse, delta, causal)
         new = fa.flash_attention_bwd_dkv(*args, one_pass=True) + fa.flash_attention_bwd_dq(*args, one_pass=True)
-        qb, kb, vb, db = (x.bfloat16() for x in (q, k, v, dout))
         dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
         parts = torch.empty(fa.dq_slope_parts(b, h, 1, t), device=q.device)
-        stream = torch.cuda.current_stream().cuda_stream
         for name, outs in (("dkv", (dk, dv)), ("dq", (dq, parts))):
-            err = entries[name](qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
-                                db.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
-                                b, h, 1, t, t, d, int(causal), float(d**-0.5), stream)
+            err = bwd[f"sp_flash_attention_bwd_{name}_one_pass_f32"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(), mask.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs), b, h, 1, t, t, d, int(causal),
+                float(d**-0.5), stream)
             if err:
                 raise RuntimeError(f"the parent's {name} entry failed with CUDA error {err}")
-        old = (dk, dv, dq, parts.sum(dim=(0, 2)))
-        torch.cuda.synchronize()
-        same = {n: torch.equal(x, y) for n, x, y in zip(("dk", "dv", "dq", "dslopes"), new, old)}
-        yield f"{label}, fp32 operands", {"shape": [b, h, t, d], "causal": causal, "same_bits": same,
-                                           "max_abs_diff": {n: (x - y).abs().max().item()
-                                                            for n, x, y in zip(("dk", "dv", "dq", "dslopes"),
-                                                                               new, old)}}
+        yield f"backward, {label}, fp32 operands", {"shape": [b, h, t, d], "causal": causal, **compare(
+            ("dk", "dv", "dq", "dslopes"), new, (dk, dv, dq, parts.sum(dim=(0, 2))))}
 
 
 def step_spread(torch, cs, fa, tokenizer):
@@ -182,7 +210,7 @@ def step_spread(torch, cs, fa, tokenizer):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--parent", help="an earlier tree to hold the one-pass backward route's bits to")
+    parser.add_argument("--parent", help="an earlier tree to hold the one-pass routes' bits to")
     opts = parser.parse_args()
     import torch
 
@@ -221,7 +249,7 @@ def main() -> int:
                 print(f"{name}_bf16, {label}, timed", json.dumps({**rec, "card": smi}), flush=True)
     if opts.parent:
         for label, rec in parent_route_bits(torch, cs, fa, opts.parent):
-            print(f"one-pass backward against {opts.parent}, {label}", json.dumps({**rec, "card": smi}), flush=True)
+            print(f"one-pass route against {opts.parent}, {label}", json.dumps({**rec, "card": smi}), flush=True)
     tokenizer = SPMupleWindow(TokenizerConfig(additional_params={"max_bar_embedding": 256}))
     for label, rec in profiled_steps(torch, cs, fa, tokenizer):
         print(f"flagship step, {label}", json.dumps({**rec, "card": smi}), flush=True)

@@ -735,6 +735,17 @@ def fp32_fwd_smem(d, warpgroups, t):
     return warpgroups * 2 * 64 * d * 4 + 4 * keys * d * 4 + 3 * 8 + warpgroups * 16 + 4 * -(-t // 32) + 1024
 
 
+def one_pass_fwd_smem(d, operands, t):
+    """Dynamic shared memory of a one-pass forward launch, as
+    csrc/flash_attention_fwd_bf16.cu's FwdSmem lays it out: two q tiles and
+    three stages of K and V tiles in bf16 (64 rows each), the rows that land
+    to be rounded (q's in bf16, 2 tiles' worth; on fp32 operands q's, then a
+    key tile's, 4), 7 mbarriers (9 on fp32 operands), the warps' first keys,
+    the key mask's words and the 1024-byte alignment's slack."""
+    staged, bars = (4, 9) if operands == "fp32" else (2, 7)
+    return (2 + 6 + staged) * 64 * d * 2 + bars * 8 + 2 * 4 * 4 + 4 * -(-t // 32) + 1024
+
+
 def flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths=None):
     """Inputs of one backward call on the card, with random valid lengths
     when `padded` (batch element 0 has none when it is "empty"), or the given
@@ -1115,14 +1126,16 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     rounded operands, dslopes (from the
     unrounded dS) to 1e-3 of the fp64 one's largest value beyond the fp32
     plain version's own error, outputs in the inputs' dtype, and two calls
-    giving the same bits. On fp32 operands the backward kernels, which round
-    q, k, v and dO in the kernel, give the same bits on x as on fp32(bf16(x))
-    (dk, dv, dq and the slope parts: the rounding is torch's). Returns the
-    records of the forward, dK/dV and dQ/dslope kernels; timed when `timed`
-    (by CUDA-graph replay, the kernel launches alone on what each kernel
-    reads: the forward the wrapper's rounded copies, whose casts are timed
-    beside (`cast_ms`), the backward kernels the operands as they are, with
-    no copy; SDPA's bf16 forward and backward as the library)."""
+    giving the same bits. The kernels round q, k, v and dO themselves, so
+    they give the same bits on the operands as on their roundings (the
+    rounding is torch's): the forward's o and lse on (q, k, v) with the
+    scale s as on (bf16(q*s), bf16(k), bf16(v)) with scale 1, those in fp32
+    on fp32 operands; on fp32 operands the backward kernels' dk, dv, dq and
+    slope parts on x as on fp32(bf16(x)). Returns the records of the
+    forward, dK/dV and dQ/dslope kernels; timed when `timed` (by CUDA-graph
+    replay, the kernel launches alone on the operands as the wrappers
+    receive them, with no copy (`cast_ms` 0); SDPA's bf16 forward and
+    backward as the library)."""
     import torch.nn.functional as F
 
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -1157,6 +1170,12 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
                              f"bounds {over}, lse {lse_gate}, dslopes {dslopes_err}")
     if not all(torch.equal(x, y) for x, y in zip(got + (o, lse), again + (o2, lse2))):
         raise AssertionError(f"two one-pass flash calls give other bits at {where}")
+    rounded = ((q.float() * scale).bfloat16(), k.bfloat16(), v.bfloat16())
+    rounded = [x.to(q.dtype) for x in rounded]
+    o_r, lse_r = fa._fwd_launch(*rounded, slopes, mask, causal, 1.0, True)
+    if not (torch.equal(o, o_r) and torch.equal(lse, lse_r)):
+        raise AssertionError(f"the one-pass forward kernel gives other bits on (q, k, v) with scale {scale} than on "
+                             f"(bf16(q*scale), bf16(k), bf16(v)) with scale 1 at {where}")
     if dtype == "fp32":
         rounded = [x.bfloat16().float() for x in (q, k, v, dout)]
         on_x, on_rounded = (one_pass_bwd_parts(torch, fa, *ops, slopes, mask, lse, delta, causal)
@@ -1172,19 +1191,15 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     dq = {**shape, "max_abs_err": max((x.float() - y.float()).abs().max().item() for x, y in zip(got[2:], want[2:]))}
     if not timed:
         return fwd, dkv, dq
-    # the kernels alone, writing outputs in the inputs' dtype: the forward
-    # on the copies its wrapper rounds (q scaled first), the backward on the
-    # operands as its wrappers receive them (each set: those operands, then
-    # the forward's copies)
-    ops = [(qc, kc, vc, dc, (qc.float() * scale).bfloat16(), kc.bfloat16(), vc.bfloat16())
-           for qc, kc, vc, dc in [(q.clone(), k.clone(), v.clone(), dout.clone())
-                                  for _ in range(n_copies(2 * (q.numel() + k.numel() + v.numel() + dout.numel())))]]
-    out_dtype = q.dtype
-    fwd["ms"] = graph_ms(torch, lambda qc, kc, vc, dc, qs_, kb, vb: fa._fwd_launch(
-        qs_, kb, vb, slopes, mask, causal, 1.0, out_dtype, True), ops, iters=50)
+    # the kernels alone, writing outputs in the inputs' dtype, on the
+    # operands as their wrappers receive them (no wrapper makes a copy)
+    ops = [(q.clone(), k.clone(), v.clone(), dout.clone())
+           for _ in range(n_copies(q.element_size() * (q.numel() + k.numel() + v.numel() + dout.numel())))]
+    fwd["ms"] = graph_ms(torch, lambda qc, kc, vc, dc: fa._fwd_launch(qc, kc, vc, slopes, mask, causal, scale, True),
+                         ops, iters=50)
 
     def bwd(name, outs):
-        return lambda qc, kc, vc, dc, *_: fa._bwd_launch(
+        return lambda qc, kc, vc, dc: fa._bwd_launch(
             f"flash_attention_bwd_{name}", f"sp_flash_attention_bwd_{name}", qc, kc, vc, slopes, mask, dc, lse, delta,
             causal, scale, outs(), True)
 
@@ -1192,13 +1207,7 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     parts = fa.dq_slope_parts(b, h, hk, t)
     dq["ms"] = graph_ms(torch, bwd("dq", lambda: (torch.empty_like(q), torch.empty(parts, device=q.device))), ops,
                         iters=20)
-    # the casts the forward's wrapper makes, on the tensors it receives:
-    # q*scale, k and v (q alone on bf16 operands); the backward wrappers
-    # make none
-    fwd["cast_ms"] = graph_ms(torch, lambda qc, kc, vc, dc, *_: (
-        (qc.float() * scale).bfloat16(), *(() if dtype == "bf16" else (kc.bfloat16(), vc.bfloat16()))),
-        ops, iters=50)
-    bwd_cast = dkv["cast_ms"] = dq["cast_ms"] = 0.0
+    fwd["cast_ms"] = dkv["cast_ms"] = dq["cast_ms"] = 0.0  # no wrapper casts
     del ops
     fwd["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask, causal, one_pass=True))
     dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args, one_pass=True), iters=10,
@@ -1220,19 +1229,17 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     dkv["library_ms"] = dq["library_ms"] = library
     dkv["library_timing"] = dq["library_timing"] = library_timing
     dkv["pair_over_library"] = dq["pair_over_library"] = (dkv["ms"] + dq["ms"]) / library
-    print(f"one-pass kernels ({dtype}) at {(b, h, hk, d, t, causal, padded)}: forward {fwd['ms']:.4f} ms (casts "
-          f"{fwd['cast_ms']:.4f}), SDPA's bf16 forward {fwd['library_ms']:.4f}; dK/dV {dkv['ms']:.4f}, dQ/dslope "
-          f"{dq['ms']:.4f} ms (casts {bwd_cast:.4f} a wrapper), SDPA's bf16 backward {library:.4f}")
+    print(f"one-pass kernels ({dtype}) at {(b, h, hk, d, t, causal, padded)}, on the operands as received: forward "
+          f"{fwd['ms']:.4f} ms, SDPA's bf16 forward {fwd['library_ms']:.4f}; dK/dV {dkv['ms']:.4f}, dQ/dslope "
+          f"{dq['ms']:.4f} ms, SDPA's bf16 backward {library:.4f}")
     # bounds: each kernel's bf16 passes (ONE_PASS_PASSES) at 989 TFLOP/s,
-    # against its bytes: operands read once (the forward's bf16 copies, the
-    # backward's in the inputs' dtype), outputs written once in the inputs'
-    # dtype, fp32 lse, delta, slopes and slope parts
+    # against its bytes: operands read once and outputs written once in the
+    # inputs' dtype, fp32 lse, delta, slopes and slope parts
     pairs = ok.expand(b, 1, t, t).sum().item()
     product = 2 * d * h * pairs
-    bf16, f32, out = 2, 4, q.element_size()
+    f32, out = 4, q.element_size()
     for rec, key, nbytes in (
-        (fwd, "fwd", bf16 * (q.numel() + k.numel() + v.numel()) + out * q.numel() + f32 * (lse.numel() + h)
-         + mask.numel()),
+        (fwd, "fwd", out * (2 * q.numel() + k.numel() + v.numel()) + f32 * (lse.numel() + h) + mask.numel()),
         (dkv, "dkv", out * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()) + f32 * (2 * lse.numel() + h)
          + mask.numel()),
         (dq, "dq", out * (3 * q.numel() + k.numel() + v.numel()) + f32 * (2 * lse.numel() + h + math.prod(parts))
@@ -1458,15 +1465,18 @@ def train_config(tokenizer, root, out_dir, batch_size, max_steps):
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # PyTorch's copy kernels (names holding `copy_kernel`), which convert
 # dtypes: in a profile of the flagship's step the one-pass wrappers'
-# rounding copies are what the "medium" step runs beyond the fp32 one (110
+# rounding copies were what the "medium" step ran beyond the fp32 one (110
 # with every wrapper rounding, 30 with the forward's alone; H100,
 # chip_probe_precision.py::profiled_steps)
 CONVERSION_KERNEL = "copy_kernel"
-# the one-pass forward wrapper's conversions a launch on fp32 operands
-# (q*scale, k and v to bf16); the backward wrappers make none, where they
-# once made 4 each (q, k, v and dO), 8 a backward
-ONE_PASS_FWD_CONVERSIONS = 3
-ONE_PASS_BWD_CONVERSIONS_BEFORE = 8
+# the one-pass forward wrapper's conversions a launch on fp32 operands (the
+# kernels round their operands themselves; the backward wrappers' make none)
+ONE_PASS_FWD_CONVERSIONS = 0
+# the "medium" step's conversions over the fp32 step's, at most: a profile's
+# count moves by a few between steps and runs, and the forward wrapper's
+# copies (3 a launch, 30 a step) gave +22 to +30 (H100: 298, 299 and 299
+# against 276 in three runs of one program, 307 against 277 in another)
+CONVERSIONS_OVER_FP32_LIMIT = 15
 
 
 def flash_counts(fa, dtype="fp32"):
@@ -4302,9 +4312,9 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
        a step, one more profiled (the GEMM kernels cuBLAS takes under
        "medium"; busy ms beside the fp32 step's), whose dtype conversions
        (`CONVERSION_KERNEL`) over the fp32 step's `fp32_conversions` (the
-       train phase's profile) are the forward wrapper's rounding copies,
-       ONE_PASS_FWD_CONVERSIONS a launch, and none of the backward
-       wrappers' (recorded; gated below halfway to what those would add);
+       train phase's profile) hold none of the wrappers' rounding copies
+       (gated under CONVERSIONS_OVER_FP32_LIMIT, below the 30 the forward's
+       alone would add);
     3. the 32-bar `score` rendered greedy: 6 one-pass forwards (the
        encoders), the chunked decode's launches, `check_performance`;
     4. a batch-4 step of `model_config` on the card against the same step
@@ -4368,19 +4378,16 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
                 one_pass_instance(k) for k in kernels):
             raise AssertionError(f"the profiled step under \"medium\" ran the flash kernels {prof['ported']}")
         rec["train"]["profile"] = prof
-        # a profile's count moves by a few between steps and runs (on the
-        # H100: 298 and 299 against the fp32 step's 276 in two runs of one
-        # program, 307 against 277 in another), so the gate sits halfway
-        # between the forward's 30 more and the 110 more with the backward
-        # wrappers' copies (the route before the kernels rounded them)
+        # no wrapper copies: the count within a few of the fp32 step's, under
+        # the 30 more that the forward's copies alone would add
         conversions = prof["counted"][CONVERSION_KERNEL]["count"]
-        limit = 10 * (ONE_PASS_FWD_CONVERSIONS + ONE_PASS_BWD_CONVERSIONS_BEFORE // 2)
+        limit = CONVERSIONS_OVER_FP32_LIMIT
         rec["train"]["conversions"] = {"medium": conversions, "fp32_step": fp32_conversions,
                                        "forward_copies": 10 * ONE_PASS_FWD_CONVERSIONS, "limit_over_fp32": limit}
         if conversions - fp32_conversions >= limit:
             raise AssertionError(f"the profiled step under \"medium\" ran {conversions} dtype conversions, the fp32 "
-                                 f"step {fp32_conversions}: the backward wrappers' copies are back (the forward's "
-                                 f"make {10 * ONE_PASS_FWD_CONVERSIONS} more, limit {limit})")
+                                 f"step {fp32_conversions}: the wrappers' rounding copies are back (the forward's "
+                                 f"made 30 more; limit +{limit})")
         print(f"precision: train steps under \"medium\" ({smi})", json.dumps(rec["train"]))
         del comp, trainer, batch
         torch.cuda.empty_cache()
@@ -4655,6 +4662,21 @@ def smoke(torch, refs, t_script) -> int:
         one_pass_gmma_dims.update(dims)
     print(f"bf16 warpgroup instructions (HGMMA) in the one-pass instances' SASS, and no TF32 instruction, by "
           f"kernel: {json.dumps(one_pass_gmma)}; by kernel and head dim: {json.dumps(one_pass_gmma_dims)}")
+    # the one-pass forward by head dim and operand dtype: ptxas's registers,
+    # spills and static shared memory, and the dynamic shared memory of a
+    # launch at the flagship's t (258) and scale_1024's (1026); no spill and
+    # no serialized wgmma (C7518), with the rounding of its operands in it
+    one_pass_log = libs["flash_attention_fwd_one_pass"].with_suffix(".log").read_text()
+    one_pass_ptxas = ptxas_entries(one_pass_log, "flash_fwd_bf16")
+    for entry in one_pass_ptxas:
+        entry["operands"] = "fp32" if re.search(r"flash_fwd_bf16ILi\d+ELi1EffE", entry["function"]) else "bf16"
+        entry["dynamic_smem"] = {t: one_pass_fwd_smem(entry["d"], entry["operands"], t) for t in (258, 1026)}
+        print("ptxas flash_fwd_bf16 one-pass by head dim",
+              json.dumps({k: v for k, v in entry.items() if k not in ("function", "warpgroups")}))
+    if len(one_pass_ptxas) != 2 * len(fa.KERNEL_HEAD_DIMS) or any(e.get("spill_stores") for e in one_pass_ptxas) \
+            or "C7518" in one_pass_log:
+        raise AssertionError("ptxas spilled registers in the one-pass forward, serialized its wgmmas (C7518), or "
+                             f"built {len(one_pass_ptxas)} instances")
     print(f"TF32 warpgroup instructions (HGMMA) in the fp32 forward's SASS, and no TF32 HMMA, by kernel: "
           f"{json.dumps(fwd_gmma)}; by kernel and head dim: {json.dumps(fwd_gmma_dims)}")
     print(f"TF32 warpgroup instructions (HGMMA) in the fp32 backward's SASS, and no TF32 HMMA, by kernel: "
@@ -5220,9 +5242,8 @@ def smoke(torch, refs, t_script) -> int:
         # the one-pass instances (the TPU's "default" numerics, under
         # torch.set_float32_matmul_precision("medium")), as the flagship's
         # fp32 train steps launch them (`instances`: their names in the
-        # profiled step); `ms` the forward on its wrapper's rounded copies,
-        # `cast_ms` those copies beside, and the backward kernels on the fp32
-        # operands, which they round themselves (`cast_ms` 0)
+        # profiled step); `ms` each kernel on the fp32 operands, which it
+        # rounds itself (`cast_ms` 0: no wrapper copies)
         {"name": f"{name}_one_pass", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": precision["train"]["launches"][f"{name}_one_pass"],
          **{k: rec[k] for k in bound_keys + ("cast_ms", "bf16_passes", "over_library", "pair_over_library",
@@ -5232,7 +5253,8 @@ def smoke(torch, refs, t_script) -> int:
          "bf16_hgmma_in_sass": one_pass_gmma[kernel], "bf16_hgmma_by_head_dim": one_pass_gmma_dims[kernel]}
         for name, source, replaces, rec, kernel, ported, operands in (
             ("flash_attention_fwd", "flash_attention_fwd_one_pass.cu", "scoreperformer_tpu/ops/flash_attention.py:49",
-             precision["main"][0], "flash_fwd_bf16", "flash_fwd", "bf16 copies made by the wrapper"),
+             precision["main"][0], "flash_fwd_bf16", "flash_fwd",
+             "fp32, rounded to bf16 in the kernel, q after the scale"),
             ("flash_attention_bwd_dkv", "flash_attention_bwd_one_pass.cu",
              "scoreperformer_tpu/ops/flash_attention.py:135", precision["main"][1], "flash_bwd_dkv_bf16",
              "flash_bwd_dkv", "fp32, rounded to bf16 in the kernel"),

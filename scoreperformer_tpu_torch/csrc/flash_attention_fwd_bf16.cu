@@ -2,7 +2,8 @@
 // kernel, on Hopper's warpgroup MMA (`wgmma`): o in bf16 and the row
 // logsumexp in fp32, every sum fp32-accurate; and, built from this file by
 // csrc/flash_attention_fwd_one_pass.cu (SP_FLASH_ONE_PASS), the one-pass
-// instances (kTerms = 1), o in bf16 or fp32.
+// instances (kTerms = 1): bf16 operands and o, or fp32 operands rounded to
+// bf16 in the kernel and fp32 o.
 //
 // Replaces: scoreperformer_tpu/ops/flash_attention.py::_flash_kernel (:49),
 // the Pallas forward that `_flash_forward` launches (:314) for
@@ -31,15 +32,23 @@
 // atomics, and every sum runs in a fixed order: two calls give the same bits.
 // The one-pass instances (kTerms = 1) take the TPU's "default" numerics: P
 // is one bf16 term, bf16(P) rounded to nearest even, so P.V is 4 products a
-// tile, and the wrapper passes q rounded to bf16 after the scale (the
-// Pallas kernel's bf16(q*scale)) with scale 1; fp32 operands come rounded
-// to bf16 by the wrapper, and o is written in their dtype (`Out`).
+// tile, and S = bf16(q*scale).bf16(k) (the Pallas kernel scales q before
+// its dot). They take q, k and v as the caller holds them (`In`: bf16, or
+// fp32) with the real scale, and round them here: q times the scale in
+// fp32, then to bf16, and k and v (fp32) to bf16, each to nearest even as
+// torch rounds (`cvt.rn`), so the bits are those of `(q.float() *
+// scale).to(torch.bfloat16)` and `.to(torch.bfloat16)`; S is then scaled
+// by 1. The rest is the arithmetic the instances ran on such copies, and o
+// is written in the operands' dtype (`Out`).
 //
 // Bound on the H100: 4 bf16 passes over the valid (query, key) pairs of
 // each head (S, and three for P.V; 2 for the one-pass instances), each 2*d
 // operations a pair, at 989 TFLOP/s (bf16 dense); the bytes (q, k, v, o in
 // bf16, lse) are far below at the timed shapes (chip_smoke.py's
-// `bound_tc_ms`, BF16_FWD_PASSES, ONE_PASS_PASSES).
+// `bound_tc_ms`, BF16_FWD_PASSES, ONE_PASS_PASSES). On fp32 operands the
+// one-pass instances read 4 bytes an element and write fp32 o, and the
+// bytes bound them at the flagship's shapes (about 85 MB at b 128, h 4,
+// one KV head, d 64, t 258: 0.025 ms; chip_smoke.py::check_flash_one_pass).
 //
 // Design. A CTA of two warpgroups (256 threads) holds 128 query rows: each
 // warpgroup 64, wgmma's M. With one KV head the 64 rows of a warpgroup are
@@ -70,6 +79,50 @@
 // first. Every branch that a wgmma follows is on a value that ptxas sees as
 // warp-uniform (`uniform`), and S is waited for on every path: otherwise
 // ptxas serializes every wgmma (its C7518), which cost 4-15%.
+//
+// Operands rounded here (the one-pass instances). Rounding in the kernel
+// takes the wrapper's copies away (three conversions a forward on fp32
+// operands, bf16(q*scale) on bf16 ones: a pass over q, k and v each time,
+// 30 a flagship train step). Operand rows land by TMA unswizzled
+// (`wg::rows_map`, a box of all d columns) in a staging area, `kStaged`,
+// and the threads round them into the bf16 swizzle that the unchanged
+// wgmmas read (`wg::round_tile`), fence them for the async proxy and then
+// mark them ready, as the backward's fp32 instances do
+// (csrc/flash_attention_bwd_bf16.cu).
+// - q lands once a CTA as rows, each warpgroup's in its half of kStaged;
+//   each warpgroup scales and rounds its own q tile and waits only for its
+//   own threads (a named barrier). On bf16 operands that is all: K and V
+//   come swizzled into the ring as before.
+// - fp32 K and V: key tile 0's rows land where stages 1 and 2 lie, with q
+//   on q's barrier, and are rounded into stage 0 before the loop (stage 0's
+//   barrier orders those reads before stage 1's first rounding). After
+//   that one staging buffer takes one key tile's rows at a time, split
+//   between the warpgroups: warpgroup 0 rounds K, warpgroup 1 V, each
+//   through its own half of kStaged, which its first thread refills with
+//   the tile after next once the warpgroup's threads have read it (a named
+//   barrier) and waits for on its own mbarrier; a stage's full barrier
+//   counts all 256 threads, so neither warpgroup waits for the other but
+//   where it needs the other's half of a tile. Each warpgroup rounds its
+//   half of tile j+1 while its P.V wgmmas of tile j run, into the stage
+//   that tile j-2 used once every warp has released it; a half's copy is
+//   issued a whole tile step before its rounding. Loads in flight a thread
+//   are held to 4 at d = 128, where the accumulators take most registers.
+//   Shared memory: one fp32 stage of K and V is 4 bf16 tiles, so at d = 128
+//   the CTA holds 192 KB of tiles (128 KB on bf16 operands), still one CTA
+//   an SM (chip_smoke.py::one_pass_fwd_smem, with ptxas's report).
+// What the card showed (graph replay on the H100, PERF.md §6 PR 24): the
+// route's bits are those of the wrapper's copies through the same kernel;
+// on fp32 operands at the flagship's shapes (b 128, h 4, one KV head, d 64,
+// t 258 / 257) 0.081 / 0.071 ms, against 0.116 / 0.110 for the copies and
+// the kernel on them (0.067 / 0.059 alone), and 0.74x / 0.37x SDPA's bf16
+// forward. Tried and dropped, each the same bits and within 1% at d = 64:
+// q landed where the q tiles and stage 0 lie so that key tile 1 lands at
+// the start; each warpgroup rounding its half two tiles ahead (a tile and
+// a half of slack between the warpgroups); K and V loaded into registers a
+// tile ahead, never in fp32 in shared memory (at d = 128 it spills, 2.2x).
+// So neither the prologue, the coupling nor the staging round trip costs
+// the 22% over the kernel on copies; the fp32 rows read from L2, twice the
+// bytes, are what is left. 8 loads in flight at d = 128 spill (+5%).
 //
 // Masked tiles and rows with no valid key: a key tile whose keys are all
 // masked is skipped unless the CTA holds a query row with no valid key; with
@@ -110,14 +163,25 @@ constexpr int kGroups = 2;    // warpgroups of a CTA
 constexpr int kStages = 3;    // K/V tiles in flight
 constexpr float kMaskValue = -1e30f;
 
+// bf16 tiles' worth of operand rows that land in `kStaged` before the
+// threads round them: none for the three-term instances, q's bf16 rows (2)
+// for the one-pass instances on bf16 operands, and on fp32 operands q's
+// fp32 rows, then a key tile's K and V (4)
+template <int kTerms, typename In>
+__host__ __device__ constexpr int staged_tiles() {
+  return std::is_same_v<In, float> ? 4 : kTerms == 1 ? 2 : 0;
+}
+
 // the CTA's shared memory, from a 1024-byte aligned base
-template <int D>
+template <int D, int kStagedTiles>
 struct FwdSmem {
   static constexpr int kTile = Tile<D>::kBytes;
   static constexpr int kQ = 0;                       // [warpgroup] q tiles
   static constexpr int kKV = kGroups * kTile;        // [stage][K, V] tiles
-  static constexpr int kBars = kKV + kStages * 2 * kTile;  // mbarriers: q, full[stage], empty[stage]
-  static constexpr int kWarpFirst = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kStaged = kKV + kStages * 2 * kTile;  // [warpgroup] halves of the rows to round
+  // mbarriers: q, full[stage], empty[stage], and on fp32 operands staged[warpgroup]
+  static constexpr int kBars = kStaged + kStagedTiles * kTile;
+  static constexpr int kWarpFirst = kBars + (1 + 2 * kStages + (kStagedTiles == 4 ? kGroups : 0)) * 8;
   static constexpr int kBits = kWarpFirst + kGroups * 4 * 4;  // [32-key words]
   static int bytes(int tk) { return kBits + 4 * ((tk + 31) / 32) + 1024; }  // and the alignment's slack
 };
@@ -126,14 +190,24 @@ struct FwdSmem {
 // row blocks). A row block is 64 (head, position) rows: heads_per_block
 // heads x 64 / heads_per_block positions. tm_q takes boxes of (positions,
 // heads_per_block) rows, so a warpgroup's 64 rows come in one copy. kTerms:
-// P's bf16 terms (3, or 1 for the one-pass instances); Out: o's type.
-template <int D, int kTerms, typename Out>
+// P's bf16 terms (3, or 1 for the one-pass instances); Out: o's type; In:
+// q's, k's and v's (bf16, or fp32 for the one-pass instances, rounded
+// here). S is scaled by `scale`; the one-pass instances round
+// bf16(q*q_scale) themselves and take `scale` 1.
+template <int D, int kTerms, typename Out, typename In>
 __global__ void __launch_bounds__(kGroups * kWG, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ slopes,
                    const uint8_t* __restrict__ mask, Out* __restrict__ out, float* __restrict__ lse, int h, int hk,
-                   int tq, int tk, int causal, float scale, int heads_per_block) {
-  using S = FwdSmem<D>;
+                   int tq, int tk, int causal, float scale, float q_scale, int heads_per_block) {
+  constexpr bool kF32 = std::is_same_v<In, float>;
+  constexpr bool kRoundQ = kTerms == 1;  // q scaled and rounded here
+  static_assert(kF32 || std::is_same_v<In, bf16>, "bf16 or fp32 operands");
+  static_assert(!kF32 || kRoundQ, "fp32 operands in the one-pass instances");
+  using S = FwdSmem<D, staged_tiles<kTerms, In>()>;
+  // loads in flight a thread while it rounds K or V beside P.V's wgmmas,
+  // whose accumulators hold most registers at d = 128
+  constexpr int kRoundBatch = D >= 128 ? 4 : 8;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -142,6 +216,7 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + S::kBits);
   const uint32_t bar_q = base + S::kBars;
   const uint32_t full = bar_q + 8, empty = full + 8 * kStages;  // [stage] at + 8 * stage
+  const uint32_t staged = empty + 8 * kStages;  // fp32 operands: [warpgroup] its half of kStaged at + 8 * group
 
   const int tid = threadIdx.x;
   // the warpgroup, warp-uniform as ptxas sees it: wgmmas behind a branch
@@ -150,7 +225,8 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   // from lane 0 (`uniform`)
   auto uniform = [](int x) { return __shfl_sync(0xffffffffu, x, 0); };
   const int group = uniform(tid / kWG);
-  const int w = (tid % kWG) / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int wtid = tid % kWG;
+  const int w = wtid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int positions = kRows / heads_per_block;
   const int b = heads_per_block == 1 ? blockIdx.x / h : blockIdx.x;
   const int head0 = heads_per_block == 1 ? blockIdx.x % h : 0;
@@ -163,23 +239,40 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   const uint32_t qt = base + S::kQ + group * S::kTile;
 
   // both row blocks of q, and key tile 0 before the mask is read: the walk
-  // over the key tiles starts there whatever the mask
+  // over the key tiles starts there whatever the mask. The one-pass
+  // instances' q lands as rows in kStaged, warpgroup gr's in its half; on
+  // fp32 operands key tile 0's K and V rows land where stages 1 and 2 lie,
+  // on q's barrier.
   if (tid == 0) {
     wg::prefetch_map(&tm_q);
     wg::prefetch_map(&tm_k);
     wg::prefetch_map(&tm_v);
     wg::mbar_init(bar_q, 1);
     for (int st = 0; st < kStages; ++st) {
-      wg::mbar_init(full + 8 * st, 1);
+      wg::mbar_init(full + 8 * st, kF32 ? kGroups * kWG : 1);  // on fp32 operands every thread fills a stage
       wg::mbar_init(empty + 8 * st, kGroups * kWG / 32);  // every warp releases a stage
     }
+    if constexpr (kF32)
+      for (int gr = 0; gr < kGroups; ++gr) wg::mbar_init(staged + 8 * gr, 1);
     wg::mbar_init_fence();
-    wg::mbar_expect_tx(bar_q, kGroups * S::kTile);
-    for (int gr = 0; gr < kGroups; ++gr)
-      wg::tma_tile<D>(base + S::kQ + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
-    wg::mbar_expect_tx(full, 2 * S::kTile);
-    wg::tma_tile<D>(base + S::kKV, &tm_k, 0, kv_slab, full);
-    wg::tma_tile<D>(base + S::kKV + S::kTile, &tm_v, 0, kv_slab, full);
+    if constexpr (kF32) {
+      wg::mbar_expect_tx(bar_q, 8 * S::kTile);
+      for (int gr = 0; gr < kGroups; ++gr)
+        wg::tma_rows(base + S::kStaged + gr * 2 * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
+      wg::tma_rows(base + S::kKV + 2 * S::kTile, &tm_k, 0, kv_slab, bar_q);
+      wg::tma_rows(base + S::kKV + 4 * S::kTile, &tm_v, 0, kv_slab, bar_q);
+    } else {
+      wg::mbar_expect_tx(bar_q, kGroups * S::kTile);
+      for (int gr = 0; gr < kGroups; ++gr) {
+        if constexpr (kRoundQ)
+          wg::tma_rows(base + S::kStaged + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
+        else
+          wg::tma_tile<D>(base + S::kQ + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
+      }
+      wg::mbar_expect_tx(full, 2 * S::kTile);
+      wg::tma_tile<D>(base + S::kKV, &tm_k, 0, kv_slab, full);
+      wg::tma_tile<D>(base + S::kKV + S::kTile, &tm_v, 0, kv_slab, full);
+    }
   }
 
   // this thread's rows: g and g + 8 of its warp's 16
@@ -223,10 +316,28 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
     wg::tma_tile<D>(kt, &tm_k, tile * kRows, kv_slab, full + 8 * stage);
     wg::tma_tile<D>(kt + S::kTile, &tm_v, tile * kRows, kv_slab, full + 8 * stage);
   };
+  // fp32 operands: the warpgroups share each key tile's rounding, warpgroup
+  // 0 K's and warpgroup 1 V's, each through its own half of kStaged, which
+  // its first thread refills (`stage_rows`) once its threads have read it
+  // (`group_sync`): neither waits for the other but on a stage's barriers
+  auto group_sync = [&]() { asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(kWG) : "memory"); };
+  auto stage_rows = [&](int tile) {
+    const uint32_t bar = staged + 8 * group;
+    wg::mbar_expect_tx(bar, 2 * S::kTile);
+    wg::tma_rows(base + S::kStaged + group * 2 * S::kTile, group == 0 ? &tm_k : &tm_v, tile * kRows, kv_slab, bar);
+  };
+  // this warpgroup's half of the key tile at `src` (fp32 rows) rounded into
+  // stage `stage`, then the stage marked filled by its threads
+  auto round_half = [&](const uint8_t* src, int stage) {
+    wg::round_tile<D, kWG, float, false, kRoundBatch>(src, smem + S::kKV + (stage * 2 + group) * S::kTile, wtid);
+    wg::fence_proxy_async();
+    wg::mbar_arrive(full + 8 * stage);
+  };
 
-  // thread 0's cursor over the tiles still to issue; the first stages now
+  // thread 0's cursor over the tiles still to issue (on fp32 operands, the
+  // tile whose rows come to kStaged next); the first stages now
   int ahead = next_tile(1);
-  if (tid == 0)
+  if (!kF32 && tid == 0)
     for (int st = 1; st < kStages && ahead < end; ++st) {
       issue(ahead, st);
       ahead = next_tile(ahead + 1);
@@ -240,11 +351,11 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   // full tiles below every row need no mask
   const bool rows_plain = !empty_row && q0 + positions <= tq;
 
-  // the tile after the ring's others into the stage tile j-1 used, once
-  // every warp has released it (thread 0; the first ones came before the
-  // loop)
+  // bf16 operands: the tile after the ring's others into the stage tile j-1
+  // used, once every warp has released it (thread 0; the first ones came
+  // before the loop)
   auto refill = [&](int j) {
-    if (tid == 0 && j >= 1 && ahead < end) {
+    if (!kF32 && tid == 0 && j >= 1 && ahead < end) {
       const int prev = (j - 1) % kStages;
       wg::mbar_wait(empty + 8 * prev, ((j - 1) / kStages) & 1);
       issue(ahead, prev);
@@ -261,6 +372,22 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
       wg::mma_ss_n64<0>(s, wg::desc_k<D>(qt, kk), wg::desc_k<D>(stage_tile(j), kk), kk > 0);
   };
   wg::mbar_wait(bar_q, 0);
+  if constexpr (kRoundQ) {
+    // this warpgroup's q rows times the scale, rounded into its q tile
+    // (bf16(q*scale), as `_flash_kernel` scales q before its dot); the tile
+    // whole before its wgmmas read it
+    wg::round_tile<D, kWG, In, true>(smem + S::kStaged + group * (kF32 ? 2 : 1) * S::kTile, smem + S::kQ +
+                                     group * S::kTile, wtid, q_scale);
+    wg::fence_proxy_async();
+    group_sync();
+  }
+  if constexpr (kF32) {
+    // this warpgroup's half of kStaged, read, takes key tile 1's rows; tile
+    // 0's, landed where stages 1 and 2 lie, are rounded into stage 0, and
+    // stage 0's barrier orders those reads before stage 1's first rounding
+    if (wtid == 0 && ahead < end) stage_rows(ahead);
+    round_half(smem + S::kKV + (2 + 2 * group) * S::kTile, 0);
+  }
   wg::mbar_wait(full, 0);
   wg::hold(s);
   wg::fence();
@@ -347,6 +474,22 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
         wg::mma_rs<D, 1>(tile_sum, a[kk][term], wg::desc_mn<D>(vt, kk), kk > 0 || term < kTerms - 1);
     wg::commit();
     refill(j);
+    if constexpr (kF32) {
+      // while P.V runs: this warpgroup's half of the next tile, from
+      // kStaged into its stage once every warp has released the stage's
+      // last tile; then the tile after it into kStaged
+      if (!last) {
+        const int ns = (j + 1) % kStages;
+        if (j + 1 >= kStages) wg::mbar_wait(empty + 8 * ns, ((j - 2) / kStages) & 1);
+        wg::mbar_wait(staged + 8 * group, j & 1);
+        round_half(smem + S::kStaged + group * 2 * S::kTile, ns);
+        group_sync();
+        if (wtid == 0) {
+          const int far = next_tile(nxt + 1);
+          if (far < end) stage_rows(far);
+        }
+      }
+    }
     // element 4j + 2i + c of acc: row g + 8i of warp w, column 8j + 2t4 + c
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
@@ -388,34 +531,43 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   }
 }
 
-template <int D, int kTerms, typename Out>
-int launch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, Out* out,
-           float* lse, int b, int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
-  static const int granted = grant_smem(flash_fwd_bf16<D, kTerms, Out>);
-  const int smem = FwdSmem<D>::bytes(tk);
+template <int D, int kTerms, typename Out, typename In>
+int launch(const In* q, const In* k, const In* v, const float* slopes, const uint8_t* mask, Out* out, float* lse,
+           int b, int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
+  constexpr bool kRoundQ = kTerms == 1;
+  static const int granted = grant_smem(flash_fwd_bf16<D, kTerms, Out, In>);
+  const int smem = FwdSmem<D, staged_tiles<kTerms, In>()>::bytes(tk);
   if (smem > granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
   const int positions = kRows / heads_per_block;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!(tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) && tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) &&
-        tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1)))
-    return (int)cudaErrorInvalidValue;
+  bool mapped;
+  if constexpr (std::is_same_v<In, float>)
+    mapped = wg::rows_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
+             wg::rows_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && wg::rows_map<D>(&tm_v, v, tk, b * hk, kRows, 1);
+  else
+    mapped = (kRoundQ ? wg::rows_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block)
+                      : tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block)) &&
+             tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1);
+  if (!mapped) return (int)cudaErrorInvalidValue;
   const int row_blocks = (tq + positions - 1) / positions;
   const dim3 grid(mqa ? b : b * h, (row_blocks + kGroups - 1) / kGroups);
-  flash_fwd_bf16<D, kTerms, Out><<<grid, kGroups * kWG, smem, stream>>>(tm_q, tm_k, tm_v, slopes, mask, out, lse, h,
-                                                                        hk, tq, tk, causal, scale, heads_per_block);
+  // the one-pass instances scale q before they round it and S by 1
+  flash_fwd_bf16<D, kTerms, Out, In><<<grid, kGroups * kWG, smem, stream>>>(
+      tm_q, tm_k, tm_v, slopes, mask, out, lse, h, hk, tq, tk, causal, kRoundQ ? 1.f : scale, kRoundQ ? scale : 1.f,
+      heads_per_block);
   return (int)cudaGetLastError();
 }
 
-template <int kTerms, typename Out>
-int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, const uint8_t* mask, Out* out,
-             float* lse, int b, int h, int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
+template <int kTerms, typename Out, typename In>
+int dispatch(const In* q, const In* k, const In* v, const float* slopes, const uint8_t* mask, Out* out, float* lse,
+             int b, int h, int hk, int tq, int tk, int d, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hk != 1 && hk != h) return (int)cudaErrorInvalidValue;
   auto run = [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return launch<D, kTerms, Out>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
+    return launch<D, kTerms, Out, In>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, causal, scale, s);
   };
   switch (d) {
     case 16:
@@ -433,10 +585,11 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* slopes, c
 
 }  // namespace
 
-// q: (b, h, tq, d) bf16; k, v: (b, hk, tk, d) bf16 with hk in {1, h}; slopes:
-// (h,) fp32; mask: (b, tk) bytes, nonzero = valid key; out: (b, h, tq, d)
-// bf16 (fp32 for `_f32`); lse: (b, h, tq) fp32 or null. Contiguous and
-// 16-byte aligned. Returns the CUDA error code of the launch.
+// q: (b, h, tq, d); k, v: (b, hk, tk, d) with hk in {1, h}, all of one
+// dtype, bf16 (fp32 for `_f32`); slopes: (h,) fp32; mask: (b, tk) bytes,
+// nonzero = valid key; out: (b, h, tq, d) in the operands' dtype; lse:
+// (b, h, tq) fp32 or null. Contiguous and 16-byte aligned. Returns the CUDA
+// error code of the launch.
 #ifndef SP_FLASH_ONE_PASS
 extern "C" int sp_flash_attention_fwd_bf16(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                            const uint8_t* mask, bf16* out, float* lse, int b, int h, int hk, int tq,
@@ -444,18 +597,19 @@ extern "C" int sp_flash_attention_fwd_bf16(const bf16* q, const bf16* k, const b
   return dispatch<3>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
 }
 #else
-// The one-pass instances: P in one bf16 term; q is bf16(q*scale) and scale
-// 1 (the wrapper's), as the TPU's "default" rounds the Pallas kernel's
-// scaled q.
+// The one-pass instances: P in one bf16 term; q as the caller holds it,
+// rounded here to bf16(q*scale) as the TPU's "default" rounds the Pallas
+// kernel's scaled q, and k and v rounded here (`_f32`) or bf16 already.
 extern "C" int sp_flash_attention_fwd_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
                                                const uint8_t* mask, bf16* out, float* lse, int b, int h, int hk,
                                                int tq, int tk, int d, int causal, float scale, void* stream) {
   return dispatch<1>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
 }
 
-extern "C" int sp_flash_attention_fwd_one_pass_f32(const bf16* q, const bf16* k, const bf16* v, const float* slopes,
-                                                   const uint8_t* mask, float* out, float* lse, int b, int h, int hk,
-                                                   int tq, int tk, int d, int causal, float scale, void* stream) {
+extern "C" int sp_flash_attention_fwd_one_pass_f32(const float* q, const float* k, const float* v,
+                                                   const float* slopes, const uint8_t* mask, float* out, float* lse,
+                                                   int b, int h, int hk, int tq, int tk, int d, int causal,
+                                                   float scale, void* stream) {
   return dispatch<1>(q, k, v, slopes, mask, out, lse, b, h, hk, tq, tk, d, causal, scale, stream);
 }
 #endif

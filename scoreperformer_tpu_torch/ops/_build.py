@@ -46,8 +46,8 @@ ENTRY_POINTS = {
         "sp_flash_attention_bwd_dq_bf16": _FLASH_BWD_ARGS,
     },
     # the TPU's "default" precision: the bf16 kernels with P and dS one bf16
-    # term, outputs in bf16 or (`_f32`) fp32; the backward's `_f32` entries
-    # take fp32 operands too and round them in the kernel
+    # term, operands and outputs in bf16 or (`_f32`) fp32, fp32 operands
+    # (and the forward's scaled q) rounded to bf16 in the kernel
     "flash_attention_fwd_one_pass": {
         "sp_flash_attention_fwd_one_pass": _FLASH_FWD_ARGS,
         "sp_flash_attention_fwd_one_pass_f32": _FLASH_FWD_ARGS,

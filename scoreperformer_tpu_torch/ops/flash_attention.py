@@ -28,9 +28,10 @@ device's default matmul precision (`precision_is_one_pass`):
   one-pass kernels (`csrc/flash_attention_fwd_one_pass.cu` and
   `csrc/flash_attention_bwd_one_pass.cu`: the bf16 `wgmma` kernels with P
   and dS one bf16 term) run it and write fp32 or bf16 outputs as their
-  inputs are. The backward kernels read fp32 operands as they are and round
-  them to bf16 inside (the bits of `.to(torch.bfloat16)`); the forward's
-  wrapper rounds q (after the scale), k and v itself;
+  inputs are. They read fp32 or bf16 operands as the wrappers receive them
+  and round them to bf16 inside (the bits of `.to(torch.bfloat16)`), the
+  forward's q after the scale (the bits of `(q.float() * scale).to(
+  torch.bfloat16)`): no wrapper makes a copy;
 - under "high" or "highest" (PyTorch's default), and for "high" and
   "highest", the fp32-accurate kernels run: fp32 operands take every
   product in split TF32, three TF32 `wgmma` products each, within about
@@ -371,16 +372,10 @@ def _for_dtype(name, dtype):
 
 def _one_pass_kernel(library, symbol, dtype):
     """The one-pass entry point `symbol` of `library` (bf16 `wgmma`, P and dS
-    one bf16 term) for `dtype`, fp32 or bf16: the forward's writes its
-    output in `dtype` from bf16 operands; the backward's take operands and
-    write gradients in `dtype`, fp32 operands rounded to bf16 in the kernel."""
+    one bf16 term) for `dtype`, fp32 or bf16: it takes operands and writes
+    its outputs (o, or the gradients) in `dtype`, fp32 operands rounded to
+    bf16 in the kernel (and the forward's q scaled before, in either dtype)."""
     return kernel(library, symbol + ("_f32" if dtype == torch.float32 else ""))
-
-
-def _bf16(x):
-    """x rounded to bf16 (to nearest, ties to even): the one-pass forward
-    kernel's operand (a copy for fp32 x, x itself for bf16)."""
-    return x.to(torch.bfloat16).contiguous()
 
 
 def _padded_width(q) -> Optional[int]:
@@ -429,36 +424,29 @@ def flash_attention_fwd(q, k, v, slopes, mask=None, causal=True, scale=None, one
 
 
 def _fwd(q, k, v, slopes, mask, causal, scale, one_pass):
-    if q.device.type == "cpu":
+    if not kernel_route(q.device):
         return flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True, one_pass=one_pass)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, slopes, mask)
-    if one_pass:
-        # S = bf16(q*scale).bf16(k), as `_flash_kernel` scales q before its
-        # dot: the kernel takes q rounded after the scale, and scale 1
-        out = _fwd_launch(_bf16(q.float() * scale), _bf16(k), _bf16(v), slopes, mask, causal, 1.0, q.dtype, True)
-    else:
-        out = _fwd_launch(q, k, v, slopes, mask, causal, scale, q.dtype, False)
+    # the one-pass kernel takes q, k and v as they are and the real scale:
+    # it rounds bf16(q*scale), as `_flash_kernel` scales q before its dot
+    out = _fwd_launch(q, k, v, slopes, mask, causal, scale, one_pass)
     _count(flash_attention_fwd, q.dtype, one_pass)
     return out
 
 
-def _fwd_launch(q, k, v, slopes, mask, causal, scale, out_dtype, one_pass):
-    """(out in `out_dtype`, lse) of one forward launch on CUDA tensors: the
-    one-pass kernel (bf16 operands, q already scaled) or the fp32-accurate
-    kernel of q's dtype (out_dtype is q's)."""
-    _check(q, k, v, slopes, mask)
+def _fwd_launch(q, k, v, slopes, mask, causal, scale, one_pass):
+    """(out, lse) of one forward launch on CUDA tensors, out in the operands'
+    dtype: the one-pass kernel (fp32 or bf16 operands, rounded to bf16 in
+    the kernel, q after the scale) or the fp32-accurate kernel of q's
+    dtype."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    mask, slopes = _fwd_args(q, k, v, slopes, mask)
     b, h, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
-    mask = _kernel_args("flash_attention", [q, k, v], mask, b, tk, d, q.device)
-    slopes = _f32("flash_attention: slopes", slopes, (h,), q.device)
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
-    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
     if one_pass:
-        launch = _one_pass_kernel("flash_attention_fwd_one_pass", "sp_flash_attention_fwd_one_pass", out_dtype)
+        launch = _one_pass_kernel("flash_attention_fwd_one_pass", "sp_flash_attention_fwd_one_pass", q.dtype)
     else:
         launch = kernel(_for_dtype("flash_attention_fwd", q.dtype), _for_dtype("sp_flash_attention_fwd", q.dtype))
     _raise_on("flash_attention", launch(
@@ -467,6 +455,19 @@ def _fwd_launch(q, k, v, slopes, mask, causal, scale, out_dtype, one_pass):
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
     return out, lse
+
+
+def _fwd_args(q, k, v, slopes, mask):
+    """The forward launch's checks: q, k and v of one dtype, fp32 or bf16,
+    contiguous and 16-byte aligned (so are their rows, at the built head
+    dims); returns the byte mask and the fp32 slopes."""
+    _check(q, k, v, slopes, mask)
+    b, h, _, d = q.shape
+    mask = _kernel_args("flash_attention", [q, k, v], mask, b, k.shape[2], d, q.device)
+    slopes = _f32("flash_attention: slopes", slopes, (h,), q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    return mask, slopes
 
 
 def _bwd_launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs, one_pass):
@@ -520,10 +521,11 @@ def flash_attention_bwd_dkv(q, k, v, slopes, mask, dout, lse, delta, causal=True
 
 
 def kernel_route(device) -> bool:
-    """Whether the backward wrappers launch their kernels for tensors on
-    `device` (CPU tensors run the plain versions). The one place they make
-    that choice, so a test may force the kernel route on the CPU and put a
-    launcher of its own in `_bwd_launch`'s place."""
+    """Whether the forward and backward wrappers launch their kernels for
+    tensors on `device` (CPU tensors run the plain versions). The one place
+    they make that choice, so a test may force the kernel route on the CPU
+    and put launchers of its own in `_fwd_launch`'s and `_bwd_launch`'s
+    place."""
     return torch.device(device).type != "cpu"
 
 

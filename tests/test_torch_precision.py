@@ -11,12 +11,14 @@ and steps line by line, each dot's operands cast to bf16 with
 one-pass mode are held to that reference, and to the JAX package's own
 function in interpret mode within the bf16 rounding of the operands.
 """
+import contextlib
 import re
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -456,34 +458,69 @@ def assert_within_bf16_rounding(got, want, args, tm, tdo, causal, padded):
     np.testing.assert_array_less(np.abs(got[4].numpy() - np.asarray(want[4])), 4 * BF16_ROUND * magnitude + 1e-5)
 
 
-# ---- what the backward wrappers hand the kernels ----
+# ---- what the wrappers hand the kernels ----
+
+
+class AtenOps(TorchDispatchMode):
+    """The names of the aten ops that run inside the block, but for those of
+    a spy launcher (`in_launcher`)."""
+
+    launchers = 0  # spy launchers running
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if AtenOps.launchers == 0:
+            self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def in_launcher():
+    AtenOps.launchers += 1
+    try:
+        yield
+    finally:
+        AtenOps.launchers -= 1
 
 
 @pytest.fixture
 def spy_launcher(monkeypatch):
-    """The backward wrappers' kernel route forced on CPU tensors
-    (`kernel_route`), with a launcher in `_bwd_launch`'s place that records
-    what each launch is handed, holds it to the launch's own checks
-    (`_bwd_args`) and computes it with the one-pass plain version into the
-    launch's outputs (the slope gradient as the first block's part). Returns
-    the list of launches."""
+    """The wrappers' kernel route forced on CPU tensors (`kernel_route`),
+    with launchers in `_fwd_launch`'s and `_bwd_launch`'s place that record
+    what each launch is handed, hold it to the launch's own checks
+    (`_fwd_args`, `_bwd_args`) and compute it with the plain version (the
+    slope gradient as the first block's part), as `in_launcher`. Returns
+    the list of launches, in order."""
     launches = []
 
+    def fwd_launch(q, k, v, slopes, mask, causal, scale, one_pass):
+        with in_launcher():
+            tflash._fwd_args(q, k, v, slopes, mask)
+            launches.append({"name": "flash_attention_fwd", "one_pass": one_pass, "operands": (q, k, v),
+                             "scale": scale})
+            return tflash.flash_attention_plain(q, k, v, slopes, mask, causal, scale, return_lse=True,
+                                                one_pass=one_pass)
+
     def launch(name, symbol, q, k, v, slopes, mask, dout, lse, delta, causal, scale, outs, one_pass):
-        tflash._bwd_args(name, q, k, v, slopes, mask, dout, lse, delta, outs)
-        launches.append({"name": name, "one_pass": one_pass, "operands": (q, k, v, dout),
-                         "outs": [o.dtype for o in outs]})
-        args = (q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
-        if name.endswith("dkv"):
-            for o, x in zip(outs, tflash.flash_attention_bwd_dkv_plain(*args)):
-                o.copy_(x)
-        else:
-            dq, dslopes = tflash.flash_attention_bwd_dq_plain(*args)
-            outs[0].copy_(dq)
-            outs[1].zero_()
-            outs[1][0, :, 0] = dslopes
+        with in_launcher():
+            tflash._bwd_args(name, q, k, v, slopes, mask, dout, lse, delta, outs)
+            launches.append({"name": name, "one_pass": one_pass, "operands": (q, k, v, dout),
+                             "outs": [o.dtype for o in outs]})
+            args = (q, k, v, slopes, mask, dout, lse, delta, causal, scale, one_pass)
+            if name.endswith("dkv"):
+                for o, x in zip(outs, tflash.flash_attention_bwd_dkv_plain(*args)):
+                    o.copy_(x)
+            else:
+                dq, dslopes = tflash.flash_attention_bwd_dq_plain(*args)
+                outs[0].copy_(dq)
+                outs[1].zero_()
+                outs[1][0, :, 0] = dslopes
 
     monkeypatch.setattr(tflash, "kernel_route", lambda device: True)
+    monkeypatch.setattr(tflash, "_fwd_launch", fwd_launch)
     monkeypatch.setattr(tflash, "_bwd_launch", launch)
     return launches
 
@@ -508,10 +545,11 @@ def test_one_pass_backward_hands_the_kernels_its_operands_unrounded(spy_launcher
     with matmul_precision("medium"):
         o = tflash.flash_attention_alibi(*args, mask=tm, causal=causal)
     o.backward(tdo)
-    assert [x["name"] for x in spy_launcher] == ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
+    assert [x["name"] for x in spy_launcher] == ["flash_attention_fwd", "flash_attention_bwd_dkv",
+                                                 "flash_attention_bwd_dq"]
     assert {fn: fn.launches_one_pass - n for fn, n in counts.items()} == {fn: 1 for fn in counts}
     cast = torch.bfloat16 if dtype == "bf16" else torch.float32
-    for launch in spy_launcher:
+    for launch in spy_launcher[1:]:
         assert launch["one_pass"]
         assert launch["outs"][0] == cast and (launch["name"].endswith("dq") or launch["outs"][1] == cast)
         for handed, mine in zip(launch["operands"], (tq, tk, tv, tdo)):
@@ -533,6 +571,97 @@ def test_one_pass_backward_launch_refuses_mixed_dtypes():
         tflash._bwd_args(name, tq, tk.bfloat16(), tv, ts, tm, tdo, lse, delta, (tk, tv))
     with pytest.raises(TypeError, match="gradients"):
         tflash._bwd_args(name, tq, tk, tv, ts, tm, tdo, lse, delta, (tk.bfloat16(), tv))
+
+
+# (b, h, t, d, kv heads, causal, padded): MQA, MHA, and a head dim the
+# kernels are not built for (48, at the built 64)
+FWD_HANDED = [(2, 4, 65, 64, 1, True, True), (2, 2, 37, 32, 2, True, False), (2, 4, 40, 48, 1, False, "empty")]
+FWD_HANDED_IDS = [f"b{b}h{h}t{t}d{d}hk{hk}{'c' if c else ''}{'-' + str(p) if p else ''}"
+                  for b, h, t, d, hk, c, p in FWD_HANDED]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", FWD_HANDED, ids=FWD_HANDED_IDS)
+def test_one_pass_forward_hands_the_kernel_its_operands_as_received(spy_launcher, monkeypatch, b, h, t, d, hk,
+                                                                    causal, padded, dtype):
+    """Through the kernel route, the one-pass forward wrapper launches the
+    kernel once, counted in `launches_one_pass`, on q, k and v as it
+    receives them, fp32 or bf16, with the real scale d**-0.5: the kernel
+    scales q and rounds q, k and v itself (csrc/flash_attention_fwd_bf16.cu).
+    Outside the launch it runs no aten op at all (no copy, cast or
+    multiply); at a head dim the kernels are not built for (d 48, the
+    kernels' padded layout forced on the CPU) only `_at_built_width`'s: the
+    zero-padded copies of q, k and v at the built width, handed over in
+    their dtype, and o cut back. o (the one-pass plain version standing in
+    for the kernel) holds to JAX's `flash_attention_alibi` at its default
+    precision in interpret mode within the bf16 rounding of the operands."""
+    from scoreperformer_tpu_torch.ops import head_layout
+
+    monkeypatch.setattr(head_layout, "kernel_layout", lambda device: True)
+    q, k, v, dout, slopes, mask = inputs(b, h, t, d, hk, padded, dtype)
+    tq, tk, tv, _, ts, tm = port_inputs(q, k, v, dout, slopes, mask, dtype)
+    count = tflash.flash_attention_fwd.launches_one_pass
+    with AtenOps() as recorded:
+        o, lse = tflash.flash_attention_fwd(tq, tk, tv, ts, tm, causal, one_pass=True)
+    assert [x["name"] for x in spy_launcher] == ["flash_attention_fwd"]
+    assert tflash.flash_attention_fwd.launches_one_pass - count == 1
+    launch = spy_launcher[0]
+    assert launch["one_pass"] and launch["scale"] == d**-0.5
+    cast = torch.bfloat16 if dtype == "bf16" else torch.float32
+    width = tflash.kernel_head_dim(d)
+    for handed, mine in zip(launch["operands"], (tq, tk, tv)):
+        assert handed.dtype == cast and handed.shape[-1] == width
+        assert torch.equal(handed[..., :d], mine) and not handed[..., d:].any()
+        assert (handed.data_ptr() == mine.data_ptr()) == (width == d)
+    wide = torch.zeros(b, h, t, width, dtype=cast)
+    with AtenOps() as layout:
+        tflash._to_built_width(tq, tk, tv, ts, tm)
+        tflash._cut(wide, d)
+    assert recorded.ops == (layout.ops if width != d else [])
+    assert not {"_to_copy", "mul"} & set(recorded.ops)
+    assert o.dtype == cast and o.shape == tq.shape and lse.shape == (b, h, t)
+    want = jflash.flash_attention_alibi(*(jnp.asarray(x, jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+                                          for x in (q, k, v)), jnp.asarray(slopes), mask=jnp.asarray(mask),
+                                        causal=causal, interpret=True)
+    g, w = o.float().numpy().astype(np.float64), np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    if padded == "empty":
+        g, w = g[1:], w[1:]  # the element with no valid key: unnormalized sums (test_torch_kernels)
+    assert np.abs(g - w).max() <= 2 * BF16_ROUND * np.abs(w).max() + 1e-5
+    assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 2 * BF16_ROUND
+
+
+def test_one_pass_forward_launch_refuses_mixed_dtypes():
+    """The forward launch's checks take fp32 or bf16 q, k and v of one
+    dtype."""
+    q, k, v, dout, slopes, mask = inputs(1, 2, 9, 16, 1, False, "fp32")
+    tq, tk, tv, _, ts, tm = port_inputs(q, k, v, dout, slopes, mask, "fp32")
+    tflash._fwd_args(tq, tk, tv, ts, tm)
+    tflash._fwd_args(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(), ts, tm)
+    for args in ((tq, tk.bfloat16(), tv), (tq.bfloat16(), tk, tv), (tq, tk, tv.bfloat16()), (tq.half(), tk, tv)):
+        with pytest.raises(TypeError, match="one dtype"):
+            tflash._fwd_args(*args, ts, tm)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,t,d,hk,causal,padded", CASES, ids=CASE_IDS)
+def test_one_pass_forward_is_the_same_on_x_and_its_bf16_rounding(b, h, t, d, hk, causal, padded, dtype):
+    """The one-pass plain forward on q, k and v with the scale s equals it,
+    bit for bit (o and lse), on bf16(q*s), bf16(k) and bf16(v) (in fp32 for
+    fp32 operands) with scale 1: its S takes q scaled, then rounded. The
+    card holds the kernel, which scales and rounds in the kernel, to the
+    same invariant (chip_smoke.check_flash_one_pass)."""
+    q, k, v, dout, slopes, mask = inputs(b, h, t, d, hk, padded, dtype)
+    tq, tk, tv, _, ts, tm = port_inputs(q, k, v, dout, slopes, mask, dtype)
+    scale = d**-0.5
+    rounded = [x.to(tq.dtype) for x in ((tq.float() * scale).bfloat16(), tk.bfloat16(), tv.bfloat16())]
+    with matmul_precision("medium"):
+        on_x = tflash.flash_attention_plain(tq, tk, tv, ts, tm, causal, scale, return_lse=True, one_pass=True)
+        on_rounded = tflash.flash_attention_plain(*rounded, ts, tm, causal, 1.0, return_lse=True, one_pass=True)
+    if dtype == "fp32":
+        assert not torch.equal(tq, tq.bfloat16().float())  # x is not bf16 already
+    assert not torch.equal(rounded[0].float(), tq.float())  # the scale moved q
+    for name, x, y in zip(("o", "lse"), on_x, on_rounded):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("b,h,t,d,hk,causal,padded", CASES, ids=CASE_IDS)

@@ -37,7 +37,8 @@ entries with scale 1, and whose backward kernels took fp32 operands as
 they are): its two one-pass libraries are built from DIR's sources, and
 the forward's o and lse, on fp32 and bf16 operands, and the backward's dk,
 dv, dq and slope gradient, on fp32 operands, must have the same bits
-(`parent_route_bits`).
+(`parent_route_bits`); the forward kernel on the operands as received is
+timed in turns against DIR's route and DIR's kernel alone on the copies.
 Prints the card's name and power limit first and one JSON line per record.
 """
 import argparse
@@ -129,7 +130,9 @@ def parent_route_bits(torch, cs, fa, parent):
     sources, on the same inputs: its forward wrapper's bf16 copies,
     bf16(q*scale), k and v, through its bf16-operand entries with scale 1;
     its backward's fp32 entries on the fp32 operands. `same_bits` for o and
-    lse, and for dk, dv, dq and the slope gradient."""
+    lse, and for dk, dv, dq and the slope gradient; the forward's `ms` by
+    CUDA-graph replay in turns: this tree's kernel, the parent's route and
+    the parent's kernel alone on the copies."""
     fwd = parent_library(torch, parent, "flash_attention_fwd_one_pass",
                          ("sp_flash_attention_fwd_one_pass", "sp_flash_attention_fwd_one_pass_f32"))
     bwd = parent_library(torch, parent, "flash_attention_bwd_one_pass",
@@ -145,16 +148,41 @@ def parent_route_bits(torch, cs, fa, parent):
         q, k, v, slopes, mask, dout = cs.flash_bwd_inputs(torch, b, t, causal, padded, h, d, 1)
         for dtype in ("fp32", "bf16"):
             ops = (q, k, v) if dtype == "fp32" else tuple(x.bfloat16() for x in (q, k, v))
-            new = fa.flash_attention_fwd(*ops, slopes, mask, causal, one_pass=True)
-            qs, kb, vb = (ops[0].float() * d**-0.5).bfloat16(), ops[1].bfloat16(), ops[2].bfloat16()
-            o, lse = torch.empty_like(ops[0]), torch.empty(b, h, t, device=q.device)
             entry = fwd["sp_flash_attention_fwd_one_pass" + ("_f32" if dtype == "fp32" else "")]
-            err = entry(qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), b, h, 1, t, t, d, int(causal), 1.0, stream)
-            if err:
-                raise RuntimeError(f"the parent's forward entry failed with CUDA error {err}")
-            yield f"forward, {label}, {dtype} operands", {"shape": [b, h, t, d], "causal": causal,
-                                                         **compare(("o", "lse"), new, (o, lse))}
+
+            def parent_kernel(qs, kb, vb):
+                o, lse = torch.empty_like(qs, dtype=ops[0].dtype), torch.empty(b, h, t, device=qs.device)
+                err = entry(qs.data_ptr(), kb.data_ptr(), vb.data_ptr(), slopes.data_ptr(), mask.data_ptr(),
+                            o.data_ptr(), lse.data_ptr(), b, h, 1, t, t, d, int(causal), 1.0,
+                            torch.cuda.current_stream().cuda_stream)  # a graph captures on its own stream
+                if err:
+                    raise RuntimeError(f"the parent's forward entry failed with CUDA error {err}")
+                return o, lse
+
+            def copies(qc, kc, vc):
+                return (qc.float() * d**-0.5).bfloat16(), kc.bfloat16(), vc.bfloat16()
+
+            new = fa.flash_attention_fwd(*ops, slopes, mask, causal, one_pass=True)
+            rec = {"shape": [b, h, t, d], "causal": causal,
+                   **compare(("o", "lse"), new, parent_kernel(*copies(*ops)))}
+            # graph replay in turns (parent, new, new, parent): this tree's
+            # kernel on the operands as received, the parent's route (its
+            # wrapper's copies and its kernel) and its kernel alone on the
+            # copies
+            received = [tuple(x.clone() for x in ops) for _ in range(cs.n_copies(3 * ops[0].element_size()
+                                                                                 * q.numel()))]
+            copied = [copies(*x) for x in received]
+            times = {"kernel": [], "parent_route": [], "parent_kernel": []}
+            for turn in ("parent", "new", "new", "parent"):
+                if turn == "new":
+                    times["kernel"].append(cs.graph_ms(torch, lambda qc, kc, vc: fa._fwd_launch(
+                        qc, kc, vc, slopes, mask, causal, d**-0.5, True), received, iters=50))
+                else:
+                    times["parent_route"].append(cs.graph_ms(
+                        torch, lambda qc, kc, vc: parent_kernel(*copies(qc, kc, vc)), received, iters=50))
+                    times["parent_kernel"].append(cs.graph_ms(torch, parent_kernel, copied, iters=50))
+            del received, copied
+            yield f"forward, {label}, {dtype} operands", {**rec, "ms": times}
         o, lse = fa.flash_attention_fwd(q, k, v, slopes, mask, causal, one_pass=True)
         delta = (dout * o).sum(-1).float()
         args = (q, k, v, slopes, mask, dout, lse, delta, causal)

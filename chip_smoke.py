@@ -135,6 +135,7 @@ non-zero.
 """
 import base64
 import collections
+import concurrent.futures
 import contextlib
 import itertools
 import json
@@ -497,7 +498,6 @@ class CpuReferences:
     `cpu_wait_s`."""
 
     def __init__(self, threads=CPU_REF_THREADS):
-        import concurrent.futures
         import multiprocessing
 
         self.pool = concurrent.futures.ProcessPoolExecutor(
@@ -505,8 +505,10 @@ class CpuReferences:
         self.gates = []
         self.pool.submit(int)  # start the worker now
 
-    def submit(self, fn, *args):
-        return _PHASE[0], self.pool.submit(_timed, fn, *args)
+    def submit(self, fn, *args, phase=None):
+        """Queue `fn(*args)`; its seconds count toward `phase` (the running
+        one unless given)."""
+        return phase or _PHASE[0], self.pool.submit(_timed, fn, *args)
 
     def result(self, job):
         phase, future = job
@@ -737,12 +739,12 @@ def fp32_fwd_smem(d, warpgroups, t):
 
 def one_pass_fwd_smem(d, operands, t):
     """Dynamic shared memory of a one-pass forward launch, as
-    csrc/flash_attention_fwd_bf16.cu's FwdSmem lays it out: two q tiles and
-    three stages of K and V tiles in bf16 (64 rows each), the rows that land
-    to be rounded (q's in bf16, 2 tiles' worth; on fp32 operands q's, then a
-    key tile's, 4), 7 mbarriers (9 on fp32 operands), the warps' first keys,
-    the key mask's words and the 1024-byte alignment's slack."""
-    staged, bars = (4, 9) if operands == "fp32" else (2, 7)
+    csrc/flash_attention_fwd_bf16.cu's FwdSmem lays it out (edit the two
+    together): two q tiles and three stages of K and V tiles in bf16 (64 rows
+    each), on fp32 operands the rows that land to be rounded (q's, then a key
+    tile's, 4 tiles' worth), 7 mbarriers (9 on fp32 operands), the warps'
+    first keys, the key mask's words and the 1024-byte alignment's slack."""
+    staged, bars = (4, 9) if operands == "fp32" else (0, 7)
     return (2 + 6 + staged) * 64 * d * 2 + bars * 8 + 2 * 4 * 4 + 4 * -(-t // 32) + 1024
 
 
@@ -1134,8 +1136,8 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     slope parts on x as on fp32(bf16(x)). Returns the records of the
     forward, dK/dV and dQ/dslope kernels; timed when `timed` (by CUDA-graph
     replay, the kernel launches alone on the operands as the wrappers
-    receive them, with no copy (`cast_ms` 0); SDPA's bf16 forward and
-    backward as the library)."""
+    receive them, which no wrapper copies; SDPA's bf16 forward and backward
+    as the library)."""
     import torch.nn.functional as F
 
     q, k, v, slopes, mask, dout = flash_bwd_inputs(torch, b, t, causal, padded, h, d, hk, lengths)
@@ -1207,7 +1209,6 @@ def check_flash_one_pass(torch, fa, b, t, causal, padded, timed, h=4, d=64, hk=1
     parts = fa.dq_slope_parts(b, h, hk, t)
     dq["ms"] = graph_ms(torch, bwd("dq", lambda: (torch.empty_like(q), torch.empty(parts, device=q.device))), ops,
                         iters=20)
-    fwd["cast_ms"] = dkv["cast_ms"] = dq["cast_ms"] = 0.0  # no wrapper casts
     del ops
     fwd["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, slopes, mask, causal, one_pass=True))
     dkv["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv_plain(*args, one_pass=True), iters=10,
@@ -1469,9 +1470,6 @@ FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_
 # with every wrapper rounding, 30 with the forward's alone; H100,
 # chip_probe_precision.py::profiled_steps)
 CONVERSION_KERNEL = "copy_kernel"
-# the one-pass forward wrapper's conversions a launch on fp32 operands (the
-# kernels round their operands themselves; the backward wrappers' make none)
-ONE_PASS_FWD_CONVERSIONS = 0
 # the "medium" step's conversions over the fp32 step's, at most: a profile's
 # count moves by a few between steps and runs, and the forward wrapper's
 # copies (3 a launch, 30 a step) gave +22 to +30 (H100: 298, 299 and 299
@@ -2430,6 +2428,17 @@ def cpu_greedy_from_checkpoint(params, inputs):
 
     model, _ = load_model_from_checkpoint(params, device="cpu")
     return greedy_tokens(torch, model, inputs, "cpu").numpy()
+
+
+def cpu_greedy_from_config(cfg, inputs):
+    """The CPU path's greedy tokens for one score's render `inputs` from a
+    ScorePerformer of `cfg` with its weights made from SEED."""
+    import torch
+
+    from scoreperformer_tpu_torch.models.factory import build_scoreperformer
+
+    model, _ = build_scoreperformer(cfg, device="cpu", seed=SEED)
+    return greedy_tokens(torch, model.eval(), inputs, "cpu").numpy()
 
 
 def cpu_scale_1024_references(ckpt, small, small_inputs):
@@ -4313,8 +4322,7 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
        "medium"; busy ms beside the fp32 step's), whose dtype conversions
        (`CONVERSION_KERNEL`) over the fp32 step's `fp32_conversions` (the
        train phase's profile) hold none of the wrappers' rounding copies
-       (gated under CONVERSIONS_OVER_FP32_LIMIT, below the 30 the forward's
-       alone would add);
+       (gated under CONVERSIONS_OVER_FP32_LIMIT);
     3. the 32-bar `score` rendered greedy: 6 one-pass forwards (the
        encoders), the chunked decode's launches, `check_performance`;
     4. a batch-4 step of `model_config` on the card against the same step
@@ -4378,16 +4386,15 @@ def precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi
                 one_pass_instance(k) for k in kernels):
             raise AssertionError(f"the profiled step under \"medium\" ran the flash kernels {prof['ported']}")
         rec["train"]["profile"] = prof
-        # no wrapper copies: the count within a few of the fp32 step's, under
-        # the 30 more that the forward's copies alone would add
+        # no wrapper copies: the count within a few of the fp32 step's
+        # (CONVERSIONS_OVER_FP32_LIMIT)
         conversions = prof["counted"][CONVERSION_KERNEL]["count"]
         limit = CONVERSIONS_OVER_FP32_LIMIT
         rec["train"]["conversions"] = {"medium": conversions, "fp32_step": fp32_conversions,
-                                       "forward_copies": 10 * ONE_PASS_FWD_CONVERSIONS, "limit_over_fp32": limit}
+                                       "limit_over_fp32": limit}
         if conversions - fp32_conversions >= limit:
             raise AssertionError(f"the profiled step under \"medium\" ran {conversions} dtype conversions, the fp32 "
-                                 f"step {fp32_conversions}: the wrappers' rounding copies are back (the forward's "
-                                 f"made 30 more; limit +{limit})")
+                                 f"step {fp32_conversions}: the wrappers' rounding copies are back (limit +{limit})")
         print(f"precision: train steps under \"medium\" ({smi})", json.dumps(rec["train"]))
         del comp, trainer, batch
         torch.cuda.empty_cache()
@@ -4476,21 +4483,37 @@ def with_heads(model_config, heads, dim_head):
     return cfg
 
 
-def head_shapes_phase(torch, tokenizer, score, model_config, host_batch, scores, inputs, work):
+def head_shapes_gate(refs, tokenizer, score):
+    """The head-shapes phase's flagship config (6 heads of 48 over one KV
+    head), its greedy gate's render inputs (an 8-bar score) and the worker's
+    job computing the CPU path's tokens on them, submitted ahead of the
+    phase so that the card need not wait for it."""
+    from scoreperformer_tpu_torch.data import synthetic_score
+    from scoreperformer_tpu_torch.inference import prepare_render_inputs
+
+    heads, dim_head = HEAD_SHAPES_MODEL
+    T = len(prepare_render_inputs(tokenizer, score)["deadpan_ids"])
+    cfg = flagship_config(tokenizer, T, heads=heads, dim_head=dim_head)
+    inputs = prepare_render_inputs(tokenizer, synthetic_score(np.random.RandomState(SEED + 3),
+                                                              n_bars=HEAD_SHAPES_GATE_BARS))
+    return cfg, inputs, refs.submit(cpu_greedy_from_config, cfg, inputs, phase="head_shapes")
+
+
+def head_shapes_phase(torch, tokenizer, score, model_config, host_batch, scores, inputs, work, refs, gate):
     """Head shapes the kernels are not built for, on the card: the three flash
     kernels (fp32 and bf16) and `prefix_attend` (fp32, bf16, int8) held to
     their plain versions on the unpadded inputs within their gates, first at
     6 and 12 heads over one KV head at a built width, then at head dims 8,
     48 and 96; then the flagship at 6 heads of 48 over one KV head in every
     stack: greedy tokens on the card equal to the CPU path's on an 8-bar
-    score, the 32-bar `score` rendered on the card alone, the first
+    score (`gate`: the config, the inputs and the job of `refs`' worker that
+    `head_shapes_gate` submitted), the 32-bar `score` rendered on the card alone, the first
     SMOKE_REQUESTS `scores` (with their render `inputs`) served greedy
     through `handle_batch` from a port checkpoint under `work`, and a
     batch-4 train step of `model_config` at this head shape (the first
     sequences of `host_batch`) against the CPU's, each with its launches
     counted. Returns the phase's record, its seconds in `phase_s`."""
     from scoreperformer_tpu_torch.inference import RenderServer, prepare_render_inputs, render_performance
-    from scoreperformer_tpu_torch.data import synthetic_score
     from scoreperformer_tpu_torch.midi import read_midi, write_midi
     from scoreperformer_tpu_torch.models.factory import build_scoreperformer
     from scoreperformer_tpu_torch.ops import flash_attention as fa
@@ -4522,15 +4545,13 @@ def head_shapes_phase(torch, tokenizer, score, model_config, host_batch, scores,
           f"cases at their plain versions in {rec['kernels']['s']:.1f} s")
 
     # the flagship at 6 heads of 48: greedy tokens on the card and the CPU
+    # (the worker's, `head_shapes_gate`)
+    cfg, gate_inputs, cpu_job = gate
     T = len(prepare_render_inputs(tokenizer, score)["deadpan_ids"])
-    cfg = flagship_config(tokenizer, T, heads=heads, dim_head=dim_head)
     models = {"cuda": build_scoreperformer(cfg, device="cuda", seed=SEED)[0].eval()}
-    with cpu_ref():
-        models["cpu"] = build_scoreperformer(cfg, device="cpu", seed=SEED)[0].eval()
-    gate_inputs = prepare_render_inputs(tokenizer, synthetic_score(np.random.RandomState(SEED + 3),
-                                                                   n_bars=HEAD_SHAPES_GATE_BARS))
     t0 = time.perf_counter()
-    same = torch.equal(*(greedy_tokens(torch, m, gate_inputs, dev) for dev, m in models.items()))
+    same = torch.equal(greedy_tokens(torch, models["cuda"], gate_inputs, "cuda"),
+                       torch.as_tensor(refs.result(cpu_job)))
     rec["greedy_gate"] = {"bars": HEAD_SHAPES_GATE_BARS, "identical_to_cpu": same, "s": time.perf_counter() - t0}
     print(f"head shapes: {HEAD_SHAPES_GATE_BARS}-bar greedy render tokens, card vs CPU: identical={same}")
     if not same:
@@ -4639,27 +4660,26 @@ def smoke(torch, refs, t_script) -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "C7518" in line:
                 print(f"ptxas {path.stem}: {line.strip()}")
-    # the fp32 forward's library holds only the fp32 flash_fwd instances
-    (fwd_gmma, fwd_gmma_dims), (tf32_gmma, tf32_gmma_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims) = (
-        tensor_core_counts(libs["flash_attention_fwd"], ("flash_fwd",), fa.KERNEL_HEAD_DIMS,
-                           instruction=TF32_HGMMA, forbidden=TF32_HMMA),
-        tensor_core_counts(libs["flash_attention_bwd"], ("flash_bwd_dkv", "flash_bwd_dq"), fa.KERNEL_HEAD_DIMS,
-                           instruction=TF32_HGMMA, forbidden=TF32_HMMA),
-        tensor_core_counts(libs["flash_attention_fwd_bf16"], ("flash_fwd_bf16",), fa.KERNEL_HEAD_DIMS,
-                           instruction=BF16_HGMMA, forbidden=TF32_HMMA),
-        tensor_core_counts(libs["flash_attention_bwd_bf16"], ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"),
-                           fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA, forbidden=TF32_HMMA))
+    # the six libraries' SASS, read at once (a cuobjdump each): the fp32
+    # forward's library holds only the fp32 flash_fwd instances; the one-pass
+    # instances (P and dS one bf16 term) hold bf16 HGMMA and no TF32
+    # instruction of any kind
+    sass_checks = (
+        ("flash_attention_fwd", ("flash_fwd",), TF32_HGMMA, TF32_HMMA),
+        ("flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq"), TF32_HGMMA, TF32_HMMA),
+        ("flash_attention_fwd_bf16", ("flash_fwd_bf16",), BF16_HGMMA, TF32_HMMA),
+        ("flash_attention_bwd_bf16", ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"), BF16_HGMMA, TF32_HMMA),
+        ("flash_attention_fwd_one_pass", ("flash_fwd_bf16",), BF16_HGMMA, ("TF32",)),
+        ("flash_attention_bwd_one_pass", ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"), BF16_HGMMA, ("TF32",)))
+    with concurrent.futures.ThreadPoolExecutor(len(sass_checks)) as pool:
+        ((fwd_gmma, fwd_gmma_dims), (tf32_gmma, tf32_gmma_dims), (hgmma, hgmma_dims), (hgmma_bwd, hgmma_bwd_dims),
+         (one_pass_gmma, one_pass_gmma_dims), (one_pass_bwd, one_pass_bwd_dims)) = pool.map(
+            lambda c: tensor_core_counts(libs[c[0]], c[1], fa.KERNEL_HEAD_DIMS, instruction=c[2], forbidden=c[3]),
+            sass_checks)
     hgmma.update(hgmma_bwd)
     hgmma_dims.update(hgmma_bwd_dims)
-    # the one-pass instances (P and dS one bf16 term): bf16 HGMMA, no TF32
-    # instruction of any kind
-    one_pass_gmma, one_pass_gmma_dims = {}, {}
-    for library, names in (("flash_attention_fwd_one_pass", ("flash_fwd_bf16",)),
-                           ("flash_attention_bwd_one_pass", ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"))):
-        counts, dims = tensor_core_counts(libs[library], names, fa.KERNEL_HEAD_DIMS, instruction=BF16_HGMMA,
-                                          forbidden=("TF32",))
-        one_pass_gmma.update(counts)
-        one_pass_gmma_dims.update(dims)
+    one_pass_gmma.update(one_pass_bwd)
+    one_pass_gmma_dims.update(one_pass_bwd_dims)
     print(f"bf16 warpgroup instructions (HGMMA) in the one-pass instances' SASS, and no TF32 instruction, by "
           f"kernel: {json.dumps(one_pass_gmma)}; by kernel and head dim: {json.dumps(one_pass_gmma_dims)}")
     # the one-pass forward by head dim and operand dtype: ptxas's registers,
@@ -5137,6 +5157,10 @@ def smoke(torch, refs, t_script) -> int:
     end_phase("pipeline")
     print("pipeline", json.dumps({k: v for k, v in pipeline.items() if k != "kernels"}))
 
+    # the head-shapes phase's CPU greedy tokens, in the worker while the
+    # precision phase runs
+    head_gate = head_shapes_gate(refs, tokenizer, score)
+
     # ---- the flash attention's "default" precision as the TPU's one pass ----
     begin_phase("precision")
     precision = precision_phase(torch, tokenizer, root, score, model_config, host_batch, smi,
@@ -5147,7 +5171,7 @@ def smoke(torch, refs, t_script) -> int:
     # ---- head shapes the kernels are not built for: 6 heads of 48 over one KV head ----
     begin_phase("head_shapes")
     shapes = head_shapes_phase(torch, tokenizer, score, model_config, host_batch, serve_scores, serve_inputs,
-                               os.path.join(build, "chip_smoke_head_shapes"))
+                               os.path.join(build, "chip_smoke_head_shapes"), refs, head_gate)
     end_phase("head_shapes")
     print(f"head shapes phase: {shapes['phase_s']:.1f} s (budget {HEAD_SHAPES_BUDGET_S:.0f} s); the script "
           f"{time.perf_counter() - t_script:.1f} s so far")
@@ -5243,11 +5267,11 @@ def smoke(torch, refs, t_script) -> int:
         # torch.set_float32_matmul_precision("medium")), as the flagship's
         # fp32 train steps launch them (`instances`: their names in the
         # profiled step); `ms` each kernel on the fp32 operands, which it
-        # rounds itself (`cast_ms` 0: no wrapper copies)
+        # rounds itself (no wrapper copies: `operands`)
         {"name": f"{name}_one_pass", "route": "cuda", "source": f"scoreperformer_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": precision["train"]["launches"][f"{name}_one_pass"],
-         **{k: rec[k] for k in bound_keys + ("cast_ms", "bf16_passes", "over_library", "pair_over_library",
-                                             "err_over_bound", "library_timing") if k in rec},
+         **{k: rec[k] for k in bound_keys + ("bf16_passes", "over_library", "pair_over_library", "err_over_bound",
+                                             "library_timing") if k in rec},
          "shape": rec["shape"], "dtype": rec["dtype"], "operands": operands,
          "instances": precision["train"]["profile"]["ported"][ported]["kernels"],
          "bf16_hgmma_in_sass": one_pass_gmma[kernel], "bf16_hgmma_by_head_dim": one_pass_gmma_dims[kernel]}

@@ -109,7 +109,7 @@
 // conversions of q, k, v and dO a wrapper, about 85 MB read and 42 MB
 // written each time); rounding once a backward, or keeping the forward's
 // copies, would still cost one such pass a call or hold the copies for the
-// whole step. A tile of fp32 rows lands unswizzled (`wg::rows_map`, a
+// whole step. A tile of fp32 rows lands unswizzled (`wg::rows_map_f32`, a
 // box of all d columns) in a staging area, `kStaged`, and the threads round
 // it into the bf16 tile's swizzle (`wg::round_tile`: 16-byte loads, 8-byte
 // stores, no bank conflict), fence it for the async proxy and mark the
@@ -842,7 +842,7 @@ __global__ void __launch_bounds__(kWG, 2)
 template <int D, typename In>
 bool operand_map(CUtensorMap* map, const In* ptr, int rows, int slabs, int box_rows, int box_slabs) {
   if constexpr (std::is_same_v<In, float>)
-    return wg::rows_map<D>(map, ptr, rows, slabs, box_rows, box_slabs);
+    return wg::rows_map_f32<D>(map, ptr, rows, slabs, box_rows, box_slabs);
   else
     return tile_map<D>(map, ptr, rows, slabs, box_rows, box_slabs);
 }

@@ -83,16 +83,18 @@
 // Operands rounded here (the one-pass instances). Rounding in the kernel
 // takes the wrapper's copies away (three conversions a forward on fp32
 // operands, bf16(q*scale) on bf16 ones: a pass over q, k and v each time,
-// 30 a flagship train step). Operand rows land by TMA unswizzled
-// (`wg::rows_map`, a box of all d columns) in a staging area, `kStaged`,
-// and the threads round them into the bf16 swizzle that the unchanged
-// wgmmas read (`wg::round_tile`), fence them for the async proxy and then
-// mark them ready, as the backward's fp32 instances do
+// 30 a flagship train step). fp32 operand rows land by TMA unswizzled
+// (`wg::rows_map_f32`, a box of all d columns) in a staging area,
+// `kStaged`, and the threads round them into the bf16 swizzle that the
+// unchanged wgmmas read (`wg::round_tile`), fence them for the async proxy
+// and then mark them ready, as the backward's fp32 instances do
 // (csrc/flash_attention_bwd_bf16.cu).
-// - q lands once a CTA as rows, each warpgroup's in its half of kStaged;
-//   each warpgroup scales and rounds its own q tile and waits only for its
-//   own threads (a named barrier). On bf16 operands that is all: K and V
-//   come swizzled into the ring as before.
+// - q lands once a CTA, each warpgroup's 64 rows on their own: fp32 rows in
+//   its half of kStaged, a bf16 tile swizzled where the wgmmas read it; each
+//   warpgroup scales and rounds its own q tile (bf16 in place,
+//   `wg::scale_tile`: the scale is elementwise, so the swizzle stays) and
+//   waits only for its own threads (a named barrier). On bf16 operands that
+//   is all: K and V come swizzled into the ring as before.
 // - fp32 K and V: key tile 0's rows land where stages 1 and 2 lie, with q
 //   on q's barrier, and are rounded into stage 0 before the loop (stage 0's
 //   barrier orders those reads before stage 1's first rounding). After
@@ -115,7 +117,9 @@
 // on fp32 operands at the flagship's shapes (b 128, h 4, one KV head, d 64,
 // t 258 / 257) 0.081 / 0.071 ms, against 0.116 / 0.110 for the copies and
 // the kernel on them (0.067 / 0.059 alone), and 0.74x / 0.37x SDPA's bf16
-// forward. Tried and dropped, each the same bits and within 1% at d = 64:
+// forward; on bf16 operands 0.069 / 0.063 ms, 2.5-4.7% over the kernel on
+// the wrapper's bf16(q*scale) (q's scale in place on its tile). Tried and
+// dropped, each the same bits and within 1% at d = 64:
 // q landed where the q tiles and stage 0 lie so that key tile 1 lands at
 // the start; each warpgroup rounding its half two tiles ahead (a tile and
 // a half of slack between the warpgroups); K and V loaded into registers a
@@ -163,25 +167,19 @@ constexpr int kGroups = 2;    // warpgroups of a CTA
 constexpr int kStages = 3;    // K/V tiles in flight
 constexpr float kMaskValue = -1e30f;
 
-// bf16 tiles' worth of operand rows that land in `kStaged` before the
-// threads round them: none for the three-term instances, q's bf16 rows (2)
-// for the one-pass instances on bf16 operands, and on fp32 operands q's
-// fp32 rows, then a key tile's K and V (4)
-template <int kTerms, typename In>
-__host__ __device__ constexpr int staged_tiles() {
-  return std::is_same_v<In, float> ? 4 : kTerms == 1 ? 2 : 0;
-}
-
-// the CTA's shared memory, from a 1024-byte aligned base
-template <int D, int kStagedTiles>
+// the CTA's shared memory, from a 1024-byte aligned base; on fp32 operands
+// (kF32) with a staging area, where fp32 rows land before the threads round
+// them: q's, then a key tile's K and V, 4 bf16 tiles' worth. Keep
+// chip_smoke.py::one_pass_fwd_smem, which prints a launch's bytes, in step.
+template <int D, bool kF32>
 struct FwdSmem {
   static constexpr int kTile = Tile<D>::kBytes;
   static constexpr int kQ = 0;                       // [warpgroup] q tiles
   static constexpr int kKV = kGroups * kTile;        // [stage][K, V] tiles
   static constexpr int kStaged = kKV + kStages * 2 * kTile;  // [warpgroup] halves of the rows to round
   // mbarriers: q, full[stage], empty[stage], and on fp32 operands staged[warpgroup]
-  static constexpr int kBars = kStaged + kStagedTiles * kTile;
-  static constexpr int kWarpFirst = kBars + (1 + 2 * kStages + (kStagedTiles == 4 ? kGroups : 0)) * 8;
+  static constexpr int kBars = kStaged + (kF32 ? 4 * kTile : 0);
+  static constexpr int kWarpFirst = kBars + (1 + 2 * kStages + (kF32 ? kGroups : 0)) * 8;
   static constexpr int kBits = kWarpFirst + kGroups * 4 * 4;  // [32-key words]
   static int bytes(int tk) { return kBits + 4 * ((tk + 31) / 32) + 1024; }  // and the alignment's slack
 };
@@ -204,7 +202,7 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   constexpr bool kRoundQ = kTerms == 1;  // q scaled and rounded here
   static_assert(kF32 || std::is_same_v<In, bf16>, "bf16 or fp32 operands");
   static_assert(!kF32 || kRoundQ, "fp32 operands in the one-pass instances");
-  using S = FwdSmem<D, staged_tiles<kTerms, In>()>;
+  using S = FwdSmem<D, kF32>;
   // loads in flight a thread while it rounds K or V beside P.V's wgmmas,
   // whose accumulators hold most registers at d = 128
   constexpr int kRoundBatch = D >= 128 ? 4 : 8;
@@ -239,10 +237,9 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   const uint32_t qt = base + S::kQ + group * S::kTile;
 
   // both row blocks of q, and key tile 0 before the mask is read: the walk
-  // over the key tiles starts there whatever the mask. The one-pass
-  // instances' q lands as rows in kStaged, warpgroup gr's in its half; on
-  // fp32 operands key tile 0's K and V rows land where stages 1 and 2 lie,
-  // on q's barrier.
+  // over the key tiles starts there whatever the mask. On fp32 operands q
+  // lands as rows in kStaged, warpgroup gr's in its half, and key tile 0's
+  // K and V rows where stages 1 and 2 lie, on q's barrier.
   if (tid == 0) {
     wg::prefetch_map(&tm_q);
     wg::prefetch_map(&tm_k);
@@ -263,12 +260,8 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
       wg::tma_rows(base + S::kKV + 4 * S::kTile, &tm_v, 0, kv_slab, bar_q);
     } else {
       wg::mbar_expect_tx(bar_q, kGroups * S::kTile);
-      for (int gr = 0; gr < kGroups; ++gr) {
-        if constexpr (kRoundQ)
-          wg::tma_rows(base + S::kStaged + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
-        else
-          wg::tma_tile<D>(base + S::kQ + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
-      }
+      for (int gr = 0; gr < kGroups; ++gr)
+        wg::tma_tile<D>(base + S::kQ + gr * S::kTile, &tm_q, cta_q0 + gr * positions, b * h + head0, bar_q);
       wg::mbar_expect_tx(full, 2 * S::kTile);
       wg::tma_tile<D>(base + S::kKV, &tm_k, 0, kv_slab, full);
       wg::tma_tile<D>(base + S::kKV + S::kTile, &tm_v, 0, kv_slab, full);
@@ -329,7 +322,7 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   // this warpgroup's half of the key tile at `src` (fp32 rows) rounded into
   // stage `stage`, then the stage marked filled by its threads
   auto round_half = [&](const uint8_t* src, int stage) {
-    wg::round_tile<D, kWG, float, false, kRoundBatch>(src, smem + S::kKV + (stage * 2 + group) * S::kTile, wtid);
+    wg::round_tile<D, kWG, false, kRoundBatch>(src, smem + S::kKV + (stage * 2 + group) * S::kTile, wtid);
     wg::fence_proxy_async();
     wg::mbar_arrive(full + 8 * stage);
   };
@@ -373,11 +366,15 @@ __global__ void __launch_bounds__(kGroups * kWG, 1)
   };
   wg::mbar_wait(bar_q, 0);
   if constexpr (kRoundQ) {
-    // this warpgroup's q rows times the scale, rounded into its q tile
-    // (bf16(q*scale), as `_flash_kernel` scales q before its dot); the tile
+    // this warpgroup's q times the scale, rounded into its q tile
+    // (bf16(q*scale), as `_flash_kernel` scales q before its dot): on fp32
+    // operands from its rows, on bf16 ones where the tile lies; the tile
     // whole before its wgmmas read it
-    wg::round_tile<D, kWG, In, true>(smem + S::kStaged + group * (kF32 ? 2 : 1) * S::kTile, smem + S::kQ +
-                                     group * S::kTile, wtid, q_scale);
+    if constexpr (kF32)
+      wg::round_tile<D, kWG, true>(smem + S::kStaged + group * 2 * S::kTile, smem + S::kQ + group * S::kTile, wtid,
+                                   q_scale);
+    else
+      wg::scale_tile<D, kWG>(smem + S::kQ + group * S::kTile, wtid, q_scale);
     wg::fence_proxy_async();
     group_sync();
   }
@@ -536,7 +533,7 @@ int launch(const In* q, const In* k, const In* v, const float* slopes, const uin
            int b, int h, int hk, int tq, int tk, int causal, float scale, cudaStream_t stream) {
   constexpr bool kRoundQ = kTerms == 1;
   static const int granted = grant_smem(flash_fwd_bf16<D, kTerms, Out, In>);
-  const int smem = FwdSmem<D, staged_tiles<kTerms, In>()>::bytes(tk);
+  const int smem = FwdSmem<D, std::is_same_v<In, float>>::bytes(tk);
   if (smem > granted) return (int)cudaErrorInvalidValue;
   const bool mqa = hk == 1 && h > 1 && kRows % h == 0;
   const int heads_per_block = mqa ? h : 1;
@@ -544,11 +541,11 @@ int launch(const In* q, const In* k, const In* v, const float* slopes, const uin
   CUtensorMap tm_q, tm_k, tm_v;
   bool mapped;
   if constexpr (std::is_same_v<In, float>)
-    mapped = wg::rows_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
-             wg::rows_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && wg::rows_map<D>(&tm_v, v, tk, b * hk, kRows, 1);
+    mapped = wg::rows_map_f32<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
+             wg::rows_map_f32<D>(&tm_k, k, tk, b * hk, kRows, 1) &&
+             wg::rows_map_f32<D>(&tm_v, v, tk, b * hk, kRows, 1);
   else
-    mapped = (kRoundQ ? wg::rows_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block)
-                      : tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block)) &&
+    mapped = tile_map<D>(&tm_q, q, tq, b * h, positions, heads_per_block) &&
              tile_map<D>(&tm_k, k, tk, b * hk, kRows, 1) && tile_map<D>(&tm_v, v, tk, b * hk, kRows, 1);
   if (!mapped) return (int)cudaErrorInvalidValue;
   const int row_blocks = (tq + positions - 1) / positions;

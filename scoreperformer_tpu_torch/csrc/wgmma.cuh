@@ -293,15 +293,16 @@ __device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&a)[4][k
 
 // ---- operands rounded to bf16 in the kernel ----
 //
-// An operand tile lands by TMA with no swizzle, as 64 rows of D values (a
-// box of all D columns, `rows_map`), and the threads round it into the bf16
-// tile above (`round_tile`): the one-pass instances on fp32 operands
-// (csrc/flash_attention_bwd_bf16.cu, csrc/flash_attention_fwd_bf16.cu), and
-// the one-pass forward's q, which it scales before it rounds it, in fp32 or
-// bf16.
+// An fp32 operand tile lands by TMA with no swizzle, as 64 rows of D floats
+// (a box of all D columns, `rows_map_f32`), and the threads round it into
+// the bf16 tile above (`round_tile`): the one-pass instances on fp32
+// operands (csrc/flash_attention_bwd_bf16.cu, csrc/flash_attention_fwd_bf16.cu;
+// the forward scales q before it rounds it). A bf16 tile that must be scaled
+// (the one-pass forward's q on bf16 operands) lands swizzled as any other
+// and is scaled and rounded where it lies (`scale_tile`).
 
-// the box at (row, slab) of `map` (`rows_map`) into shared memory at `dst`,
-// completing on `bar`: one copy
+// the fp32 box at (row, slab) of `map` (`rows_map_f32`) into shared memory
+// at `dst`, completing on `bar`: one copy
 __device__ __forceinline__ void tma_rows(uint32_t dst, const void* map, int row, int slab, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
@@ -310,57 +311,66 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const void* map, int row,
       : "memory");
 }
 
-// The 64 x D rows at `src`, fp32 or bf16 (`In`), rounded to bf16, to
-// nearest even (the bits of torch's `.to(torch.bfloat16)`, which takes the
-// same `cvt.rn`), into the swizzled Tile<D> at `dst`, by kThreads threads
-// from `tid`; with kScaled each value times `mul` in fp32 first (the bits
-// of `(x.float() * mul).to(torch.bfloat16)`). A thread takes 16 bytes at a
-// time, one load (a warp reads 512 contiguous bytes: 4 floats or 8 bf16),
-// and writes their 8 or 16 bytes where the tile's swizzle puts them (a
-// half-warp fills whole 128-byte spans: no bank conflict either way); up to
-// kBatchMax loads in flight before their stores.
-template <int D, int kThreads, typename In = float, bool kScaled = false, int kBatchMax = 8>
+// The 64 x D fp32 rows at `src` rounded to bf16, to nearest even (the bits
+// of torch's `.to(torch.bfloat16)`, which takes the same `cvt.rn`), into the
+// swizzled Tile<D> at `dst`, by kThreads threads from `tid`; with kScaled
+// each value times `mul` in fp32 first (the bits of `(x * mul).to(
+// torch.bfloat16)`). A thread takes 4 floats at a time, one 16-byte load (a
+// warp reads 512 contiguous bytes), and writes their 8 bytes where the
+// tile's swizzle puts them (a half-warp fills whole 128-byte spans: no bank
+// conflict either way); up to kBatchMax loads in flight before their
+// stores.
+template <int D, int kThreads, bool kScaled = false, int kBatchMax = 8>
 __device__ __forceinline__ void round_tile(const uint8_t* src, uint8_t* dst, int tid, float mul = 1.f) {
   using L = Tile<D>;
-  constexpr bool kF32 = sizeof(In) == 4;
-  constexpr int kPer = 16 / sizeof(In);  // values a load
-  constexpr int kChunks = L::kRows * D / kPer;
-  constexpr int kIters = kChunks / kThreads;
+  constexpr int kQuads = L::kRows * D / 4;
+  constexpr int kIters = kQuads / kThreads;
   constexpr int kBatch = kIters < kBatchMax ? kIters : kBatchMax;
-  static_assert(kIters * kThreads == kChunks && kIters % kBatch == 0, "loads a thread");
+  static_assert(kIters * kThreads == kQuads && kIters % kBatch == 0, "quads a thread");
   constexpr int kPerRow = L::kRowBytes / 2;  // a row's elements within one swizzled block
   constexpr int kMask = L::kRowBytes / 16 - 1;
 #pragma unroll
   for (int i0 = 0; i0 < kIters; i0 += kBatch) {
-    uint4 x[kBatch];
+    float4 x[kBatch];
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) x[i] = reinterpret_cast<const uint4*>(src)[tid + (i0 + i) * kThreads];
+    for (int i = 0; i < kBatch; ++i) x[i] = reinterpret_cast<const float4*>(src)[tid + (i0 + i) * kThreads];
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      const int e = kPer * (tid + (i0 + i) * kThreads);  // its first element, row-major
+      const int e = 4 * (tid + (i0 + i) * kThreads);  // its first element, row-major
       const int row = e / D, col = e % D;
       const int o = row * L::kRowBytes + (col % kPerRow) * 2;
-      uint8_t* at = dst + (col / kPerRow) * L::kBlockBytes + (o ^ (((o >> 7) & kMask) << 4));
-      const uint32_t w[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
-      uint32_t r[kPer / 2];
-#pragma unroll
-      for (int p = 0; p < kPer / 2; ++p) {
-        float2 f;
-        if constexpr (kF32) {
-          f = make_float2(__uint_as_float(w[2 * p]), __uint_as_float(w[2 * p + 1]));
-        } else {
-          f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[p]));
-        }
-        if constexpr (kScaled) f = make_float2(__fmul_rn(f.x, mul), __fmul_rn(f.y, mul));
-        const __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
-        r[p] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      if constexpr (kF32) {
-        *reinterpret_cast<uint2*>(at) = make_uint2(r[0], r[1]);
-      } else {
-        *reinterpret_cast<uint4*>(at) = make_uint4(r[0], r[1], r[2], r[3]);
-      }
+      if constexpr (kScaled)
+        x[i] = make_float4(__fmul_rn(x[i].x, mul), __fmul_rn(x[i].y, mul), __fmul_rn(x[i].z, mul),
+                           __fmul_rn(x[i].w, mul));
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x[i].x, x[i].y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x[i].z, x[i].w);
+      *reinterpret_cast<uint2*>(dst + (col / kPerRow) * L::kBlockBytes + (o ^ (((o >> 7) & kMask) << 4))) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
     }
+  }
+}
+
+// The bf16 Tile<D> at `tile` times `mul`, in place: each value widened to
+// fp32 (exact), multiplied, and rounded to bf16 to nearest even (the bits of
+// `(x.float() * mul).to(torch.bfloat16)`), by kThreads threads from `tid`,
+// 8 values a 16-byte load. Scaling is elementwise, so the swizzle is left as
+// it is; rows past t, zero, stay zero.
+template <int D, int kThreads>
+__device__ __forceinline__ void scale_tile(uint8_t* tile, int tid, float mul) {
+  constexpr int kChunks = Tile<D>::kBytes / 16;
+  static_assert(kChunks % kThreads == 0, "chunks a thread");
+#pragma unroll
+  for (int i = 0; i < kChunks / kThreads; ++i) {
+    uint4* at = reinterpret_cast<uint4*>(tile) + tid + i * kThreads;
+    uint4 x = *at;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[p]));
+      const __nv_bfloat162 r = __floats2bfloat162_rn(__fmul_rn(f.x, mul), __fmul_rn(f.y, mul));
+      w[p] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+    *at = x;
   }
 }
 
@@ -769,22 +779,20 @@ bool tile_map_f32(CUtensorMap* map, const float* ptr, int rows, int slabs, int b
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// `map` over a (slabs, rows, D) fp32 or bf16 tensor at `ptr`, in boxes of
-// box_rows rows of box_slabs slabs and all D columns, unswizzled: a box
-// lands as box_slabs * box_rows rows of D values (`round_tile`'s source)
-template <int D, typename T>
-bool rows_map(CUtensorMap* map, const T* ptr, int rows, int slabs, int box_rows, int box_slabs) {
+// `map` over a (slabs, rows, D) fp32 tensor at `ptr`, in boxes of box_rows
+// rows of box_slabs slabs and all D columns, unswizzled: a box lands as
+// box_slabs * box_rows rows of D floats (`round_tile`'s source)
+template <int D>
+bool rows_map_f32(CUtensorMap* map, const float* ptr, int rows, int slabs, int box_rows, int box_slabs) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
-  constexpr cuuint64_t kSize = sizeof(T);
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * kSize, (cuuint64_t)rows * D * kSize};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)rows * D * 4};
   const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, (cuuint32_t)box_slabs};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  static_assert((D * sizeof(T)) % 16 == 0 && D <= 256, "a box row of 16-byte multiples, at most 256 columns");
-  const CUtensorMapDataType type = kSize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode(map, type, 3, const_cast<T*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  static_assert(D % 4 == 0 && D <= 256, "a box row of 16-byte multiples, at most 256 columns");
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
